@@ -1,0 +1,146 @@
+"""``ctypes`` wrapper of the hand-written CUDA flash attention
+(``csrc/flash_attention.cu``).
+
+Replaces the reference's Pallas TPU kernel
+(``src/repro/kernels/attention/kernel.py::flash_attention_pallas``).  The
+library is compiled for ``sm_90a`` with ``nvcc`` on first use
+(:func:`load_library`); the wrapper checks its inputs, allocates the
+output, launches on PyTorch's current stream and raises if the launch
+reports an error.  ``launches`` counts the kernel launches of this
+process.
+
+Tile sizes.  ``block_q`` x ``block_kv`` are template arguments of the
+kernel, and the library instantiates ``BLOCK_Q`` x ``BLOCK_KV``.  The
+reference's candidates (128-1024 rows) are sized for a TPU core's
+megabytes of VMEM; on Hopper a thread block has at most 227 KB of shared
+memory, and the kernel stages the q tile, one K and one V tile and the
+probabilities in fp32: at d = 128 that is 170 KB for (128, 64), while a
+(1024, 1024) tile pair would need over 2 MB.  Any other size raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_cuda_library
+
+__all__ = ["BLOCK_Q", "BLOCK_KV", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_KV",
+           "MAX_HEAD_DIM", "SOURCE", "flash_attention_cuda", "launches",
+           "load_library", "reset_launches"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+#: query rows per thread block the library instantiates (2 x rows threads)
+BLOCK_Q = (64, 128)
+#: kv rows per staged tile the library instantiates
+BLOCK_KV = (32, 64)
+#: the pair measured fastest at the full-width prefill shapes on an H100
+#: (``chip_smoke.py``'s attention phase; numbers in PERF.md)
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_KV = 64
+#: largest head dim (d and dv) the kernel takes
+MAX_HEAD_DIM = 128
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535
+
+#: kernel launches in this process (see :func:`reset_launches`)
+launches = 0
+
+#: the library's bound ``flash_attention_fwd``, set by :func:`load_library`
+_fwd = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; declare its C
+    signatures.  Raises if the build fails."""
+    global _fwd
+    lib = load_cuda_library("flash_attention", SOURCE)
+    if _fwd is None:
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _fwd = fn
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         scale: float | None = None,
+                         q_offset: int | None = None,
+                         block_q: int = DEFAULT_BLOCK_Q,
+                         block_kv: int = DEFAULT_BLOCK_KV) -> torch.Tensor:
+    """Attention of ``q (BH, Sq, D)`` over ``k (BHk, Skv, D)`` and
+    ``v (BHk, Skv, Dv)`` (one dtype, fp32 or bf16, contiguous, on one CUDA
+    device); q head ``bh`` reads kv head ``bh // (BH // BHk)``.  Returns a
+    new ``(BH, Sq, Dv)`` tensor of ``q.dtype``.  Ragged lengths need no
+    padding: the kernel masks the edge tiles."""
+    global launches
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
+                             f"{name} is on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.ndim != 3:
+            raise ValueError(f"{name} must be 3-D (heads, seq, dim), got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_cuda needs contiguous "
+                             f"tensors; {name} is not")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    bh, sq, d = q.shape
+    bhk, skv, dk = k.shape
+    dv = v.shape[2]
+    if dk != d or v.shape[:2] != (bhk, skv):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not agree")
+    if bhk == 0 or bh % bhk:
+        raise ValueError(f"{bh} query heads do not group over {bhk} kv heads")
+    if max(d, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims ({d}, {dv}) exceed the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if block_q not in BLOCK_Q or block_kv not in BLOCK_KV:
+        raise ValueError(f"(block_q, block_kv) must be in {BLOCK_Q} x "
+                         f"{BLOCK_KV}, got ({block_q}, {block_kv})")
+    if bh > _MAX_GRID_Y or max(q.numel(), k.numel(), v.numel(),
+                               bh * sq * dv) >= 2 ** 31:
+        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(v.shape)} exceed "
+                         f"the kernel's grid or 32-bit index range")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    scale = scale if scale is not None else d ** -0.5
+    q_offset = q_offset if q_offset is not None else skv - sq
+    out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
+    if sq == 0:
+        return out
+    if skv == 0:
+        return out.zero_()
+    if _fwd is None:
+        load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               bh, sq, skv, d, dv, bh // bhk, float(scale), int(causal),
+               int(window or 0), int(q_offset), _DTYPE_CODES[q.dtype],
+               int(block_q), int(block_kv), stream)
+    if err != 0:
+        msg = load_library().flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_fwd launch failed: {msg} "
+                           f"({err})")
+    launches += 1
+    return out

@@ -1,0 +1,84 @@
+"""Public attention op, registry-dispatched.
+
+Input layout is ``(B, H, S, D)``, as in the reference.  Two entries:
+``torch_ref`` (the plain version, :mod:`.ref`, with the banded
+sliding-window variant) and ``cuda`` (the hand-written flash attention,
+:mod:`.kernel`), which flattens (B, H) into the kernel's head dimension
+and reads kv head ``h // group`` in the kernel.  A tensor on the CPU that
+asks for ``cuda`` misses the guard and runs ``torch_ref``, counted in the
+registry's ``fallback_counts``; a CUDA tensor that reaches ``cuda``
+launches the kernel or raises.  The reference's guard also sends sequence
+lengths that are not a multiple of the tiles to its plain version; the
+CUDA kernel masks the ragged edge tiles instead, so it takes every length.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import compat
+from repro_torch.kernels import registry
+from repro_torch.kernels.attention import kernel, ref
+from repro_torch.kernels.attention.kernel import (DEFAULT_BLOCK_KV,
+                                                  DEFAULT_BLOCK_Q)
+
+__all__ = ["attention"]
+
+
+def _guard(q, k, v, **_kw):
+    # Decides by device only: a CUDA tensor the kernel cannot take (a
+    # dtype other than fp32/bf16, a head dim over 128, an uninstantiated
+    # tile) reaches the wrapper and raises there, never the plain version.
+    return q.device.type == "cuda"
+
+
+@registry.register("attention", "torch_ref", priority=0,
+                   description="masked-softmax reference "
+                               "(+ banded sliding-window variant)")
+def _attention_torch_ref(q, k, v, *, causal, window, scale, q_offset,
+                         swa_impl, **_tiles):
+    if (swa_impl == "banded" and window is not None and causal
+            and q.shape[2] == k.shape[2] and q.shape[2] % window == 0):
+        return ref.banded_attention(q, k, v, window=window, scale=scale)
+    return ref.attention(q, k, v, causal=causal, window=window, scale=scale,
+                         q_offset=q_offset)
+
+
+@registry.register("attention", "cuda", priority=20,
+                   supports_grad=False, guard=_guard,
+                   available=compat.has_hopper,
+                   prepare=kernel.load_library,
+                   description="flash attention in CUDA C++ for sm_90a "
+                               "(fp32 online softmax, skipped masked tiles)")
+def _attention_cuda(q, k, v, *, causal, window, scale, q_offset, block_q,
+                    block_kv, swa_impl=None):
+    del swa_impl
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    dv = v.shape[-1]
+    out = kernel.flash_attention_cuda(
+        q.reshape(b * h, sq, d).contiguous(),
+        k.reshape(b * hk, skv, d).contiguous(),
+        v.reshape(b * hk, skv, dv).contiguous(),
+        causal=causal, window=window, scale=scale, q_offset=q_offset,
+        block_q=block_q, block_kv=block_kv)
+    return out.reshape(b, h, sq, dv)
+
+
+def attention(
+    q: torch.Tensor,            # (B, H, Sq, D)
+    k: torch.Tensor,            # (B, Hk, Skv, D)
+    v: torch.Tensor,            # (B, Hk, Skv, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int | None = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_kv: int = DEFAULT_BLOCK_KV,
+    impl: str | None = None,
+    swa_impl: str = "full",
+) -> torch.Tensor:
+    return registry.dispatch(
+        "attention", impl, q, k, v, causal=causal, window=window,
+        scale=scale, q_offset=q_offset, block_q=block_q, block_kv=block_kv,
+        swa_impl=swa_impl)

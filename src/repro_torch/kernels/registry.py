@@ -1,6 +1,6 @@
 """Kernel registry of the PyTorch/CUDA port.
 
-Every kernel family the port has (so far: rmsnorm) registers its
+Every kernel family the port has (so far: rmsnorm, attention) registers its
 implementations here as *named entries* with an availability predicate
 (host capability: is there a Hopper-class CUDA device), an optional
 per-call correctness guard (shape/dtype/device preconditions of the

@@ -1,9 +1,9 @@
-"""GQA attention for cached decode, with qk-norm and sliding window.
+"""GQA attention (prefill + cached decode), with qk-norm and sliding window.
 
-The port of the reference's decode path (``models/attention.py``): the
-shared-ring decode (scalar ``pos``) and the per-row decode (vector
-``pos``) that the serve step runs.  The full-sequence ``apply_gqa`` waits
-for the flash-attention kernel (ROADMAP K2).
+The port of the reference's ``models/attention.py``: the full-sequence
+``apply_gqa`` (prefill, through the attention op and its flash-attention
+kernel), the shared-ring decode (scalar ``pos``) and the per-row decode
+(vector ``pos``) that the serve step runs.
 
 Cache writes are in place (``index_copy_`` / ``index_put_``) where the
 reference rebuilds the whole cache with ``jnp.where`` /
@@ -15,15 +15,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.attention import attention as attn_op
+from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
                                        rms_norm, rope)
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["init_gqa", "gqa_axes", "init_gqa_cache", "gqa_cache_axes",
-           "decode_gqa"]
-
-#: additive mask value of the reference's attention oracle
-NEG_INF = -1e30
+__all__ = ["init_gqa", "gqa_axes", "apply_gqa", "init_gqa_cache",
+           "gqa_cache_axes", "decode_gqa"]
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -69,6 +68,21 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def apply_gqa(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              opts: KernelOptions, *, window: int | None = None,
+              positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence (prefill) attention. x (B,S,d) -> (B,S,d)."""
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, opts, positions)
+    out = attn_op(q, k, v, causal=True, window=window,
+                  block_q=opts.block_q, block_kv=opts.block_kv,
+                  impl=opts.impl_for("attention"),
+                  swa_impl=opts.swa_impl)              # (B,H,S,dh)
+    return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
 # -- decode with ring-buffer cache ---------------------------------------------

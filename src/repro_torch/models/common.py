@@ -7,6 +7,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.attention.kernel import (DEFAULT_BLOCK_KV,
+                                                  DEFAULT_BLOCK_Q)
 from repro_torch.kernels.rmsnorm.kernel import DEFAULT_BLOCK_ROWS
 
 __all__ = ["KernelOptions", "rms_norm", "rope", "apply_rope", "swiglu",
@@ -24,14 +26,20 @@ class KernelOptions:
     ``torch_ref`` | ``cuda`` — with the reference's ``xla``/``pallas_*``
     spellings accepted as aliases; ``None`` = registry auto).  The
     per-family ``*_impl`` fields override it for one kernel family — each
-    is its own spec point.  ``norm_block_rows`` is the RMSNorm kernel's
-    rows per thread block.  The other kernel families' fields arrive with
-    their kernels (ROADMAP K2-K5).
+    is its own spec point.  ``block_q``/``block_kv`` are the flash
+    attention kernel's query and kv tile rows, ``norm_block_rows`` the
+    RMSNorm kernel's rows per thread block, ``swa_impl`` the plain
+    version's sliding-window formulation (full | banded).  The other
+    kernel families' fields arrive with their kernels (ROADMAP K3-K5).
     """
 
     impl: str | None = None          # step-wide default (None = auto)
+    attention_impl: str | None = None
     rmsnorm_impl: str | None = None
+    block_q: int = DEFAULT_BLOCK_Q
+    block_kv: int = DEFAULT_BLOCK_KV
     norm_block_rows: int = DEFAULT_BLOCK_ROWS
+    swa_impl: str = "full"           # full | banded (sliding-window band only)
 
     def impl_for(self, family: str) -> str | None:
         """The effective impl choice for one kernel family (families the

@@ -1,17 +1,19 @@
-"""Model assembly for decode: embeddings -> GQA/SwiGLU layer stack -> LM head.
+"""Model assembly: embeddings -> GQA/SwiGLU layer stack -> LM head.
 
-The port of the reference's dense decode path (``models/transformer.py``).
-The model is plain functions over a dict of tensors, with the reference's
-parameter layout: stacked ``dense_layers`` with a leading ``L`` axis,
-``wq`` as ``(d, H, dh)`` and so on — so the reference's parameters convert
-leaf for leaf (:mod:`repro_torch.models.convert`) and many specialized
-variants share one copy of the weights.
+The port of the reference's dense path (``models/transformer.py``): the
+full-sequence forward ``apply`` (prefill; its attention runs the flash
+attention kernel) and the cached ``decode_step``/``prefill_chunk`` of the
+serve step.  The model is plain functions over a dict of tensors, with the
+reference's parameter layout: stacked ``dense_layers`` with a leading
+``L`` axis, ``wq`` as ``(d, H, dh)`` and so on — so the reference's
+parameters convert leaf for leaf (:mod:`repro_torch.models.convert`) and
+many specialized variants share one copy of the weights.
 
 Other mixers (MLA, RWKV6, Hymba) and MoE raise ``NotImplementedError``
-(ROADMAP M7); the full-sequence ``apply`` waits for the flash-attention
-kernel (ROADMAP K2).  Caches are updated in place (see
-:mod:`repro_torch.models.attention`); every entry point still returns
-``(logits, cache)``.
+(ROADMAP M7).  The layer stack is a Python loop (the reference's
+``scan_layers`` and ``remat`` belong to training, ROADMAP M8).  Caches
+are updated in place (see :mod:`repro_torch.models.attention`); the decode
+entry points still return ``(logits, cache)``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.models.common import (KernelOptions, dense_init, embed_init,
                                        rms_norm, swiglu)
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["RunOptions", "init_params", "param_axes", "init_cache",
+__all__ = ["RunOptions", "init_params", "param_axes", "apply", "init_cache",
            "cache_axes", "decode_step", "prefill_chunk", "lm_head_weight"]
 
 
@@ -40,6 +42,7 @@ class RunOptions:
 
     kernels: KernelOptions = KernelOptions()
     window: int | None = None        # sliding-window override (long-context)
+    logits_dtype: str = "float32"
     decode_cache_dtype: str = "bfloat16"
 
 
@@ -113,6 +116,60 @@ def param_axes(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         ax["lm_head"] = ("fsdp", "vocab")
     return ax
+
+
+# -- forward ----------------------------------------------------------------------
+
+def _apply_mixer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+                 opts: RunOptions) -> torch.Tensor:
+    return attn_mod.apply_gqa(lp, x, cfg, opts.kernels, window=opts.window)
+
+
+def _apply_ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+    f = lp["ffn"]
+    cdt = x.dtype
+    return swiglu(x, f["wg"].to(cdt), f["wu"].to(cdt), f["wd"].to(cdt))
+
+
+def _layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+               opts: RunOptions) -> torch.Tensor:
+    ko = opts.kernels
+    x = x + _apply_mixer(lp["mixer"], rms_norm(x, lp["norm1"], cfg.rms_eps,
+                                               ko), cfg, opts)
+    return x + _apply_ffn(lp, rms_norm(x, lp["norm2"], cfg.rms_eps, ko))
+
+
+def _run_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
+               opts: RunOptions) -> torch.Tensor:
+    n_layers = compat.tree_leaves(stacked)[0].shape[0]
+    for i in range(n_layers):
+        x = _layer_fwd(_layer(stacked, i), x, cfg, opts)
+    return x
+
+
+def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
+          tokens: torch.Tensor | None = None,
+          embeds: torch.Tensor | None = None,
+          return_hidden: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B,S,V) in
+    ``opts.logits_dtype``, aux) — or (hidden (B,S,d), aux) with
+    ``return_hidden``.  ``V`` is the padded vocab, as in the reference;
+    ``aux`` (the MoE auxiliary loss) is a float32 zero for dense models."""
+    _check_supported(cfg)
+    cdt = _dtype(cfg.compute_dtype)
+    if embeds is None:
+        if tokens is None:
+            raise ValueError("apply needs tokens or embeds")
+        x = params["embed"][tokens.long()].to(cdt)
+    else:
+        x = embeds.to(cdt)
+    x = _run_stack(params["dense_layers"], x, cfg, opts)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, opts.kernels)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    logits = x @ lm_head_weight(params, cfg)
+    return logits.to(_dtype(opts.logits_dtype)), aux
 
 
 def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:

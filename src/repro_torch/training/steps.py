@@ -3,15 +3,26 @@
 Each builder is *handler code* in the paper's sense: it declares
 specialization points through the :class:`SpecCtx` it receives and returns
 the step function.  Re-building under a different configuration bakes
-different constants (kernel implementation, rows per block, cache and
-logits dtypes) into the closure the runtime dispatches to.
+different constants (kernel implementation, tile sizes, rows per block,
+cache and logits dtypes) into the closure the runtime dispatches to.
 
-This slice ports the serve builder.  It declares every spec label the
-reference's serve builder declares, with the same candidate sets except
-``norm_block_rows``: it is the rows per thread block of the Hopper
-RMSNorm, and offers only the size the library instantiates (4) until a
-measurement on the card picks others.  The prefill, decode and train
-builders wait for ROADMAP M8.
+The port has the serving builders: the phase-disaggregated serve step,
+the full-sequence prefill step (the path of the flash attention kernel)
+and the single-token decode step.  They declare every spec label the
+reference's builders declare.  Two candidate sets differ from the
+reference's, because they are tile sizes of the Hopper kernels rather than
+of the TPU's VMEM:
+
+* ``block_q`` in (64, 128) and ``block_kv`` in (32, 64): the query and kv
+  tile rows of the flash attention kernel, which stages them in fp32 in
+  shared memory.  A thread block has at most 227 KB there; at d = 128 the
+  (128, 64) pair takes 170 KB, while the reference's 128-1024 rows (up to
+  2 MB for a (1024, 1024) pair) do not fit.
+* ``norm_block_rows`` in (4,): the rows per thread block of the RMSNorm
+  kernel, the one size the library instantiates until a measurement on
+  the card picks others.
+
+The train builder waits for ROADMAP M8.
 """
 from __future__ import annotations
 
@@ -20,14 +31,17 @@ from typing import Callable
 
 from repro_torch.core.specializer import SpecCtx
 from repro_torch.kernels import registry as kernel_registry
+from repro_torch.kernels.attention.kernel import (BLOCK_KV, BLOCK_Q,
+                                                  DEFAULT_BLOCK_KV,
+                                                  DEFAULT_BLOCK_Q)
 from repro_torch.kernels.rmsnorm.kernel import BLOCK_ROWS, DEFAULT_BLOCK_ROWS
 from repro_torch.models import transformer as model
 from repro_torch.models.common import KernelOptions
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import RunOptions
 
-__all__ = ["SHARDING_PROFILES", "make_serve_builder", "phase_context_fn",
-           "run_options_from_spec"]
+__all__ = ["SHARDING_PROFILES", "make_prefill_builder", "make_decode_builder",
+           "make_serve_builder", "phase_context_fn", "run_options_from_spec"]
 
 #: the reference's layout profiles.  The label and its candidates are kept
 #: so tuned configs replay; on one device every profile is the same
@@ -37,23 +51,23 @@ SHARDING_PROFILES = ("dp", "fsdp", "fsdp_pods", "fsdp_noexp", "seq",
 
 
 def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
-                          kernel_impl: str | None = None) -> RunOptions:
-    """Declare the decode step's model-level spec points and bundle the
-    chosen constants.
+                          kernel_impl: str | None = None,
+                          window: int | None = None) -> RunOptions:
+    """Declare the model-level spec points and bundle the chosen constants.
 
-    ``block_q``, ``block_kv``, ``logits_dtype`` (and ``swa_impl`` for a
-    sliding-window model) are declared with the reference's candidates so
-    its configs replay; nothing on the decode path reads them yet (the
-    attention kernel, ROADMAP K2, will; decode logits are always fp32, as
-    in the reference).  The training points (``remat``, gradient-safe
-    implementations) and the long-context ``window`` override arrive with
-    the builders that use them (ROADMAP M8).
+    The implementation choice per kernel family the step exercises
+    (``rmsnorm_impl``, ``attention_impl``) has as candidates the registry
+    entries *available on this host*; a choice that guard-misses at
+    dispatch (a host tensor asking for ``cuda``) degrades to torch_ref
+    inside the registry (paper §4.4.3).  ``block_q``/``block_kv`` are the
+    flash attention kernel's tiles (see the module docstring for why their
+    candidates are not the reference's); ``swa_impl`` is declared for a
+    sliding-window model or ``window`` override only.  ``logits_dtype``
+    sets the full-sequence forward's logits (decode logits are always
+    fp32, as in the reference).  The training points (``remat``,
+    gradient-safe implementations) arrive with the train builder (ROADMAP
+    M8).
     """
-    # Implementation choice per kernel family the step exercises: the
-    # candidate set is the registry entries *available on this host*; a
-    # choice that still guard-misses at dispatch degrades to torch_ref
-    # inside the registry (paper §4.4.3).  The attention family arrives
-    # with its kernel (ROADMAP K2); linear attention with M7.
     if cfg.mixer != "attn":
         raise NotImplementedError(
             f"mixer {cfg.mixer!r} is not ported yet (ROADMAP M7)")
@@ -63,16 +77,87 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
         impl=kernel_impl,
         rmsnorm_impl=kernel_registry.impl_point(spec, "rmsnorm",
                                                 default=kernel_impl),
+        attention_impl=kernel_registry.impl_point(spec, "attention",
+                                                  default=kernel_impl),
+        block_q=spec.enum("block_q", DEFAULT_BLOCK_Q, BLOCK_Q,
+                          guarded=False),
+        block_kv=spec.enum("block_kv", DEFAULT_BLOCK_KV, BLOCK_KV,
+                           guarded=False),
         norm_block_rows=spec.enum("norm_block_rows", DEFAULT_BLOCK_ROWS,
                                   BLOCK_ROWS, guarded=False),
+        swa_impl=(spec.enum("swa_impl", "full", ("full", "banded"),
+                            guarded=False)
+                  if (cfg.window or window) else "full"),
     )
-    spec.enum("block_q", 512, (128, 256, 512, 1024), guarded=False)
-    spec.enum("block_kv", 512, (128, 256, 512, 1024), guarded=False)
-    if cfg.window:
-        spec.enum("swa_impl", "full", ("full", "banded"), guarded=False)
-    spec.enum("logits_dtype", "float32", ("float32", "bfloat16"),
-              guarded=False)
-    return RunOptions(kernels=ko)
+    return RunOptions(
+        kernels=ko, window=window,
+        logits_dtype=spec.enum("logits_dtype", "float32",
+                               ("float32", "bfloat16"), guarded=False))
+
+
+def _declare_sharding(spec: SpecCtx) -> None:
+    """The reference's layout profile, declared for replay: on one device
+    every profile is the same placement (ROADMAP M12 gives them
+    meaning)."""
+    spec.enum("sharding_profile", "fsdp", SHARDING_PROFILES, guarded=False)
+
+
+def _with_cache_points(spec: SpecCtx, opts: RunOptions) -> RunOptions:
+    """The cached steps' points: the KV cache dtype, and the cache layout
+    (declared for replay; one device has one layout)."""
+    opts = dataclasses.replace(opts, decode_cache_dtype=spec.enum(
+        "cache_dtype", "bfloat16", ("bfloat16", "float32"), guarded=False))
+    _declare_sharding(spec)
+    spec.enum("cache_layout", "seq", ("seq", "batch"), guarded=False)
+    return opts
+
+
+def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
+                         window: int | None = None
+                         ) -> Callable[[SpecCtx], Callable]:
+    """Handler builder for ``prefill_step(params, batch) -> logits``.
+
+    ``batch`` holds ``tokens (B, S)`` (or ``embeds (B, S, d)``); the step
+    runs the full-sequence forward
+    (:func:`repro_torch.models.transformer.apply`), whose attention is the
+    flash attention kernel under ``attention_impl=cuda``, and returns the
+    logits ``(B, S, V)`` in ``logits_dtype``.
+    """
+
+    def builder(spec: SpecCtx) -> Callable:
+        opts = run_options_from_spec(spec, cfg, kernel_impl=kernel_impl,
+                                     window=window)
+        _declare_sharding(spec)
+
+        def prefill_step(params, batch):
+            logits, _ = model.apply(params, cfg, opts,
+                                    tokens=batch.get("tokens"),
+                                    embeds=batch.get("embeds"))
+            return logits
+
+        return prefill_step
+
+    return builder
+
+
+def make_decode_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
+                        window: int | None = None
+                        ) -> Callable[[SpecCtx], Callable]:
+    """Handler builder for ``serve_step(params, cache, tokens, pos)``: one
+    new token for the whole batch against the KV cache
+    (:func:`repro_torch.models.transformer.decode_step`; the cache is
+    updated in place).  Returns ``(logits (B, V), cache)``."""
+
+    def builder(spec: SpecCtx) -> Callable:
+        opts = _with_cache_points(spec, run_options_from_spec(
+            spec, cfg, kernel_impl=kernel_impl, window=window))
+
+        def serve_step(params, cache, tokens, pos):
+            return model.decode_step(params, cache, tokens, pos, cfg, opts)
+
+        return serve_step
+
+    return builder
 
 
 def phase_context_fn(args, kwargs) -> tuple[str, int]:
@@ -106,14 +191,8 @@ def make_serve_builder(cfg: ModelConfig, *, kernel_impl: str | None = None
     """
 
     def builder(spec: SpecCtx) -> Callable:
-        opts = run_options_from_spec(spec, cfg, kernel_impl=kernel_impl)
-        opts = dataclasses.replace(opts, decode_cache_dtype=spec.enum(
-            "cache_dtype", "bfloat16", ("bfloat16", "float32"),
-            guarded=False))
-        # Layout points, declared for replay; one device has one layout.
-        spec.enum("sharding_profile", "fsdp", SHARDING_PROFILES,
-                  guarded=False)
-        spec.enum("cache_layout", "seq", ("seq", "batch"), guarded=False)
+        opts = _with_cache_points(spec, run_options_from_spec(
+            spec, cfg, kernel_impl=kernel_impl))
 
         def serve_step(params, cache, tokens, pos, n_new):
             if tokens.ndim == 2:

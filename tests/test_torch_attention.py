@@ -1,0 +1,164 @@
+"""Attention of the PyTorch port against the JAX reference: the port's
+plain version (``torch_ref``) against the reference op through its plain
+entry (``xla``) and through its Pallas kernel in interpret mode, at the
+cases of ``tests/test_kernels.py``; the banded sliding-window variant; and
+how the port's ``cuda`` entry treats host tensors.
+
+Tolerances are the reference's: fp32 2e-4, bf16 3e-2.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import compat as ref_compat  # noqa: E402
+from repro.kernels import attention as ref_attention  # noqa: E402
+from repro.kernels.attention import ref as ref_ref  # noqa: E402
+from repro_torch import compat  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.attention import attention, kernel, ops  # noqa: E402
+from repro_torch.kernels.attention import ref  # noqa: E402
+
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+#: (q shape, k shape, v shape, causal, window, dtype) — the cases of
+#: tests/test_kernels.py:60-108, then one ragged length
+CASES = {
+    **{f"gqa{h}/{hk}-{tag}": ((2, h, 64, 32), (2, hk, 64, 32),
+                               (2, hk, 64, 32), causal, window, "float32")
+       for h, hk in [(4, 4), (4, 2), (8, 1)]
+       for tag, causal, window in [("causal", True, None),
+                                   ("window16", True, 16),
+                                   ("full", False, None)]},
+    "dv_neq_d": ((2, 2, 32, 24), (2, 2, 32, 24), (2, 2, 32, 16), True,
+                 None, "float32"),
+    "q_offset": ((1, 2, 16, 16), (1, 2, 64, 16), (1, 2, 64, 16), True,
+                 None, "float32"),
+    "float32": ((1, 2, 32, 16),) * 3 + (True, None, "float32"),
+    "bfloat16": ((1, 2, 32, 16),) * 3 + (True, None, "bfloat16"),
+    "ragged": ((1, 4, 50, 32), (1, 2, 50, 32), (1, 2, 50, 32), True, 16,
+               "float32"),
+}
+
+
+def _inputs(shapes, seed=0):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _close(out, ref_out, dtype):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.to(torch.float32).numpy(),
+                               np.asarray(ref_out, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case,ref_impl", [
+    (case, impl) for case in sorted(CASES) for impl in ("xla", "interpret")
+    # the reference's Pallas kernel needs lengths that are a multiple of
+    # its tiles (its guard sends the others to xla_ref)
+    if impl == "xla" or case != "ragged"])
+def test_torch_ref_matches_reference(case, ref_impl):
+    q_s, k_s, v_s, causal, window, dtype = CASES[case]
+    if ref_impl == "interpret" and not ref_compat.has_pallas_tpu():
+        pytest.skip("Pallas TPU module not importable: the reference's "
+                    "interpret entry would fall back to xla_ref")
+    arrays = _inputs((q_s, k_s, v_s))
+    ref_out = ref_attention.attention(
+        *(jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays),
+        causal=causal, window=window, block_q=16, block_kv=16,
+        impl=ref_impl)
+    out = attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                      for a in arrays),
+                    causal=causal, window=window, impl="torch_ref")
+    assert out.dtype == getattr(torch, dtype)
+    assert out.shape == q_s[:3] + v_s[3:]
+    _close(out, ref_out, dtype)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("s,w", [(64, 16), (128, 32), (96, 32)])
+def test_banded_matches_reference(s, w, group):
+    """The port's banded variant against the reference's, and against the
+    port's full masked version (tests/test_kernels.py:150-161)."""
+    b, h, d = 2, 4, 16
+    q, k, v = _inputs(((b, h, s, d), (b, h // group, s, d),
+                       (b, h // group, s, d)))
+    ref_band = ref_ref.banded_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), window=w)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    band = ref.banded_attention(tq, tk, tv, window=w)
+    _close(band, ref_band, "float32")
+    full = ref.attention(tq, tk, tv, causal=True, window=w)
+    torch.testing.assert_close(band, full, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("swa_impl", ["banded", "full"])
+def test_swa_impl_routing_matches_reference(swa_impl):
+    """The op takes the banded variant under the reference's conditions
+    (tests/test_kernels.py:164-173)."""
+    q, k, v = _inputs(((1, 2, 64, 16),) * 3)
+    ref_out = ref_attention.attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True, window=16,
+        impl="xla", swa_impl=swa_impl)
+    out = attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+                    window=16, impl="torch_ref", swa_impl=swa_impl)
+    _close(out, ref_out, "float32")
+
+
+def test_cuda_on_cpu_tensor_degrades_like_reference():
+    """Asking for the kernel with host tensors runs the plain version and
+    counts one fallback, as the reference registry does for pallas_tpu."""
+    if ref_compat.on_tpu():
+        pytest.skip("the reference's pallas_tpu entry is available here")
+    q, k, v = _inputs(((1, 4, 32, 16), (1, 2, 32, 16), (1, 2, 32, 16)))
+    port_key, ref_key = ("attention", "cuda"), ("attention", "pallas_tpu")
+    counts = registry.default_registry.fallback_counts
+    port_before = counts.get(port_key, 0)
+    out = attention(*(torch.from_numpy(a) for a in (q, k, v)), impl="cuda")
+    ref_out = ref_attention.attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                      impl="pallas_tpu")
+    _close(out, ref_out, "float32")
+    assert counts[port_key] == port_before + 1
+    from repro.kernels import registry as ref_registry
+    assert ref_registry.default_registry.fallback_counts[ref_key] >= 1
+
+
+def test_guard_sends_every_cuda_tensor_to_the_kernel():
+    """The guard decides by device alone: a CUDA tensor the kernel cannot
+    take reaches the kernel entry, whose error propagates, and no fallback
+    is counted."""
+    reg = registry.KernelRegistry()
+    reg.register("fam", "torch_ref")(ops._attention_torch_ref)
+
+    def refuse(q, k, v, **_kw):
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+
+    reg.register("fam", "cuda", guard=ops._guard, available=lambda: True,
+                 supports_grad=False)(refuse)
+    on_card = type("OnCard", (), {"device": torch.device("cuda", 0),
+                                  "dtype": torch.float16})()
+    assert ops._guard(on_card, on_card, on_card)
+    with pytest.raises(TypeError, match="float16"):
+        reg.dispatch("fam", "cuda", on_card, on_card, on_card, causal=True,
+                     window=None, scale=None, q_offset=None, block_q=64,
+                     block_kv=64, swa_impl="full")
+    assert reg.fallback_counts == {}
+
+
+def test_kernel_wrapper_refuses_host_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(((4, 32, 16),) * 3))
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_attention_cuda(q, k, v)
+    assert kernel.launches == before
+
+
+def test_cuda_choices_follow_the_host():
+    assert ("cuda" in registry.choices("attention")) == compat.has_hopper()
+    assert registry.choices("attention")[-1] == "torch_ref"
+    assert not registry.get("attention", "cuda").supports_grad
+    assert registry.choices("attention", require_grad=True) == ("torch_ref",)
+    assert registry.get("attention", "pallas_tpu").name == "cuda"

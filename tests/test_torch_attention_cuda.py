@@ -1,0 +1,152 @@
+"""The port's CUDA flash attention against its plain version, on a Hopper
+GPU.
+
+Needs no JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m requires_h100 tests/test_torch_attention_cuda.py
+
+Elsewhere every case skips.  Tolerances are the reference's, fp32 2e-4
+and bf16 3e-2, and a second limit scaled to each element (``SCALED_TOL``):
+the kernel and the plain version both compute in fp32 and round once to
+the output's dtype, so in bf16 they differ by at most one bf16 ulp (2^-7
+of the value) and in fp32 by the summation order.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import compat  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.attention import attention, kernel  # noqa: E402
+
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+#: (rtol, atol) of |out - ref| <= atol + rtol |ref|
+SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+TILES = [(bq, bkv) for bq in kernel.BLOCK_Q for bkv in kernel.BLOCK_KV]
+
+#: (q shape, k shape, v shape, causal, window): the reference's test cases
+#: (tests/test_kernels.py:60-108), then the full-width qwen3-0.6b prefill
+#: shapes (16 query / 8 kv heads, head dim 128) at two lengths and a
+#: ragged one
+CASES = {
+    **{f"gqa{h}/{hk}-{tag}": ((2, h, 64, 32), (2, hk, 64, 32),
+                               (2, hk, 64, 32), causal, window)
+       for h, hk in [(4, 4), (4, 2), (8, 1)]
+       for tag, causal, window in [("causal", True, None),
+                                   ("window16", True, 16),
+                                   ("full", False, None)]},
+    "dv_neq_d": ((2, 2, 32, 24), (2, 2, 32, 24), (2, 2, 32, 16), True,
+                 None),
+    "q_offset": ((1, 2, 16, 16), (1, 2, 64, 16), (1, 2, 64, 16), True,
+                 None),
+    "small": ((1, 2, 32, 16),) * 3 + (True, None),
+    **{f"prefill{s}": ((1, 16, s, 128), (1, 8, s, 128), (1, 8, s, 128),
+                       True, None) for s in (512, 1000, 2048)},
+}
+
+
+@pytest.fixture
+def hopper():
+    if not compat.has_hopper():
+        pytest.skip("needs a CUDA device of capability (9, 0)")
+    return torch.device("cuda")
+
+
+def _inputs(shapes, dtype, device, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(
+        getattr(torch, dtype)).to(device) for s in shapes]
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, tiles):
+    q_s, k_s, v_s, causal, window = CASES[case]
+    q, k, v = _inputs((q_s, k_s, v_s), dtype, hopper)
+    before = kernel.launches
+    out = attention(q, k, v, causal=causal, window=window, impl="cuda",
+                    block_q=tiles[0], block_kv=tiles[1])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q_s[:3] + v_s[3:]
+    ref = attention(q, k, v, causal=causal, window=window, impl="torch_ref")
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    rtol, atol = SCALED_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
+def test_cuda_kernel_matches_torch_ref_on_rows_of_a_long_prefill(hopper,
+                                                                  tiles):
+    """The long prefill call's shape, (1, 16 q / 8 kv heads, 16384, 128)
+    fp32: the kernel runs on the whole sequence; 512 rows at its start,
+    middle and end are held to the plain version of those rows."""
+    s, rows = 16384, 512
+    q, k, v = _inputs(((1, 16, s, 128), (1, 8, s, 128), (1, 8, s, 128)),
+                      "float32", hopper)
+    out = attention(q, k, v, impl="cuda", block_q=tiles[0],
+                    block_kv=tiles[1])
+    for a in (0, s // 2, s - rows):
+        ref = attention(q[:, :, a:a + rows], k, v, q_offset=a,
+                        impl="torch_ref")
+        got = out[:, :, a:a + rows]
+        torch.testing.assert_close(got, ref, rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+        rtol, atol = SCALED_TOL["float32"]
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.requires_h100
+def test_rows_with_no_valid_column_are_zero(hopper):
+    """With q_offset < 0 the first rows see no column: the kernel writes 0
+    there, as the reference's Pallas kernel does (the plain version writes
+    the mean of v, as the reference's oracle does); every other row
+    agrees."""
+    q, k, v = _inputs(((1, 2, 48, 32), (1, 2, 32, 32), (1, 2, 32, 32)),
+                      "float32", hopper)
+    out = attention(q, k, v, causal=True, q_offset=-8, impl="cuda")
+    ref = attention(q, k, v, causal=True, q_offset=-8, impl="torch_ref")
+    torch.cuda.synchronize()
+    assert not out[:, :, :8].any()
+    torch.testing.assert_close(out[:, :, 8:], ref[:, :, 8:], rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.requires_h100
+def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
+    """A CUDA tensor that asks for ``cuda`` launches the kernel or raises;
+    it never runs the plain version."""
+    q, k, v = _inputs(((1, 2, 32, 16),) * 3, "float32", hopper)
+    counts = dict(registry.default_registry.fallback_counts)
+    before = kernel.launches
+    with pytest.raises(TypeError):
+        attention(q.half(), k.half(), v.half(), impl="cuda")
+    with pytest.raises(ValueError):
+        attention(q, k.cpu(), v, impl="cuda")
+    with pytest.raises(ValueError):
+        attention(q, k, v, impl="cuda", block_q=256)
+    wide = _inputs(((1, 2, 32, 160),) * 3, "float32", hopper)
+    with pytest.raises(ValueError):
+        attention(*wide, impl="cuda")
+    assert registry.default_registry.fallback_counts == counts
+    assert kernel.launches == before
+
+
+@pytest.mark.requires_h100
+def test_wrapper_rejects_what_the_kernel_does_not_take(hopper):
+    q, k, v = _inputs(((2, 32, 16),) * 3, "float32", hopper)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="group"):
+        kernel.flash_attention_cuda(q, k[:0].reshape(0, 32, 16), v[:0])
+    with pytest.raises(ValueError, match="block"):
+        kernel.flash_attention_cuda(q, k, v, block_kv=128)
+    with pytest.raises(TypeError):
+        kernel.flash_attention_cuda(q, k.bfloat16(), v)

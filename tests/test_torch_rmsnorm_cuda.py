@@ -18,11 +18,13 @@ from repro_torch.kernels.rmsnorm import kernel, rmsnorm  # noqa: E402
 
 #: the shapes the full-width serve path gives the kernel at batch buckets
 #: B = 1, 2, 4, 8: norm1/norm2/final (B, 1024), q-norm (16B, 128), k-norm
-#: (8B, 128); then the reference's rmsnorm test shapes; then widths that
+#: (8B, 128); then those of a (1, 4096) prefill through the full-sequence
+#: forward; then the reference's rmsnorm test shapes; then widths that
 #: take the kernel's scalar path (d = 1020 is a whole number of fp32
 #: vectors but not of bf16 ones; d = 65 of neither)
 SHAPES = sorted({s for b in (1, 2, 4, 8)
                  for s in ((b, 1024), (16 * b, 128), (8 * b, 128))}) + [
+    (4096, 1024), (65536, 128), (32768, 128),
     (32, 128), (100, 64), (256, 256), (2, 17, 64), (5, 1020), (3, 65)]
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
