@@ -15,10 +15,11 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    (into the git-ignored ``build/kernels``).
 3. RMSNorm vs plain: the kernel against its plain PyTorch version on the
    card, at every shape the served batch buckets and a (1, 4096) prefill
-   give it, the reference's test shapes, widths and a misaligned view that
-   take its scalar path, in fp32 (tolerance 1e-5) and bf16 (3e-2); times
-   the kernel, the plain version and ``F.rms_norm`` with CUDA events, over
-   a ring of inputs larger than the L2 cache where the shape allows.
+   of qwen3 and of rwkv6 give it, the reference's test shapes, widths and
+   a misaligned view that take its scalar path, in fp32 (tolerance 1e-5)
+   and bf16 (3e-2); times the kernel, the plain version and ``F.rms_norm``
+   with CUDA events, over a ring of inputs larger than the L2 cache where
+   the shape allows.
 4. Attention vs plain: the flash attention kernel against its plain
    version at every tile pair, at the reference's test cases and the
    full-width prefill shapes (16 query / 8 kv heads, head dim 128, S =
@@ -27,6 +28,13 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    (S = 8192, 16384) the kernel runs whole and slices of its rows are held
    to the plain version; times the kernel, the plain version and
    ``scaled_dot_product_attention``.
+4b. Linear attention vs plain: the chunked linear attention kernel against
+   its plain version at every chunk (16, 32, 64), at the reference's test
+   cases, rwkv6-1.6b's 32 heads of 64 at T = 1000 (ragged), 4096 (the
+   prefill path's) and 16384 (the long call's, compared whole) and a
+   hymba-like inclusive scalar-decay head, in fp32 (5e-4) and bf16 (3e-2),
+   each also held to a limit scaled to every element; times the kernel and
+   the plain version (no single PyTorch call computes this function).
 5. Serve path: ``repro_torch.launch.serve.build_engine`` serves qwen3-0.6b
    at full width (28 layers, d=1024, vocab 151936; random weights from
    seed 0) in fp32, through the default safety controller that explores
@@ -45,10 +53,32 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    plain attention and then to the kernel on the same (2, 2048) tokens,
    (b) the forward's last-token logits at (8, 16) against the serve
    path's prefill-chunk logits of phase 6; both within 1e-3.
+9. rwkv6 prefill path: rwkv6-1.6b at full width (24 layers, d=2048, 32
+   heads of 64, d_ff 7168, vocab 65536; random weights from seed 0) in
+   fp32, its prefill handler under a ``Controller`` whose
+   ``CoordinateDescent`` sweeps ``linear_attention_impl`` x ``chunk_len``
+   over (1, 4096) prefills until it settles, then one (1, 16384) call;
+   one (1, 4096) call under ``torch.profiler``.
+10. rwkv6 serve path: ``build_engine --arch rwkv6-1.6b`` on the same
+   weights serves 4 requests through the safety controller (which also
+   explores ``chunk_len``).
+11. rwkv6 parity at full width: (a) the prefill handler pinned to the
+   kernel and then to the plain linear attention on the same (2, 2048)
+   tokens, every kernel call held to the plain version on its own inputs
+   (the linear attention tolerances), (b) the forward's last-token logits
+   at (8, 16) against the serve handler's prefill-chunk logits (its
+   per-step decode), on three weight seeds.  Both are held to the plain
+   forward in float64: with random weights the per-head norm of
+   near-cancelling time-mix rows makes a few positions' logits move by
+   more than 1e-3 under fp32 rounding, so the kernel path must lie within
+   1e-3 of the witness and of the plain path where the plain fp32 path
+   lies within 1e-4 of the witness, and (a) must have at least 90 % such
+   positions.
 
-In phases 5 and 7 (the main paths) the launch counters and the registry's
-fallback counts are zeroed just before and read just after; every kernel
-of the path must have launched and none may have fallen back.  The line
+In phases 5, 7, 9 and 10 (the main paths) the launch counters and the
+registry's fallback counts are zeroed just before and read just after;
+every kernel of the path must have launched and none may have fallen
+back.  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -82,6 +112,10 @@ BUCKET_SHAPES = sorted({s for b in (1, 2, 4, 8)
 #: launches per call: norm1/norm2/final, q-norm (16 heads), k-norm (8)
 PREFILL_SHAPES = {(4096, 1024): 2 * 28 + 1, (65536, 128): 28,
                   (32768, 128): 28}
+#: (rows, d) per rmsnorm launch on one full-width rwkv6-1.6b (1, 4096)
+#: prefill, with launches per call: norm1/norm2/final, and the per-head
+#: output norm (32 heads of 64)
+RWKV_PREFILL_SHAPES = {(4096, 2048): 2 * 24 + 1, (131072, 64): 24}
 #: the reference's rmsnorm test shapes (tests/test_kernels.py), then widths
 #: that take the kernel's scalar path: d = 1020 is a whole number of fp32
 #: 16-byte vectors but not of bf16 ones, d = 65 of neither
@@ -126,7 +160,56 @@ PREFILL_DWELL = 3
 LONG_CALL_LIMIT_S = 60.0
 #: full-width parity: max |a-b| / max |b| over the logits
 PARITY_TOL = 1e-3
-
+#: linear attention tolerances: the reference's 5e-4 for fp32
+#: (tests/test_linear_attention_kernel.py: the kernel and the plain version
+#: sum the chunk products and fold the chunk states in different orders),
+#: 3e-2 for bf16 as the other kernels
+LINATT_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+#: a second limit scaled to each element, (rtol, atol): la = cumsum(log w)
+#: reaches 64 in magnitude at chunk 64, so its rounding (64 x 2^-24, ~4e-6)
+#: enters every e^{+-la} factor as a relative error of that size; an output
+#: sums ~128 such terms (c intra + dk inter) of magnitude up to ~8 (a score
+#: sums 64 products of unit normals), so an output that nearly cancels
+#: still carries ~sqrt(128) x 8 x 2e-6 ~ 2e-4 of absolute error; in bf16
+#: both round the same fp32 value once (one bf16 ulp, 2^-7 of the value,
+#: beyond that)
+LINATT_SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4)}
+#: linear attention cases (bh, T, dk, dv, inclusive, bonus, scalar decay):
+#: the reference's test cases (tests/test_linear_attention_kernel.py:28-55)
+LINATT_TEST_CASES = [
+    *[(2, t, 8, dv, inc, False, False)
+      for t in (32, 64) for dv in (8, 16) for inc in (False, True)],
+    (3, 64, 8, 8, False, True, False),
+    (2, 32, 8, 12, True, False, True),
+]
+#: full-width rwkv6-1.6b time mix at batch 1: 32 heads of 64, exclusive with
+#: the bonus, at a ragged length, the prefill path's and the long call's;
+#: then a hymba-like inclusive scalar-decay head (dk 16, dv 64), off this
+#: path but cheap
+RWKV_HEADS = 32
+RWKV_HEAD = 64
+RWKV_LAYERS = 24
+LINATT_WIDE_CASES = [
+    (RWKV_HEADS, 1000, RWKV_HEAD, RWKV_HEAD, False, True, False),
+    (RWKV_HEADS, 4096, RWKV_HEAD, RWKV_HEAD, False, True, False),
+    (RWKV_HEADS, 16384, RWKV_HEAD, RWKV_HEAD, False, True, False),
+    (25, 4096, 16, 64, True, False, True),
+]
+#: the rwkv6 prefill path: (batch, tokens) of the Controller's sweep, the
+#: long call, and the parity check (a)
+RWKV_SWEEP = (1, 4096)
+RWKV_LONG = 16384
+RWKV_PARITY = (2, 2048)
+#: the rwkv6 parity checks hold both fp32 paths to a float64 witness (the
+#: plain forward in float64 on the same weights), on these weight seeds (0
+#: is the prefill phase's weights): at each of RWKV_QUANTILES of the
+#: positions' relative logits differences from the witness, the kernel
+#: path (and in (b) the decode) must lie within PARITY_TOL or within
+#: RWKV_WITNESS_FACTOR times the plain fp32 path's difference, whichever is
+#: larger
+RWKV_WITNESS_SEEDS = (0, 1, 2)
+RWKV_QUANTILES = (0.5, 0.9, 1.0)
+RWKV_WITNESS_FACTOR = 4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -210,10 +293,12 @@ def phase_build() -> None:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.linear_attention import kernel as la_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 
     libs = {"rmsnorm": rms_kernel.load_library,
-            "flash_attention": attn_kernel.load_library}
+            "flash_attention": attn_kernel.load_library,
+            "linear_attention": la_kernel.load_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for future in [pool.submit(load) for load in libs.values()]:
@@ -251,7 +336,7 @@ def phase_rmsnorm() -> dict:
     max_err = 0.0
     checked = 0
     cases = [(s, False) for s in BUCKET_SHAPES + list(PREFILL_SHAPES)
-             + TEST_SHAPES]
+             + list(RWKV_PREFILL_SHAPES) + TEST_SHAPES]
     # A contiguous view one element into its storage: its pointer is not
     # 16-byte aligned, so the kernel takes its scalar path.
     cases.append(((8, 1024), True))
@@ -281,8 +366,9 @@ def phase_rmsnorm() -> dict:
                 checked += 1
     log(f"rmsnorm: cuda == torch_ref at {checked} shape/dtype/block cases "
         f"(bucket shapes {BUCKET_SHAPES}, prefill shapes "
-        f"{list(PREFILL_SHAPES)}, test shapes {TEST_SHAPES}, one misaligned "
-        f"view), max_abs_err={max_err:.3e}")
+        f"{list(PREFILL_SHAPES)} and rwkv6 {list(RWKV_PREFILL_SHAPES)}, test "
+        f"shapes {TEST_SHAPES}, one misaligned view), "
+        f"max_abs_err={max_err:.3e}")
 
     per_shape = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -291,7 +377,9 @@ def phase_rmsnorm() -> dict:
     l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
     shapes = ([(s, n, "decode step") for s, n in DECODE_SHAPES.items()]
               + [(s, n, "(1, 4096) prefill")
-                 for s, n in PREFILL_SHAPES.items()])
+                 for s, n in PREFILL_SHAPES.items()]
+              + [(s, n, "(1, 4096) rwkv6 prefill")
+                 for s, n in RWKV_PREFILL_SHAPES.items()])
     for (rows, d), n, per in shapes:
         # Successive calls read successive inputs of a ring three times the
         # L2 cache, so an input is evicted before it is read again and a
@@ -489,6 +577,141 @@ def phase_attention() -> dict:
             f"bound); plain {plain} ms; sdpa {library} ms; bound "
             f"{bound:.4f} ms ({kind})")
         del q, k, v, q4, k4, v4
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(max_err.values()),
+            "max_abs_err_by_dtype": max_err, "checked": checked,
+            "per_shape": per_shape}
+
+
+def _linatt_cost(bh: int, t: int, dk: int, dv: int, chunk: int,
+                 itemsize: int, inclusive: bool,
+                 bonus: bool) -> tuple[float, str]:
+    """Least time (ms) on the card: q, k and v read once (``itemsize``),
+    the fp32 log_w and bonus read once, out written once; against the
+    products the chunked form needs on this length: per chunk of n tokens,
+    a dk-long score and a dv-long intra product for each (query, key) pair
+    under the mask (n(n-1)/2 strict, plus the diagonal when inclusive or
+    with the bonus; the masked-out half of the c x c tiles is not counted),
+    and per token the inter (q S) and state (k^T v) products of dk x dv;
+    2 flops a multiply-add, at the fp32 FMA peak: the function computes in
+    fp32 whatever its inputs' dtype (the reference upcasts before every
+    product)."""
+    nbytes = (itemsize * bh * t * (2 * dk + 2 * dv) + 4 * bh * t * dk
+              + (4 * bh * dk if bonus else 0))
+    diag = inclusive or bonus
+
+    def pairs(n: int) -> int:
+        return n * (n + 1) // 2 if diag else n * (n - 1) // 2
+
+    n_pairs = (t // chunk) * pairs(chunk) + pairs(t % chunk)
+    flops = 2 * bh * (n_pairs * (dk + dv) + 2 * t * dk * dv)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_linear_attention() -> dict:
+    """K4 against its plain version at every chunk, then timed."""
+    import torch
+
+    from repro_torch.kernels.linear_attention import kernel, ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    checked = 0
+
+    def inputs(bh, t, dk, dv, bonus, scalar, dtype):
+        tdt = getattr(torch, dtype)
+        q, k = (torch.randn((bh, t, dk), generator=gen, device=dev).to(tdt)
+                for _ in range(2))
+        v = torch.randn((bh, t, dv), generator=gen, device=dev).to(tdt)
+        lw = -torch.rand((bh, t, 1 if scalar else dk), generator=gen,
+                         device=dev).clamp(1e-4, 1.0).to(tdt)
+        u = (torch.randn((bh, dk), generator=gen, device=dev) if bonus
+             else None)
+        return q, k, v, lw, u
+
+    def check(out, ref, what: str) -> None:
+        nonlocal checked
+        dtype = str(ref.dtype).removeprefix("torch.")
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            fail(f"linear attention {what}: got {tuple(out.shape)} "
+                 f"{out.dtype}, wanted {tuple(ref.shape)} {ref.dtype}")
+        tol = LINATT_TOL[dtype]
+        rtol, atol = LINATT_SCALED_TOL[dtype]
+        for rt, at in ((tol, tol), (rtol, atol)):
+            torch.testing.assert_close(
+                out.float(), ref.float(), rtol=rt, atol=at,
+                msg=lambda m: f"linear attention {what} (rtol {rt}, atol "
+                              f"{at}): {m}")
+        err = (out.float() - ref.float()).abs().max().item()
+        max_err[dtype] = max(max_err[dtype], err)
+        checked += 1
+
+    for bh, t, dk, dv, inclusive, bonus, scalar in (LINATT_TEST_CASES
+                                                    + LINATT_WIDE_CASES):
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
+            for chunk in kernel.CHUNKS:
+                kw = dict(bonus=u, inclusive=inclusive, chunk=chunk)
+                ref = ops.linear_attention(q, k, v, lw, impl="torch_ref",
+                                           **kw)
+                out = ops.linear_attention(q, k, v, lw, impl="cuda", **kw)
+                torch.cuda.synchronize()
+                check(out, ref, f"({bh},{t},{dk},{dv}) {dtype} "
+                      f"inclusive={inclusive} bonus={bonus} "
+                      f"scalar_decay={scalar} chunk {chunk}")
+                del ref, out
+            del q, k, v, lw, u
+    torch.cuda.empty_cache()
+    log(f"linear attention: cuda == torch_ref at {checked} case/dtype/chunk "
+        f"cases ({len(LINATT_TEST_CASES)} reference test cases and "
+        f"(bh, T, dk, dv) {[c[:4] for c in LINATT_WIDE_CASES]}, whole; "
+        f"chunks {kernel.CHUNKS}), within the reference's tolerances "
+        f"{LINATT_TOL} "
+        f"and the scaled ones (rtol, atol) {LINATT_SCALED_TOL}; max_abs_err "
+        f"fp32 {max_err['float32']:.3e}, bf16 {max_err['bfloat16']:.3e}")
+
+    per_shape = []
+    timed_cases = [(c, "float32") for c in LINATT_WIDE_CASES] + [
+        (LINATT_WIDE_CASES[1], "bfloat16")]
+    for (bh, t, dk, dv, inclusive, bonus, scalar), dtype in timed_cases:
+        q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
+        lw = lw.to(torch.float32).expand(q.shape).contiguous()
+        iters = max(10, min(100, 100 * 4096 // t))
+        plain_iters = max(3, iters // 10)
+        kernel_ms, plain_ms, bound_ms, bound_by = {}, {}, {}, {}
+        for c in kernel.CHUNKS:
+            kernel_ms[str(c)] = cuda_time_ms(
+                lambda c=c: kernel.linear_attention_cuda(
+                    q, k, v, lw, u, inclusive=inclusive, chunk=c),
+                iters, max(2, iters // 10))
+            # the plain entry clamps a chunk that does not divide T
+            plain_ms[str(c)] = cuda_time_ms(
+                lambda c=c: ops.linear_attention(
+                    q, k, v, lw, bonus=u, inclusive=inclusive, chunk=c,
+                    impl="torch_ref"), plain_iters, 1)
+            bound_ms[str(c)], bound_by[str(c)] = _linatt_cost(
+                bh, t, dk, dv, c, q.element_size(), inclusive, bonus)
+        per_shape.append({"shape": [bh, t, dk, dv], "dtype": dtype,
+                          "inclusive": inclusive, "bonus": bonus,
+                          "kernel_ms_by_chunk": kernel_ms,
+                          "plain_ms_by_chunk": plain_ms,
+                          "bound_ms_by_chunk": bound_ms,
+                          "bound_by_chunk": bound_by,
+                          "library_ms": None,
+                          "blocks": bh * -(-dv // 16)})
+        log(f"linear attention ({bh},{t},{dk},{dv}) {dtype} "
+            f"{'inclusive' if inclusive else 'exclusive'}"
+            f"{' +bonus' if bonus else ''}: kernel "
+            + " ".join(f"c{c} {ms:.4f}" for c, ms in kernel_ms.items())
+            + " ms; plain " + " ".join(f"c{c} {ms:.3f}"
+                                       for c, ms in plain_ms.items())
+            + " ms; bound " + " ".join(f"c{c} {ms:.4f} ({bound_by[c]})"
+                                       for c, ms in bound_ms.items())
+            + f" ms; {bh * -(-dv // 16)} blocks")
+        del q, k, v, lw, u
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
@@ -931,6 +1154,368 @@ def phase_prefill_parity(cfg, params, serve: dict) -> dict:
     return {"max_rel_a": rel_a, "max_rel_b": rel_b}
 
 
+def phase_rwkv_prefill(cfg) -> dict:
+    """The rwkv6 prefill handler under a Controller sweeping the linear
+    attention's implementation and chunk, then one long call."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.core import (DEFAULT_CONTEXT, Controller,
+                                  CoordinateDescent, IridescentRuntime)
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.linear_attention import kernel as la_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import transformer as model
+    from repro_torch.training import make_prefill_builder
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in compat.tree_leaves(params))
+    log(f"rwkv6 prefill: {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.rwkv_heads} heads of {cfg.rwkv_head_size}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}) params {n_params / 1e6:.1f}M "
+        f"({4 * n_params / 1e9:.2f} GB fp32), drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s = RWKV_SWEEP
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("prefill_step", make_prefill_builder(cfg))
+    space = handler.spec_space()
+    labels = ["linear_attention_impl", "chunk_len"]
+    controller = Controller(
+        handler, lambda: CoordinateDescent(space, labels=labels,
+                                           max_passes=1),
+        dwell=PREFILL_DWELL, wait_compiles=True, prefetch=0)
+
+    def impl_of(config: dict) -> str:
+        return registry.resolve(
+            "linear_attention",
+            _setting(config, "linear_attention_impl")).name
+
+    calls = []          # (impl, K4 launches, K1 launches, seconds)
+    la_kernel.reset_launches()
+    rms_kernel.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+    t_phase = time.perf_counter()
+
+    def call(batch_tokens) -> torch.Tensor:
+        impl = impl_of(handler.active_config())
+        a0, r0 = la_kernel.launches, rms_kernel.launches
+        t = time.perf_counter()
+        logits = handler(params, {"tokens": batch_tokens})
+        torch.cuda.synchronize()
+        calls.append((impl, la_kernel.launches - a0,
+                      rms_kernel.launches - r0, time.perf_counter() - t))
+        return logits
+
+    for _ in range(100):
+        logits = call(tokens)
+        controller.step()
+        if controller.settled():
+            break
+    else:
+        fail("the rwkv6 prefill Controller did not settle in 100 calls")
+    if logits.shape != (b, s, cfg.padded_vocab_size) \
+            or not torch.isfinite(logits).all():
+        fail(f"rwkv6 prefill logits {tuple(logits.shape)} or non-finite")
+    del logits
+    chosen = controller.best_configs()[DEFAULT_CONTEXT]
+    for phase, config, rate in controller.histories()[DEFAULT_CONTEXT]:
+        log(f"rwkv6 prefill sweep: {phase.value} {_config_str(config)} -> "
+            f"{rate * b * s:.1f} tok/s ({1e3 / rate:.1f} ms/call)")
+    log(f"rwkv6 prefill sweep: settled after {len(calls)} calls on "
+        f"{_config_str(chosen)} (active "
+        f"{_config_str(handler.active_config())})")
+    t_sweep = 1.0 / controller.best(DEFAULT_CONTEXT)[1]
+
+    long_tokens = torch.randint(0, cfg.vocab_size, (1, RWKV_LONG),
+                                generator=gen, device=dev, dtype=torch.int32)
+    logits = call(long_tokens)
+    if logits.shape != (1, RWKV_LONG, cfg.padded_vocab_size) \
+            or not torch.isfinite(logits[0, -1]).all():
+        fail(f"rwkv6 long prefill logits {tuple(logits.shape)} or "
+             f"non-finite")
+    del logits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    la_launches, rms_launches = la_kernel.launches, rms_kernel.launches
+    fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                 registry.default_registry.fallback_counts.items()}
+    log(f"rwkv6 prefill: ({b}, {s}) x{len(calls) - 1} then (1, {RWKV_LONG}) "
+        f"in {wall:.1f}s; the long call {1e3 * calls[-1][3]:.1f} ms "
+        f"({RWKV_LONG / calls[-1][3]:.1f} tok/s; the sweep's best scaled by "
+        f"{RWKV_LONG // s}: {t_sweep * RWKV_LONG / s:.2f}s)")
+    log(f"rwkv6 prefill: linear_attention cuda launches={la_launches}, "
+        f"rmsnorm cuda launches={rms_launches}, "
+        f"fallbacks={json.dumps(fallbacks)}; calls by linear_attention impl "
+        f"{json.dumps({i: sum(c[0] == i for c in calls) for i in {c[0] for c in calls}})}")
+    n_cuda = sum(c[0] == "cuda" for c in calls)
+    if la_launches == 0 or la_launches != cfg.n_layers * n_cuda:
+        fail(f"linear attention launched {la_launches} times over {n_cuda} "
+             f"calls on cuda; wanted {cfg.n_layers} per call")
+    for impl, a, _, _ in calls:
+        if a != (cfg.n_layers if impl == "cuda" else 0):
+            fail(f"an rwkv6 prefill call on {impl} launched the linear "
+                 f"attention {a} times")
+    per_call = sum(RWKV_PREFILL_SHAPES.values())
+    if rms_launches != per_call * len(calls):
+        fail(f"rmsnorm launched {rms_launches} times over {len(calls)} "
+             f"rwkv6 prefill calls; wanted {per_call} per call")
+    if fallbacks:
+        fail(f"the rwkv6 prefill path fell back: {fallbacks}")
+
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        handler(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    profile = _report_profile(
+        prof, prof_wall, 1, what=f"full-width rwkv6 ({b}, {s}) prefill call "
+        f"(chosen config, profiler on)", unit="call")
+    rt.shutdown()
+    return {"params": params, "la_launches": la_launches,
+            "rms_launches": rms_launches,
+            "chosen": {"linear_attention_impl": impl_of(chosen),
+                       "chunk_len": _setting(chosen, "chunk_len", 64)},
+            "sweep_ms": 1e3 * t_sweep, "long_ms": 1e3 * calls[-1][3],
+            "calls": len(calls), "profile": profile}
+
+
+def phase_rwkv_serve(cfg, params) -> dict:
+    """``build_engine --arch rwkv6-1.6b`` serves a few requests at full
+    width through the safety controller (its decode advances the state
+    with the plain step: K1 launches, K4 does not)."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.linear_attention import kernel as la_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.serve import build_engine, synthetic_workload
+    from repro_torch.serve import OpenLoopSource
+
+    args = engine_args(["--device", "cuda", "--arch", "rwkv6-1.6b",
+                        "--batch", "8", "--max-len", "256",
+                        "--prefill-chunk", "16", "--dwell", "2",
+                        "--requests", "4", "--rate", "0.5"])
+    built = build_engine(args, cfg=cfg, params=params)
+    schedule = synthetic_workload(args.requests, args.rate, seed=args.seed)
+    requests = [r for _, r in schedule]
+    rms_kernel.reset_launches()
+    la_kernel.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+    t0 = time.perf_counter()
+    built.engine.run(source=OpenLoopSource(built.engine.queue, schedule),
+                     max_steps=2000, duration_s=120.0)
+    drained = built.engine.drain(timeout_s=120.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, la_launches = rms_kernel.launches, la_kernel.launches
+    fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                 registry.default_registry.fallback_counts.items()}
+    stats = built.engine.stats()
+    served = stats["serve"]
+    configs = {str(k): ({kk: repr(vv) for kk, vv in c.items()
+                         if kk in ("cache_dtype", "rmsnorm_impl",
+                                   "chunk_len")}
+                        if c is not None else None)
+               for k, c in built.controller.best_configs().items()}
+    safety = built.controller.safety_status()
+    log(f"rwkv6 serve: served {served['completed']}/{len(requests)} "
+        f"requests (prompts {[r.prompt_tokens for r in requests]}), "
+        f"{served['completed_tokens']} tokens in {wall:.1f}s "
+        f"({served['completed_tokens'] / wall:.2f} tok/s), steps "
+        f"{stats['phase_steps']}, idle ticks {stats['idle_ticks']}; latency "
+        f"p50/p95 ms {served['latency_p50_ms']} / {served['latency_p95_ms']}")
+    log(f"rwkv6 serve: per-context configs {json.dumps(configs)}; safety "
+        f"promotions={safety['promotions']} rollbacks={safety['rollbacks']}")
+    log(f"rwkv6 serve: rmsnorm cuda launches={launches}, linear_attention "
+        f"launches={la_launches} (decode steps the state without it), "
+        f"fallbacks={json.dumps(fallbacks)}")
+    built.engine.shutdown()
+    if not drained or served["completed"] != len(requests):
+        fail(f"rwkv6 served {served['completed']} of {len(requests)} "
+             f"requests")
+    for r in requests:
+        if r.payload is None or len(r.payload) != r.max_new_tokens:
+            fail(f"rwkv6 request {r.rid} got {r.payload!r}, wanted "
+                 f"{r.max_new_tokens} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.payload):
+            fail(f"rwkv6 request {r.rid} produced out-of-vocab tokens")
+    if launches == 0:
+        fail("the rwkv6 serve path launched the rmsnorm kernel no time")
+    if fallbacks:
+        fail(f"the rwkv6 serve path fell back: {fallbacks}")
+    return {"launches": launches, "wall": wall,
+            "tokens": served["completed_tokens"]}
+
+
+def _rel_rows(a, w):
+    """max |a - w| over the last axis / max |w|: one relative difference
+    per (batch, token) position, on the witness's scale."""
+    return (a.double() - w).abs().amax(-1) / w.abs().max()
+
+
+def phase_rwkv_parity(cfg, params) -> dict:
+    """Both full-width rwkv6 parity checks, held to a float64 witness on
+    each of ``RWKV_WITNESS_SEEDS``' weights: (a) the prefill handler on the
+    kernel against the plain linear attention, on (2, 2048) tokens; (b) the
+    forward's last-token logits against the serve path's prefill chunk
+    (its per-step decode), on an (8, 16) prompt.
+
+    With random weights the rwkv6 forward is ill-conditioned at full width:
+    the per-head output norm divides time-mix rows that nearly cancel by
+    their small norm, so fp32 rounding alone moves the logits of most
+    positions by more than ``PARITY_TOL``.  The witness (the plain forward
+    in float64) sides with neither fp32 path: each is held to it at
+    ``RWKV_QUANTILES`` of the positions, within ``PARITY_TOL`` or
+    ``RWKV_WITNESS_FACTOR`` times the plain fp32 path's own difference.
+    Every kernel call of (a) is also held to the plain linear attention on
+    its own inputs, at the linear-attention tolerances."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.kernels.linear_attention import ops as la_ops
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models import transformer as model
+    from repro_torch.models.common import KernelOptions
+    from repro_torch.training import (make_prefill_builder,
+                                      make_serve_builder, phase_context_fn)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, RWKV_PARITY, generator=gen,
+                           device=dev, dtype=torch.int32)
+    b, chunk = 8, 16
+    prompt = torch.randint(0, cfg.vocab_size, (b, chunk), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cfg64 = cfg.replace(compute_dtype="float64")
+    opts64 = model.RunOptions(kernels=KernelOptions(impl="torch_ref",
+                                                    chunk_len=64),
+                              logits_dtype="float64")
+    rt = IridescentRuntime(max_compile_workers=1)
+    prefill = rt.register("prefill_step", make_prefill_builder(cfg))
+    serve = rt.register("serve_step", make_serve_builder(cfg),
+                        context_fn=phase_context_fn)
+    serve.specialize({"cache_dtype": "float32"}, wait=True,
+                     context=("prefill", b))
+    op = rwkv_mod.linear_attention
+    calls = []          # max |kernel - plain| of each kernel call
+
+    def held_op(q, k, v, log_w, **kw):
+        out = op(q, k, v, log_w, **kw)
+        ref = la_ops.linear_attention(q, k, v, log_w,
+                                      **dict(kw, impl="torch_ref"))
+        for rt_, at in ((LINATT_TOL["float32"],) * 2,
+                        LINATT_SCALED_TOL["float32"]):
+            torch.testing.assert_close(
+                out, ref, rtol=rt_, atol=at,
+                msg=lambda m: f"rwkv6 parity (a), linear attention call "
+                              f"{len(calls)} at {tuple(q.shape)}: {m}")
+        calls.append((out - ref).abs().max().item())
+        return out
+
+    def quantiles(plain, gated: dict) -> dict:
+        """RWKV_QUANTILES of the plain fp32 path's and each gated path's
+        per-position differences from the witness."""
+        qs = torch.tensor(RWKV_QUANTILES, dtype=torch.float64,
+                          device=plain.device)
+        return {name: torch.quantile(err.flatten(), qs).tolist()
+                for name, err in {"plain": plain, **gated}.items()}
+
+    def hold(what, seed, got: dict) -> None:
+        for name, values in got.items():
+            for q, e, p in zip(RWKV_QUANTILES, values, got["plain"]):
+                if not e <= max(PARITY_TOL, RWKV_WITNESS_FACTOR * p):
+                    fail(f"rwkv6 parity {what}, weights {seed}: {name} lies "
+                         f"{e:.3e} from the float64 witness at quantile {q} "
+                         f"of the positions; the plain fp32 path {p:.3e}")
+
+    results = []
+    for seed in RWKV_WITNESS_SEEDS:
+        p32 = params if seed == 0 else model.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        p64 = compat.tree_map(lambda a: a.double(), p32)
+        # (a) the prefill handler on the kernel and on the plain version
+        n_calls = len(calls)
+        out = {}
+        for key, impl, hook in (("cuda", "cuda", held_op),
+                                ("plain", "torch_ref", op)):
+            _pin(prefill, {"linear_attention_impl": impl, "chunk_len": 64})
+            rwkv_mod.linear_attention = hook
+            try:
+                out[key] = prefill(p32, {"tokens": tokens})
+            finally:
+                rwkv_mod.linear_attention = op
+        if len(calls) - n_calls != cfg.n_layers:
+            fail(f"rwkv6 parity (a): {len(calls) - n_calls} linear attention "
+                 f"calls, wanted {cfg.n_layers}")
+        w64 = model.apply(p64, cfg64, opts64, tokens=tokens)[0]
+        cuda, plain = out.pop("cuda"), out.pop("plain")
+        if cuda.shape != w64.shape or not torch.isfinite(cuda).all():
+            fail(f"rwkv6 parity (a): shape {tuple(cuda.shape)} or non-finite")
+        err_k, err_p = _rel_rows(cuda, w64), _rel_rows(plain, w64)
+        err_kp = _rel_rows(cuda, plain.double()).max().item()
+        within = int((err_p <= PARITY_TOL).sum())
+        agree = int((cuda.argmax(-1) == plain.argmax(-1)).sum())
+        del cuda, plain, w64
+        # (b) the serve path's per-step prefill chunk against the forward
+        cache = model.init_cache(cfg, b, 256, model.RunOptions(
+            decode_cache_dtype="float32"), device=dev)
+        zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+        decode, _ = serve(p32, cache, prompt, zeros,
+                          torch.full_like(zeros, chunk))
+        last = {impl: model.apply(p32, cfg, model.RunOptions(
+            kernels=KernelOptions(linear_attention_impl=impl, chunk_len=64)),
+            tokens=prompt)[0][:, -1, : cfg.vocab_size]
+            for impl in ("cuda", "torch_ref")}
+        w_last = model.apply(p64, cfg64, opts64, tokens=prompt)[0][
+            :, -1, : cfg.vocab_size]
+        del p64, cache
+        if decode.shape != w_last.shape or not torch.isfinite(decode).all():
+            fail(f"rwkv6 parity (b): shape {tuple(decode.shape)} or "
+                 f"non-finite")
+        errb_d, errb_k = _rel_rows(decode, w_last), _rel_rows(last["cuda"],
+                                                                w_last)
+        errb_p = _rel_rows(last["torch_ref"], w_last)
+        errb_kd = _rel_rows(last["cuda"], decode.double()).max().item()
+        fmt = lambda qs: "/".join(f"{e:.3e}" for e in qs)
+        qa = quantiles(err_p, {"the kernel path": err_k})
+        qb = quantiles(errb_p, {"the decode": errb_d,
+                                "the kernel forward": errb_k})
+        log(f"rwkv6 parity, weights {seed}: relative logits differences "
+            f"from the float64 witness at quantiles {RWKV_QUANTILES} of the "
+            f"positions. (a) {RWKV_PARITY} tokens: kernel path "
+            f"{fmt(qa['the kernel path'])}, plain path {fmt(qa['plain'])} "
+            f"(kernel vs plain max {err_kp:.3e}; the plain path within "
+            f"{PARITY_TOL:g} of the witness at {within}/{err_p.numel()} "
+            f"positions; argmax kernel vs plain agrees on "
+            f"{agree}/{err_p.numel()}). (b) {tuple(prompt.shape)} last "
+            f"token: decode {fmt(qb['the decode'])}, kernel forward "
+            f"{fmt(qb['the kernel forward'])}, plain forward "
+            f"{fmt(qb['plain'])} (kernel forward vs decode max "
+            f"{errb_kd:.3e})")
+        results.append({"seed": seed, "a": qa, "b": qb,
+                        "a_plain_within_tol": within})
+        hold("(a)", seed, qa)
+        hold("(b)", seed, qb)
+        del p32
+        torch.cuda.empty_cache()
+    rt.shutdown()
+    log(f"rwkv6 parity: the {len(calls)} kernel calls each within "
+        f"{LINATT_TOL['float32']:g} and the scaled "
+        f"{LINATT_SCALED_TOL['float32']} of the plain version on the same "
+        f"inputs (largest difference {max(calls):.3e})")
+    return {"seeds": results, "kernel_call_max_diff": max(calls)}
+
+
 def main() -> None:
     try:
         import torch
@@ -952,12 +1537,20 @@ def main() -> None:
     phase_build()
     rms = phase_rmsnorm()
     attn = phase_attention()
+    linatt = phase_linear_attention()
     cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
     main_path = phase_main_path(cfg)
     params = main_path.pop("built").params
     serve = phase_parity(cfg, params)
     prefill = phase_prefill(cfg, params)
     phase_prefill_parity(cfg, params, serve)
+    del params, serve
+    torch.cuda.empty_cache()
+    rcfg = configs.get_config("rwkv6-1.6b").replace(compute_dtype="float32")
+    rprefill = phase_rwkv_prefill(rcfg)
+    rparams = rprefill.pop("params")
+    rserve = phase_rwkv_serve(rcfg, rparams)
+    phase_rwkv_parity(rcfg, rparams)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -969,6 +1562,13 @@ def main() -> None:
     chosen = prefill["chosen"]
     tiles = f"{chosen['block_q']}x{chosen['block_kv']}"
     n = N_LAYERS
+    # K4 per rwkv6 (1, 4096) prefill call: 24 launches at the full-width
+    # shape, at the chunk the rwkv6 Controller chose.
+    la_at = next(r for r in linatt["per_shape"]
+                 if r["shape"] == [RWKV_HEADS, RWKV_SWEEP[1], RWKV_HEAD,
+                                   RWKV_HEAD] and r["dtype"] == "float32")
+    c = str(rprefill["chosen"]["chunk_len"])
+    rn = RWKV_LAYERS
     kernels = [{
         "name": "rmsnorm",
         "route": "cuda",
@@ -983,6 +1583,8 @@ def main() -> None:
         "library_ms": rms["library_ms"],
         "per": "one full-width decode step at batch 8 (113 launches)",
         "prefill_launches": prefill["rmsnorm_launches"],
+        "rwkv6_prefill_launches": rprefill["rms_launches"],
+        "rwkv6_serve_launches": rserve["launches"],
         "shapes": rms["per_shape"],
     }, {
         "name": "attention",
@@ -1002,6 +1604,27 @@ def main() -> None:
                f"launches at (1, 16 q / 8 kv heads, {PREFILL_SWEEP[1]}, "
                f"128) fp32, causal, tiles {tiles})",
         "shapes": attn["per_shape"],
+    }, {
+        "name": "linear_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_attention/csrc/"
+                  "linear_attention.cu",
+        "replaces": "src/repro/kernels/linear_attention/kernel.py:76",
+        "launches": rprefill["la_launches"],
+        "max_abs_err": linatt["max_abs_err"],
+        "max_abs_err_by_dtype": linatt["max_abs_err_by_dtype"],
+        "ms": rn * la_at["kernel_ms_by_chunk"][c],
+        "plain_ms": rn * la_at["plain_ms_by_chunk"][c],
+        "bound_ms": rn * la_at["bound_ms_by_chunk"][c],
+        "bound_by": la_at["bound_by_chunk"][c],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes chunked gated "
+                        "linear attention",
+        "per": f"one full-width rwkv6-1.6b (1, {RWKV_SWEEP[1]}) prefill "
+               f"call ({rn} launches at ({RWKV_HEADS}, {RWKV_SWEEP[1]}, "
+               f"{RWKV_HEAD}, {RWKV_HEAD}) fp32, exclusive with the bonus, "
+               f"chunk {c})",
+        "shapes": linatt["per_shape"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

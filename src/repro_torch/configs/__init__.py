@@ -1,8 +1,9 @@
 """Architecture registry of the port: the configs ported so far.
 
-Only qwen3-0.6b (dense GQA with qk-norm and tied embeddings) runs on the
-port today; asking for another of the reference's architectures raises
-``KeyError`` naming the ROADMAP item that brings it (M7).
+qwen3-0.6b (dense GQA with qk-norm and tied embeddings) and rwkv6-1.6b
+(attention-free, chunked linear attention) run on the port today; asking
+for another of the reference's architectures raises ``KeyError`` naming
+the ROADMAP item that brings it (M7).
 """
 from __future__ import annotations
 
@@ -12,10 +13,10 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "ARCH_IDS", "get_config", "get_reduced"]
 
-ARCHS = ("qwen3_0_6b",)
+ARCHS = ("qwen3_0_6b", "rwkv6_1_6b")
 
 #: canonical CLI ids (the reference's spelling) -> module names
-_ALIAS = {"qwen3-0.6b": "qwen3_0_6b"}
+_ALIAS = {"qwen3-0.6b": "qwen3_0_6b", "rwkv6-1.6b": "rwkv6_1_6b"}
 
 #: canonical arch ids
 ARCH_IDS = tuple(_ALIAS)

@@ -1,0 +1,139 @@
+"""``ctypes`` wrapper of the hand-written CUDA chunked linear attention
+(``csrc/linear_attention.cu``).
+
+Replaces the reference's Pallas TPU kernel
+(``src/repro/kernels/linear_attention/kernel.py::linear_attention_pallas``).
+The library is compiled for ``sm_90a`` with ``nvcc`` on first use
+(:func:`load_library`); the wrapper checks its inputs, allocates the
+output, launches on PyTorch's current stream and raises if the launch
+reports an error.  ``launches`` counts the kernel launches of this
+process.
+
+``chunk`` (the ``chunk_len`` spec point) is a template argument: the
+library instantiates :data:`CHUNKS`, the reference's candidates, which fit
+a thread block's shared memory as they are (95 KB at chunk 64 and
+dk = 64).  Head dims up to :data:`MAX_HEAD_DIM` are runtime values.  A
+ragged length (not a multiple of the chunk) is masked in the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_cuda_library
+
+__all__ = ["CHUNKS", "MAX_HEAD_DIM", "SOURCE", "launches", "load_library",
+           "linear_attention_cuda", "reset_launches"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_attention.cu"
+
+#: chunk lengths the library instantiates (the reference's candidates)
+CHUNKS = (16, 32, 64)
+#: largest head dim (dk and dv) the kernel takes
+MAX_HEAD_DIM = 128
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SLICE = 16          # dv columns per thread block (kSlice in the source)
+
+#: kernel launches in this process (see :func:`reset_launches`)
+launches = 0
+
+#: the library's bound ``linear_attention_fwd``, set by :func:`load_library`
+_fwd = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; declare its C
+    signatures.  Raises if the build fails."""
+    global _fwd
+    lib = load_cuda_library("linear_attention", SOURCE)
+    if _fwd is None:
+        fn = lib.linear_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.linear_attention_error_string.argtypes = [ctypes.c_int]
+        lib.linear_attention_error_string.restype = ctypes.c_char_p
+        _fwd = fn
+    return lib
+
+
+def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          log_w: torch.Tensor,
+                          bonus: torch.Tensor | None = None, *,
+                          inclusive: bool = False,
+                          chunk: int = 64) -> torch.Tensor:
+    """Chunked gated linear attention of ``q, k (BH, T, dk)`` and
+    ``v (BH, T, dv)`` (one dtype, fp32 or bf16) with the per-step log decay
+    ``log_w (BH, T, dk)`` and the RWKV bonus ``bonus (BH, dk)`` or None
+    (both fp32), all contiguous on one CUDA device.  Returns a new
+    ``(BH, T, dv)`` tensor of ``v.dtype``."""
+    global launches
+    for name, t in (("q", q), ("k", k), ("v", v), ("log_w", log_w),
+                    ("bonus", bonus)):
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"linear_attention_cuda needs CUDA tensors, "
+                             f"{name} is on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"linear_attention_cuda needs contiguous "
+                             f"tensors; {name} is not")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"linear_attention_cuda takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    for name, t, want in (("k", k, q.dtype), ("v", v, q.dtype),
+                          ("log_w", log_w, torch.float32),
+                          ("bonus", bonus, torch.float32)):
+        if t is not None and t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}, wanted {want}")
+    if q.ndim != 3 or v.ndim != 3:
+        raise ValueError(f"q and v must be 3-D (heads, seq, dim), got "
+                         f"{tuple(q.shape)}, {tuple(v.shape)}")
+    bh, t_len, dk = q.shape
+    dv = v.shape[2]
+    if (k.shape != q.shape or log_w.shape != q.shape
+            or v.shape[:2] != (bh, t_len)):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} and log_w {tuple(log_w.shape)} "
+                         f"do not agree")
+    if bonus is not None:
+        if bonus.shape != (bh, dk):
+            raise ValueError(f"bonus must be ({bh}, {dk}), got "
+                             f"{tuple(bonus.shape)}")
+        if inclusive:
+            raise ValueError("a bonus is defined for the exclusive "
+                             "recurrence only (the reference's oracle "
+                             "ignores it when inclusive)")
+    if max(dk, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims ({dk}, {dv}) exceed the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk must be in {CHUNKS}, got {chunk}")
+    if bh * -(-dv // _SLICE) >= 2 ** 31:
+        raise ValueError(f"{bh} heads exceed the kernel's grid")
+    out = torch.empty((bh, t_len, dv), dtype=v.dtype, device=v.device)
+    if bh == 0 or t_len == 0:
+        return out
+    if _fwd is None:
+        load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+               bonus.data_ptr() if bonus is not None else None,
+               out.data_ptr(), bh, t_len, dk, dv, int(chunk), int(inclusive),
+               _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        msg = load_library().linear_attention_error_string(err).decode()
+        raise RuntimeError(f"linear_attention_fwd launch failed: {msg} "
+                           f"({err})")
+    launches += 1
+    return out

@@ -1,12 +1,12 @@
 """Kernel registry of the PyTorch/CUDA port.
 
-Every kernel family the port has (so far: rmsnorm, attention) registers its
-implementations here as *named entries* with an availability predicate
-(host capability: is there a Hopper-class CUDA device), an optional
-per-call correctness guard (shape/dtype/device preconditions of the
-specialized code path) and an optional ``prepare`` hook that builds and
-loads the entry's kernel library.  Dispatch then mirrors the paper's
-specialization story end to end:
+Every kernel family the port has (so far: rmsnorm, attention,
+linear_attention) registers its implementations here as *named entries*
+with an availability predicate (host capability: is there a Hopper-class
+CUDA device), an optional per-call correctness guard (shape/dtype/device
+preconditions of the specialized code path) and an optional ``prepare``
+hook that builds and loads the entry's kernel library.  Dispatch then
+mirrors the paper's specialization story end to end:
 
 * the set of **available** entries on the current host is the candidate set
   of the family's ``{family}_impl`` spec point (declared via

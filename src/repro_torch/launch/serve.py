@@ -4,6 +4,7 @@ specialization, on one CUDA device.
 Run:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --steps 60
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6-1.6b
 
 The port of ``repro.launch.serve`` for a single replica.  Requests arrive
 open-loop (deterministic pseudo-Poisson at ``--rate``), pass a bounded
@@ -17,7 +18,8 @@ hand-written CUDA RMSNorm competes with the plain version on measured
 throughput.  The bucket scheme and the KV page geometry are tuned online
 by their own Controllers.
 
-The CLI serves the reduced qwen3-0.6b in fp32, as the reference does;
+The CLI serves the reduced ``--arch`` (qwen3-0.6b, or rwkv6-1.6b, whose
+contexts also explore ``chunk_len``) in fp32, as the reference does;
 :func:`build_engine` takes a config for other sizes (full width on the
 H100: ``configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")``).
 Not ported yet, and refused with the ROADMAP item that brings them:
@@ -176,7 +178,10 @@ def build_engine(args, cfg=None, params: Any = None) -> SimpleNamespace:
         gen = torch.Generator(device=device).manual_seed(0)
         params = model.init_params(gen, cfg)
     run_opts = RunOptions(decode_cache_dtype="float32")
-    kv = PagedKV(model.init_cache(cfg, 1, args.max_len, run_opts),
+    # The template stays on the host: PagedKV keeps its pools there and
+    # uploads each step's cache to ``device``.
+    kv = PagedKV(model.init_cache(cfg, 1, args.max_len, run_opts,
+                                  device="cpu"),
                  model.cache_axes(cfg), max_len=args.max_len,
                  capacity_tokens=args.batch * args.max_len,
                  page_size=args.kv_page_size, device=device)
@@ -185,7 +190,8 @@ def build_engine(args, cfg=None, params: Any = None) -> SimpleNamespace:
                               vocab_size=cfg.vocab_size)
 
     space = handler.spec_space()
-    labels = ["cache_dtype", "rmsnorm_impl"]
+    labels = ["cache_dtype", "rmsnorm_impl"] + (
+        ["chunk_len"] if cfg.mixer in ("rwkv6", "hymba") else [])
     policy_factory = lambda: ExhaustiveSweep.from_space(space, labels)
     controller_kwargs = dict(
         dwell=args.dwell, change_detector=lambda: ChangeDetector(0.3),

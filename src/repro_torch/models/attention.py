@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels.attention import attention as attn_op
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
@@ -90,8 +91,10 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
                    window: int | None = None,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: torch.device | str = "cpu") -> dict:
-    """Ring-buffer KV cache.  ``window`` bounds the buffer for SWA layers."""
+                   device: torch.device | str | None = None) -> dict:
+    """Ring-buffer KV cache.  ``window`` bounds the buffer for SWA layers;
+    ``device`` defaults to ``cuda`` (:func:`compat.resolve_device`)."""
+    device = compat.resolve_device(device)
     w = min(window, max_len) if window else max_len
     hk, dh = cfg.n_kv_heads, cfg.d_head
     return {

@@ -28,17 +28,20 @@ class KernelOptions:
     per-family ``*_impl`` fields override it for one kernel family — each
     is its own spec point.  ``block_q``/``block_kv`` are the flash
     attention kernel's query and kv tile rows, ``norm_block_rows`` the
-    RMSNorm kernel's rows per thread block, ``swa_impl`` the plain
-    version's sliding-window formulation (full | banded).  The other
-    kernel families' fields arrive with their kernels (ROADMAP K3-K5).
+    RMSNorm kernel's rows per thread block, ``chunk_len`` the chunked
+    linear attention's chunk (rwkv6/hymba), ``swa_impl`` the plain
+    version's sliding-window formulation (full | banded).  The matmul
+    kernel's tiles arrive with it (ROADMAP K3).
     """
 
     impl: str | None = None          # step-wide default (None = auto)
     attention_impl: str | None = None
     rmsnorm_impl: str | None = None
+    linear_attention_impl: str | None = None
     block_q: int = DEFAULT_BLOCK_Q
     block_kv: int = DEFAULT_BLOCK_KV
     norm_block_rows: int = DEFAULT_BLOCK_ROWS
+    chunk_len: int = 64              # linear-attention chunk size (rwkv/ssm)
     swa_impl: str = "full"           # full | banded (sliding-window band only)
 
     def impl_for(self, family: str) -> str | None:

@@ -17,8 +17,11 @@ from repro_torch import compat
 __all__ = ["params_from_numpy"]
 
 
-def params_from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
+def params_from_numpy(tree: Any,
+                      device: torch.device | str | None = None) -> Any:
     """A nested dict/list/tuple of numpy arrays -> the same structure of
-    tensors on ``device`` (dtypes kept)."""
+    tensors on ``device`` (dtypes kept; default ``cuda``, see
+    :func:`repro_torch.compat.resolve_device`)."""
+    device = compat.resolve_device(device)
     return compat.tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)

@@ -1,19 +1,22 @@
-"""Model assembly: embeddings -> GQA/SwiGLU layer stack -> LM head.
+"""Model assembly: embeddings -> mixer/FFN layer stack -> LM head.
 
-The port of the reference's dense path (``models/transformer.py``): the
+The port of the reference's ``models/transformer.py`` for two families:
+dense GQA with a SwiGLU FFN (qwen3), and RWKV6 (time mix through the
+chunked linear attention, channel mix in place of the FFN).  It holds the
 full-sequence forward ``apply`` (prefill; its attention runs the flash
-attention kernel) and the cached ``decode_step``/``prefill_chunk`` of the
-serve step.  The model is plain functions over a dict of tensors, with the
-reference's parameter layout: stacked ``dense_layers`` with a leading
-``L`` axis, ``wq`` as ``(d, H, dh)`` and so on — so the reference's
-parameters convert leaf for leaf (:mod:`repro_torch.models.convert`) and
-many specialized variants share one copy of the weights.
+attention kernel, its RWKV6 time mix the linear-attention kernel) and the
+cached ``decode_step``/``prefill_chunk`` of the serve step.  The model is
+plain functions over a dict of tensors, with the reference's parameter
+layout: stacked ``dense_layers`` with a leading ``L`` axis, ``wq`` as
+``(d, H, dh)`` and so on — so the reference's parameters convert leaf for
+leaf (:mod:`repro_torch.models.convert`) and many specialized variants
+share one copy of the weights.
 
-Other mixers (MLA, RWKV6, Hymba) and MoE raise ``NotImplementedError``
-(ROADMAP M7).  The layer stack is a Python loop (the reference's
-``scan_layers`` and ``remat`` belong to training, ROADMAP M8).  Caches
-are updated in place (see :mod:`repro_torch.models.attention`); the decode
-entry points still return ``(logits, cache)``.
+MLA, Hymba and MoE raise ``NotImplementedError`` (ROADMAP M7).  The layer
+stack is a Python loop (the reference's ``scan_layers`` and ``remat``
+belong to training, ROADMAP M8).  Caches are updated in place (see
+:mod:`repro_torch.models.attention` and :mod:`repro_torch.models.rwkv6`);
+the decode entry points still return ``(logits, cache)``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (KernelOptions, dense_init, embed_init,
                                        rms_norm, swiglu)
 from repro_torch.models.config import ModelConfig
@@ -51,10 +55,12 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mixer != "attn" or cfg.attn_kind != "gqa":
+    if cfg.mixer not in ("attn", "rwkv6") or (cfg.mixer == "attn"
+                                              and cfg.attn_kind != "gqa"):
         raise NotImplementedError(
             f"{cfg.name}: mixer {cfg.mixer!r}/{cfg.attn_kind!r} is not "
-            f"ported yet (ROADMAP M7); the port runs dense GQA models")
+            f"ported yet (ROADMAP M7); the port runs dense GQA and RWKV6 "
+            f"models")
     if cfg.n_moe_layers:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP M7)")
@@ -69,6 +75,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     ones = lambda: torch.ones((d,), dtype=torch.float32, device=gen.device)
+    if cfg.mixer == "rwkv6":
+        # the channel mix's parameters live inside the mixer dict
+        return {"norm1": ones(), "mixer": rwkv_mod.init_rwkv6(gen, cfg),
+                "norm2": ones()}
     return {"norm1": ones(),
             "mixer": attn_mod.init_gqa(gen, cfg),
             "norm2": ones(),
@@ -78,6 +88,9 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _layer_axes(cfg: ModelConfig) -> dict:
+    if cfg.mixer == "rwkv6":
+        return {"norm1": (None,), "mixer": rwkv_mod.rwkv6_axes(cfg),
+                "norm2": (None,)}
     return {"norm1": (None,), "mixer": attn_mod.gqa_axes(cfg),
             "norm2": (None,),
             "ffn": {"wg": ("fsdp", "ffn"), "wu": ("fsdp", "ffn"),
@@ -122,10 +135,14 @@ def param_axes(cfg: ModelConfig) -> dict:
 
 def _apply_mixer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
                  opts: RunOptions) -> torch.Tensor:
+    if cfg.mixer == "rwkv6":
+        return rwkv_mod.apply_rwkv6(lp, x, cfg, opts.kernels)
     return attn_mod.apply_gqa(lp, x, cfg, opts.kernels, window=opts.window)
 
 
-def _apply_ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _apply_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mixer == "rwkv6":
+        return rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], x, cfg)
     f = lp["ffn"]
     cdt = x.dtype
     return swiglu(x, f["wg"].to(cdt), f["wu"].to(cdt), f["wd"].to(cdt))
@@ -136,7 +153,8 @@ def _layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
     ko = opts.kernels
     x = x + _apply_mixer(lp["mixer"], rms_norm(x, lp["norm1"], cfg.rms_eps,
                                                ko), cfg, opts)
-    return x + _apply_ffn(lp, rms_norm(x, lp["norm2"], cfg.rms_eps, ko))
+    return x + _apply_ffn(lp, rms_norm(x, lp["norm2"], cfg.rms_eps, ko),
+                          cfg)
 
 
 def _run_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -180,35 +198,54 @@ def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 # -- decode ------------------------------------------------------------------------
 
+def _cache_fns(cfg: ModelConfig):
+    if cfg.mixer == "rwkv6":
+        return rwkv_mod.init_rwkv6_cache, rwkv_mod.rwkv6_cache_axes
+    return attn_mod.init_gqa_cache, attn_mod.gqa_cache_axes
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                opts: RunOptions | None = None,
-               device: torch.device | str = "cpu") -> dict:
-    """Per-layer KV caches stacked on a leading ``L`` axis."""
+               device: torch.device | str | None = None) -> dict:
+    """Per-layer caches (KV rings, or RWKV6 row state) stacked on a
+    leading ``L`` axis, on ``device`` (default ``cuda``, see
+    :func:`repro_torch.compat.resolve_device`)."""
     _check_supported(cfg)
     opts = opts or RunOptions()
-    one = attn_mod.init_gqa_cache(cfg, batch, max_len, window=opts.window,
-                                  dtype=_dtype(opts.decode_cache_dtype),
-                                  device=device)
+    init, _ = _cache_fns(cfg)
+    one = init(cfg, batch, max_len, window=opts.window,
+               dtype=_dtype(opts.decode_cache_dtype),
+               device=compat.resolve_device(device))
     return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
             for k, v in one.items()}
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
-    return _stack_axes(attn_mod.gqa_cache_axes(cfg))
+    _, axes = _cache_fns(cfg)
+    return _stack_axes(axes(cfg))
 
 
 def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
                   cfg: ModelConfig, opts: RunOptions):
     ko = opts.kernels
     xin = rms_norm(x, lp["norm1"], cfg.rms_eps, ko)
-    h, lc = attn_mod.decode_gqa(lp["mixer"], lc, xin, pos, cfg, ko,
-                                window=opts.window)
+    if cfg.mixer == "rwkv6":
+        h, lc = rwkv_mod.decode_rwkv6(lp["mixer"], lc, xin, pos, cfg, ko)
+    else:
+        h, lc = attn_mod.decode_gqa(lp["mixer"], lc, xin, pos, cfg, ko,
+                                    window=opts.window)
     x = x + h
     xin2 = rms_norm(x, lp["norm2"], cfg.rms_eps, ko)
-    ff = lp["ffn"]
-    f = swiglu(xin2, ff["wg"].to(xin2.dtype), ff["wu"].to(xin2.dtype),
-               ff["wd"].to(xin2.dtype))
+    if cfg.mixer == "rwkv6":
+        x_prev = lc["x_cm"][:, None].to(xin2.dtype)
+        f = rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], xin2, cfg,
+                                             x_prev=x_prev)
+        lc["x_cm"].copy_(xin2[:, 0])
+    else:
+        ff = lp["ffn"]
+        f = swiglu(xin2, ff["wg"].to(xin2.dtype), ff["wu"].to(xin2.dtype),
+                   ff["wd"].to(xin2.dtype))
     return x + f, lc
 
 
@@ -236,14 +273,37 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     return logits[:, : cfg.vocab_size], cache
 
 
-def _select_rows(active: torch.Tensor, pos: torch.Tensor,
-                 max_len: int) -> torch.Tensor:
-    """Per-row write positions that leave inactive rows' caches as they
-    were: an inactive row is sent past the cache (``max_len``), where the
-    in-place attention write stores nothing.  The reference instead runs
-    the step on every row and selects each cache leaf's rows afterwards;
-    with in-place writes the selection happens at the write."""
-    return torch.where(active, pos, torch.full_like(pos, max_len))
+def _cache_leaves(cfg: ModelConfig, cache: dict):
+    """``(max_len, rows)`` of a cache, its leaves located through
+    ``cache_axes`` (generic across mixers): the seq capacity of its paged
+    leaves (``seq_kv``: attention KV; None without), and its row-state
+    leaves (``batch`` without ``seq_kv``: the RWKV6 state and token
+    shifts) with their batch axis."""
+    pairs = list(zip(compat.tree_leaves(cache), compat.tree_leaves(
+        cache_axes(cfg), is_leaf=lambda a: isinstance(a, tuple))))
+    max_len = next((leaf.shape[ax.index("seq_kv")] for leaf, ax in pairs
+                    if "seq_kv" in ax), None)
+    rows = [(leaf, ax.index("batch")) for leaf, ax in pairs
+            if "batch" in ax and "seq_kv" not in ax]
+    return max_len, rows
+
+
+def _save_rows(rows: list, idle: list[int]) -> list:
+    """The ``idle`` rows of each in-place row-state leaf, before a
+    chunked-prefill step (nothing when every row is active)."""
+    if not idle:
+        return []
+    idx = torch.tensor(idle, device=rows[0][0].device)
+    return [(idx, leaf.index_select(bi, idx)) for leaf, bi in rows]
+
+
+def _select_rows(rows: list, saved: list) -> None:
+    """The reference's per-row select after a chunked-prefill step, for
+    in-place row state: an idle row's leaves get back the values saved
+    before the step.  (Paged leaves need no select: an idle row's write is
+    sent past the cache, where it stores nothing.)"""
+    for (leaf, bi), (idx, old) in zip(rows, saved):
+        leaf.index_copy_(bi, idx, old)
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
@@ -258,15 +318,26 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     ``n_new == 0`` get zero logits.
 
     A loop of single-token vector-pos decode steps with per-row masking,
-    as the reference's ``lax.scan``.
+    as the reference's ``lax.scan``: attention writes land at per-row
+    positions, and recurrent state only advances while a row is active
+    (:func:`_select_rows`; the counts are read on the host once, so a step
+    whose rows are all active saves nothing).  The cache is updated in
+    place and returned.
     """
     b, c = tokens.shape
-    max_len = cache["k"].shape[3]
+    max_len, rows = _cache_leaves(cfg, cache)
+    counts = n_new.tolist() if rows else []
     logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
                          device=tokens.device)
     for t in range(c):
-        step_pos = _select_rows(t < n_new, pos + t, max_len)
+        active = t < n_new
+        step_pos = pos + t
+        if max_len is not None:
+            step_pos = torch.where(active, step_pos,
+                                   torch.full_like(pos, max_len))
+        saved = _save_rows(rows, [i for i, n in enumerate(counts) if t >= n])
         lg, cache = decode_step(params, cache, tokens[:, t], step_pos, cfg,
                                 opts)
+        _select_rows(rows, saved)
         logits = torch.where((n_new - 1 == t)[:, None], lg, logits)
     return logits, cache

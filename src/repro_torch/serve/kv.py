@@ -159,20 +159,21 @@ class PagedKV:
     """Block-paged state manager over an arbitrary cache pytree.
 
     ``template`` is a cache built for ``batch=1`` at full ``max_len``
-    (``model.init_cache(cfg, 1, max_len, opts)``); ``axes`` is the
+    (``model.init_cache(cfg, 1, max_len, opts, device="cpu")``); ``axes`` is the
     matching logical-axes pytree (``model.cache_axes(cfg)``).  The
     manager owns host (numpy) page pools per *geometry*; device arrays
     exist only for the duration of a step (materialize -> run -> harvest).
 
     ``capacity_tokens`` bounds each geometry's pool.  ``geometry`` fixes
     the layout; attach a :class:`KVTuner` to tune it online instead.
-    ``device`` is where :meth:`materialize` puts the step's cache.
+    ``device`` is where :meth:`materialize` puts the step's cache
+    (default ``cuda``, see :func:`repro_torch.compat.resolve_device`).
     """
 
     def __init__(self, template: Any, axes: Any, *, max_len: int,
                  capacity_tokens: int, page_size: int = 16,
                  layout: str = "paged",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         if max_len <= 0:
             raise ValueError(f"max_len must be positive, got {max_len}")
         if capacity_tokens < max_len:
@@ -180,7 +181,7 @@ class PagedKV:
                              f"max_len ({max_len}): one request cannot fit")
         self.max_len = int(max_len)
         self.capacity_tokens = int(capacity_tokens)
-        self.device = torch.device(device)
+        self.device = compat.resolve_device(device)
         t_leaves, self._treedef = compat.tree_flatten(template)
         a_leaves, _ = compat.tree_flatten(
             axes, is_leaf=lambda x: isinstance(x, tuple))

@@ -7,8 +7,9 @@ different constants (kernel implementation, tile sizes, rows per block,
 cache and logits dtypes) into the closure the runtime dispatches to.
 
 The port has the serving builders: the phase-disaggregated serve step,
-the full-sequence prefill step (the path of the flash attention kernel)
-and the single-token decode step.  They declare every spec label the
+the full-sequence prefill step (the path of the flash attention kernel,
+and of the linear-attention kernel for rwkv6) and the single-token decode
+step.  They declare every spec label the
 reference's builders declare.  Two candidate sets differ from the
 reference's, because they are tile sizes of the Hopper kernels rather than
 of the TPU's VMEM:
@@ -34,6 +35,7 @@ from repro_torch.kernels import registry as kernel_registry
 from repro_torch.kernels.attention.kernel import (BLOCK_KV, BLOCK_Q,
                                                   DEFAULT_BLOCK_KV,
                                                   DEFAULT_BLOCK_Q)
+from repro_torch.kernels.linear_attention.kernel import CHUNKS
 from repro_torch.kernels.rmsnorm.kernel import BLOCK_ROWS, DEFAULT_BLOCK_ROWS
 from repro_torch.models import transformer as model
 from repro_torch.models.common import KernelOptions
@@ -56,35 +58,47 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
     """Declare the model-level spec points and bundle the chosen constants.
 
     The implementation choice per kernel family the step exercises
-    (``rmsnorm_impl``, ``attention_impl``) has as candidates the registry
-    entries *available on this host*; a choice that guard-misses at
-    dispatch (a host tensor asking for ``cuda``) degrades to torch_ref
+    (``rmsnorm_impl``; ``attention_impl`` for attention mixers,
+    ``linear_attention_impl`` for rwkv6/hymba) has as candidates the
+    registry entries *available on this host*; a choice that guard-misses
+    at dispatch (a host tensor asking for ``cuda``) degrades to torch_ref
     inside the registry (paper §4.4.3).  ``block_q``/``block_kv`` are the
     flash attention kernel's tiles (see the module docstring for why their
-    candidates are not the reference's); ``swa_impl`` is declared for a
+    candidates are not the reference's); ``chunk_len`` (rwkv6/hymba) the
+    linear attention's chunk, in the reference's (16, 32, 64), which the
+    kernel instantiates as they are; ``swa_impl`` is declared for a
     sliding-window model or ``window`` override only.  ``logits_dtype``
     sets the full-sequence forward's logits (decode logits are always
     fp32, as in the reference).  The training points (``remat``,
     gradient-safe implementations) arrive with the train builder (ROADMAP
     M8).
     """
-    if cfg.mixer != "attn":
+    if cfg.mixer not in ("attn", "rwkv6"):
         raise NotImplementedError(
             f"mixer {cfg.mixer!r} is not ported yet (ROADMAP M7)")
     if cfg.is_moe:
         raise NotImplementedError("MoE is not ported yet (ROADMAP M7)")
+    uses_attention = cfg.mixer in ("attn", "hymba")
+    uses_linear_attention = cfg.mixer in ("rwkv6", "hymba")
     ko = KernelOptions(
         impl=kernel_impl,
         rmsnorm_impl=kernel_registry.impl_point(spec, "rmsnorm",
                                                 default=kernel_impl),
-        attention_impl=kernel_registry.impl_point(spec, "attention",
-                                                  default=kernel_impl),
+        attention_impl=(kernel_registry.impl_point(spec, "attention",
+                                                   default=kernel_impl)
+                        if uses_attention else None),
+        linear_attention_impl=(
+            kernel_registry.impl_point(spec, "linear_attention",
+                                       default=kernel_impl)
+            if uses_linear_attention else None),
         block_q=spec.enum("block_q", DEFAULT_BLOCK_Q, BLOCK_Q,
                           guarded=False),
         block_kv=spec.enum("block_kv", DEFAULT_BLOCK_KV, BLOCK_KV,
                            guarded=False),
         norm_block_rows=spec.enum("norm_block_rows", DEFAULT_BLOCK_ROWS,
                                   BLOCK_ROWS, guarded=False),
+        chunk_len=(spec.enum("chunk_len", 64, CHUNKS, guarded=False)
+                   if uses_linear_attention else 64),
         swa_impl=(spec.enum("swa_impl", "full", ("full", "banded"),
                             guarded=False)
                   if (cfg.window or window) else "full"),
@@ -120,8 +134,9 @@ def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
     ``batch`` holds ``tokens (B, S)`` (or ``embeds (B, S, d)``); the step
     runs the full-sequence forward
     (:func:`repro_torch.models.transformer.apply`), whose attention is the
-    flash attention kernel under ``attention_impl=cuda``, and returns the
-    logits ``(B, S, V)`` in ``logits_dtype``.
+    flash attention kernel under ``attention_impl=cuda`` (an rwkv6 time
+    mix: the linear-attention kernel under ``linear_attention_impl=cuda``),
+    and returns the logits ``(B, S, V)`` in ``logits_dtype``.
     """
 
     def builder(spec: SpecCtx) -> Callable:

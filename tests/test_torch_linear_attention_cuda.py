@@ -1,0 +1,134 @@
+"""The port's CUDA chunked linear attention against its plain version, on a
+Hopper GPU.
+
+Needs no JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m requires_h100 tests/test_torch_linear_attention_cuda.py
+
+Elsewhere every case skips.  Tolerance is the reference's, 5e-4 for fp32
+(tests/test_linear_attention_kernel.py: the kernel and the plain version
+sum the chunk products and fold the chunk states in different orders), 3e-2
+for bf16, and a second limit scaled to each element (``SCALED_TOL``, as
+``chip_smoke.py``'s): in fp32, ``la = cumsum(log w)`` reaches 64 in
+magnitude at chunk 64, so its rounding (64 x 2^-24, ~4e-6) enters every
+e^{+-la} factor as a relative error of that size; an output sums ~128
+such terms of magnitude up to ~8, so one that nearly cancels still
+carries ~2e-4 of absolute error; in bf16 both round the same fp32 value
+once, so they differ by at most one bf16 ulp (2^-7 of the value) beyond
+that.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import compat  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.linear_attention import (  # noqa: E402
+    kernel, linear_attention)
+
+TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+#: (rtol, atol) of |out - ref| <= atol + rtol |ref|
+SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4)}
+
+#: (bh, T, dk, dv, inclusive, bonus, scalar decay): the reference's test
+#: cases (tests/test_linear_attention_kernel.py:28-55), a ragged length,
+#: a hymba-like inclusive scalar-decay head (dk 16, dv 64) and rwkv6-1.6b
+#: heads (dk = dv = 64) at a prefill length
+CASES = {
+    **{f"t{t}-dv{dv}-{'incl' if inc else 'excl'}": (2, t, 8, dv, inc, False,
+                                                     False)
+       for t in (32, 64) for dv in (8, 16) for inc in (False, True)},
+    "bonus": (3, 64, 8, 8, False, True, False),
+    "scalar_decay": (2, 32, 8, 12, True, False, True),
+    "ragged": (4, 1000, 64, 64, False, True, False),
+    "hymba_like": (25, 512, 16, 64, True, False, True),
+    "rwkv6_heads": (32, 1024, 64, 64, False, True, False),
+}
+
+
+@pytest.fixture
+def hopper():
+    if not compat.has_hopper():
+        pytest.skip("needs a CUDA device of capability (9, 0)")
+    return torch.device("cuda")
+
+
+def _inputs(case, dtype, device, seed=0):
+    bh, t, dk, dv, _, use_bonus, scalar = CASES[case]
+    rs = np.random.RandomState(seed)
+    q, k = (rs.randn(bh, t, dk).astype(np.float32) for _ in range(2))
+    v = rs.randn(bh, t, dv).astype(np.float32)
+    lw = -np.clip(rs.rand(bh, t, 1 if scalar else dk), 1e-4, 1.0).astype(
+        np.float32)
+    u = rs.randn(bh, dk).astype(np.float32) if use_bonus else None
+    cast = lambda a: torch.from_numpy(a).to(getattr(torch, dtype)).to(device)
+    return (cast(q), cast(k), cast(v), cast(lw),
+            torch.from_numpy(u).to(device) if u is not None else None)
+
+
+def _check(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    tol = TOL[dtype]
+    rtol, atol = SCALED_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("chunk", kernel.CHUNKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, chunk):
+    q, k, v, lw, u = _inputs(case, dtype, hopper)
+    inclusive = CASES[case][4]
+    before = kernel.launches
+    out = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
+                           chunk=chunk, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
+                           chunk=chunk, impl="torch_ref")
+    _check(out, ref, dtype)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("t", [8, 20, 40])
+def test_short_sequence_spans_one_chunk(hopper, t):
+    """The models pass ``min(chunk_len, T)``: a short input asks for a
+    chunk of ``T``, which the kernel computes in the smallest instantiated
+    chunk that spans it (masked)."""
+    q, k, v, lw, u = _inputs("rwkv6_heads", "float32", hopper)
+    q, k, v, lw = (x[:, :t] for x in (q, k, v, lw))
+    out = linear_attention(q, k, v, lw, bonus=u, chunk=t, impl="cuda")
+    ref = linear_attention(q, k, v, lw, bonus=u, chunk=t, impl="torch_ref")
+    _check(out, ref, "float32")
+
+
+@pytest.mark.requires_h100
+def test_cuda_tensors_never_fall_back(hopper):
+    """A CUDA input the kernel cannot take raises from the wrapper; the
+    registry counts no fallback."""
+    q, k, v, lw, u = _inputs("bonus", "float32", hopper)
+    counts = registry.default_registry.fallback_counts
+    before = dict(counts)
+    with pytest.raises(ValueError, match="exclusive"):
+        linear_attention(q, k, v, lw, bonus=u, inclusive=True, impl="cuda")
+    with pytest.raises(ValueError, match="chunk"):
+        linear_attention(q, k, v, lw, chunk=48, impl="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        linear_attention(q.half(), k.half(), v.half(), lw, impl="cuda")
+    wide = torch.zeros((2, 16, 136), device=hopper)
+    with pytest.raises(ValueError, match="head dims"):
+        linear_attention(wide, wide, wide, wide, impl="cuda")
+    assert dict(counts) == before
+
+
+@pytest.mark.requires_h100
+def test_wrapper_refuses_non_contiguous(hopper):
+    q, k, v, lw, _ = _inputs("t32-dv8-excl", "float32", hopper)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.linear_attention_cuda(q.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), k, v, lw)

@@ -146,7 +146,7 @@ def test_prefill_chunk(setup):
 def test_unported_families_raise():
     cfg = configs.get_reduced("qwen3-0.6b")
     with pytest.raises(NotImplementedError, match="M7"):
-        model.cache_axes(cfg.replace(mixer="rwkv6"))
+        model.cache_axes(cfg.replace(mixer="hymba"))
     with pytest.raises(NotImplementedError, match="M7"):
         model.cache_axes(cfg.replace(n_experts=4, top_k=2, moe_d_ff=32))
     with pytest.raises(KeyError, match="M7"):

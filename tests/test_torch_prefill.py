@@ -137,7 +137,7 @@ def test_decode_handler_matches_reference(setup):
             ref_model.RunOptions(decode_cache_dtype="float32"))
         cache = model.init_cache(
             s["cfg"], B, max_len,
-            model.RunOptions(decode_cache_dtype="float32"))
+            model.RunOptions(decode_cache_dtype="float32"), device="cpu")
         for t in range(4):
             toks = s["tokens"][:, t]
             ref_logits, ref_cache = ref_h(s["ref_params"], ref_cache,
@@ -161,7 +161,7 @@ def test_apply_matches_decode_loop(setup):
                             decode_cache_dtype="float32")
     toks = torch.from_numpy(s["tokens"])
     logits, _ = model.apply(s["params"], s["cfg"], opts, tokens=toks)
-    cache = model.init_cache(s["cfg"], B, S, opts)
+    cache = model.init_cache(s["cfg"], B, S, opts, device="cpu")
     outs = []
     for t in range(S):
         lg, cache = model.decode_step(s["params"], cache, toks[:, t],
@@ -200,7 +200,7 @@ def test_builders_declare_the_reference_labels(setup, name, window):
 def test_builders_refuse_unported_mixers(setup):
     with pytest.raises(NotImplementedError, match="M7"):
         discover_space(steps.make_prefill_builder(
-            setup["cfg"].replace(mixer="rwkv6")))
+            setup["cfg"].replace(mixer="hymba")))
     with pytest.raises(NotImplementedError, match="M7"):
         model.apply(setup["params"], setup["cfg"].replace(n_experts=4,
                                                           top_k=2,

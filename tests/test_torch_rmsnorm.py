@@ -49,6 +49,17 @@ def test_torch_ref_matches_reference(shape, dtype, ref_impl):
                                rtol=tol, atol=tol)
 
 
+def test_torch_ref_computes_float64_in_float64():
+    """A float64 input is normalised in float64 (the witness the full-width
+    parity check uses), to float64 rounding of numpy's float64 result."""
+    x, w = (a.astype(np.float64) for a in _inputs((100, 64)))
+    want = x / np.sqrt(np.mean(x * x, -1, keepdims=True) + 1e-6) * w
+    out = rmsnorm(torch.from_numpy(x), torch.from_numpy(w), eps=1e-6,
+                  impl="torch_ref")
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
 def test_legacy_aliases_resolve():
     assert registry.FALLBACK_IMPL == "torch_ref"
     for name in ("xla", "xla_ref", "ref"):

@@ -92,6 +92,39 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+@pytest.mark.parametrize("entry", ["init_cache", "init_gqa_cache",
+                                   "init_rwkv6_cache", "PagedKV",
+                                   "params_from_numpy"])
+def test_device_defaults_to_cuda(monkeypatch, entry):
+    """Public functions that place tensors default to ``cuda``, never to
+    the host: without a CUDA device they raise unless given a device."""
+    from repro_torch import configs
+    from repro_torch.models import attention, rwkv6, transformer
+    from repro_torch.serve import PagedKV
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_reduced("qwen3-0.6b")
+    rwkv = configs.get_reduced("rwkv6-1.6b")
+    calls = {
+        "init_cache": lambda **kw: transformer.init_cache(cfg, 1, 8, **kw),
+        "init_gqa_cache": lambda **kw: attention.init_gqa_cache(cfg, 1, 8,
+                                                                **kw),
+        "init_rwkv6_cache": lambda **kw: rwkv6.init_rwkv6_cache(rwkv, 1,
+                                                                **kw),
+        "PagedKV": lambda **kw: PagedKV(
+            transformer.init_cache(cfg, 1, 8, transformer.RunOptions(
+                decode_cache_dtype="float32"), device="cpu"),
+            transformer.cache_axes(cfg), max_len=8, capacity_tokens=8, **kw),
+        "params_from_numpy": lambda **kw: params_from_numpy(
+            {"w": np.zeros(3, np.float32)}, **kw),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    leaves = compat.tree_leaves(out) if entry != "PagedKV" else []
+    assert all(t.device.type == "cpu" for t in leaves)
+
+
 @pytest.mark.parametrize("flag", [["--cache-dir", "x"], ["--replicas", "2"],
                                   ["--tenant", "a=qwen3-0.6b"],
                                   ["--plane-dir", "x"]])
