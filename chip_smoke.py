@@ -10,9 +10,10 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 
 1. Device: prints the card's name and power limit (``nvidia-smi``) and
    checks compute capability (9, 0).
-2. Build: compiles every kernel of the serve and prefill paths from the
-   sources in the checkout, one ``nvcc`` per source, all started together
-   (into the git-ignored ``build/kernels``).
+2. Build: compiles every kernel of the port (rmsnorm, flash attention,
+   linear attention, matmul, fastpath) from the sources in the checkout,
+   one ``nvcc`` per source, all started together (into the git-ignored
+   ``build/kernels``).
 3. RMSNorm vs plain: the kernel against its plain PyTorch version on the
    card, at every shape the served batch buckets and a (1, 4096) prefill
    of qwen3 and of rwkv6 give it, the reference's test shapes, widths and
@@ -35,6 +36,21 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    hymba-like inclusive scalar-decay head, in fp32 (5e-4) and bf16 (3e-2),
    each also held to a limit scaled to every element; times the kernel and
    the plain version (no single PyTorch call computes this function).
+4c. Matmul vs plain: the blocked matmul kernel against its plain version
+   at every instantiated tile triple (both ``assume_divisible`` settings
+   where the shape divides), at the reference's test shapes (ragged ones
+   included) in fp32 (1e-5) and bf16 (3e-2), and at Table 1's N = 256,
+   1024, 4096, a ragged (4095, 1000) x (1000, 3001) and qwen3-0.6b's
+   (4096, 1024) x (1024, 3072) within a limit scaled to each element's
+   sum |x||y|; times the kernel per tile triple, the plain version and
+   ``torch.matmul`` (cuBLAS, TF32 off).
+4d. Fastpath vs plain: the hot-key matcher against its plain version at
+   the reference's cases (every value dtype, int32 and int64 keys, every
+   ``block_b``), at batches of 8192 and 65536 against tables of 1 to
+   4096 keys with int32 and fp32 values, a table of duplicate keys and an
+   all-miss batch; exact for integer values, 1e-6 for float ones; times
+   the kernel and the plain version (no single PyTorch call computes this
+   function).
 5. Serve path: ``repro_torch.launch.serve.build_engine`` serves qwen3-0.6b
    at full width (28 layers, d=1024, vocab 151936; random weights from
    seed 0) in fp32, through the default safety controller that explores
@@ -74,8 +90,25 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    1e-3 of the witness and of the plain path where the plain fp32 path
    lies within 1e-4 of the witness, and (a) must have at least 90 % such
    positions.
+12. The Fig 2 / Table 1 path: (a) ``examples/quickstart_torch.py``'s
+   ``main()`` on the card, which must settle and answer its guard miss
+   through the generic variant; (b) a Table-1 handler on an
+   ``IridescentRuntime`` declaring ``matmul_impl``, the tile triple and
+   ``spec.assume("divisible")``, under a ``Controller`` whose
+   ``ExhaustiveSweep`` runs N = 4096 fp32 products until it settles, then a
+   4095 call that misses the divisibility guard and runs the generic
+   variant (the kernel, edge-masked).
+13. The Fig 4 / Fig 9 router (the paper's §5): (a) Fig 4, the LPM
+   router's fast path against its generic for LPM tables of 16 to 8192
+   entries at 100 % hit, batches of 8192 addresses, timed; (b) Fig 9, the
+   ``router`` handler's fast-path table instrumented, built from the
+   observed addresses and explored online by an ``Explorer`` over
+   ``RequestGenerator`` traffic whose addresses shift at the midpoint,
+   ranking the sizes by call rate while its change detector reads the
+   table's share of the rows; it must re-instrument after the shift, and
+   its output must equal the generic's on every 10th step.
 
-In phases 5, 7, 9 and 10 (the main paths) the launch counters and the
+In phases 5, 7, 9, 10, 12 and 13 (the main paths) the launch counters and the
 registry's fallback counts are zeroed just before and read just after;
 every kernel of the path must have launched and none may have fallen
 back.  The line
@@ -85,6 +118,7 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
 import json
 import subprocess
@@ -210,6 +244,54 @@ RWKV_PARITY = (2, 2048)
 RWKV_WITNESS_SEEDS = (0, 1, 2)
 RWKV_QUANTILES = (0.5, 0.9, 1.0)
 RWKV_WITNESS_FACTOR = 4
+#: H100 SXM int32 instruction rate on the SIMT units: 64 INT32 lanes an SM
+#: against the 128 FP32 lanes behind PEAK_FP32_FLOPS (NVIDIA's Hopper
+#: architecture white paper), so a quarter of the fp32 FLOP/s (two flops
+#: an FMA): the rate of the fast-path matcher's key compares
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
+#: blocked matmul (K3) cases (m, k, n): the reference's test shapes
+#: (tests/test_kernels.py:28-55, ragged ones included), held to its
+#: tolerances (MATMUL_TOL) at every instantiated tile triple
+MATMUL_TEST_SHAPES = [(32, 32, 32), (64, 96, 48), (128, 64, 128),
+                      (96, 72, 80), (64, 64, 64), (50, 30, 70)]
+MATMUL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+#: the card's shapes: Table 1's square sizes, a ragged product and
+#: qwen3-0.6b's widest layer product (the MLP up projection of a (1, 4096)
+#: prefill), held to a limit scaled to each element: the kernel and the
+#: plain version (cuBLAS) each sum K fp32 products in their own order, so
+#: they differ by about sqrt(K) 2^-24 sum_k |x||y| (allowed
+#: MATMUL_SCALED_FACTOR times that), plus one bf16 ulp (2^-7 of the value)
+#: for a bf16 output whose two fp32 sums round to neighbouring numbers
+MATMUL_TABLE1_SIZES = (256, 1024, 4096)
+MATMUL_CARD_SHAPES = [*[(n, n, n) for n in MATMUL_TABLE1_SIZES],
+                      (4095, 1000, 3001), (4096, 1024, 3072)]
+MATMUL_SCALED_FACTOR = 8
+#: the Table-1 handler (phase 12): square size of the Controller's sweep,
+#: the size of the call that must miss its divisibility guard, and calls
+#: per candidate
+TABLE1_N = 4096
+TABLE1_MISS_N = 4095
+TABLE1_DWELL = 3
+#: fast-path matcher (K5) cases (B, N, K, V): the reference's
+#: (tests/test_kernels.py:136-145, block_b 32 there), then the router's
+#: K = 1 at batches of 8192 and 65536 against fig 9's table sizes and the
+#: generator's hot pool (data/pipeline.py: 4096), with int32 values (V = 1,
+#: the router's next hop) and fp32 values (V = 16); exact for integer
+#: values, FASTPATH_TOL for float ones
+FASTPATH_TEST_CASES = [(64, 8, 3, 16), (100, 4, 1, 8), (256, 32, 2, 4)]
+FASTPATH_BATCHES = (8192, 65536)
+FASTPATH_TABLES = (1, 4, 16, 256, 4096)
+FASTPATH_TOL = 1e-6
+#: the router (phase 13): addresses a batch, fig 4's LPM table sizes and
+#: hot addresses, fig 9's table size, iterations, dwell and candidate
+#: fast-path sizes (benchmarks/fig4_fastpath.py, fig9_fastpath_size.py)
+ROUTER_BATCH = 8192
+FIG4_TABLES = (16, 128, 1024, 8192)
+FIG4_HOT = 16
+FIG9_TABLE = 512
+FIG9_ITERS = 700
+FIG9_DWELL = 30
+FIG9_SIZES = (1, 4, 16)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -293,12 +375,16 @@ def phase_build() -> None:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.fastpath import kernel as fp_kernel
     from repro_torch.kernels.linear_attention import kernel as la_kernel
+    from repro_torch.kernels.matmul import kernel as mm_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 
     libs = {"rmsnorm": rms_kernel.load_library,
             "flash_attention": attn_kernel.load_library,
-            "linear_attention": la_kernel.load_library}
+            "linear_attention": la_kernel.load_library,
+            "matmul": mm_kernel.load_library,
+            "fastpath": fp_kernel.load_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for future in [pool.submit(load) for load in libs.values()]:
@@ -715,6 +801,265 @@ def phase_linear_attention() -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
+            "per_shape": per_shape}
+
+
+def _matmul_cost(m: int, k: int, n: int, itemsize: int,
+                 out_itemsize: int) -> tuple[float, str]:
+    """Least time (ms) on the card: x and y read once, out written once,
+    against 2mnk flops at the fp32 FMA peak for fp32 inputs and at the
+    bf16 tensor-core peak for bf16 ones."""
+    nbytes = (m * k + k * n) * itemsize + m * n * out_itemsize
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, 2 * m * n * k / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _matmul_limit(x, y, ref):
+    """The per-element limit of the card's shapes (MATMUL_SCALED_FACTOR)."""
+    import torch
+
+    k = x.shape[1]
+    mag = x.float().abs() @ y.float().abs()
+    limit = MATMUL_SCALED_FACTOR * k ** 0.5 * 2.0 ** -24 * mag + 1e-6
+    if ref.dtype == torch.bfloat16:
+        limit += 2.0 ** -7 * ref.float().abs()
+    return limit
+
+
+def phase_matmul() -> dict:
+    """K3 against its plain version at every tile triple, then timed with
+    the plain version and cuBLAS (``torch.matmul``, TF32 off)."""
+    import torch
+
+    from repro_torch.kernels.matmul import kernel, ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    checked = 0
+
+    def inputs(m, k, n, dtype):
+        tdt = getattr(torch, dtype)
+        return (torch.randn((m, k), generator=gen, device=dev).to(tdt),
+                torch.randn((k, n), generator=gen, device=dev).to(tdt))
+
+    def check(out, ref, limit, what: str, tol: float | None) -> None:
+        nonlocal checked
+        dtype = str(ref.dtype).removeprefix("torch.")
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            fail(f"matmul {what}: got {tuple(out.shape)} {out.dtype}, "
+                 f"wanted {tuple(ref.shape)} {ref.dtype}")
+        if tol is not None:
+            torch.testing.assert_close(
+                out.float(), ref.float(), rtol=tol, atol=tol,
+                msg=lambda m: f"matmul {what} (tolerance {tol}): {m}")
+        diff = (out.float() - ref.float()).abs()
+        if not bool((diff <= limit).all()):
+            fail(f"matmul {what}: beyond the scaled limit by "
+                 f"{(diff - limit).max().item():.3e}")
+        max_err[dtype] = max(max_err[dtype], diff.max().item())
+        checked += 1
+
+    for shapes, tiles_list, scaled_only in (
+            (MATMUL_TEST_SHAPES, kernel.TILES, False),
+            (MATMUL_CARD_SHAPES, kernel.TILES, True)):
+        for (m, k, n), dtype in itertools.product(shapes,
+                                                  ("float32", "bfloat16")):
+            x, y = inputs(m, k, n, dtype)
+            ref = ops.matmul(x, y, impl="torch_ref")
+            limit = _matmul_limit(x, y, ref)
+            tol = None if scaled_only else MATMUL_TOL[dtype]
+            # the small test tiles at the card's shapes in fp32 only
+            for bm, bn, bk in tiles_list:
+                if scaled_only and dtype == "bfloat16" \
+                        and (bm, bn, bk) not in kernel.CARD_TILES:
+                    continue
+                div = m % bm == 0 and n % bn == 0 and k % bk == 0
+                for assume in (False, True) if div else (False,):
+                    out = ops.matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda",
+                                     assume_divisible=assume)
+                    torch.cuda.synchronize()
+                    check(out, ref, limit, f"({m},{k})x({k},{n}) {dtype} "
+                          f"tiles ({bm},{bn},{bk}) assume_divisible="
+                          f"{assume}", tol)
+                    del out
+            del x, y, ref, limit
+    torch.cuda.empty_cache()
+    log(f"matmul: cuda == torch_ref at {checked} shape/dtype/tile cases "
+        f"(the reference's test shapes at every tile triple {kernel.TILES} "
+        f"within {MATMUL_TOL}; (m, k, n) {MATMUL_CARD_SHAPES} within "
+        f"{MATMUL_SCALED_FACTOR} sqrt(K) 2^-24 sum|x||y| (+ one bf16 ulp); "
+        f"both assume_divisible settings where the shape divides); "
+        f"max_abs_err fp32 {max_err['float32']:.3e}, bf16 "
+        f"{max_err['bfloat16']:.3e}")
+
+    per_shape = []
+    timed = [(s, "float32") for s in MATMUL_CARD_SHAPES] + [
+        ((TABLE1_N,) * 3, "bfloat16")]
+    for (m, k, n), dtype in timed:
+        x, y = inputs(m, k, n, dtype)
+        iters = max(3, min(200, int(4e10 / (2 * m * n * k))))
+        tiles_list = (kernel.TILES if dtype == "float32" else
+                      kernel.CARD_TILES)
+        kernel_ms = {}
+        for bm, bn, bk in tiles_list:
+            div = m % bm == 0 and n % bn == 0 and k % bk == 0
+            kernel_ms[f"{bm}x{bn}x{bk}"] = cuda_time_ms(
+                lambda t=(bm, bn, bk), d=div: kernel.matmul_cuda(
+                    x, y, bm=t[0], bn=t[1], bk=t[2], assume_divisible=d),
+                iters, max(1, iters // 10))
+        plain_ms = cuda_time_ms(
+            lambda: ops.matmul(x, y, impl="torch_ref"), iters,
+            max(1, iters // 10))
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, y), iters,
+                                  max(1, iters // 10))
+        bound_ms, bound_by = _matmul_cost(m, k, n, x.element_size(),
+                                          x.element_size())
+        best = min(kernel_ms, key=kernel_ms.get)
+        per_shape.append({"shape": [m, k, n], "dtype": dtype,
+                          "kernel_ms_by_tiles": kernel_ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"matmul ({m},{k})x({k},{n}) {dtype}: kernel "
+            + " ".join(f"{t} {ms:.4f}" for t, ms in kernel_ms.items())
+            + f" ms (best {best}: {2e-9 * m * n * k / kernel_ms[best]:.1f} "
+            f"TFLOP/s, {100 * bound_ms / kernel_ms[best]:.1f}% of the "
+            f"bound); plain {plain_ms:.4f} ms; cuBLAS {library_ms:.4f} ms "
+            f"({2e-9 * m * n * k / library_ms:.1f} TFLOP/s); bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        del x, y
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(max_err.values()),
+            "max_abs_err_by_dtype": max_err, "checked": checked,
+            "per_shape": per_shape}
+
+
+def _fastpath_cost(b: int, n: int, kw: int, v: int, key_itemsize: int,
+                   value_itemsize: int) -> tuple[float, str]:
+    """Least time (ms) on the card: queries, keys and values read once,
+    out and hit written once, against the B * N * K key compares (two
+    int32 operations for an int64 key) at the int32 rate."""
+    nbytes = ((b + n) * kw * key_itemsize + (n + b) * v * value_itemsize
+              + b)
+    ops_ = b * n * kw * (key_itemsize // 4)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops_ / PEAK_INT32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fastpath() -> dict:
+    """K5 against its plain version, exact for integer values, then
+    timed."""
+    import torch
+
+    from repro_torch.kernels.fastpath import kernel, ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    checked = 0
+    max_err = 0.0
+
+    def inputs(b, n, kw, v, vdtype, kdtype=torch.int32, hot=0.5,
+               key_range=None):
+        """Keys from a range of about N / 2 values (so some repeat); about
+        ``hot`` of the queries drawn from the keys, the rest from the
+        range (mostly misses)."""
+        hi = key_range or max(2, n // 2)
+        keys = torch.randint(0, hi, (n, kw), generator=gen, device=dev)
+        x = torch.randint(0, max(2, 2 * hi), (b, kw), generator=gen,
+                          device=dev)
+        if n:
+            pick = torch.rand((b,), generator=gen, device=dev) < hot
+            rows = torch.randint(0, n, (b,), generator=gen, device=dev)
+            x = torch.where(pick[:, None], keys[rows], x)
+        if vdtype.is_floating_point:
+            vals = torch.randn((n, v), generator=gen, device=dev).to(vdtype)
+        else:
+            vals = torch.randint(-2 ** 30, 2 ** 30, (n, v), generator=gen,
+                                 device=dev).to(vdtype)
+        return x.to(kdtype), keys.to(kdtype), vals
+
+    def check(x, keys, vals, block_b, what):
+        nonlocal checked, max_err
+        out, hit = ops.lookup(x, keys, vals, block_b=block_b, impl="cuda")
+        ref, ref_hit = ops.lookup(x, keys, vals, impl="torch_ref")
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != ref.dtype \
+                or hit.dtype != torch.bool:
+            fail(f"fastpath {what}: got {tuple(out.shape)} {out.dtype}, "
+                 f"hit {hit.dtype}")
+        if not torch.equal(hit, ref_hit):
+            fail(f"fastpath {what}: hit differs at "
+                 f"{int((hit != ref_hit).sum())} rows")
+        if vals.dtype.is_floating_point:
+            torch.testing.assert_close(
+                out.float(), ref.float(), rtol=FASTPATH_TOL,
+                atol=FASTPATH_TOL, msg=lambda m: f"fastpath {what}: {m}")
+            if out.numel():
+                max_err = max(max_err,
+                              (out.float() - ref.float()).abs().max().item())
+        elif not torch.equal(out, ref):
+            fail(f"fastpath {what}: integer sums differ at "
+                 f"{int((out != ref).any(-1).sum())} rows")
+        checked += 1
+        return hit
+
+    value_dtypes = (torch.float32, torch.bfloat16, torch.int32, torch.int64)
+    for (b, n, kw, v), vdt, kdt, block_b in itertools.product(
+            FASTPATH_TEST_CASES, value_dtypes, (torch.int32, torch.int64),
+            kernel.BLOCK_B):
+        x, keys, vals = inputs(b, n, kw, v, vdt, kdt, key_range=10)
+        check(x, keys, vals, block_b, f"({b},{n},{kw},{v}) {vdt} keys {kdt} "
+              f"block_b {block_b}")
+    for b, n, (vdt, v) in itertools.product(
+            FASTPATH_BATCHES, FASTPATH_TABLES,
+            ((torch.int32, 1), (torch.float32, 16))):
+        x, keys, vals = inputs(b, n, 1, v, vdt)
+        for block_b in kernel.BLOCK_B:
+            check(x, keys, vals, block_b,
+                  f"({b},{n},1,{v}) {vdt} block_b {block_b}")
+    # a table whose keys all repeat (pairs with different values) and a
+    # batch that misses every key
+    x, keys, vals = inputs(8192, 256, 1, 16, torch.float32)
+    keys = torch.cat([keys[:128], keys[:128]])
+    check(x, keys, vals, 256, "duplicate keys")
+    x, keys, vals = inputs(8192, 4096, 1, 1, torch.int32, hot=0.0)
+    if check(x, keys - 2 ** 20, vals, 256, "all miss").any():
+        fail("fastpath: the all-miss batch hit")
+    log(f"fastpath: cuda == torch_ref at {checked} cases (the reference's "
+        f"{FASTPATH_TEST_CASES} x values fp32/bf16/int32/int64 x keys "
+        f"int32/int64 x block_b {kernel.BLOCK_B}; K = 1 at B "
+        f"{FASTPATH_BATCHES} x N {FASTPATH_TABLES} with int32 (V = 1) and "
+        f"fp32 (V = 16) values; duplicate keys; an all-miss batch), exact "
+        f"for integer values, within {FASTPATH_TOL} for float ones "
+        f"(max_abs_err {max_err:.3e})")
+
+    per_shape = []
+    for b, n, (vdt, v) in itertools.product(
+            FASTPATH_BATCHES, FASTPATH_TABLES,
+            ((torch.int32, 1), (torch.float32, 16))):
+        x, keys, vals = inputs(b, n, 1, v, vdt)
+        kernel_ms = {str(bb): cuda_time_ms(
+            lambda bb=bb: kernel.fastpath_cuda(x, keys, vals, block_b=bb),
+            100, 10) for bb in kernel.BLOCK_B}
+        plain_ms = cuda_time_ms(
+            lambda: ops.lookup(x, keys, vals, impl="torch_ref"), 10, 2)
+        bound_ms, bound_by = _fastpath_cost(b, n, 1, v, 4,
+                                            vals.element_size())
+        per_shape.append({"shape": [b, n, 1, v],
+                          "value_dtype": str(vdt).removeprefix("torch."),
+                          "kernel_ms_by_block_b": kernel_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": None})
+        log(f"fastpath B={b} N={n} K=1 V={v} {vdt}: kernel "
+            + " ".join(f"b{bb} {ms:.4f}" for bb, ms in kernel_ms.items())
+            + f" ms; plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+        del x, keys, vals
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "checked": checked,
             "per_shape": per_shape}
 
 
@@ -1516,6 +1861,324 @@ def phase_rwkv_parity(cfg, params) -> dict:
     return {"seeds": results, "kernel_call_max_diff": max(calls)}
 
 
+def _load_example(name: str):
+    """A module of the checkout's ``examples/`` (not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_table1() -> dict:
+    """(a) The Fig 2 quickstart on the card; (b) a Table-1 handler whose
+    ``matmul_impl`` x tile x divisibility points a Controller sweeps over
+    N = TABLE1_N products, then a TABLE1_MISS_N call that misses its
+    divisibility guard."""
+    import torch
+
+    from repro_torch.core import (DEFAULT_CONTEXT, Controller,
+                                  ExhaustiveSweep, IridescentRuntime,
+                                  guards)
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.matmul import kernel, matmul
+
+    t0 = time.perf_counter()
+    quick = _load_example("quickstart_torch").main(["--device", "cuda"])
+    if not quick["settled"] or quick["guard_misses"] != 1:
+        fail(f"quickstart: settled={quick['settled']}, guard misses "
+             f"{quick['guard_misses']} (wanted 1)")
+    log(f"table1: quickstart settled on {_config_str(quick['selected'])}, "
+        f"its guard miss answered through the generic variant, in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def build(spec):
+        impl = registry.impl_point(spec, "matmul")
+        bm, bn, bk = spec.enum("tiles", kernel.DEFAULT_TILES,
+                               kernel.CARD_TILES)
+
+        def divisible(args, kwargs, _value):
+            # spec_assume("N % B == 0") for each dimension and its tile
+            return all(guards.shape_multiple_of(i, d)(args, kwargs, t)
+                       for i, d, t in ((0, 0, bm), (0, 1, bk), (1, 1, bn)))
+
+        assume = spec.assume("divisible", guard=divisible)
+
+        def handler(x, y):
+            return matmul(x, y, bm=bm, bn=bn, bk=bk, impl=impl,
+                          assume_divisible=assume)
+
+        return handler
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = TABLE1_N
+    x = torch.randn((n, n), generator=gen, device=dev)
+    y = torch.randn((n, n), generator=gen, device=dev)
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("table1_matmul", build)
+    candidates = [{"matmul_impl": "cuda", "tiles": t, "divisible": True}
+                  for t in kernel.CARD_TILES]
+    candidates.append({"matmul_impl": "torch_ref", "divisible": True})
+    controller = Controller(handler, lambda: ExhaustiveSweep(candidates),
+                            dwell=TABLE1_DWELL, wait_compiles=True,
+                            prefetch=0)
+    kernel.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+    calls = 0
+    for _ in range(100):
+        out = handler(x, y)
+        torch.cuda.synchronize()
+        calls += 1
+        controller.step()
+        if controller.settled():
+            break
+    else:
+        fail("the Table-1 Controller did not settle in 100 calls")
+    ref = matmul(x, y, impl="torch_ref")
+    diff = (out - ref).abs()
+    if out.shape != (n, n) or not bool(
+            (diff <= _matmul_limit(x, y, ref)).all()):
+        fail(f"table1: the settled handler's product is off by "
+             f"{diff.max().item():.3e}")
+    flop = 2 * n ** 3
+    for phase, config, rate in controller.histories()[DEFAULT_CONTEXT]:
+        log(f"table1 sweep: {phase.value} {_config_str(config)} -> "
+            f"{rate * flop / 1e12:.2f} TFLOP/s ({1e3 / rate:.2f} ms/call)")
+    chosen = controller.best_configs()[DEFAULT_CONTEXT]
+    log(f"table1 sweep: settled after {calls} calls on {_config_str(chosen)}")
+
+    # A size the divisibility assumption does not hold for: the handler's
+    # guard misses and the generic variant (the kernel, edge-masked) runs.
+    misses, launches = handler.guard_misses, kernel.launches
+    m = TABLE1_MISS_N
+    x2, y2 = x[:m, :m].contiguous(), y[:m, :m].contiguous()
+    out2 = handler(x2, y2)
+    torch.cuda.synchronize()
+    ref2 = matmul(x2, y2, impl="torch_ref")
+    if handler.guard_misses != misses + 1:
+        fail(f"table1: the ({m}, {m}) call missed the guard "
+             f"{handler.guard_misses - misses} times, wanted 1")
+    if kernel.launches != launches + 1:
+        fail(f"table1: the ({m}, {m}) call launched the kernel "
+             f"{kernel.launches - launches} times, wanted 1")
+    diff2 = (out2 - ref2).abs()
+    if not bool((diff2 <= _matmul_limit(x2, y2, ref2)).all()):
+        fail(f"table1: the generic variant's ({m}, {m}) product is off by "
+             f"{diff2.max().item():.3e}")
+    launched = kernel.launches
+    fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                 registry.default_registry.fallback_counts.items()}
+    log(f"table1: ({m}, {m}) call missed the divisibility guard (guard "
+        f"misses {handler.guard_misses}), ran the generic variant on the "
+        f"kernel, max |diff| {diff2.max().item():.3e}; matmul cuda "
+        f"launches={launched}, fallbacks={json.dumps(fallbacks)}")
+    if launched == 0:
+        fail("the Table-1 path never launched the matmul kernel")
+    if fallbacks:
+        fail(f"the Table-1 path fell back: {fallbacks}")
+    rt.shutdown()
+    tiles = _setting(chosen, "tiles")              # None for torch_ref
+    return {"launches": launched, "calls": calls + 1,
+            "chosen": {"matmul_impl": registry.resolve(
+                "matmul", _setting(chosen, "matmul_impl")).name,
+                "tiles": list(tiles) if tiles else None},
+            "quickstart": _config_str(quick["selected"])}
+
+
+def _make_lpm(m: int, rs, dev):
+    """benchmarks/fig4_fastpath.py::make_lpm in torch: a random LPM table
+    (net, masklen, next hop) and its vectorized longest-prefix match.  The
+    numbers are drawn as the reference draws them; the tables are int32,
+    as JAX holds them with 64-bit types off."""
+    import numpy as np
+    import torch
+
+    masklen = rs.randint(8, 25, size=m).astype(np.int32)
+    nets = (rs.randint(0, 2**31 - 1, size=m).astype(np.int64)
+            & (~((1 << (32 - masklen)) - 1))).astype(np.int64)
+    hops = rs.randint(1, 255, size=m).astype(np.int64)
+    nets_c = torch.as_tensor(nets.astype(np.int32), device=dev)
+    mask_c = torch.as_tensor(masklen, device=dev)
+    hops_c = torch.as_tensor(hops.astype(np.int32), device=dev)
+    shift = 32 - mask_c
+    nets_s = nets_c >> shift
+
+    def lookup(addrs):            # (B, 1) int32 -> (B, 1) int32
+        a = addrs.reshape(-1)
+        match = (a[:, None] >> shift[None, :]) == nets_s[None, :]  # (B, M)
+        pref = torch.where(match, mask_c[None, :], -1)
+        best = torch.argmax(pref, dim=-1)
+        hit = pref.max(dim=-1).values >= 0
+        hop = torch.where(hit, hops_c[best], 0)
+        return hop[:, None]
+
+    return lookup, nets, masklen
+
+
+def phase_router() -> dict:
+    """(a) Fig 4: the LPM router's fast path against its generic at 100 %
+    hit; (b) Fig 9: change-triggered instrumentation and exploration of
+    the fast-path size through the runtime, the traffic shifting at the
+    midpoint."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (ChangeDetector, ExhaustiveSweep, Explorer,
+                                  IridescentRuntime, Phase)
+    from repro_torch.core.fastpath import (FastPathTable, build_table,
+                                           make_fastpath)
+    from repro_torch.data import RequestGenerator
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fastpath import kernel
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rs = np.random.RandomState(0)
+    kernel.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+
+    def as_batch(keys) -> torch.Tensor:
+        # jnp.asarray of int64 addresses is int32 with 64-bit types off
+        return torch.as_tensor(np.asarray(keys).reshape(-1, 1)
+                               .astype(np.int32), device=dev)
+
+    fig4 = []
+    for m in FIG4_TABLES:
+        lookup, nets, _ = _make_lpm(m, rs, dev)
+        hot = nets[:FIG4_HOT] | 1
+        hot_keys = hot.reshape(-1, 1)
+        hot_vals = lookup(as_batch(hot_keys)).cpu().numpy()
+        fp = make_fastpath(lookup, FastPathTable.from_arrays(
+            hot_keys, hot_vals), key_dtype=torch.int64,
+            value_dtype=torch.int64)
+        batch = as_batch(rs.choice(hot, ROUTER_BATCH))
+        launches = kernel.launches
+        out, expect = fp(batch), lookup(batch)
+        if kernel.launches != launches + 1 or not torch.equal(out, expect):
+            fail(f"fig4 M={m}: the fast path's output differs from the "
+                 f"generic's (or the matcher did not launch)")
+        ms_g = cuda_time_ms(lambda: lookup(batch), 100, 10)
+        ms_f = cuda_time_ms(lambda: fp(batch), 100, 10)
+        fig4.append({"M": m, "generic_ms": ms_g, "fastpath_ms": ms_f})
+        log(f"fig4 M={m}: generic {ms_g:.4f} ms, fast path {ms_f:.4f} ms "
+            f"a batch of {ROUTER_BATCH} (all hit; speedup {ms_g / ms_f:.2f}"
+            f"x)")
+
+    fig4_launches = kernel.launches
+    kernel.reset_launches()
+
+    # Fig 9.  The Explorer ranks the table sizes by the handler's call
+    # rate, the reference's metric.  On the card that rate barely moves
+    # with the table or with the traffic: the generic runs on the whole
+    # batch unless every row hits, which a batch of thousands of Zipf
+    # addresses never does against 16 entries.  So the change detector
+    # watches what the shift does move, the share of the last dwell's rows
+    # that the installed table holds (counted here by torch.isin, beside
+    # the router), and ignores the call rate the Explorer hands it.
+    lookup, nets, _ = _make_lpm(FIG9_TABLE, rs, dev)
+    gen = RequestGenerator(seed=2)
+    # hot addresses drawn from the LPM nets so lookups are meaningful
+    gen._hot_keys = nets[:4096] | 1
+    rt = IridescentRuntime(async_compile=False)
+    rt.add_custom_spec("fastpath", lambda tbl: make_fastpath(
+        lookup, tbl, key_dtype=torch.int64, value_dtype=torch.int64))
+
+    def builder(spec):
+        fp = spec.custom("table", "fastpath")
+        return fp if fp is not None else lookup
+
+    h = rt.register("router", builder)
+    h(as_batch(gen.keys(ROUTER_BATCH)))
+    held = collections.deque(maxlen=FIG9_DWELL)   # rows a call, in the table
+    table_keys = {}                               # table -> its keys on dev
+
+    class TableShareChange(ChangeDetector):
+        def update(self, _rate: float) -> bool:
+            return super().update(sum(held) / (max(1, len(held))
+                                               * ROUTER_BATCH))
+
+    def on_instrumented(ex):
+        obs = h.spec_space().observed
+        cands = []
+        for size in FIG9_SIZES:
+            tbl = build_table(obs, "addr", size,
+                              lambda k: lookup(k.reshape(1, 1)).ravel())
+            if tbl is not None:
+                table_keys[tbl] = tbl.key_array(torch.int64, dev).ravel()
+                cands.append({"table": tbl})
+        ex.policy.candidates = cands
+        ex.policy.reset()
+
+    ex = Explorer(
+        h, ExhaustiveSweep([]), dwell=FIG9_DWELL,
+        change_detector=TableShareChange(0.4, warmup=0),
+        instrument_iters=100, instrument_rate=0.25,
+        collectors={"addr": lambda a, k: int(a[0][0, 0].item())},
+        on_instrumented=on_instrumented)
+
+    half = FIG9_ITERS // 2
+    sizes, explorations, rows_held, wall = {}, {}, {0: 0, 1: 0}, {}
+    t_phase = time.perf_counter()
+    compared = 0
+    for i in range(FIG9_ITERS):
+        part = 0 if i < half else 1
+        if i == half:
+            gen.shift()                   # disjoint address set
+            explorations[0] = ex.explorations
+            wall[0] = time.perf_counter() - t_phase
+            t_phase = time.perf_counter()
+        batch = as_batch(gen.keys(ROUTER_BATCH))
+        out = h(batch)
+        tbl = h.active_config().get("table")
+        held.append(int(torch.isin(batch.ravel(), table_keys[tbl]).sum())
+                    if isinstance(tbl, FastPathTable) else 0)
+        rows_held[part] += held[-1]
+        if i % 10 == 0:
+            compared += 1
+            if not torch.equal(out, lookup(batch)):
+                fail(f"fig9 step {i}: the router's output differs from the "
+                     f"generic's (config {_config_str(h.active_config())})")
+        ex.step()
+        if ex.phase is Phase.EXPLOIT:             # the size it installed
+            cfg = h.active_config().get("table")
+            sizes[part] = cfg.n if isinstance(cfg, FastPathTable) else 0
+    torch.cuda.synchronize()
+    wall[1] = time.perf_counter() - t_phase
+    explorations[1] = ex.explorations
+    for part in (0, 1):
+        log(f"fig9 phase {part}: installed fast-path size "
+            f"N={sizes.get(part)} by call rate, "
+            f"{FIG9_ITERS // 2} batches of {ROUTER_BATCH} in "
+            f"{wall[part]:.2f}s ({FIG9_ITERS / 2 / wall[part]:.1f} calls/s, "
+            f"{rows_held[part] / (FIG9_ITERS / 2 * ROUTER_BATCH):.3f} of the "
+            f"rows held by the table), explorations so far "
+            f"{explorations[part]}")
+    for phase, config, rate in ex.history:
+        n_tbl = config.get("table") if config else None
+        if phase.value == "explore":
+            log(f"fig9: explore N={n_tbl.n} -> {rate:.1f} calls/s")
+    launched = kernel.launches
+    fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                 registry.default_registry.fallback_counts.items()}
+    log(f"fig9: explorations {ex.explorations} (re-instrumented after the "
+        f"shift: {explorations[1] > explorations[0]}), output == generic "
+        f"on {compared} sampled steps; fastpath cuda launches={launched} "
+        f"(fig 4: {fig4_launches}), fallbacks={json.dumps(fallbacks)}")
+    if explorations[1] <= explorations[0]:
+        fail("fig9: the Explorer did not re-instrument after the shift")
+    if not sizes.get(1):
+        fail("fig9: the Explorer installed no fast path after the shift")
+    if launched == 0:
+        fail("the router path never launched the fast-path matcher")
+    if fallbacks:
+        fail(f"the router path fell back: {fallbacks}")
+    rt.shutdown()
+    return {"launches": launched, "fig4_launches": fig4_launches,
+            "fig4": fig4, "sizes": sizes, "explorations": ex.explorations}
+
+
 def main() -> None:
     try:
         import torch
@@ -1538,6 +2201,8 @@ def main() -> None:
     rms = phase_rmsnorm()
     attn = phase_attention()
     linatt = phase_linear_attention()
+    mm = phase_matmul()
+    fpk = phase_fastpath()
     cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
     main_path = phase_main_path(cfg)
     params = main_path.pop("built").params
@@ -1551,6 +2216,10 @@ def main() -> None:
     rparams = rprefill.pop("params")
     rserve = phase_rwkv_serve(rcfg, rparams)
     phase_rwkv_parity(rcfg, rparams)
+    del rparams
+    torch.cuda.empty_cache()
+    table1 = phase_table1()
+    router = phase_router()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -1569,6 +2238,17 @@ def main() -> None:
                                    RWKV_HEAD] and r["dtype"] == "float32")
     c = str(rprefill["chosen"]["chunk_len"])
     rn = RWKV_LAYERS
+    # K3 at (TABLE1_N,)^3 fp32, the Table-1 handler's product, at its
+    # best-measured tiles; the Table-1 Controller may settle on the plain
+    # version, which the entry names.
+    mm_at = next(r for r in mm["per_shape"]
+                 if r["shape"] == [TABLE1_N] * 3 and r["dtype"] == "float32")
+    mm_tiles = min(mm_at["kernel_ms_by_tiles"],
+                   key=mm_at["kernel_ms_by_tiles"].get)
+    # K5 per router batch: one launch at fig 4's shape (ROUTER_BATCH
+    # addresses against FIG4_HOT keys, int32 next hops), block_b 256.
+    fp_at = next(r for r in fpk["per_shape"]
+                 if r["shape"] == [ROUTER_BATCH, FIG4_HOT, 1, 1])
     kernels = [{
         "name": "rmsnorm",
         "route": "cuda",
@@ -1625,6 +2305,44 @@ def main() -> None:
                f"{RWKV_HEAD}, {RWKV_HEAD}) fp32, exclusive with the bonus, "
                f"chunk {c})",
         "shapes": linatt["per_shape"],
+    }, {
+        "name": "matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul/kernel.py:43",
+        "launches": table1["launches"],
+        "max_abs_err": mm["max_abs_err"],
+        "max_abs_err_by_dtype": mm["max_abs_err_by_dtype"],
+        "ms": mm_at["kernel_ms_by_tiles"][mm_tiles],
+        "plain_ms": mm_at["plain_ms"],
+        "bound_ms": mm_at["bound_ms"],
+        "bound_by": mm_at["bound_by"],
+        "library_ms": mm_at["library_ms"],
+        "library_note": "torch.matmul (cuBLAS fp32 SGEMM, TF32 off)",
+        "per": f"one K3 launch at ({TABLE1_N},{TABLE1_N}) x ({TABLE1_N},"
+               f"{TABLE1_N}) fp32 at its best-measured tiles {mm_tiles}, "
+               f"not a settled Table-1 call",
+        "settled_impl": table1["chosen"]["matmul_impl"],
+        "settled_tiles": table1["chosen"]["tiles"],
+        "shapes": mm["per_shape"],
+    }, {
+        "name": "fastpath",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fastpath/csrc/fastpath.cu",
+        "replaces": "src/repro/kernels/fastpath/kernel.py:44",
+        "launches": router["launches"],
+        "fig4_launches": router["fig4_launches"],
+        "max_abs_err": fpk["max_abs_err"],
+        "ms": fp_at["kernel_ms_by_block_b"]["256"],
+        "plain_ms": fp_at["plain_ms"],
+        "bound_ms": fp_at["bound_ms"],
+        "bound_by": fp_at["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call matches keys and gathers "
+                        "the summed values",
+        "per": f"one router batch: {ROUTER_BATCH} int32 addresses against "
+               f"{FIG4_HOT} hot keys, int32 next hops, block_b 256",
+        "shapes": fpk["per_shape"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

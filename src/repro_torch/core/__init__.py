@@ -18,7 +18,9 @@ Policy API (used by the system's fixed code):
     ``IridescentRuntime`` — ``.register``, ``.handler``, ``.spec_space``,
     ``.specialize``, ``.add_custom_spec``
 
-The variant cache, guards and fast path wait for ROADMAP M3 and M9.
+Building blocks: policies, metrics, guards, instrumentation, and the
+Morpheus-style fast-path specialization (``fastpath``).  The persistent
+variant cache waits for ROADMAP M3.
 """
 from repro_torch.core.points import (DISABLED, AssumePoint, Config,
                                      CustomPoint, EnumPoint, GenericPoint,
@@ -42,7 +44,7 @@ from repro_torch.core.safety import CanaryGate, Quarantine, SafetyController
 from repro_torch.core.metrics import (AtomicCounter, ChangeDetector, EWMA,
                                       StepTimer, ThroughputCounter,
                                       ThroughputWindow)
-from repro_torch.core import instrumentation, telemetry
+from repro_torch.core import fastpath, guards, instrumentation, telemetry
 from repro_torch.core.telemetry import EventBus, export_chrome_trace
 
 __all__ = [
@@ -57,6 +59,7 @@ __all__ = [
     "ScoreBoard", "SuccessiveHalving", "ThompsonSampling",
     "CanaryGate", "Quarantine", "SafetyController",
     "AtomicCounter", "ChangeDetector", "EWMA",
-    "StepTimer", "ThroughputCounter", "ThroughputWindow",
-    "instrumentation", "telemetry", "EventBus", "export_chrome_trace",
+    "StepTimer", "ThroughputCounter", "ThroughputWindow", "fastpath",
+    "guards", "instrumentation", "telemetry", "EventBus",
+    "export_chrome_trace",
 ]

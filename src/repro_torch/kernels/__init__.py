@@ -9,8 +9,9 @@ and dispatches through it).  :mod:`repro_torch.kernels.build` compiles the
 CUDA sources.
 """
 from repro_torch.kernels import registry
-from repro_torch.kernels import attention, linear_attention, rmsnorm
+from repro_torch.kernels import (attention, fastpath, linear_attention, matmul,
+                                 rmsnorm)
 from repro_torch.kernels.registry import impl_point
 
-__all__ = ["registry", "attention", "linear_attention", "rmsnorm",
-           "impl_point"]
+__all__ = ["registry", "attention", "fastpath", "linear_attention", "matmul",
+           "rmsnorm", "impl_point"]

@@ -1,0 +1,66 @@
+"""Public fast-path lookup op, registry-dispatched.
+
+Two entries: ``torch_ref`` (the plain version, :mod:`.ref`) and ``cuda``
+(the hand-written kernel, :mod:`.kernel`).  The ``cuda`` guard decides by
+device only: a host tensor misses it and runs ``torch_ref``, counted in
+the registry's ``fallback_counts``.  The reference's ``_guard``
+(``src/repro/kernels/fastpath/ops.py:28-32``) also sends float queries to
+its plain version; here a CUDA call the kernel cannot take (float
+queries, a value dtype, a key width or a ``block_b`` it lacks, shapes
+that disagree) raises in the wrapper.  Where the reference pads the batch
+to ``block_b``, the kernel masks the ragged tail.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import compat
+from repro_torch.kernels import registry
+from repro_torch.kernels.fastpath import kernel, ref
+from repro_torch.kernels.fastpath.kernel import DEFAULT_BLOCK_B
+
+__all__ = ["lookup"]
+
+_INTEGER = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
+
+
+def _guard(x, keys, values, **_kw):
+    return x.device.type == "cuda"
+
+
+@registry.register("fastpath", "torch_ref", priority=0,
+                   description="vectorized compare, onehot gather "
+                               "(the numerical oracle)")
+def _lookup_torch_ref(x, keys, values, *, block_b=DEFAULT_BLOCK_B):
+    del block_b
+    return ref.lookup(x, keys, values)
+
+
+@registry.register("fastpath", "cuda", priority=20,
+                   supports_grad=False, guard=_guard,
+                   available=compat.has_hopper,
+                   prepare=kernel.load_library,
+                   description="hot-key matcher in CUDA C++ for sm_90a "
+                               "(table staged in shared memory, exact "
+                               "integer sums)")
+def _lookup_cuda(x, keys, values, *, block_b=DEFAULT_BLOCK_B):
+    if x.dtype not in _INTEGER or keys.dtype not in _INTEGER:
+        raise TypeError(f"the fast-path kernel takes integer queries and "
+                        f"keys, got {x.dtype} and {keys.dtype}")
+    # Queries and keys compare in one dtype: the wider of the two, as the
+    # plain version's == promotes them.
+    kdt = torch.promote_types(x.dtype, keys.dtype)
+    if kdt in (torch.int8, torch.int16, torch.uint8):
+        kdt = torch.int32
+    return kernel.fastpath_cuda(x.to(kdt).contiguous(),
+                                keys.to(kdt).contiguous(),
+                                values.contiguous(), block_b=block_b)
+
+
+def lookup(x: torch.Tensor, keys: torch.Tensor, values: torch.Tensor, *,
+           block_b: int = DEFAULT_BLOCK_B, impl: str | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x (B, K)`` queries against ``keys (N, K)`` with ``values (N, V)``
+    -> ``(out (B, V), hit (B,) bool)``."""
+    return registry.dispatch("fastpath", impl, x, keys, values,
+                             block_b=block_b)

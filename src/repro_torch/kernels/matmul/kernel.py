@@ -1,0 +1,144 @@
+"""``ctypes`` wrapper of the hand-written CUDA blocked matmul
+(``csrc/matmul.cu``).
+
+Replaces the reference's Pallas TPU kernel
+(``src/repro/kernels/matmul/kernel.py::matmul_pallas``).  The library is
+compiled for ``sm_90a`` with ``nvcc`` on first use (:func:`load_library`);
+the wrapper checks its inputs, allocates the output, launches on
+PyTorch's current stream and raises if the launch reports an error.
+``launches`` counts the kernel launches of this process.
+
+The tile triple ``(bm, bn, bk)`` — the paper's block size ``B`` — is a
+template argument, so each triple is its own compiled kernel, and so is
+``assume_divisible`` (no bounds checks).  :data:`TILES` lists the triples
+the library instantiates:
+
+* every triple the reference's tests run: (32, 16, 8)
+  (``tests/test_kernels.py:34``), (16, 16, 16), (32, 64, 32) and
+  (64, 32, 8) (``:41``), (16, 16, 16) (``:52`` and
+  ``tests/test_kernel_registry.py:124``);
+* :data:`CARD_TILES`, the larger tiles a card-sized product wants.
+
+The reference's defaults of 128 to 512 a side are TPU VMEM tiles and do
+not all carry over.  A thread block keeps its output tile in registers,
+at most 256 threads of at most 255 registers: a (128, 128) fp32 tile is
+64 accumulators a thread, a (256, 256) one would be 256 and spill.  Its
+staged inputs, ``(bm + bn) * bk * 4`` bytes, must fit the 48 KB of static
+shared memory.  So the largest triples are (128, 128, bk) with bk 8 or 16;
+the default (:data:`DEFAULT_TILES`) is (128, 128, 16).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_cuda_library
+
+__all__ = ["CARD_TILES", "DEFAULT_TILES", "SOURCE", "TEST_TILES", "TILES",
+           "launches", "load_library", "matmul_cuda", "reset_launches"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
+
+#: the reference's test tiles (tests/test_kernels.py:28-55)
+TEST_TILES = ((16, 16, 16), (32, 16, 8), (32, 64, 32), (64, 32, 8))
+#: larger tiles for the card's shapes (the Table-1 handler's candidates)
+CARD_TILES = ((64, 64, 16), (128, 64, 16), (128, 128, 8), (128, 128, 16))
+#: every (bm, bn, bk) the library instantiates
+TILES = TEST_TILES + CARD_TILES
+#: tiles when the caller does not choose
+DEFAULT_TILES = (128, 128, 16)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: (input dtype, output dtype) pairs the library instantiates
+_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.bfloat16, torch.float32)}
+
+#: kernel launches in this process (see :func:`reset_launches`)
+launches = 0
+
+#: the library's bound ``matmul_fwd``, set by the first :func:`load_library`
+_fwd = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; declare its C
+    signatures.  Raises if the build fails."""
+    global _fwd
+    lib = load_cuda_library("matmul", SOURCE)
+    if _fwd is None:
+        fn = lib.matmul_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.matmul_error_string.argtypes = [ctypes.c_int]
+        lib.matmul_error_string.restype = ctypes.c_char_p
+        _fwd = fn
+    return lib
+
+
+def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
+                bm: int = DEFAULT_TILES[0], bn: int = DEFAULT_TILES[1],
+                bk: int = DEFAULT_TILES[2],
+                out_dtype: torch.dtype | None = None,
+                assume_divisible: bool = False) -> torch.Tensor:
+    """``x (m, k) @ y (k, n)`` with an fp32 accumulator, for contiguous
+    fp32 or bf16 operands of one dtype on one CUDA device.  ``out_dtype``
+    defaults to the inputs' (fp32 or bf16; a bf16 product may also write
+    fp32).  ``assume_divisible`` runs the instantiation without bounds
+    checks and raises unless the shape is a multiple of the tiles.
+    Returns a new ``(m, n)`` tensor."""
+    global launches
+    for name, t in (("x", x), ("y", y)):
+        if t.device.type != "cuda":
+            raise ValueError(f"matmul_cuda needs CUDA tensors, {name} is on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"matmul_cuda needs contiguous tensors; {name} "
+                             f"is not")
+    if y.device != x.device:
+        raise ValueError(f"y on {y.device}, x on {x.device}")
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
+        raise ValueError(f"need x (m, k) and y (k, n), got {tuple(x.shape)} "
+                         f"and {tuple(y.shape)}")
+    if x.dtype != y.dtype:
+        raise TypeError(f"x is {x.dtype}, y is {y.dtype}: one dtype")
+    out_dtype = out_dtype or x.dtype
+    if (x.dtype, out_dtype) not in _PAIRS:
+        raise TypeError(f"matmul_cuda takes float32 -> float32 and bfloat16 "
+                        f"-> bfloat16 or float32, got {x.dtype} -> "
+                        f"{out_dtype}")
+    tiles = (int(bm), int(bn), int(bk))
+    if tiles not in TILES:
+        raise ValueError(f"tiles {tiles} are not instantiated; the library "
+                         f"has {TILES}")
+    m, k = x.shape
+    n = y.shape[1]
+    if assume_divisible and (m % bm or n % bn or k % bk):
+        raise ValueError(f"assume_divisible: shape ({m},{k})x({k},{n}) is "
+                         f"not a multiple of the tiles {tiles}")
+    if max(m, n, k) >= 2 ** 31 or -(-m // bm) > 65535:
+        raise ValueError(f"shape ({m},{k})x({k},{n}) exceeds the kernel's "
+                         f"grid or 32-bit sizes")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    if _fwd is None:
+        load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _fwd(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
+               *tiles, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+               int(bool(assume_divisible)), stream)
+    if err != 0:
+        msg = load_library().matmul_error_string(err).decode()
+        raise RuntimeError(f"matmul_fwd launch failed: {msg} ({err})")
+    launches += 1
+    return out

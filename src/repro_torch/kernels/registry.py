@@ -1,7 +1,8 @@
 """Kernel registry of the PyTorch/CUDA port.
 
-Every kernel family the port has (so far: rmsnorm, attention,
-linear_attention) registers its implementations here as *named entries*
+Every kernel family the port has (rmsnorm, attention, matmul,
+linear_attention and fastpath: one for each of the reference's Pallas
+kernels) registers its implementations here as *named entries*
 with an availability predicate (host capability: is there a Hopper-class
 CUDA device), an optional per-call correctness guard (shape/dtype/device
 preconditions of the specialized code path) and an optional ``prepare``

@@ -1,0 +1,154 @@
+"""The port's CUDA blocked matmul against its plain version, on a Hopper
+GPU.
+
+Needs no JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m requires_h100 tests/test_torch_matmul_cuda.py
+
+Elsewhere every case skips.  Tolerances: at the reference's test shapes
+(``tests/test_kernels.py:28-55``) the reference's, 1e-5 in fp32 and 3e-2
+in bf16.  At the card's shapes (K up to 4096) a limit scaled to each
+element, as ``chip_smoke.py`` holds them: the kernel and cuBLAS each sum K
+fp32 products in their own order, so they may differ by about
+sqrt(K) * 2^-24 * sum_k |x||y| (allowed 8x that), plus, for a bf16 output,
+one bf16 ulp (2^-7 of the value) where the two fp32 sums round to
+neighbouring bf16 numbers.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import compat  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.matmul import kernel, matmul  # noqa: E402
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+#: (m, k, n) of tests/test_kernels.py:28-55, ragged ones included
+TEST_SHAPES = [(32, 32, 32), (64, 96, 48), (128, 64, 128), (96, 72, 80),
+               (64, 64, 64), (50, 30, 70)]
+#: Table 1's square sizes, a ragged product, and qwen3-0.6b's widest layer
+#: product (the MLP's up projection at a (1, 4096) prefill)
+CARD_SHAPES = [(256, 256, 256), (1024, 1024, 1024), (4095, 1000, 3001),
+               (4096, 1024, 3072)]
+
+
+@pytest.fixture
+def hopper():
+    if not compat.has_hopper():
+        pytest.skip("needs a CUDA device of capability (9, 0)")
+    compat.resolve_device("cuda")            # TF32 off for the plain version
+    return torch.device("cuda")
+
+
+def _inputs(m, k, n, dtype, device, seed=0):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(m, k).astype(np.float32))
+    y = torch.from_numpy(rs.randn(k, n).astype(np.float32))
+    return x.to(device=device, dtype=dtype), y.to(device=device, dtype=dtype)
+
+
+def _scaled_check(out, ref, x, y):
+    k = x.shape[1]
+    mag = x.float().abs() @ y.float().abs()
+    limit = 8 * k ** 0.5 * 2.0 ** -24 * mag + 1e-6
+    if out.dtype == torch.bfloat16:
+        limit = limit + 2.0 ** -7 * ref.float().abs()
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= limit).all()), (
+        f"max excess {(diff - limit).max().item():.3e}")
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", kernel.TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TEST_SHAPES)
+def test_cuda_kernel_matches_torch_ref_at_test_shapes(hopper, shape, dtype,
+                                                      tiles):
+    m, k, n = shape
+    x, y = _inputs(m, k, n, dtype, hopper)
+    bm, bn, bk = tiles
+    ref = matmul(x, y, impl="torch_ref")
+    divisible = m % bm == 0 and n % bn == 0 and k % bk == 0
+    for assume in (False, True) if divisible else (False,):
+        before = kernel.launches
+        out = matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda",
+                     assume_divisible=assume)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        tol = TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+        _scaled_check(out, ref, x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_cuda_kernel_matches_torch_ref_at_card_shapes(hopper, shape, dtype,
+                                                      tiles):
+    m, k, n = shape
+    x, y = _inputs(m, k, n, dtype, hopper, seed=1)
+    bm, bn, bk = tiles
+    out = matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda")
+    ref = matmul(x, y, impl="torch_ref")
+    torch.cuda.synchronize()
+    _scaled_check(out, ref, x, y)
+
+
+@pytest.mark.requires_h100
+def test_bf16_product_may_write_fp32(hopper):
+    x, y = _inputs(96, 72, 80, torch.bfloat16, hopper)
+    out = matmul(x, y, bm=32, bn=16, bk=8, out_dtype=torch.float32,
+                 impl="cuda")
+    ref = matmul(x, y, out_dtype=torch.float32, impl="torch_ref")
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.requires_h100
+def test_assume_divisible_miss_falls_back_counted(hopper):
+    """A shape that is not a multiple of the tiles, asked to assume it is:
+    where the reference runs its plain version and counts a fallback, the
+    port launches the kernel's edge-masked instantiation and counts no
+    fallback."""
+    x, y = _inputs(50, 30, 70, torch.float32, hopper)
+    counts = registry.default_registry.fallback_counts
+    before = dict(counts)
+    launches = kernel.launches
+    out = matmul(x, y, bm=16, bn=16, bk=16, impl="cuda",
+                 assume_divisible=True)
+    assert dict(counts) == before
+    assert kernel.launches == launches + 1
+    torch.testing.assert_close(out, matmul(x, y, impl="torch_ref"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.requires_h100
+def test_cuda_calls_the_kernel_lacks_raise(hopper):
+    """A CUDA call with a dtype or tile triple the library lacks raises in
+    the wrapper; the registry counts no fallback."""
+    x, y = _inputs(64, 64, 64, torch.float32, hopper)
+    counts = registry.default_registry.fallback_counts
+    before = dict(counts)
+    with pytest.raises(ValueError, match="not instantiated"):
+        matmul(x, y, bm=256, bn=256, bk=128, impl="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        matmul(x.half(), y.half(), bm=16, bn=16, bk=16, impl="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        matmul(x, y, out_dtype=torch.bfloat16, impl="cuda")
+    with pytest.raises(ValueError, match="assume_divisible"):
+        kernel.matmul_cuda(x[:50].contiguous(), y, bm=16, bn=16, bk=16,
+                           assume_divisible=True)
+    assert dict(counts) == before
+
+
+@pytest.mark.requires_h100
+def test_wrapper_refuses_non_contiguous(hopper):
+    x, y = _inputs(64, 64, 64, torch.float32, hopper)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.matmul_cuda(x.t(), y)
