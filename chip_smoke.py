@@ -17,10 +17,16 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 3. RMSNorm vs plain: the kernel against its plain PyTorch version on the
    card, at every shape the served batch buckets and a (1, 4096) prefill
    of qwen3 and of rwkv6 give it, the reference's test shapes, widths and
-   a misaligned view that take its scalar path, in fp32 (tolerance 1e-5)
-   and bf16 (3e-2); times the kernel, the plain version and ``F.rms_norm``
-   with CUDA events, over a ring of inputs larger than the L2 cache where
-   the shape allows.
+   a misaligned view that take its general body, in fp32 (tolerance 1e-5)
+   and bf16 (3e-2); the q/k pair launch against two plain calls at the
+   decode and the (permuted) prefill layouts.  Then it reads K1's
+   launches on one full-width decode step at batch 8 from the model (kind
+   and shapes, by wrapping the kernel's entry points) and times each kind
+   of launch, the prefill shapes and the prefill pair: the kernel, the
+   plain version and ``F.rms_norm`` (two calls for a pair), eager (the
+   median of five rounds in alternating order) and in a CUDA graph, with
+   CUDA events, over a ring of inputs larger than the L2 cache where the
+   shape allows, and the host's microseconds a launch (eager minus graph).
 4. Attention vs plain: the flash attention kernel against its plain
    version at every tile pair, at the reference's test cases and the
    full-width prefill shapes (16 query / 8 kv heads, head dim 128, S =
@@ -39,11 +45,16 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 4c. Matmul vs plain: the blocked matmul kernel against its plain version
    at every instantiated tile triple (both ``assume_divisible`` settings
    where the shape divides), at the reference's test shapes (ragged ones
-   included) in fp32 (1e-5) and bf16 (3e-2), and at Table 1's N = 256,
+   included, one also as a view one element into its storage) in fp32
+   (1e-5) and bf16 (3e-2, to bf16 and to fp32), and at Table 1's N = 256,
    1024, 4096, a ragged (4095, 1000) x (1000, 3001) and qwen3-0.6b's
    (4096, 1024) x (1024, 3072) within a limit scaled to each element's
-   sum |x||y|; times the kernel per tile triple, the plain version and
-   ``torch.matmul`` (cuBLAS, TF32 off).
+   sum |x||y|; every case launches the kernel once, and the body it ran
+   (fp32 cp.async, fp32 with 4-byte copies, bf16 wgmma, simt) is counted;
+   checks in the built library's SASS (``cuobjdump -sass``) that every
+   wgmma instantiation holds HGMMA instructions; times the kernel per tile
+   triple, the plain version and ``torch.matmul`` (cuBLAS, TF32 off), in
+   fp32 and, at 4096^3 and the qwen3 shape, in bf16.
 4d. Fastpath vs plain: the hot-key matcher against its plain version at
    the reference's cases (every value dtype, int32 and int64 keys, every
    ``block_b``), at batches of 8192 and 65536 against tables of 1 to
@@ -95,9 +106,10 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    through the generic variant; (b) a Table-1 handler on an
    ``IridescentRuntime`` declaring ``matmul_impl``, the tile triple and
    ``spec.assume("divisible")``, under a ``Controller`` whose
-   ``ExhaustiveSweep`` runs N = 4096 fp32 products until it settles, then a
-   4095 call that misses the divisibility guard and runs the generic
-   variant (the kernel, edge-masked).
+   ``ExhaustiveSweep`` runs N = 4096 fp32 products until it settles (the
+   choice is reported beside K3's best candidate and the plain version),
+   then a 4095 call that misses the divisibility guard and runs the
+   generic variant (the kernel, edge-masked).
 13. The Fig 4 / Fig 9 router (the paper's §5): (a) Fig 4, the LPM
    router's fast path against its generic for LPM tables of 16 to 8192
    entries at 100 % hit, batches of 8192 addresses, timed; (b) Fig 9, the
@@ -121,6 +133,8 @@ import argparse
 import collections
 import itertools
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -134,18 +148,21 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
-#: (rows, d) per rmsnorm launch on one full-width decode step at batch 8,
-#: with launches per step: norm1+norm2 per layer + final, q-norm
-#: (16 heads x 8 rows), k-norm (8 kv heads x 8 rows)
-DECODE_SHAPES = {(8, 1024): 2 * 28 + 1, (128, 128): 28, (64, 128): 28}
+#: batch of the decode step whose K1 launches phase 3 reads from the model
+#: and times (the serve path's batch cap), and rounds of its eager timings
+DECODE_BATCH = 8
+K1_ROUNDS = 5
 #: every (rows, d) the served batch buckets B = 1, 2, 4, 8 give the kernel
 #: (prefill runs as a scan of decode steps, so it gives the same shapes)
 BUCKET_SHAPES = sorted({s for b in (1, 2, 4, 8)
                         for s in ((b, 1024), (16 * b, 128), (8 * b, 128))})
-#: (rows, d) per rmsnorm launch on one full-width (1, 4096) prefill, with
-#: launches per call: norm1/norm2/final, q-norm (16 heads), k-norm (8)
-PREFILL_SHAPES = {(4096, 1024): 2 * 28 + 1, (65536, 128): 28,
-                  (32768, 128): 28}
+#: (rows, d) of the single-tensor K1 launches of one full-width (1, 4096)
+#: qwen3 prefill (norm1/norm2/final), with launches per call; then the
+#: (rows, d) of the two segments of its q-norm (16 heads) and k-norm (8)
+#: pair launch, one a layer; and K1 launches per call in all
+PREFILL_SHAPES = {(4096, 1024): 2 * 28 + 1}
+PREFILL_PAIR = ((65536, 128), (32768, 128))
+PREFILL_LAUNCHES = 2 * 28 + 1 + 28
 #: (rows, d) per rmsnorm launch on one full-width rwkv6-1.6b (1, 4096)
 #: prefill, with launches per call: norm1/norm2/final, and the per-head
 #: output norm (32 heads of 64)
@@ -401,17 +418,19 @@ def phase_build() -> None:
     log(f"build: {len(libs)} libraries in {wall:.2f}s wall")
 
 
-def _rmsnorm_cost(rows: int, d: int, itemsize: int) -> tuple[float, str]:
-    """Least time (ms) on the card: read x once, write out once, read w
-    once, against ~4 fp32 flops per element."""
-    nbytes = 2 * rows * d * itemsize + d * 4
-    flops = 4 * rows * d
+def _rmsnorm_cost_of(shapes, itemsize: int) -> tuple[float, str]:
+    """Least time (ms) on the card of one launch over tensors of
+    ``shapes``: read each x once, write each out once, read each w once,
+    against ~4 fp32 flops per element."""
+    elems = sum(math.prod(sh) for sh in shapes)
+    nbytes = 2 * elems * itemsize + sum(sh[-1] for sh in shapes) * 4
+    flops = 4 * elems
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_rmsnorm() -> dict:
+def phase_rmsnorm(cfg) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -422,7 +441,7 @@ def phase_rmsnorm() -> dict:
     max_err = 0.0
     checked = 0
     cases = [(s, False) for s in BUCKET_SHAPES + list(PREFILL_SHAPES)
-             + list(RWKV_PREFILL_SHAPES) + TEST_SHAPES]
+             + list(PREFILL_PAIR) + list(RWKV_PREFILL_SHAPES) + TEST_SHAPES]
     # A contiguous view one element into its storage: its pointer is not
     # 16-byte aligned, so the kernel takes its scalar path.
     cases.append(((8, 1024), True))
@@ -452,61 +471,181 @@ def phase_rmsnorm() -> dict:
                 checked += 1
     log(f"rmsnorm: cuda == torch_ref at {checked} shape/dtype/block cases "
         f"(bucket shapes {BUCKET_SHAPES}, prefill shapes "
-        f"{list(PREFILL_SHAPES)} and rwkv6 {list(RWKV_PREFILL_SHAPES)}, test "
+        f"{list(PREFILL_SHAPES) + list(PREFILL_PAIR)} and rwkv6 "
+        f"{list(RWKV_PREFILL_SHAPES)}, test "
         f"shapes {TEST_SHAPES}, one misaligned view), "
         f"max_abs_err={max_err:.3e}")
+
+    # The q/k pair in one launch, against two plain calls: the decode
+    # step's (B, H, 1, dh) and the prefill's permuted einsum outputs,
+    # which the kernel takes in storage order (no copy; same strides out).
+    for (hq, hk, s_len, b), dtype in itertools.product(
+            ((16, 8, 1, DECODE_BATCH), (16, 8, 4096, 1)),
+            ("float32", "bfloat16")):
+        tdt = getattr(torch, dtype)
+        q = torch.randn((b, s_len, hq, 128), generator=gen,
+                        device=dev).to(tdt).transpose(1, 2)
+        k = torch.randn((b, s_len, hk, 128), generator=gen,
+                        device=dev).to(tdt).transpose(1, 2)
+        wq = torch.randn(128, generator=gen, device=dev)
+        wk = torch.randn(128, generator=gen, device=dev)
+        before = kernel.launches
+        outs = ops.rmsnorm_pair(q, wq, k, wk, impl="cuda")
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            fail(f"rmsnorm pair {tuple(q.shape)}: {kernel.launches - before}"
+                 f" launches, wanted 1")
+        for out, x, w in zip(outs, (q, k), (wq, wk)):
+            if out.stride() != x.stride():
+                fail(f"rmsnorm pair: output strides {out.stride()}, input "
+                     f"{x.stride()}")
+            ref = ops.rmsnorm(x, w, impl="torch_ref")
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+            max_err = max(max_err,
+                          (out.float() - ref.float()).abs().max().item())
+            checked += 1
+    log(f"rmsnorm: the q/k pair launch == two torch_ref calls at the decode "
+        f"and prefill layouts, fp32 and bf16; max_abs_err={max_err:.3e}")
+
+    decode = _k1_decode_launches(cfg)
+    log("rmsnorm: one full-width decode step at batch " f"{DECODE_BATCH} "
+        f"makes {sum(decode.values())} K1 launches: " + ", ".join(
+            f"{n} x {kind} {shapes}" for (kind, *shapes), n in
+            decode.items()))
 
     per_shape = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bound_kinds = set()
     eps = 1e-6
     l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
-    shapes = ([(s, n, "decode step") for s, n in DECODE_SHAPES.items()]
-              + [(s, n, "(1, 4096) prefill")
-                 for s, n in PREFILL_SHAPES.items()]
-              + [(s, n, "(1, 4096) rwkv6 prefill")
-                 for s, n in RWKV_PREFILL_SHAPES.items()])
-    for (rows, d), n, per in shapes:
+    launches = ([(kind_shapes, n, "decode step")
+                 for kind_shapes, n in decode.items()]
+                + [(("single", s), n, "(1, 4096) prefill")
+                   for s, n in PREFILL_SHAPES.items()]
+                + [(("pair",) + PREFILL_PAIR, N_LAYERS, "(1, 4096) prefill")]
+                + [(("single", s), 0, "(1, 4096) prefill, a segment of its "
+                    "pair alone") for s in PREFILL_PAIR]
+                + [(("single", s), n, "(1, 4096) rwkv6 prefill")
+                   for s, n in RWKV_PREFILL_SHAPES.items()])
+    for (kind, *shapes), n, per in launches:
         # Successive calls read successive inputs of a ring three times the
         # L2 cache, so an input is evicted before it is read again and a
         # timing reads from HBM; a decode shape's ring (at most 64 inputs)
         # stays in L2, as its activations do on the serve path.
-        x_bytes = rows * d * 4
+        x_bytes = sum(math.prod(sh) for sh in shapes) * 4
         n_ring = min(64, -(-3 * l2_bytes // x_bytes))
         l2_resident = n_ring * x_bytes < 3 * l2_bytes
-        xs = [torch.randn((rows, d), generator=gen, device=dev)
-              for _ in range(n_ring)]
-        w = torch.ones(d, device=dev)
-        ring = itertools.cycle(xs)
-        fns = {"ms": lambda: kernel.rmsnorm_cuda(next(ring), w, eps=eps),
-               "plain_ms": lambda: ops.ref.rmsnorm(next(ring), w, eps),
-               "library_ms": lambda: F.rms_norm(next(ring), (d,), w, eps)}
-        eager = {k: cuda_time_ms(f) for k, f in fns.items()}
+        ring = itertools.cycle([
+            [(torch.randn(sh, generator=gen, device=dev),
+              torch.ones(sh[-1], device=dev)) for sh in shapes]
+            for _ in range(n_ring)])
+        if kind == "single":
+            fns = {"ms": lambda: kernel.rmsnorm_cuda(*next(ring)[0],
+                                                     eps=eps),
+                   "plain_ms": lambda: ops.ref.rmsnorm(*next(ring)[0], eps),
+                   "library_ms": lambda: _f_rms_norm(F, next(ring)[0], eps)}
+        else:
+            def pair_kernel():
+                (x0, w0), (x1, w1) = next(ring)
+                return kernel.rmsnorm_pair_cuda(x0, w0, x1, w1, eps=eps)
+
+            fns = {"ms": pair_kernel,
+                   "plain_ms": lambda: [ops.ref.rmsnorm(x, w, eps)
+                                        for x, w in next(ring)],
+                   "library_ms": lambda: [_f_rms_norm(F, xw, eps)
+                                          for xw in next(ring)]}
+        # Eager times are host-bound at the decode shapes, and the host's
+        # clock moves between bursts: take the median of K1_ROUNDS rounds
+        # that alternate the order of the three (forward, then reversed).
+        rounds: dict[str, list[float]] = {k: [] for k in fns}
+        for r in range(K1_ROUNDS):
+            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                rounds[k].append(cuda_time_ms(fns[k]))
+        eager = {k: statistics.median(v) for k, v in rounds.items()}
         device = {k: graph_time_ms(f) for k, f in fns.items()}
-        bound, kind = _rmsnorm_cost(rows, d, 4)
-        t_kernel, t_plain, t_lib = (eager["ms"], eager["plain_ms"],
-                                    eager["library_ms"])
-        per_shape.append({"shape": [rows, d], "dtype": "float32",
-                          "per": per, "launches_per_call": n, **eager,
-                          "bound_ms": bound, "bound_by": kind,
-                          "device_only": device, "ring": n_ring,
-                          "l2_resident": l2_resident})
-        log(f"rmsnorm ({rows},{d}) fp32 x{n}/{per}, ring of {n_ring} "
-            f"inputs ({'in L2' if l2_resident else 'from HBM'}), eager: "
-            f"kernel {t_kernel:.5f} ms plain {t_plain:.5f} ms F.rms_norm "
-            f"{t_lib:.5f} ms; in a CUDA graph: kernel {device['ms']:.5f} "
-            f"ms plain {device['plain_ms']:.5f} ms F.rms_norm "
-            f"{device['library_ms']:.5f} ms; bound {bound:.6f} ms ({kind}, "
+        host_us = {k: 1e3 * (eager[k] - device[k]) for k in ("ms",
+                                                              "library_ms")}
+        bound, bkind = _rmsnorm_cost_of(shapes, 4)
+        per_shape.append({"kind": kind, "shapes": [list(sh) for sh in shapes],
+                          "dtype": "float32", "per": per,
+                          "launches_per_call": n, **eager,
+                          "eager_rounds": rounds,
+                          "bound_ms": bound, "bound_by": bkind,
+                          "device_only": device, "host_us": host_us,
+                          "ring": n_ring, "l2_resident": l2_resident})
+        log(f"rmsnorm {kind} {' + '.join(str(tuple(sh)) for sh in shapes)} "
+            f"fp32 x{n}/{per}, ring of {n_ring} inputs "
+            f"({'in L2' if l2_resident else 'from HBM'}), eager: kernel "
+            f"{eager['ms']:.5f} ms plain {eager['plain_ms']:.5f} ms "
+            f"F.rms_norm {eager['library_ms']:.5f} ms; in a CUDA graph: "
+            f"kernel {device['ms']:.5f} ms plain {device['plain_ms']:.5f} ms "
+            f"F.rms_norm {device['library_ms']:.5f} ms; host us per launch "
+            f"(eager - graph): kernel {host_us['ms']:.2f} F.rms_norm "
+            f"{host_us['library_ms']:.2f}; bound {bound:.6f} ms ({bkind}, "
             f"{100 * bound / device['ms']:.1f}% of the kernel in a graph)")
         if per == "decode step":
-            bound_kinds.add(kind)
-            totals["ms"] += n * t_kernel
-            totals["plain_ms"] += n * t_plain
-            totals["library_ms"] += n * t_lib
+            bound_kinds.add(bkind)
+            totals["ms"] += n * eager["ms"]
+            totals["plain_ms"] += n * eager["plain_ms"]
+            totals["library_ms"] += n * eager["library_ms"]
             totals["bound_ms"] += n * bound
+    n_decode = sum(decode.values())
+    n_library = sum(n * (1 if kind == "single" else 2)
+                    for (kind, *_), n in decode.items())
+    log(f"rmsnorm: per decode step, eager (medians of {K1_ROUNDS} "
+        f"alternating rounds): kernel {totals['ms']:.4f} ms "
+        f"({n_decode} launches), F.rms_norm {totals['library_ms']:.4f} ms "
+        f"({n_library} calls), plain {totals['plain_ms']:.4f} ms, bound "
+        f"{totals['bound_ms']:.6f} ms")
     return {"max_abs_err": max_err, "per_shape": per_shape,
+            "decode_launches": n_decode, "decode_library_calls": n_library,
             "bound_by": "bytes" if bound_kinds == {"bytes"}
             else "operations", **totals}
+
+
+def _f_rms_norm(F, xw, eps):
+    x, w = xw
+    return F.rms_norm(x, (x.shape[-1],), w, eps)
+
+
+def _k1_decode_launches(cfg) -> collections.Counter:
+    """K1's launches on one decode step of the full-width model at batch
+    DECODE_BATCH (random weights, the kernel for every norm), by kind and
+    shapes, read from the wrappers as the model calls them."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import kernel
+    from repro_torch.models import transformer as model
+    from repro_torch.models.common import KernelOptions
+
+    dev = torch.device("cuda")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    opts = model.RunOptions(kernels=KernelOptions(rmsnorm_impl="cuda"))
+    cache = model.init_cache(cfg, DECODE_BATCH, 16, opts, device=dev)
+    tokens = torch.zeros(DECODE_BATCH, dtype=torch.int32, device=dev)
+    pos = torch.zeros(DECODE_BATCH, dtype=torch.int32, device=dev)
+    seen: collections.Counter = collections.Counter()
+    single, pair = kernel.rmsnorm_cuda, kernel.rmsnorm_pair_cuda
+
+    def record_single(x, w, **kw):
+        seen[("single", tuple(x.shape))] += 1
+        return single(x, w, **kw)
+
+    def record_pair(x0, w0, x1, w1, **kw):
+        seen[("pair", tuple(x0.shape), tuple(x1.shape))] += 1
+        return pair(x0, w0, x1, w1, **kw)
+
+    kernel.rmsnorm_cuda, kernel.rmsnorm_pair_cuda = record_single, record_pair
+    try:
+        model.decode_step(params, cache, tokens, pos, cfg, opts)
+        torch.cuda.synchronize()
+    finally:
+        kernel.rmsnorm_cuda, kernel.rmsnorm_pair_cuda = single, pair
+    del params, cache
+    torch.cuda.empty_cache()
+    return seen
 
 
 def _attention_pairs(sq: int, skv: int, causal: bool, window,
@@ -862,13 +1001,25 @@ def phase_matmul() -> dict:
         max_err[dtype] = max(max_err[dtype], diff.max().item())
         checked += 1
 
-    for shapes, tiles_list, scaled_only in (
-            (MATMUL_TEST_SHAPES, kernel.TILES, False),
-            (MATMUL_CARD_SHAPES, kernel.TILES, True)):
-        for (m, k, n), dtype in itertools.product(shapes,
-                                                  ("float32", "bfloat16")):
+    bodies: collections.Counter = collections.Counter()
+    for shapes, tiles_list, scaled_only, offset in (
+            (MATMUL_TEST_SHAPES, kernel.TILES, False, 0),
+            (MATMUL_TEST_SHAPES[3:4], kernel.TILES, False, 1),
+            (MATMUL_CARD_SHAPES, kernel.TILES, True, 0)):
+        for (m, k, n), dtype, out_dtype in itertools.product(
+                shapes, ("float32", "bfloat16"), (None, "float32")):
+            if dtype == "float32" and out_dtype:
+                continue
             x, y = inputs(m, k, n, dtype)
-            ref = ops.matmul(x, y, impl="torch_ref")
+            if offset:
+                # a contiguous view one element into its storage: no
+                # 16-byte-aligned rows, so the 4-byte-copy or simt body
+                x = torch.cat([x.flatten()[:offset], x.flatten()])[
+                    offset:].view(m, k)
+                if x.data_ptr() % 16 == 0:
+                    fail("the offset view is 16-byte aligned")
+            odt = getattr(torch, out_dtype or dtype)
+            ref = ops.matmul(x, y, impl="torch_ref", out_dtype=odt)
             limit = _matmul_limit(x, y, ref)
             tol = None if scaled_only else MATMUL_TOL[dtype]
             # the small test tiles at the card's shapes in fp32 only
@@ -877,27 +1028,45 @@ def phase_matmul() -> dict:
                         and (bm, bn, bk) not in kernel.CARD_TILES:
                     continue
                 div = m % bm == 0 and n % bn == 0 and k % bk == 0
+                body = kernel.body(x, y, bm=bm, bn=bn, bk=bk, out_dtype=odt)
                 for assume in (False, True) if div else (False,):
+                    before = kernel.launches
                     out = ops.matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda",
-                                     assume_divisible=assume)
+                                     out_dtype=odt, assume_divisible=assume)
                     torch.cuda.synchronize()
-                    check(out, ref, limit, f"({m},{k})x({k},{n}) {dtype} "
-                          f"tiles ({bm},{bn},{bk}) assume_divisible="
-                          f"{assume}", tol)
+                    what = (f"({m},{k})x({k},{n}) {dtype}->{odt} tiles "
+                            f"({bm},{bn},{bk}) assume_divisible={assume} "
+                            f"offset {offset} ({body} body)")
+                    if kernel.launches != before + 1:
+                        fail(f"matmul {what}: {kernel.launches - before} "
+                             f"launches, wanted 1")
+                    check(out, ref, limit, what, tol)
+                    bodies[body] += 1
                     del out
             del x, y, ref, limit
     torch.cuda.empty_cache()
     log(f"matmul: cuda == torch_ref at {checked} shape/dtype/tile cases "
         f"(the reference's test shapes at every tile triple {kernel.TILES} "
-        f"within {MATMUL_TOL}; (m, k, n) {MATMUL_CARD_SHAPES} within "
+        f"within {MATMUL_TOL}, one of them also as a view one element into "
+        f"its storage; (m, k, n) {MATMUL_CARD_SHAPES} within "
         f"{MATMUL_SCALED_FACTOR} sqrt(K) 2^-24 sum|x||y| (+ one bf16 ulp); "
-        f"both assume_divisible settings where the shape divides); "
+        f"bf16 to bf16 and to fp32; both assume_divisible settings where "
+        f"the shape divides); cases by body {json.dumps(bodies)}; "
         f"max_abs_err fp32 {max_err['float32']:.3e}, bf16 "
         f"{max_err['bfloat16']:.3e}")
+    sass = _hgmma_by_function()
+    wgmma_fns = {f: c for f, c in sass.items() if "wgmma_kernel" in f}
+    log(f"matmul: SASS of the built library: {len(wgmma_fns)} wgmma_kernel "
+        f"instantiations, HGMMA instructions in each: "
+        f"{sorted(set(wgmma_fns.values()))}; {sum(sass.values())} HGMMA in "
+        f"all, {sum(c for f, c in sass.items() if f not in wgmma_fns)} "
+        f"outside the wgmma body")
+    if not wgmma_fns or not all(wgmma_fns.values()):
+        fail("the bf16 wgmma body has no HGMMA instruction in its SASS")
 
     per_shape = []
     timed = [(s, "float32") for s in MATMUL_CARD_SHAPES] + [
-        ((TABLE1_N,) * 3, "bfloat16")]
+        ((TABLE1_N,) * 3, "bfloat16"), (MATMUL_CARD_SHAPES[-1], "bfloat16")]
     for (m, k, n), dtype in timed:
         x, y = inputs(m, k, n, dtype)
         iters = max(3, min(200, int(4e10 / (2 * m * n * k))))
@@ -920,6 +1089,10 @@ def phase_matmul() -> dict:
         best = min(kernel_ms, key=kernel_ms.get)
         per_shape.append({"shape": [m, k, n], "dtype": dtype,
                           "kernel_ms_by_tiles": kernel_ms,
+                          "body_by_tiles": {
+                              f"{bm}x{bn}x{bk}": kernel.body(
+                                  x, y, bm=bm, bn=bn, bk=bk)
+                              for bm, bn, bk in tiles_list},
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"matmul ({m},{k})x({k},{n}) {dtype}: kernel "
@@ -933,7 +1106,29 @@ def phase_matmul() -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
+            "bodies": dict(bodies), "hgmma_by_function": wgmma_fns,
             "per_shape": per_shape}
+
+
+def _hgmma_by_function() -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each kernel of the built
+    matmul library, by mangled name (``cuobjdump -sass``)."""
+    from repro_torch import compat
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(compat.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", build.build_log("matmul")["path"]],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _fastpath_cost(b: int, n: int, kw: int, v: int, key_itemsize: int,
@@ -1419,7 +1614,7 @@ def phase_prefill(cfg, params) -> dict:
     for impl, a, _, _ in calls:
         if a != (cfg.n_layers if impl == "cuda" else 0):
             fail(f"a prefill call on {impl} launched attention {a} times")
-    per_call = sum(PREFILL_SHAPES.values())
+    per_call = PREFILL_LAUNCHES
     if rms_launches != per_call * len(calls):
         fail(f"rmsnorm launched {rms_launches} times over {len(calls)} "
              f"prefill calls; wanted {per_call} per call")
@@ -1944,11 +2139,24 @@ def phase_table1() -> dict:
         fail(f"table1: the settled handler's product is off by "
              f"{diff.max().item():.3e}")
     flop = 2 * n ** 3
+    by_config: dict[str, list[float]] = {}
     for phase, config, rate in controller.histories()[DEFAULT_CONTEXT]:
         log(f"table1 sweep: {phase.value} {_config_str(config)} -> "
             f"{rate * flop / 1e12:.2f} TFLOP/s ({1e3 / rate:.2f} ms/call)")
+        by_config.setdefault(_config_str(config), []).append(rate)
     chosen = controller.best_configs()[DEFAULT_CONTEXT]
     log(f"table1 sweep: settled after {calls} calls on {_config_str(chosen)}")
+    # The Table-1 choice: the settled config beside the best K3 candidate
+    # and the plain version (cuBLAS), each at its best call in the sweep.
+    best = {key: max(rates) * flop / 1e12 for key, rates in by_config.items()}
+    k3 = {key: v for key, v in best.items() if '"cuda"' in key}
+    plain = [v for key, v in best.items() if '"torch_ref"' in key]
+    best_k3 = max(k3, key=k3.get) if k3 else None
+    log(f"table1: the Controller chose "
+        f"{_setting(chosen, 'matmul_impl')} {_config_str(chosen)}; best K3 "
+        f"candidate {best_k3} at {k3.get(best_k3, float('nan')):.2f} TFLOP/s, "
+        f"the plain version (cuBLAS, TF32 off) at "
+        f"{max(plain, default=float('nan')):.2f} TFLOP/s")
 
     # A size the divisibility assumption does not hold for: the handler's
     # guard misses and the generic variant (the kernel, edge-masked) runs.
@@ -1985,6 +2193,7 @@ def phase_table1() -> dict:
             "chosen": {"matmul_impl": registry.resolve(
                 "matmul", _setting(chosen, "matmul_impl")).name,
                 "tiles": list(tiles) if tiles else None},
+            "best_tflops": best,
             "quickstart": _config_str(quick["selected"])}
 
 
@@ -2198,12 +2407,12 @@ def main() -> None:
     compat.resolve_device("cuda")
     device = phase_device()
     phase_build()
-    rms = phase_rmsnorm()
+    cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
+    rms = phase_rmsnorm(cfg)
     attn = phase_attention()
     linatt = phase_linear_attention()
     mm = phase_matmul()
     fpk = phase_fastpath()
-    cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
     main_path = phase_main_path(cfg)
     params = main_path.pop("built").params
     serve = phase_parity(cfg, params)
@@ -2245,6 +2454,11 @@ def main() -> None:
                  if r["shape"] == [TABLE1_N] * 3 and r["dtype"] == "float32")
     mm_tiles = min(mm_at["kernel_ms_by_tiles"],
                    key=mm_at["kernel_ms_by_tiles"].get)
+    # and the same product in bf16 on the wgmma body, at its best tiles
+    mm_bf = next(r for r in mm["per_shape"]
+                 if r["shape"] == [TABLE1_N] * 3 and r["dtype"] == "bfloat16")
+    mm_bf_tiles = min(mm_bf["kernel_ms_by_tiles"],
+                      key=mm_bf["kernel_ms_by_tiles"].get)
     # K5 per router batch: one launch at fig 4's shape (ROUTER_BATCH
     # addresses against FIG4_HOT keys, int32 next hops), block_b 256.
     fp_at = next(r for r in fpk["per_shape"]
@@ -2261,7 +2475,9 @@ def main() -> None:
         "bound_ms": rms["bound_ms"],
         "bound_by": rms["bound_by"],
         "library_ms": rms["library_ms"],
-        "per": "one full-width decode step at batch 8 (113 launches)",
+        "per": f"one full-width decode step at batch {DECODE_BATCH} "
+               f"({rms['decode_launches']} launches; F.rms_norm makes "
+               f"{rms['decode_library_calls']} calls)",
         "prefill_launches": prefill["rmsnorm_launches"],
         "rwkv6_prefill_launches": rprefill["rms_launches"],
         "rwkv6_serve_launches": rserve["launches"],
@@ -2322,6 +2538,14 @@ def main() -> None:
         "per": f"one K3 launch at ({TABLE1_N},{TABLE1_N}) x ({TABLE1_N},"
                f"{TABLE1_N}) fp32 at its best-measured tiles {mm_tiles}, "
                f"not a settled Table-1 call",
+        "bf16": {"tiles": mm_bf_tiles,
+                 "body": mm_bf["body_by_tiles"][mm_bf_tiles],
+                 "ms": mm_bf["kernel_ms_by_tiles"][mm_bf_tiles],
+                 "plain_ms": mm_bf["plain_ms"],
+                 "bound_ms": mm_bf["bound_ms"],
+                 "bound_by": mm_bf["bound_by"],
+                 "library_ms": mm_bf["library_ms"]},
+        "hgmma_by_function": mm["hgmma_by_function"],
         "settled_impl": table1["chosen"]["matmul_impl"],
         "settled_tiles": table1["chosen"]["tiles"],
         "shapes": mm["per_shape"],

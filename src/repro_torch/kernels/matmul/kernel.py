@@ -10,22 +10,29 @@ PyTorch's current stream and raises if the launch reports an error.
 
 The tile triple ``(bm, bn, bk)`` — the paper's block size ``B`` — is a
 template argument, so each triple is its own compiled kernel, and so is
-``assume_divisible`` (no bounds checks).  :data:`TILES` lists the triples
+``assume_divisible`` (no edge masks).  :data:`TILES` lists the triples
 the library instantiates:
 
 * every triple the reference's tests run: (32, 16, 8)
   (``tests/test_kernels.py:34``), (16, 16, 16), (32, 64, 32) and
   (64, 32, 8) (``:41``), (16, 16, 16) (``:52`` and
   ``tests/test_kernel_registry.py:124``);
-* :data:`CARD_TILES`, the larger tiles a card-sized product wants.
+* :data:`CARD_TILES`, the tiles a card-sized product wants.
+
+The library picks one of three bodies per call (:func:`body`): at the
+card tiles an fp32 product runs the cp.async-pipelined FMA body (16-byte
+copies where x, y and the output have 16-byte-aligned rows, 4-byte
+copies otherwise) and a bf16 product the ``wgmma`` body fed by TMA (where
+x and y have 16-byte-aligned rows, k and n multiples of 8); the
+reference's test tiles, and bf16 operands TMA cannot take, run the simt
+body.  Every call on the card launches the kernel: none falls back to
+the plain version.
 
 The reference's defaults of 128 to 512 a side are TPU VMEM tiles and do
-not all carry over.  A thread block keeps its output tile in registers,
-at most 256 threads of at most 255 registers: a (128, 128) fp32 tile is
-64 accumulators a thread, a (256, 256) one would be 256 and spill.  Its
-staged inputs, ``(bm + bn) * bk * 4`` bytes, must fit the 48 KB of static
-shared memory.  So the largest triples are (128, 128, bk) with bk 8 or 16;
-the default (:data:`DEFAULT_TILES`) is (128, 128, 16).
+not all carry over.  The fp32 body keeps an 8 x 8 output tile a thread
+in registers (at most 512 threads), so its tiles stop at (128, 256); the
+``wgmma`` body keeps 64 x bn accumulators a warpgroup, bn at most 256.
+The default (:data:`DEFAULT_TILES`) is (128, 128, 16).
 """
 from __future__ import annotations
 
@@ -36,19 +43,25 @@ import torch
 
 from repro_torch.kernels.build import load_cuda_library
 
-__all__ = ["CARD_TILES", "DEFAULT_TILES", "SOURCE", "TEST_TILES", "TILES",
-           "launches", "load_library", "matmul_cuda", "reset_launches"]
+__all__ = ["BODIES", "CARD_TILES", "DEFAULT_TILES", "SOURCE", "TEST_TILES",
+           "TILES", "body", "launches", "load_library", "matmul_cuda",
+           "reset_launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 
 #: the reference's test tiles (tests/test_kernels.py:28-55)
 TEST_TILES = ((16, 16, 16), (32, 16, 8), (32, 64, 32), (64, 32, 8))
-#: larger tiles for the card's shapes (the Table-1 handler's candidates)
-CARD_TILES = ((64, 64, 16), (128, 64, 16), (128, 128, 8), (128, 128, 16))
+#: larger tiles for the card's shapes (the Table-1 handler's candidates),
+#: each run by the fp32 body in fp32 and by the wgmma body in bf16
+CARD_TILES = ((64, 64, 16), (128, 64, 16), (128, 128, 16), (128, 128, 32),
+              (128, 128, 64), (128, 256, 64))
 #: every (bm, bn, bk) the library instantiates
 TILES = TEST_TILES + CARD_TILES
 #: tiles when the caller does not choose
 DEFAULT_TILES = (128, 128, 16)
+
+#: the library's bodies, by the code ``matmul_body`` returns
+BODIES = ("simt", "fp32_cp_async16", "fp32_cp_async4", "wgmma")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: (input dtype, output dtype) pairs the library instantiates
@@ -77,6 +90,9 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.matmul_body.argtypes = ([ctypes.c_void_p] * 3
+                                    + [ctypes.c_int] * 8)
+        lib.matmul_body.restype = ctypes.c_int
         lib.matmul_error_string.argtypes = [ctypes.c_int]
         lib.matmul_error_string.restype = ctypes.c_char_p
         _fwd = fn
@@ -89,9 +105,9 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
                 out_dtype: torch.dtype | None = None,
                 assume_divisible: bool = False) -> torch.Tensor:
     """``x (m, k) @ y (k, n)`` with an fp32 accumulator, for contiguous
-    fp32 or bf16 operands of one dtype on one CUDA device.  ``out_dtype``
-    defaults to the inputs' (fp32 or bf16; a bf16 product may also write
-    fp32).  ``assume_divisible`` runs the instantiation without bounds
+    fp32 or bf16 operands of one dtype on one CUDA device (any storage
+    offset).  ``out_dtype`` defaults to the inputs' (fp32 or bf16; a bf16
+    product may also write fp32).  ``assume_divisible`` runs the instantiation without bounds
     checks and raises unless the shape is a multiple of the tiles.
     Returns a new ``(m, n)`` tensor."""
     global launches
@@ -142,3 +158,20 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
         raise RuntimeError(f"matmul_fwd launch failed: {msg} ({err})")
     launches += 1
     return out
+
+
+def body(x: torch.Tensor, y: torch.Tensor, *, bm: int = DEFAULT_TILES[0],
+         bn: int = DEFAULT_TILES[1], bk: int = DEFAULT_TILES[2],
+         out_dtype: torch.dtype | None = None) -> str:
+    """The body (:data:`BODIES`) :func:`matmul_cuda` runs for these
+    operands and tiles (its fresh output is 16-byte aligned)."""
+    lib = load_library()
+    out_dtype = out_dtype or x.dtype
+    m, k = x.shape
+    code = lib.matmul_body(
+        x.data_ptr(), y.data_ptr(), 0, m, y.shape[1], k, bm, bn, bk,
+        _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype])
+    if code < 0:
+        raise ValueError(f"no instantiation for tiles ({bm}, {bn}, {bk}) "
+                         f"and {x.dtype} -> {out_dtype}")
+    return BODIES[code]

@@ -48,8 +48,9 @@ def _matmul_torch_ref(x, y, *, bm=_BM, bn=_BN, bk=_BK, out_dtype=None,
                    supports_grad=False, guard=_guard,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
-                   description="blocked fp32-FMA CUDA matmul for sm_90a, "
-                               "tiles as template arguments")
+                   description="blocked CUDA matmul for sm_90a (fp32 FMA "
+                               "fed by cp.async, bf16 on wgmma), tiles as "
+                               "template arguments")
 def _matmul_cuda(x, y, *, bm=_BM, bn=_BN, bk=_BK, out_dtype=None,
                  assume_divisible=False):
     # The unmasked instantiation only where the tiles divide the shape.

@@ -1,3 +1,3 @@
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_pair
 
-__all__ = ["rmsnorm"]
+__all__ = ["rmsnorm", "rmsnorm_pair"]

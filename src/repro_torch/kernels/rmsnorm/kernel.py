@@ -3,14 +3,28 @@
 Replaces the reference's Pallas TPU kernel
 (``src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas``).  The library is
 compiled for ``sm_90a`` with ``nvcc`` on first use
-(:func:`load_library`); the wrapper checks its inputs, allocates the
-output, launches on PyTorch's current stream and raises if the launch
+(:func:`load_library`); the wrappers check their inputs, allocate the
+output, launch on PyTorch's current stream and raise if the launch
 reports an error.  ``launches`` counts the kernel launches of this
 process.
+
+:func:`rmsnorm_cuda` normalises one tensor, :func:`rmsnorm_pair_cuda` two
+tensors of one width in a single launch (a layer's q-norm and k-norm).
+A tensor is taken in storage order: its last dimension must be contiguous
+and its elements dense (any permutation of a contiguous tensor, such as
+the ``einsum`` output the attention projections give), and the output has
+its layout, so no copy is made.
+
+A launch is on the decode step's critical path, where the host's part of
+it costs more than the device's, so the common case runs one combined
+check and reads the current stream through PyTorch's raw-stream call; a
+call that fails the check goes through :func:`_diagnose`, which raises the
+precise error.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 from pathlib import Path
 
 import torch
@@ -18,23 +32,36 @@ import torch
 from repro_torch.kernels.build import load_cuda_library
 
 __all__ = ["BLOCK_ROWS", "DEFAULT_BLOCK_ROWS", "SOURCE", "launches",
-           "load_library", "reset_launches", "rmsnorm_cuda"]
+           "load_library", "reset_launches", "rmsnorm_cuda",
+           "rmsnorm_pair_cuda", "row_dense", "uses_registers"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
-#: rows per thread block the library instantiates (one warp per row); the
-#: serve path uses 4, and other sizes are added when a measurement picks them
+#: warps per thread block the library instantiates (one warp per row in
+#: its general body); the serve path uses 4, and other sizes are added when
+#: a measurement picks them
 BLOCK_ROWS = (4,)
-#: rows per thread block when the caller does not choose
+#: warps per thread block when the caller does not choose
 DEFAULT_BLOCK_ROWS = 4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_ROWS = 2 ** 31 - 1
 
 #: kernel launches in this process (see :func:`reset_launches`)
 launches = 0
 
-#: the library's bound ``rmsnorm_fwd``, set by the first :func:`load_library`
+#: the library's bound ``rmsnorm_fwd_packed``, set by :func:`load_library`
 _fwd = None
+#: packs a launch's arguments as the library's ``PairArgs``: x0, w0, out0,
+#: rows0, x1, w1, out1, rows1, d, eps, dtype, block_rows, stream (one bytes
+#: object through ctypes instead of thirteen converted arguments)
+_pack = struct.Struct("<QQQqQQQqqdqqQ").pack
+#: the current stream's handle on a device: PyTorch's raw-stream call where
+#: this build has it (a CUDA build does), which builds no
+#: ``torch.cuda.Stream``
+_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda dev: torch.cuda.current_stream(dev).cuda_stream)
+_F32 = torch.float32
 
 
 def reset_launches() -> None:
@@ -48,57 +75,153 @@ def load_library() -> ctypes.CDLL:
     global _fwd
     lib = load_cuda_library("rmsnorm", SOURCE)
     if _fwd is None:
-        fn = lib.rmsnorm_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.rmsnorm_uses_registers.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int]
+        lib.rmsnorm_uses_registers.restype = ctypes.c_int
         lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
         lib.rmsnorm_error_string.restype = ctypes.c_char_p
+        fn = lib.rmsnorm_fwd_packed
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = ctypes.c_int
         _fwd = fn
     return lib
+
+
+def row_dense(x: torch.Tensor) -> bool:
+    """True if ``x``'s last dimension is contiguous and its elements fill
+    ``x.numel()`` consecutive slots of storage (some permutation of its
+    leading dimensions is contiguous): its rows can be taken in storage
+    order."""
+    if x.is_contiguous():
+        return True
+    if x.ndim == 0 or x.stride(-1) != 1:
+        return False
+    expected = x.shape[-1]
+    dims = sorted((st, sz) for st, sz in zip(x.stride()[:-1], x.shape[:-1])
+                  if sz != 1)
+    for st, sz in dims:
+        if st != expected:
+            return False
+        expected *= sz
+    return True
+
+
+def _ok(x: torch.Tensor, weight: torch.Tensor, dev: int, d: int) -> bool:
+    """The combined check of the common case (see :func:`_diagnose`):
+    ``x`` on CUDA device ``dev`` with rows of ``d``."""
+    return (dev >= 0 and weight.get_device() == dev
+            and x.dtype in _DTYPE_CODES and weight.dtype is _F32
+            and weight.dim() == 1 and weight.numel() == d
+            and weight.is_contiguous()
+            and (x.is_contiguous() or row_dense(x))
+            and (x.numel() <= _MAX_ROWS or x.numel() // d <= _MAX_ROWS))
+
+
+def _diagnose(name: str, x: torch.Tensor, weight: torch.Tensor, dev: int,
+              block_rows: int) -> None:
+    """Raise the error a call that failed :func:`_ok` on device ``dev``
+    (or asked for a block size the library lacks) deserves."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if x.get_device() != dev:
+        raise ValueError(f"{name} normalises tensors of one device; got "
+                         f"cuda:{dev} and {x.device}")
+    if weight.device != x.device:
+        raise ValueError(f"weight on {weight.device}, x on {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    if weight.dtype != torch.float32:
+        raise TypeError(f"weight must be float32, got {weight.dtype}")
+    if x.ndim < 1 or weight.shape != x.shape[-1:]:
+        raise ValueError(f"need x (..., d) and weight (d,), got "
+                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
+    if not (row_dense(x) and weight.is_contiguous()):
+        raise ValueError(f"{name} needs a contiguous weight and an x whose "
+                         f"last dimension is contiguous and whose elements "
+                         f"are dense; got strides {x.stride()}")
+    if block_rows not in BLOCK_ROWS:
+        raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, "
+                         f"got {block_rows}")
+    raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's 32-bit "
+                     f"row indices")
+
+
+def _launch_failed(err: int) -> None:
+    msg = load_library().rmsnorm_error_string(err).decode()
+    raise RuntimeError(f"rmsnorm launch failed: {msg} ({err})")
 
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *,
                  eps: float = 1e-6,
                  block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
-    """RMSNorm of the rows of ``x (rows, d)`` (fp32 or bf16, contiguous, on
-    a CUDA device) scaled by ``weight (d,)`` (fp32, same device).  Returns a
-    new ``(rows, d)`` tensor of ``x.dtype``."""
+    """RMSNorm over the last dimension of ``x (..., d)`` (fp32 or bf16, on
+    a CUDA device, rows dense: :func:`row_dense`) scaled by ``weight
+    (d,)`` (fp32, contiguous, same device).  Returns a new tensor of
+    ``x``'s shape, dtype and layout.  Launches on the current stream of
+    ``x``'s device (the launch fails and raises if the runtime's current
+    device is another)."""
     global launches
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm_cuda needs a CUDA tensor, got {x.device}")
-    if weight.device != x.device:
-        raise ValueError(f"weight on {weight.device}, x on {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"rmsnorm_cuda takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if weight.dtype != torch.float32:
-        raise TypeError(f"weight must be float32, got {weight.dtype}")
-    if x.ndim != 2 or weight.shape != (x.shape[1],):
-        raise ValueError(f"need x (rows, d) and weight (d,), got "
-                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
-    if not (x.is_contiguous() and weight.is_contiguous()):
-        raise ValueError("rmsnorm_cuda needs contiguous x and weight")
-    if block_rows not in BLOCK_ROWS:
-        raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, "
-                         f"got {block_rows}")
-    rows, d = x.shape
-    if rows >= 2 ** 31 or d >= 2 ** 31:
-        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's "
-                         f"32-bit row/column indices")
+    dev = x.get_device()
+    d = x.size(-1) if x.dim() else 0
+    if not (_ok(x, weight, dev, d) and block_rows in BLOCK_ROWS):
+        _diagnose("rmsnorm_cuda", x, weight, dev, block_rows)
     out = torch.empty_like(x)
-    if rows == 0:
+    n = x.numel()
+    if n == 0:
         return out
     if _fwd is None:
         load_library()
-    # Launches on x's device's current stream; if the runtime's current
-    # device is another, the launch fails and raises below.
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fwd(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d,
-               float(eps), _DTYPE_CODES[x.dtype], int(block_rows), stream)
-    if err != 0:
-        msg = load_library().rmsnorm_error_string(err).decode()
-        raise RuntimeError(f"rmsnorm_fwd launch failed: {msg} ({err})")
+    err = _fwd(_pack(x.data_ptr(), weight.data_ptr(), out.data_ptr(),
+                     n // d, 0, 0, 0, 0, d, eps, _DTYPE_CODES[x.dtype],
+                     block_rows, _stream(dev)))
+    if err:
+        _launch_failed(err)
     launches += 1
     return out
+
+
+def rmsnorm_pair_cuda(x0: torch.Tensor, w0: torch.Tensor, x1: torch.Tensor,
+                      w1: torch.Tensor, *, eps: float = 1e-6,
+                      block_rows: int = DEFAULT_BLOCK_ROWS
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rmsnorm(x0, w0), rmsnorm(x1, w1))`` in one launch: each as
+    :func:`rmsnorm_cuda`, both of one dtype, width and device."""
+    global launches
+    dev = x0.get_device()
+    d = x0.size(-1) if x0.dim() else 0
+    if not (_ok(x0, w0, dev, d) and block_rows in BLOCK_ROWS):
+        _diagnose("rmsnorm_pair_cuda", x0, w0, dev, block_rows)
+    if x1.dtype != x0.dtype or (x1.size(-1) if x1.dim() else 0) != d:
+        raise ValueError(f"one launch normalises one dtype and width; got "
+                         f"{x0.dtype} {tuple(x0.shape)} and {x1.dtype} "
+                         f"{tuple(x1.shape)}")
+    if not _ok(x1, w1, dev, d):
+        _diagnose("rmsnorm_pair_cuda", x1, w1, dev, block_rows)
+    n0, n1 = x0.numel(), x1.numel()
+    if n0 == 0 or n1 == 0:
+        # the kernel's segments must have rows: one launch for the other
+        return tuple(rmsnorm_cuda(x, w, eps=eps, block_rows=block_rows)
+                     if x.numel() else torch.empty_like(x)
+                     for x, w in ((x0, w0), (x1, w1)))
+    out0, out1 = torch.empty_like(x0), torch.empty_like(x1)
+    if _fwd is None:
+        load_library()
+    err = _fwd(_pack(x0.data_ptr(), w0.data_ptr(), out0.data_ptr(), n0 // d,
+                     x1.data_ptr(), w1.data_ptr(), out1.data_ptr(), n1 // d,
+                     d, eps, _DTYPE_CODES[x0.dtype], block_rows,
+                     _stream(dev)))
+    if err:
+        _launch_failed(err)
+    launches += 1
+    return out0, out1
+
+
+def uses_registers(x: torch.Tensor, weight: torch.Tensor,
+                   out: torch.Tensor | None = None) -> bool:
+    """Whether a launch on these tensors takes the register body (one read
+    of each row) rather than the general one."""
+    lib = load_library()
+    out_ptr = x.data_ptr() if out is None else out.data_ptr()
+    return bool(lib.rmsnorm_uses_registers(
+        x.data_ptr(), weight.data_ptr(), out_ptr, x.shape[-1],
+        _DTYPE_CODES[x.dtype]))

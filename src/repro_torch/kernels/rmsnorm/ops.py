@@ -1,10 +1,14 @@
-"""Public RMSNorm op (any leading batch dims), registry-dispatched.
+"""Public RMSNorm ops (any leading batch dims), registry-dispatched.
 
-Two entries: ``torch_ref`` (the plain version, :mod:`.ref`) and ``cuda``
-(the hand-written kernel, :mod:`.kernel`).  A tensor on the CPU that asks
-for ``cuda`` misses the guard and runs ``torch_ref``, counted in the
-registry's ``fallback_counts``; a CUDA tensor that reaches ``cuda`` launches
-the kernel or raises.
+Two ops: ``rmsnorm`` (one tensor) and ``rmsnorm_pair`` (two tensors of one
+width, such as a layer's q and k before attention: one kernel launch for
+both).  Each has two entries: ``torch_ref`` (the plain version, :mod:`.ref`;
+for the pair, two plain calls) and ``cuda`` (the hand-written kernel,
+:mod:`.kernel`).  Both ops take their implementation from one choice (the
+models pass ``rmsnorm_impl`` to each), so exploring that spec point covers
+every norm.  A tensor on the CPU that asks for ``cuda`` misses the guard
+and runs ``torch_ref``, counted in the registry's ``fallback_counts``; a
+CUDA tensor that reaches ``cuda`` launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -15,14 +19,24 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.rmsnorm import kernel, ref
 from repro_torch.kernels.rmsnorm.kernel import DEFAULT_BLOCK_ROWS
 
-__all__ = ["rmsnorm"]
+__all__ = ["rmsnorm", "rmsnorm_pair"]
 
 
-def _guard(x, weight, **_kw):
+def _guard(x, weight, *_a, **_kw):
     # Decides by device only: a CUDA tensor the kernel cannot take (a
     # dtype other than fp32/bf16, a mismatched weight) reaches the wrapper
     # and raises there, never the plain version.
     return x.device.type == "cuda"
+
+
+def _kernel_args(x, weight):
+    """``x`` as the kernel takes it (rows dense; a copy only for other
+    layouts) and the weight as fp32."""
+    if not kernel.row_dense(x):
+        x = x.contiguous()
+    if weight.dtype is not torch.float32:
+        weight = weight.to(torch.float32)
+    return x, weight.contiguous()
 
 
 @registry.register("rmsnorm", "torch_ref", priority=0,
@@ -37,17 +51,45 @@ def _rmsnorm_torch_ref(x, weight, *, eps=1e-6,
                    supports_grad=False, guard=_guard,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
-                   description="one-warp-per-row CUDA rmsnorm for sm_90a")
+                   description="one-read-per-row CUDA rmsnorm for sm_90a")
 def _rmsnorm_cuda(x, weight, *, eps=1e-6, block_rows=DEFAULT_BLOCK_ROWS):
-    shape = x.shape
-    out = kernel.rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
-                              weight.to(torch.float32).contiguous(),
-                              eps=eps, block_rows=block_rows)
-    return out.reshape(shape)
+    x, weight = _kernel_args(x, weight)
+    return kernel.rmsnorm_cuda(x, weight, eps=eps, block_rows=block_rows)
+
+
+@registry.register("rmsnorm_pair", "torch_ref", priority=0,
+                   description="two plain PyTorch rmsnorms")
+def _rmsnorm_pair_torch_ref(x0, w0, x1, w1, *, eps=1e-6,
+                            block_rows=DEFAULT_BLOCK_ROWS):
+    del block_rows
+    return ref.rmsnorm(x0, w0, eps), ref.rmsnorm(x1, w1, eps)
+
+
+@registry.register("rmsnorm_pair", "cuda", priority=20,
+                   supports_grad=False, guard=_guard,
+                   available=compat.has_hopper,
+                   prepare=kernel.load_library,
+                   description="two rmsnorms in one CUDA launch for sm_90a")
+def _rmsnorm_pair_cuda(x0, w0, x1, w1, *, eps=1e-6,
+                       block_rows=DEFAULT_BLOCK_ROWS):
+    x0, w0 = _kernel_args(x0, w0)
+    x1, w1 = _kernel_args(x1, w1)
+    return kernel.rmsnorm_pair_cuda(x0, w0, x1, w1, eps=eps,
+                                    block_rows=block_rows)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
             block_rows: int = DEFAULT_BLOCK_ROWS,
             impl: str | None = None) -> torch.Tensor:
     return registry.dispatch("rmsnorm", impl, x, weight, eps=eps,
+                             block_rows=block_rows)
+
+
+def rmsnorm_pair(x0: torch.Tensor, w0: torch.Tensor, x1: torch.Tensor,
+                 w1: torch.Tensor, *, eps: float = 1e-6,
+                 block_rows: int = DEFAULT_BLOCK_ROWS,
+                 impl: str | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rmsnorm(x0, w0), rmsnorm(x1, w1))``; with ``cuda``, one launch."""
+    return registry.dispatch("rmsnorm_pair", impl, x0, w0, x1, w1, eps=eps,
                              block_rows=block_rows)

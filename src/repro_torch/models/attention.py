@@ -19,7 +19,7 @@ from repro_torch import compat
 from repro_torch.kernels.attention import attention as attn_op
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
-                                       rms_norm, rope)
+                                       rms_norm_pair, rope)
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_gqa", "gqa_axes", "apply_gqa", "init_gqa_cache",
@@ -63,8 +63,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(cdt))
     v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(cdt))
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps, opts)
-        k = rms_norm(k, p["k_norm"], cfg.rms_eps, opts)
+        q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"], cfg.rms_eps,
+                             opts)
     cos, sin = rope(positions, cfg.d_head, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)

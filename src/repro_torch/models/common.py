@@ -11,8 +11,8 @@ from repro_torch.kernels.attention.kernel import (DEFAULT_BLOCK_KV,
                                                   DEFAULT_BLOCK_Q)
 from repro_torch.kernels.rmsnorm.kernel import DEFAULT_BLOCK_ROWS
 
-__all__ = ["KernelOptions", "rms_norm", "rope", "apply_rope", "swiglu",
-           "dense_init", "embed_init"]
+__all__ = ["KernelOptions", "rms_norm", "rms_norm_pair", "rope",
+           "apply_rope", "swiglu", "dense_init", "embed_init"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return rmsnorm_kernel.rmsnorm(x, weight, eps=eps,
                                   block_rows=opts.norm_block_rows,
                                   impl=opts.impl_for("rmsnorm"))
+
+
+def rms_norm_pair(x0: torch.Tensor, w0: torch.Tensor, x1: torch.Tensor,
+                  w1: torch.Tensor, eps: float = 1e-6,
+                  opts: KernelOptions | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rms_norm(x0, w0), rms_norm(x1, w1))`` of one width, as one
+    kernel launch where the ``rmsnorm_impl`` choice is the kernel."""
+    opts = opts or KernelOptions()
+    return rmsnorm_kernel.rmsnorm_pair(x0, w0, x1, w1, eps=eps,
+                                       block_rows=opts.norm_block_rows,
+                                       impl=opts.impl_for("rmsnorm"))
 
 
 def rope(positions: torch.Tensor, dim: int, theta: float = 1e4,

@@ -234,9 +234,18 @@ def test_kernel_wrapper_refuses_host_tensors_and_missing_tiles():
     assert kernel.launches == before
     assert kernel.DEFAULT_TILES in kernel.TILES
     assert set(kernel.TEST_TILES) >= {(32, 16, 8), *SWEEP_TILES}
-    for bm, bn, bk in kernel.TILES:
-        # the register tile and the staged inputs fit (see kernel.py)
+    for bm, bn, bk in kernel.TEST_TILES:
+        # the simt body: the register tile and the statically staged
+        # inputs fit (see kernel.py)
         assert bm * bn <= 128 * 128 and (bm + bn) * bk * 4 <= 48 * 1024
+    for bm, bn, bk in kernel.CARD_TILES:
+        # the fp32 body: an 8 x 8 register tile a thread, at most 512
+        # threads, two stages of (bm, bk + 4) and (bk, bn) fp32 in 227 KB;
+        # the wgmma body: 64-row warpgroups, 16-deep steps, at most 128
+        # fp32 accumulators a thread
+        assert bm % 32 == 0 and bn % 64 == 0 and bm * bn // 64 <= 512
+        assert 2 * 4 * (bm * (bk + 4) + bk * bn) <= 227 * 1024
+        assert bm % 64 == 0 and bk % 16 == 0 and bk <= 64 and bn <= 256
 
 
 def test_cuda_choices_follow_the_host():

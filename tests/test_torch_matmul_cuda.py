@@ -152,3 +152,128 @@ def test_wrapper_refuses_non_contiguous(hopper):
     x, y = _inputs(64, 64, 64, torch.float32, hopper)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.matmul_cuda(x.t(), y)
+
+
+#: bf16 -> bf16 and bf16 -> fp32, the two outputs of a bf16 product
+BF16_OUTS = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("out_dtype", BF16_OUTS)
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+@pytest.mark.parametrize("shape", TEST_SHAPES)
+def test_wgmma_body_at_test_shapes(hopper, shape, tiles, out_dtype):
+    """bf16 at every card tile runs the wgmma body where TMA takes the
+    operands (k and n multiples of 8), the simt body otherwise; both
+    within the reference's bf16 tolerance."""
+    m, k, n = shape
+    x, y = _inputs(m, k, n, torch.bfloat16, hopper, seed=2)
+    bm, bn, bk = tiles
+    want = "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
+    assert kernel.body(x, y, bm=bm, bn=bn, bk=bk,
+                       out_dtype=out_dtype) == want
+    ref = matmul(x, y, out_dtype=out_dtype, impl="torch_ref")
+    divisible = m % bm == 0 and n % bn == 0 and k % bk == 0
+    for assume in (False, True) if divisible else (False,):
+        before = kernel.launches
+        out = matmul(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                     impl="cuda", assume_divisible=assume)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert out.dtype == out_dtype and out.shape == (m, n)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2,
+                                   atol=3e-2)
+        _scaled_check(out, ref, x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("out_dtype", BF16_OUTS)
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+@pytest.mark.parametrize("shape", [(1024, 1024, 1024), (4096, 1024, 3072),
+                                   (1000, 520, 776)])
+def test_wgmma_body_at_card_shapes(hopper, shape, tiles, out_dtype):
+    """The wgmma body at the card's shapes, ragged edges (1000, 520, 776:
+    no tile divides m, k or n, each a multiple of 8) included."""
+    m, k, n = shape
+    x, y = _inputs(m, k, n, torch.bfloat16, hopper, seed=3)
+    bm, bn, bk = tiles
+    assert kernel.body(x, y, bm=bm, bn=bn, bk=bk,
+                       out_dtype=out_dtype) == "wgmma"
+    divisible = m % bm == 0 and n % bn == 0 and k % bk == 0
+    out = matmul(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                 impl="cuda", assume_divisible=divisible)
+    ref = matmul(x, y, out_dtype=out_dtype, impl="torch_ref")
+    torch.cuda.synchronize()
+    assert out.dtype == out_dtype
+    _scaled_check(out, ref, x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("assume", [False, True])
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+def test_fp32_pipelined_body_at_every_card_tile(hopper, tiles, assume):
+    """fp32 at every card tile runs the cp.async body, masked and (on a
+    shape the tiles divide) unmasked.  K reaches 4 bk (256), beyond the
+    reference's test shapes, so the limit is the scaled one."""
+    bm, bn, bk = tiles
+    m, k, n = (2 * bm, 4 * bk, 3 * bn) if assume else (2 * bm - 3,
+                                                       4 * bk + 4,
+                                                       3 * bn - 4)
+    x, y = _inputs(m, k, n, torch.float32, hopper, seed=4)
+    assert kernel.body(x, y, bm=bm, bn=bn, bk=bk) == "fp32_cp_async16"
+    before = kernel.launches
+    out = matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda",
+                 assume_divisible=assume)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _scaled_check(out, matmul(x, y, impl="torch_ref"), x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+@pytest.mark.parametrize("k", [8, 16, 48, 72])
+def test_short_contractions_drain_the_ring(hopper, k, tiles, dtype):
+    """k below stages x bk (one k-tile, or a partial one) and k not a
+    multiple of bk: the ring drains and the tail is zero-filled."""
+    bm, bn, bk = tiles
+    x, y = _inputs(96, k, 136, dtype, hopper, seed=k)
+    before = kernel.launches
+    out = matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = matmul(x, y, impl="torch_ref")
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _scaled_check(out, ref, x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+def test_misaligned_and_ragged_operands_launch_the_kernel(hopper, tiles,
+                                                          dtype):
+    """A contiguous view one element into its storage, and n = 3001 (rows
+    of y and out not 16-byte aligned): each launches the kernel once (the
+    fp32 body with 4-byte copies, or the simt body for bf16), counts no
+    fallback and matches the plain version."""
+    bm, bn, bk = tiles
+    rs = np.random.RandomState(5)
+    flat = torch.from_numpy(rs.randn(300 * 200 + 1).astype(np.float32)).to(
+        device=hopper, dtype=dtype)
+    xv = flat[1:].view(300, 200)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    yv = torch.from_numpy(rs.randn(200, 264).astype(np.float32)).to(
+        device=hopper, dtype=dtype)
+    xr, yr = _inputs(257, 200, 3001, dtype, hopper, seed=6)
+    want = "fp32_cp_async4" if dtype == torch.float32 else "simt"
+    counts = registry.default_registry.fallback_counts
+    for x, y in ((xv, yv), (xr, yr)):
+        assert kernel.body(x, y, bm=bm, bn=bn, bk=bk) == want
+        before, fallbacks = kernel.launches, dict(counts)
+        out = matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda")
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert dict(counts) == fallbacks
+        ref = matmul(x, y, impl="torch_ref")
+        _scaled_check(out, ref, x, y)

@@ -13,7 +13,7 @@ from repro.kernels import rmsnorm as ref_rmsnorm  # noqa: E402
 from repro_torch import compat  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel, ops  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair  # noqa: E402
 
 # The shapes and tolerances of tests/test_kernels.py's rmsnorm sweep.
 SHAPES = [(32, 128), (100, 64), (256, 256), (2, 17, 64)]
@@ -152,3 +152,68 @@ def test_cuda_choices_follow_the_host():
     assert registry.choices("rmsnorm")[-1] == "torch_ref"
     assert not registry.get("rmsnorm", "cuda").supports_grad
     assert registry.choices("rmsnorm", require_grad=True) == ("torch_ref",)
+
+
+#: qwen3's q and k before attention, reduced: (B, heads, S, head dim) with
+#: 2:1 query to kv heads, as the model's qk-norm gives them
+PAIR_SHAPES = [((2, 4, 8, 32), (2, 2, 8, 32)), ((3, 4, 1, 32), (3, 2, 1, 32))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shapes", PAIR_SHAPES)
+@pytest.mark.parametrize("ref_impl", ["xla", "interpret"])
+def test_pair_torch_ref_matches_reference(shapes, dtype, ref_impl):
+    """The pair op's plain version is the reference's RMSNorm on q and on
+    k, each with its own weight."""
+    if ref_impl == "interpret" and not ref_compat.has_pallas_tpu():
+        pytest.skip("Pallas TPU module not importable: the reference's "
+                    "interpret entry would fall back to xla_ref")
+    (q, wq), (k, wk) = _inputs(shapes[0], seed=1), _inputs(shapes[1], seed=2)
+    outs = rmsnorm_pair(_port(q, dtype), torch.from_numpy(wq),
+                        _port(k, dtype), torch.from_numpy(wk), eps=1e-6,
+                        impl="torch_ref")
+    tol = TOL[dtype]
+    for out, x, w in zip(outs, (q, k), (wq, wk)):
+        ref = ref_rmsnorm.rmsnorm(jnp.asarray(x).astype(getattr(jnp, dtype)),
+                                  jnp.asarray(w), eps=1e-6, impl=ref_impl,
+                                  block_rows=8)
+        assert out.dtype == getattr(torch, dtype) and out.shape == x.shape
+        np.testing.assert_allclose(np.asarray(ref, np.float32),
+                                   out.to(torch.float32).numpy(),
+                                   rtol=tol, atol=tol)
+
+
+def test_pair_cuda_on_cpu_tensor_degrades_counted():
+    """The pair op asked for the kernel with host tensors runs its plain
+    version (two plain calls) and counts one fallback under its own name."""
+    (q, wq), (k, wk) = _inputs((4, 2, 16), seed=3), _inputs((4, 1, 16),
+                                                            seed=4)
+    key = ("rmsnorm_pair", "cuda")
+    before = registry.default_registry.fallback_counts.get(key, 0)
+    args = [torch.from_numpy(a) for a in (q, wq, k, wk)]
+    oq, ok = rmsnorm_pair(*args, impl="cuda")
+    assert registry.default_registry.fallback_counts[key] == before + 1
+    torch.testing.assert_close(oq, ops.ref.rmsnorm(args[0], args[1]))
+    torch.testing.assert_close(ok, ops.ref.rmsnorm(args[2], args[3]))
+
+
+def test_row_dense_accepts_permutations_of_contiguous_tensors():
+    """The kernel takes rows in storage order: a permuted einsum output
+    qualifies, a transpose of the last dimension or a strided slice does
+    not."""
+    x = torch.randn(2, 6, 4, 8)
+    assert kernel.row_dense(x)
+    assert kernel.row_dense(x.permute(0, 2, 1, 3))
+    assert kernel.row_dense(torch.einsum("bsd,dhk->bhsk", torch.randn(1, 5, 6),
+                                         torch.randn(6, 3, 8)))
+    assert not kernel.row_dense(x.transpose(-1, -2))
+    assert not kernel.row_dense(x[:, ::2])
+    assert not kernel.row_dense(x[..., :4])
+
+
+def test_pair_wrapper_refuses_host_tensors():
+    x, w = (torch.from_numpy(a) for a in _inputs((4, 32)))
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.rmsnorm_pair_cuda(x, w, x, w)
+    assert kernel.launches == before

@@ -14,7 +14,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch import compat  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
-from repro_torch.kernels.rmsnorm import kernel, rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import (kernel, rmsnorm,  # noqa: E402
+                                         rmsnorm_pair)
 
 #: the shapes the full-width serve path gives the kernel at batch buckets
 #: B = 1, 2, 4, 8: norm1/norm2/final (B, 1024), q-norm (16B, 128), k-norm
@@ -102,3 +103,77 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(hopper):
         kernel.rmsnorm_cuda(x.t(), torch.ones(4, device=hopper))
     with pytest.raises(ValueError):
         kernel.rmsnorm_cuda(x, w, block_rows=3)
+
+
+def _rand(shape, dtype, device, seed):
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        getattr(torch, dtype)).to(device)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 1024, 2048])
+@pytest.mark.parametrize("rows", [1, 7, 333])
+def test_register_body_at_the_port_widths(hopper, rows, d, dtype):
+    """The widths the port runs take the body that reads each row once,
+    row counts that leave a block's last groups idle included."""
+    x = _rand((rows, d), dtype, hopper, seed=rows + d)
+    w = _rand((d,), "float32", hopper, seed=1)
+    assert kernel.uses_registers(x, w)
+    _check(x, w)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1020, 65, 256])
+def test_general_body_at_other_widths(hopper, d, dtype):
+    x = _rand((9, d), dtype, hopper, seed=d)
+    w = _rand((d,), "float32", hopper, seed=2)
+    assert not kernel.uses_registers(x, w)
+    _check(x, w)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["decode", "prefill", "general"])
+def test_pair_is_one_launch_of_two_norms(hopper, layout, dtype):
+    """q-norm and k-norm in one launch against two plain calls: the decode
+    step's contiguous (B, H, 1, dh), the prefill's permuted einsum output
+    (taken in storage order, no copy: the outputs keep its strides), and a
+    width that takes the general body."""
+    if layout == "decode":
+        q = _rand((8, 16, 1, 128), dtype, hopper, seed=3)
+        k = _rand((8, 8, 1, 128), dtype, hopper, seed=4)
+    elif layout == "prefill":
+        q = _rand((1, 300, 16, 128), dtype, hopper, seed=3).permute(0, 2, 1, 3)
+        k = _rand((1, 300, 8, 128), dtype, hopper, seed=4).permute(0, 2, 1, 3)
+        assert not q.is_contiguous() and kernel.row_dense(q)
+    else:
+        q = _rand((5, 3, 65), dtype, hopper, seed=3)
+        k = _rand((2, 65), dtype, hopper, seed=4)
+    d = q.shape[-1]
+    wq = _rand((d,), "float32", hopper, seed=5)
+    wk = _rand((d,), "float32", hopper, seed=6)
+    before = kernel.launches
+    oq, ok = rmsnorm_pair(q, wq, k, wk, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    tol = TOL[dtype]
+    for out, x, w in ((oq, q, wq), (ok, k, wk)):
+        assert out.shape == x.shape and out.dtype == x.dtype
+        assert out.stride() == x.stride()
+        ref = rmsnorm(x, w, impl="torch_ref")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.requires_h100
+def test_pair_refuses_two_widths_or_dtypes(hopper):
+    q = torch.randn(4, 128, device=hopper)
+    w = torch.ones(128, device=hopper)
+    with pytest.raises(ValueError, match="one dtype and width"):
+        kernel.rmsnorm_pair_cuda(q, w, torch.randn(4, 64, device=hopper),
+                                 torch.ones(64, device=hopper))
+    with pytest.raises(ValueError, match="one dtype and width"):
+        kernel.rmsnorm_pair_cuda(q, w, q.bfloat16(), w)
