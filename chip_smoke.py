@@ -28,20 +28,29 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    CUDA events, over a ring of inputs larger than the L2 cache where the
    shape allows, and the host's microseconds a launch (eager minus graph).
 4. Attention vs plain: the flash attention kernel against its plain
-   version at every tile pair, at the reference's test cases and the
+   version at every tile pair, at the reference's test cases, the
    full-width prefill shapes (16 query / 8 kv heads, head dim 128, S =
-   512, 1000, 2048, 4096), in fp32 (2e-4) and bf16 (3e-2), each also held
-   to a limit scaled to every element's size; at the long call's lengths
-   (S = 8192, 16384) the kernel runs whole and slices of its rows are held
-   to the plain version; times the kernel, the plain version and
-   ``scaled_dot_product_attention``.
+   512, 1000, 2048, 4096) and MLA's head dims (q/k 192, v 128; causal, and
+   GQA with a window), in fp32 (2e-4) and bf16 (3e-2), each also held to a
+   limit scaled to every element's size; at the long call's lengths (S =
+   8192, 16384) the kernel runs whole and slices of its rows are held to
+   the plain version; times the kernel (per tile pair, with the body it
+   reports, its shared memory and ring stages, the instantiation and CUDA
+   launches a call the profiler saw, which must match that body, its share
+   of the bound and, in the log, its previous design's time), the plain
+   version and
+   ``scaled_dot_product_attention``,
+   also at MLA's dims.
 4b. Linear attention vs plain: the chunked linear attention kernel against
    its plain version at every chunk (16, 32, 64), at the reference's test
    cases, rwkv6-1.6b's 32 heads of 64 at T = 1000 (ragged), 4096 (the
    prefill path's) and 16384 (the long call's, compared whole) and a
    hymba-like inclusive scalar-decay head, in fp32 (5e-4) and bf16 (3e-2),
-   each also held to a limit scaled to every element; times the kernel and
-   the plain version (no single PyTorch call computes this function).
+   each also held to a limit scaled to every element; times the kernel
+   (at the prefill shape also its CUDA launches a call and each launch's
+   device time, by the profiler; its share of the bound and, in the log,
+   its previous design's time)
+   and the plain version (no single PyTorch call computes this function).
 4c. Matmul vs plain: the blocked matmul kernel against its plain version
    at every instantiated tile triple (both ``assume_divisible`` settings
    where the shape divides), at the reference's test shapes (ragged ones
@@ -134,6 +143,7 @@ import collections
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -195,6 +205,22 @@ ATTN_TEST_CASES = [
 #: prefill path's)
 ATTN_WIDTH = (1, 16, 8, 128)
 ATTN_LENGTHS = (512, 1000, 2048, 4096)
+#: MLA's head dims (deepseek-v2: q/k nope + rope = 192, v 128;
+#: src/repro/models/mla.py:90-98) on 16 heads: causal, then GQA with a
+#: window, compared in fp32 and bf16; the first also timed at ATTN_MLA_TIMED
+ATTN_MLA_CASES = [
+    ((1, 16, 1000, 192), (1, 16, 1000, 192), (1, 16, 1000, 128), True, None),
+    ((1, 16, 777, 192), (1, 4, 777, 192), (1, 4, 777, 128), True, 256),
+]
+ATTN_MLA_TIMED = 4096
+#: K2's and K4's times in their previous designs (the single-stage flash
+#: attention and the chunk-serial linear attention; this script's run on
+#: NVIDIA H100 80GB HBM3, 700.00 W, recorded in PERF.md §6), copied here
+#: and printed in the log beside this run's, never in the kernels line: a
+#: causal (1, 16/8, S, 128) fp32 launch at the tiles (128, 64) by S, and a
+#: (32, 4096, 64, 64) fp32 exclusive call by chunk
+K2_PREVIOUS_MS = {4096: 3.7448, 16384: 45.8058}
+K4_PREVIOUS_MS = {16: 1.5623, 32: 1.3388, 64: 1.2708}
 N_LAYERS = 28
 #: the prefill path: (batch, tokens) of the Controller's sweep, the long
 #: call, the parity check (a), and calls per candidate
@@ -335,6 +361,31 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_launches(fn, calls: int = 3) -> tuple[dict, float]:
+    """What ``calls`` calls of ``fn`` launch on the card, by the profiler:
+    device us a call by kernel (its name and template arguments) and
+    launches a call, every device activity counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, launched = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"\w+_kernel(<[^<>]*>)?", e.key)
+        name = m.group(0) if m else e.key[:80]
+        us[name] = us.get(name, 0.0) + e.self_device_time_total / calls
+        launched += e.count
+    if not us:
+        fail("the profiler saw no device activity")
+    return us, launched / calls
 
 
 def graph_time_ms(fn, iters: int = 100) -> float:
@@ -689,7 +740,7 @@ def phase_attention() -> dict:
     b, h, hk, dh = ATTN_WIDTH
     cases = ATTN_TEST_CASES + [((b, h, s, dh), (b, hk, s, dh),
                                 (b, hk, s, dh), True, None)
-                               for s in ATTN_LENGTHS]
+                               for s in ATTN_LENGTHS] + ATTN_MLA_CASES
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checked = 0
 
@@ -749,8 +800,9 @@ def phase_attention() -> dict:
         del q, k, v, refs
     torch.cuda.empty_cache()
     log(f"attention: cuda == torch_ref at {n_short} case/dtype/tile cases "
-        f"({len(ATTN_TEST_CASES)} reference test cases and full-width "
-        f"prefill lengths {ATTN_LENGTHS}, tiles {tiles}) and "
+        f"({len(ATTN_TEST_CASES)} reference test cases, full-width "
+        f"prefill lengths {ATTN_LENGTHS} and MLA's head dims (192, 128) at "
+        f"{[c[0] for c in ATTN_MLA_CASES]}, tiles {tiles}) and "
         f"{checked - n_short} row slices ({r} rows at the start, middle and "
         f"end of S = {ATTN_LONG_LENGTHS}, fp32), within the reference's "
         f"tolerances {ATTN_TOL} and the scaled ones (rtol, atol) "
@@ -758,21 +810,36 @@ def phase_attention() -> dict:
         f"bf16 {max_err['bfloat16']:.3e}")
 
     per_shape = []
-    for s, dtype in [(s, "float32")
-                     for s in ATTN_LENGTHS + ATTN_LONG_LENGTHS] + [
-            (2048, "bfloat16")]:
+    mla = ATTN_MLA_CASES[0]
+    timed = [(s, "float32", hk, dh, dh) for s in ATTN_LENGTHS
+             + ATTN_LONG_LENGTHS] + [(2048, "bfloat16", hk, dh, dh)] + [
+        (ATTN_MLA_TIMED, "float32", mla[1][1], mla[0][3], mla[2][3])]
+    for s, dtype, hkv, d, dv in timed:
         tdt = getattr(torch, dtype)
-        q = torch.randn((b * h, s, dh), generator=gen, device=dev).to(tdt)
-        k, v = (torch.randn((b * hk, s, dh), generator=gen,
-                            device=dev).to(tdt) for _ in range(2))
-        q4, k4, v4 = (x.view(b, -1, s, dh) for x in (q, k, v))
+        q = torch.randn((b * h, s, d), generator=gen, device=dev).to(tdt)
+        k = torch.randn((b * hkv, s, d), generator=gen, device=dev).to(tdt)
+        v = torch.randn((b * hkv, s, dv), generator=gen, device=dev).to(tdt)
+        q4, k4, v4 = (x.view(b, -1, s, x.shape[-1]) for x in (q, k, v))
         # ~0.3 s of calls per timing at the largest shape
         iters = max(10, min(200, int(200 * (512 / s) ** 2)))
         warm = max(2, iters // 10)
-        timed = {f"{bq}x{bkv}": cuda_time_ms(
+        kernel_ms = {f"{bq}x{bkv}": cuda_time_ms(
             lambda bq=bq, bkv=bkv: kernel.flash_attention_cuda(
                 q, k, v, block_q=bq, block_kv=bkv), iters, warm)
             for bq, bkv in tiles}
+        bodies = {f"{bq}x{bkv}": kernel.body(tdt, d, dv, block_q=bq,
+                                             block_kv=bkv)
+                  for bq, bkv in tiles}
+        for bq, bkv in tiles:
+            x = bodies[f"{bq}x{bkv}"]
+            x["kernels_us"], x["cuda_launches_per_call"] = device_launches(
+                lambda bq=bq, bkv=bkv: kernel.flash_attention_cuda(
+                    q, k, v, block_q=bq, block_kv=bkv))
+            want = (f"ring_kernel<{bq},{bkv}," if x["body"] == "ring"
+                    else f"simple_kernel<__nv_bfloat16,{bq},{bkv}>")
+            if not any(want in n.replace(" ", "") for n in x["kernels_us"]):
+                fail(f"attention {s} {dtype} tiles {bq}x{bkv}: reported "
+                     f"the {x['body']} body, launched {x['kernels_us']}")
         # The plain version holds a few (B, H, S, S) fp32 score tensors.
         plain_bytes = 4 * b * h * s * s * 4
         if plain_bytes < torch.cuda.mem_get_info()[0] / 2:
@@ -789,18 +856,29 @@ def phase_attention() -> dict:
             log(f"attention: sdpa not timed at {s} {dtype}: {e}")
             library = None
             torch.cuda.empty_cache()
-        bound, kind = _attention_cost(b, h, hk, s, s, dh, dh,
+        bound, kind = _attention_cost(b, h, hkv, s, s, d, dv,
                                       q.element_size())
-        best = min(timed, key=timed.get)
-        per_shape.append({"shape": [b, h, hk, s, dh], "dtype": dtype,
-                          "kernel_ms_by_tiles": timed, "plain_ms": plain,
+        best = min(kernel_ms, key=kernel_ms.get)
+        previous = (K2_PREVIOUS_MS.get(s)
+                        if (dtype, hkv, d, dv) == ("float32", hk, dh, dh)
+                    else None)
+        per_shape.append({"shape": [b, h, hkv, s, d, dv], "dtype": dtype,
+                          "kernel_ms_by_tiles": kernel_ms,
+                          "body_by_tiles": bodies, "plain_ms": plain,
                           "library_ms": library, "bound_ms": bound,
                           "bound_by": kind})
-        log(f"attention (1,16/8,{s},128) {dtype} causal: kernel "
-            + " ".join(f"{t} {ms:.4f}" for t, ms in timed.items())
-            + f" ms (best {best}: {100 * bound / timed[best]:.1f}% of the "
-            f"bound); plain {plain} ms; sdpa {library} ms; bound "
-            f"{bound:.4f} ms ({kind})")
+        log(f"attention (1,{h}/{hkv},{s},{d}/{dv}) {dtype} causal, "
+            f"{bodies[best]['body']} body, "
+            f"{bodies[best]['cuda_launches_per_call']:g} CUDA launches a "
+            f"call ({', '.join(bodies[best]['kernels_us'])}): kernel "
+            + " ".join(f"{t} {ms:.4f} ({100 * bound / ms:.1f}%)"
+                       for t, ms in kernel_ms.items())
+            + f" ms (% of the bound; best {best}); previous design at 128x64 "
+            f"{previous} "
+            f"ms; plain {plain} ms; sdpa {library} ms; bound {bound:.4f} ms "
+            f"({kind}); shared memory a block "
+            + " ".join(f"{t} {x['smem_bytes']} B/{x['stages']} stages"
+                       for t, x in bodies.items()))
         del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
@@ -901,6 +979,7 @@ def phase_linear_attention() -> dict:
     per_shape = []
     timed_cases = [(c, "float32") for c in LINATT_WIDE_CASES] + [
         (LINATT_WIDE_CASES[1], "bfloat16")]
+    prefill_case = (RWKV_HEADS, RWKV_SWEEP[1], RWKV_HEAD, RWKV_HEAD)
     for (bh, t, dk, dv, inclusive, bonus, scalar), dtype in timed_cases:
         q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
         lw = lw.to(torch.float32).expand(q.shape).contiguous()
@@ -919,6 +998,18 @@ def phase_linear_attention() -> dict:
                     impl="torch_ref"), plain_iters, 1)
             bound_ms[str(c)], bound_by[str(c)] = _linatt_cost(
                 bh, t, dk, dv, c, q.element_size(), inclusive, bonus)
+        previous = ({str(c): K4_PREVIOUS_MS[c] for c in kernel.CHUNKS}
+                    if ((bh, t, dk, dv), dtype) == (prefill_case, "float32")
+                    else None)
+        # Where a call's device time goes among its CUDA launches (at the
+        # prefill path's shape): summary, fold, outputs.
+        launch_us, cuda_launches = None, None
+        if ((bh, t, dk, dv), dtype) == (prefill_case, "float32"):
+            launch_us, cuda_launches = {}, {}
+            for c in kernel.CHUNKS:
+                launch_us[str(c)], cuda_launches[str(c)] = device_launches(
+                    lambda c=c: kernel.linear_attention_cuda(
+                        q, k, v, lw, u, inclusive=inclusive, chunk=c), 10)
         per_shape.append({"shape": [bh, t, dk, dv], "dtype": dtype,
                           "inclusive": inclusive, "bonus": bonus,
                           "kernel_ms_by_chunk": kernel_ms,
@@ -926,16 +1017,26 @@ def phase_linear_attention() -> dict:
                           "bound_ms_by_chunk": bound_ms,
                           "bound_by_chunk": bound_by,
                           "library_ms": None,
-                          "blocks": bh * -(-dv // 16)})
+                          "cuda_launches_per_call_by_chunk": cuda_launches,
+                          "launch_us_by_chunk": launch_us})
         log(f"linear attention ({bh},{t},{dk},{dv}) {dtype} "
             f"{'inclusive' if inclusive else 'exclusive'}"
-            f"{' +bonus' if bonus else ''}: kernel "
-            + " ".join(f"c{c} {ms:.4f}" for c, ms in kernel_ms.items())
+            f"{' +bonus' if bonus else ''}, chunk-parallel body: kernel "
+            + " ".join(f"c{c} {ms:.4f} ({100 * bound_ms[c] / ms:.1f}%)"
+                       for c, ms in kernel_ms.items())
+            + " ms (% of the bound); previous design "
+            + (" ".join(f"c{c} {ms}" for c, ms in previous.items())
+               if previous else "not timed at this shape")
             + " ms; plain " + " ".join(f"c{c} {ms:.3f}"
                                        for c, ms in plain_ms.items())
             + " ms; bound " + " ".join(f"c{c} {ms:.4f} ({bound_by[c]})"
                                        for c, ms in bound_ms.items())
-            + f" ms; {bh * -(-dv // 16)} blocks")
+            + " ms")
+        if launch_us:
+            for c, per in launch_us.items():
+                log(f"  chunk {c}: {cuda_launches[c]:g} CUDA launches a "
+                    f"call; device us a call by launch "
+                    + ", ".join(f"{n} {us:.1f}" for n, us in per.items()))
         del q, k, v, lw, u
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
@@ -2434,9 +2535,15 @@ def main() -> None:
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
     # at the tiles the prefill Controller chose (the default pair if it
     # chose the plain version).
+    b, h, hk, dh = ATTN_WIDTH
     at = next(r for r in attn["per_shape"]
-              if r["shape"][3] == PREFILL_SWEEP[1]
+              if r["shape"] == [b, h, hk, PREFILL_SWEEP[1], dh, dh]
               and r["dtype"] == "float32")
+    mla_at = next(r for r in attn["per_shape"]
+                  if r["shape"][4:] == [ATTN_MLA_CASES[0][0][3],
+                                        ATTN_MLA_CASES[0][2][3]])
+    mla_tiles = min(mla_at["kernel_ms_by_tiles"],
+                    key=mla_at["kernel_ms_by_tiles"].get)
     chosen = prefill["chosen"]
     tiles = f"{chosen['block_q']}x{chosen['block_kv']}"
     n = N_LAYERS
@@ -2499,6 +2606,13 @@ def main() -> None:
         "per": f"one full-width (1, {PREFILL_SWEEP[1]}) prefill call ({n} "
                f"launches at (1, 16 q / 8 kv heads, {PREFILL_SWEEP[1]}, "
                f"128) fp32, causal, tiles {tiles})",
+        "body": at["body_by_tiles"][tiles]["body"],
+        "cuda_launches_per_call":
+            at["body_by_tiles"][tiles]["cuda_launches_per_call"],
+        "mla": {"shape": mla_at["shape"], "tiles": mla_tiles,
+                "ms": mla_at["kernel_ms_by_tiles"][mla_tiles],
+                "bound_ms": mla_at["bound_ms"],
+                "library_ms": mla_at["library_ms"]},
         "shapes": attn["per_shape"],
     }, {
         "name": "linear_attention",
@@ -2517,9 +2631,15 @@ def main() -> None:
         "library_note": "no single PyTorch call computes chunked gated "
                         "linear attention",
         "per": f"one full-width rwkv6-1.6b (1, {RWKV_SWEEP[1]}) prefill "
-               f"call ({rn} launches at ({RWKV_HEADS}, {RWKV_SWEEP[1]}, "
+               f"call ({rn} calls at ({RWKV_HEADS}, {RWKV_SWEEP[1]}, "
                f"{RWKV_HEAD}, {RWKV_HEAD}) fp32, exclusive with the bonus, "
-               f"chunk {c})",
+               f"chunk {c}; each call is "
+               f"{la_at['cuda_launches_per_call_by_chunk'][c]:g} CUDA "
+               f"launches)",
+        "body": "chunk-parallel (summaries, state fold, outputs)",
+        "cuda_launches_per_call":
+            la_at["cuda_launches_per_call_by_chunk"][c],
+        "launch_us": la_at["launch_us_by_chunk"][c],
         "shapes": linatt["per_shape"],
     }, {
         "name": "matmul",

@@ -9,13 +9,19 @@ output, launches on PyTorch's current stream and raises if the launch
 reports an error.  ``launches`` counts the kernel launches of this
 process.
 
+Two bodies (:func:`body` says which a call runs): fp32 inputs take the
+ring body, which streams each kv tile through a ``cp.async`` ring of
+shared-memory chunks while register-tiled FMA products run on the oldest;
+bf16 inputs take the simple body (staged through registers, fp32 inside).
+
 Tile sizes.  ``block_q`` x ``block_kv`` are template arguments of the
-kernel, and the library instantiates ``BLOCK_Q`` x ``BLOCK_KV``.  The
-reference's candidates (128-1024 rows) are sized for a TPU core's
-megabytes of VMEM; on Hopper a thread block has at most 227 KB of shared
-memory, and the kernel stages the q tile, one K and one V tile and the
-probabilities in fp32: at d = 128 that is 170 KB for (128, 64), while a
-(1024, 1024) tile pair would need over 2 MB.  Any other size raises.
+kernel, and the library instantiates ``BLOCK_Q`` x ``BLOCK_KV``, each at
+every head dim up to ``MAX_HEAD_DIM`` (q, k) and ``MAX_VALUE_HEAD_DIM``
+(v).  The reference's candidates (128-1024 rows) are sized for a TPU
+core's megabytes of VMEM; on Hopper a thread block has at most 227 KB of
+shared memory, which the ring body's fp32 q tile, probabilities and chunk
+ring must share: (128, 64) at d = 192 takes 192 KB, while a (1024, 1024)
+tile pair would need megabytes.  Any other size raises.
 """
 from __future__ import annotations
 
@@ -26,9 +32,10 @@ import torch
 
 from repro_torch.kernels.build import load_cuda_library
 
-__all__ = ["BLOCK_Q", "BLOCK_KV", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_KV",
-           "MAX_HEAD_DIM", "SOURCE", "flash_attention_cuda", "launches",
-           "load_library", "reset_launches"]
+__all__ = ["BLOCK_Q", "BLOCK_KV", "BODIES", "DEFAULT_BLOCK_Q",
+           "DEFAULT_BLOCK_KV", "MAX_HEAD_DIM", "MAX_VALUE_HEAD_DIM", "SOURCE",
+           "body", "flash_attention_cuda", "launches", "load_library",
+           "reset_launches"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -38,13 +45,18 @@ BLOCK_Q = (64, 128)
 BLOCK_KV = (32, 64)
 #: the pair measured fastest at the full-width prefill shapes on an H100
 #: (``chip_smoke.py``'s attention phase; numbers in PERF.md)
-DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_KV = 64
-#: largest head dim (d and dv) the kernel takes
-MAX_HEAD_DIM = 128
+#: largest head dim of q and k (d) the kernel takes: MLA's nope + rope
+MAX_HEAD_DIM = 192
+#: largest head dim of v (dv) the kernel takes
+MAX_VALUE_HEAD_DIM = 128
+#: the bodies :func:`body` names, by the library's code
+BODIES = ("ring", "simple")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_MAX_BLOCKS = 2 ** 31 - 1
 
 #: kernel launches in this process (see :func:`reset_launches`)
 launches = 0
@@ -71,8 +83,28 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_body.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        lib.flash_attention_body.restype = ctypes.c_int
         _fwd = fn
     return lib
+
+
+def body(dtype: torch.dtype, d: int, dv: int, *,
+         block_q: int = DEFAULT_BLOCK_Q,
+         block_kv: int = DEFAULT_BLOCK_KV) -> dict:
+    """The body (:data:`BODIES`) a call at these dims and tiles runs, its
+    shared memory a block (bytes) and its ring stages (0 for the simple
+    body)."""
+    smem, stages = ctypes.c_int(0), ctypes.c_int(0)
+    code = load_library().flash_attention_body(
+        _DTYPE_CODES[dtype], block_q, block_kv, d, dv, ctypes.byref(smem),
+        ctypes.byref(stages))
+    if code < 0:
+        raise ValueError(f"no instantiation for {dtype} at (d, dv) = "
+                         f"({d}, {dv}), tiles ({block_q}, {block_kv})")
+    return {"body": BODIES[code], "smem_bytes": smem.value,
+            "stages": stages.value}
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,14 +144,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)} do not agree")
     if bhk == 0 or bh % bhk:
         raise ValueError(f"{bh} query heads do not group over {bhk} kv heads")
-    if max(d, dv) > MAX_HEAD_DIM:
+    if d > MAX_HEAD_DIM or dv > MAX_VALUE_HEAD_DIM:
         raise ValueError(f"head dims ({d}, {dv}) exceed the kernel's "
-                         f"{MAX_HEAD_DIM}")
+                         f"({MAX_HEAD_DIM}, {MAX_VALUE_HEAD_DIM})")
     if block_q not in BLOCK_Q or block_kv not in BLOCK_KV:
         raise ValueError(f"(block_q, block_kv) must be in {BLOCK_Q} x "
                          f"{BLOCK_KV}, got ({block_q}, {block_kv})")
-    if bh > _MAX_GRID_Y or max(q.numel(), k.numel(), v.numel(),
-                               bh * sq * dv) >= 2 ** 31:
+    if (bh > _MAX_GRID_Y or bh * -(-sq // block_q) > _MAX_BLOCKS
+            or max(q.numel(), k.numel(), v.numel(), bh * sq * dv) >= 2 ** 31):
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(v.shape)} exceed "
                          f"the kernel's grid or 32-bit index range")
     if window is not None and window <= 0:

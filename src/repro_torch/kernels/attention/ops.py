@@ -26,8 +26,9 @@ __all__ = ["attention"]
 
 def _guard(q, k, v, **_kw):
     # Decides by device only: a CUDA tensor the kernel cannot take (a
-    # dtype other than fp32/bf16, a head dim over 128, an uninstantiated
-    # tile) reaches the wrapper and raises there, never the plain version.
+    # dtype other than fp32/bf16, d over 192 or dv over 128, an
+    # uninstantiated tile) reaches the wrapper and raises there, never the
+    # plain version.
     return q.device.type == "cuda"
 
 
@@ -48,7 +49,8 @@ def _attention_torch_ref(q, k, v, *, causal, window, scale, q_offset,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
                    description="flash attention in CUDA C++ for sm_90a "
-                               "(fp32 online softmax, skipped masked tiles)")
+                               "(cp.async chunk ring, register-tiled fp32 "
+                               "FMA, skipped masked tiles)")
 def _attention_cuda(q, k, v, *, causal, window, scale, q_offset, block_q,
                     block_kv, swa_impl=None):
     del swa_impl

@@ -5,15 +5,21 @@ Replaces the reference's Pallas TPU kernel
 (``src/repro/kernels/linear_attention/kernel.py::linear_attention_pallas``).
 The library is compiled for ``sm_90a`` with ``nvcc`` on first use
 (:func:`load_library`); the wrapper checks its inputs, allocates the
-output, launches on PyTorch's current stream and raises if the launch
-reports an error.  ``launches`` counts the kernel launches of this
-process.
+output and the chunk-state workspace with ``torch.empty`` on the inputs'
+device (so on the current stream's allocator), makes the library's
+three launches (chunk summaries, the fold of the chunk states, the chunk
+outputs) on PyTorch's current stream and raises if one reports an error.
+``launches`` counts the calls of this process (one per call, whatever the
+CUDA launches behind it).
 
-``chunk`` (the ``chunk_len`` spec point) is a template argument: the
-library instantiates :data:`CHUNKS`, the reference's candidates, which fit
-a thread block's shared memory as they are (95 KB at chunk 64 and
-dk = 64).  Head dims up to :data:`MAX_HEAD_DIM` are runtime values.  A
-ragged length (not a multiple of the chunk) is masked in the kernel.
+The computation is chunk-parallel, in the order of the port's plain
+version (:mod:`.chunk_math`): every chunk's summary in parallel, the
+states entering each chunk folded in chunk order, then every chunk's
+output in parallel.  ``chunk`` (the ``chunk_len`` spec point) is a
+template argument: the library instantiates :data:`CHUNKS`, the
+reference's candidates.  Head dims up to :data:`MAX_HEAD_DIM` are runtime
+values.  A ragged length (not a multiple of the chunk) is masked in the
+kernel.
 """
 from __future__ import annotations
 
@@ -24,8 +30,9 @@ import torch
 
 from repro_torch.kernels.build import load_cuda_library
 
-__all__ = ["CHUNKS", "MAX_HEAD_DIM", "SOURCE", "launches", "load_library",
-           "linear_attention_cuda", "reset_launches"]
+__all__ = ["CHUNKS", "MAX_HEAD_DIM", "SOURCE", "launches",
+           "load_library", "linear_attention_cuda", "reset_launches",
+           "workspace_floats"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_attention.cu"
 
@@ -35,7 +42,6 @@ CHUNKS = (16, 32, 64)
 MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SLICE = 16          # dv columns per thread block (kSlice in the source)
 
 #: kernel launches in this process (see :func:`reset_launches`)
 launches = 0
@@ -56,13 +62,21 @@ def load_library() -> ctypes.CDLL:
     lib = load_cuda_library("linear_attention", SOURCE)
     if _fwd is None:
         fn = lib.linear_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.linear_attention_error_string.argtypes = [ctypes.c_int]
         lib.linear_attention_error_string.restype = ctypes.c_char_p
         _fwd = fn
     return lib
+
+
+def workspace_floats(bh: int, t_len: int, dk: int, dv: int,
+                     chunk: int) -> int:
+    """fp32 values of workspace a call takes: the state entering each chunk
+    (``bh x n_chunks x dk x dv``) and each chunk's total log decay
+    (``bh x n_chunks x dk``)."""
+    return bh * -(-t_len // chunk) * dk * (dv + 1)
 
 
 def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,18 +133,23 @@ def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_HEAD_DIM}")
     if chunk not in CHUNKS:
         raise ValueError(f"chunk must be in {CHUNKS}, got {chunk}")
-    if bh * -(-dv // _SLICE) >= 2 ** 31:
-        raise ValueError(f"{bh} heads exceed the kernel's grid")
+    if bh * -(-t_len // chunk) >= 2 ** 31 or max(
+            q.numel(), v.numel(), workspace_floats(bh, t_len, dk, dv,
+                                                   chunk)) >= 2 ** 31:
+        raise ValueError(f"(bh, T) = ({bh}, {t_len}) exceed the kernel's "
+                         f"grid or 32-bit index range")
     out = torch.empty((bh, t_len, dv), dtype=v.dtype, device=v.device)
     if bh == 0 or t_len == 0:
         return out
+    work = torch.empty(workspace_floats(bh, t_len, dk, dv, chunk),
+                       dtype=torch.float32, device=v.device)
     if _fwd is None:
         load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                bonus.data_ptr() if bonus is not None else None,
-               out.data_ptr(), bh, t_len, dk, dv, int(chunk), int(inclusive),
-               _DTYPE_CODES[q.dtype], stream)
+               out.data_ptr(), work.data_ptr(), bh, t_len, dk, dv, int(chunk),
+               int(inclusive), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         msg = load_library().linear_attention_error_string(err).decode()
         raise RuntimeError(f"linear_attention_fwd launch failed: {msg} "

@@ -47,8 +47,8 @@ def _linatt_torch_ref(q, k, v, log_w, *, bonus=None, inclusive=False,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
                    description="chunked linear attention in CUDA C++ for "
-                               "sm_90a (state in shared memory, dv split "
-                               "across blocks)")
+                               "sm_90a (chunk-parallel: summaries, state "
+                               "fold, outputs)")
 def _linatt_cuda(q, k, v, log_w, *, bonus=None, inclusive=False, chunk=64):
     return kernel.linear_attention_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(),

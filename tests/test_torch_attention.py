@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro import compat as ref_compat  # noqa: E402
+from repro import configs as ref_configs  # noqa: E402
 from repro.kernels import attention as ref_attention  # noqa: E402
 from repro.kernels.attention import ref as ref_ref  # noqa: E402
 from repro_torch import compat  # noqa: E402
@@ -24,7 +25,9 @@ from repro_torch.kernels.attention import ref  # noqa: E402
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 
 #: (q shape, k shape, v shape, causal, window, dtype) — the cases of
-#: tests/test_kernels.py:60-108, then one ragged length
+#: tests/test_kernels.py:60-108, one ragged length, then MLA's head dims
+#: (deepseek-v2 / kimi-k2: q and k nope + rope = 192, v 128;
+#: src/repro/models/mla.py:90-98), causal, with and without GQA and a window
 CASES = {
     **{f"gqa{h}/{hk}-{tag}": ((2, h, 64, 32), (2, hk, 64, 32),
                                (2, hk, 64, 32), causal, window, "float32")
@@ -40,6 +43,14 @@ CASES = {
     "bfloat16": ((1, 2, 32, 16),) * 3 + (True, None, "bfloat16"),
     "ragged": ((1, 4, 50, 32), (1, 2, 50, 32), (1, 2, 50, 32), True, 16,
                "float32"),
+    "mla-causal": ((1, 2, 32, 192), (1, 2, 32, 192), (1, 2, 32, 128), True,
+                   None, "float32"),
+    "mla-gqa": ((1, 4, 32, 192), (1, 2, 32, 192), (1, 2, 32, 128), True,
+                None, "float32"),
+    "mla-gqa-window": ((1, 4, 48, 192), (1, 2, 48, 192), (1, 2, 48, 128),
+                       True, 16, "float32"),
+    "mla-bfloat16": ((1, 2, 32, 192), (1, 2, 32, 192), (1, 2, 32, 128),
+                     True, None, "bfloat16"),
 }
 
 
@@ -162,3 +173,22 @@ def test_cuda_choices_follow_the_host():
     assert not registry.get("attention", "cuda").supports_grad
     assert registry.choices("attention", require_grad=True) == ("torch_ref",)
     assert registry.get("attention", "pallas_tpu").name == "cuda"
+
+
+#: the reference's full-width configs that attend (every mixer but rwkv6)
+ATTENDING_ARCHS = [a for a in ref_configs.ARCHS
+                   if ref_configs.get_config(a).mixer != "rwkv6"]
+
+
+@pytest.mark.parametrize("arch", ATTENDING_ARCHS)
+def test_kernel_head_dims_take_every_reference_config(arch):
+    """The kernel's limits take the attention call of every full-width
+    reference config: q/k head dim nope + rope and v head dim d_head under
+    MLA (src/repro/models/mla.py:90-98; deepseek-v2: 192 and 128), d_head
+    for both otherwise."""
+    cfg = ref_configs.get_config(arch)
+    if cfg.attn_kind == "mla":
+        d, dv = cfg.nope_head_dim + cfg.rope_head_dim, cfg.d_head
+    else:
+        d = dv = cfg.d_head
+    assert d <= kernel.MAX_HEAD_DIM and dv <= kernel.MAX_VALUE_HEAD_DIM

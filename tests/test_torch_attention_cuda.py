@@ -29,7 +29,10 @@ TILES = [(bq, bkv) for bq in kernel.BLOCK_Q for bkv in kernel.BLOCK_KV]
 #: (q shape, k shape, v shape, causal, window): the reference's test cases
 #: (tests/test_kernels.py:60-108), then the full-width qwen3-0.6b prefill
 #: shapes (16 query / 8 kv heads, head dim 128) at two lengths and a
-#: ragged one
+#: ragged one, queries at an offset into their keys, a window without the
+#: causal mask, MLA's head dims (q/k 192, v 128) with and without GQA and
+#: a window, d < dv, and a head dim that is no whole number of 16-byte
+#: vectors (the ring body's 4-byte copies)
 CASES = {
     **{f"gqa{h}/{hk}-{tag}": ((2, h, 64, 32), (2, hk, 64, 32),
                                (2, hk, 64, 32), causal, window)
@@ -44,6 +47,17 @@ CASES = {
     "small": ((1, 2, 32, 16),) * 3 + (True, None),
     **{f"prefill{s}": ((1, 16, s, 128), (1, 8, s, 128), (1, 8, s, 128),
                        True, None) for s in (512, 1000, 2048)},
+    "prefill-q_offset": ((1, 16, 100, 128), (1, 8, 612, 128),
+                         (1, 8, 612, 128), True, None),
+    "window-full": ((1, 4, 200, 128), (1, 2, 200, 128), (1, 2, 200, 128),
+                    False, 48),
+    "mla": ((1, 4, 300, 192), (1, 4, 300, 192), (1, 4, 300, 128), True,
+            None),
+    "mla-gqa-window": ((1, 8, 257, 192), (1, 2, 257, 192), (1, 2, 257, 128),
+                       True, 64),
+    "d_lt_dv": ((1, 4, 130, 64), (1, 2, 130, 64), (1, 2, 130, 128), True,
+                None),
+    "d18": ((2, 2, 70, 18), (2, 2, 70, 18), (2, 2, 70, 10), True, None),
 }
 
 
@@ -54,10 +68,20 @@ def hopper():
     return torch.device("cuda")
 
 
-def _inputs(shapes, dtype, device, seed=0):
+def _inputs(shapes, dtype, device, seed=0, misaligned=False):
+    """Inputs from numpy; ``misaligned`` puts each one element into its
+    storage (contiguous, but its rows off 16-byte alignment)."""
     rs = np.random.RandomState(seed)
-    return [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(
-        getattr(torch, dtype)).to(device) for s in shapes]
+    out = []
+    for s in shapes:
+        x = torch.from_numpy(rs.randn(*s).astype(np.float32)).to(
+            getattr(torch, dtype)).to(device)
+        if misaligned:
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(s)
+        out.append(x)
+    return out
 
 
 @pytest.mark.requires_h100
@@ -104,19 +128,67 @@ def test_cuda_kernel_matches_torch_ref_on_rows_of_a_long_prefill(hopper,
 
 
 @pytest.mark.requires_h100
-def test_rows_with_no_valid_column_are_zero(hopper):
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
+def test_rows_with_no_valid_column_are_zero(hopper, d, dv, dtype, tiles):
     """With q_offset < 0 the first rows see no column: the kernel writes 0
     there, as the reference's Pallas kernel does (the plain version writes
     the mean of v, as the reference's oracle does); every other row
     agrees."""
-    q, k, v = _inputs(((1, 2, 48, 32), (1, 2, 32, 32), (1, 2, 32, 32)),
-                      "float32", hopper)
-    out = attention(q, k, v, causal=True, q_offset=-8, impl="cuda")
-    ref = attention(q, k, v, causal=True, q_offset=-8, impl="torch_ref")
+    q, k, v = _inputs(((1, 2, 150, d), (1, 2, 100, d), (1, 2, 100, dv)),
+                      dtype, hopper)
+    out = attention(q, k, v, causal=True, q_offset=-40, impl="cuda",
+                    block_q=tiles[0], block_kv=tiles[1])
+    ref = attention(q, k, v, causal=True, q_offset=-40, impl="torch_ref")
     torch.cuda.synchronize()
-    assert not out[:, :, :8].any()
-    torch.testing.assert_close(out[:, :, 8:], ref[:, :, 8:], rtol=2e-4,
-                               atol=2e-4)
+    assert not out[:, :, :40].any()
+    tol = TOL[dtype]
+    torch.testing.assert_close(out[:, :, 40:].float(), ref[:, :, 40:].float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
+def test_misaligned_rows_take_the_four_byte_copies(hopper, tiles):
+    """Inputs one element into their storage (contiguous, rows off 16-byte
+    alignment) take the ring body's 4-byte copies; they agree with the
+    plain version at the prefill width and at MLA's."""
+    for q_s, k_s, v_s in [((1, 16, 300, 128), (1, 8, 300, 128),
+                           (1, 8, 300, 128)),
+                          ((1, 4, 200, 192), (1, 2, 200, 192),
+                           (1, 2, 200, 128))]:
+        q, k, v = _inputs((q_s, k_s, v_s), "float32", hopper,
+                          misaligned=True)
+        assert q.data_ptr() % 16 != 0
+        before = kernel.launches
+        out = attention(q, k, v, impl="cuda", block_q=tiles[0],
+                        block_kv=tiles[1])
+        ref = attention(q, k, v, impl="torch_ref")
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        torch.testing.assert_close(out, ref, rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+        rtol, atol = SCALED_TOL["float32"]
+        torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
+                                  (24, 16), (160, 96)])
+def test_every_tile_pair_fits_shared_memory(hopper, d, dv, tiles):
+    """Every instantiated tile pair takes every head dim up to (192, 128)
+    within the 227 KB a block may use: fp32 on the ring body with at least
+    two chunk stages, bf16 on the simple body."""
+    ring = kernel.body(torch.float32, d, dv, block_q=tiles[0],
+                       block_kv=tiles[1])
+    assert ring["body"] == "ring" and ring["stages"] >= 2
+    assert 0 < ring["smem_bytes"] <= 232448
+    simple = kernel.body(torch.bfloat16, d, dv, block_q=tiles[0],
+                         block_kv=tiles[1])
+    assert simple["body"] == "simple" and simple["stages"] == 0
+    assert 0 < simple["smem_bytes"] <= 232448
 
 
 @pytest.mark.requires_h100
@@ -132,11 +204,21 @@ def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
         attention(q, k.cpu(), v, impl="cuda")
     with pytest.raises(ValueError):
         attention(q, k, v, impl="cuda", block_q=256)
+    # d = 160 is within the kernel's 192, dv = 160 beyond its 128; d = 200
+    # beyond 192
     wide = _inputs(((1, 2, 32, 160),) * 3, "float32", hopper)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="head dims"):
         attention(*wide, impl="cuda")
+    deep = _inputs(((1, 2, 32, 200), (1, 2, 32, 200), (1, 2, 32, 128)),
+                   "float32", hopper)
+    with pytest.raises(ValueError, match="head dims"):
+        attention(*deep, impl="cuda")
     assert registry.default_registry.fallback_counts == counts
     assert kernel.launches == before
+    legal = _inputs(((1, 2, 32, 160), (1, 2, 32, 160), (1, 2, 32, 128)),
+                    "float32", hopper)
+    attention(*legal, impl="cuda")
+    assert kernel.launches == before + 1
 
 
 @pytest.mark.requires_h100

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro import compat as ref_compat  # noqa: E402
+from repro import configs as ref_configs  # noqa: E402
 from repro.kernels.linear_attention import (  # noqa: E402
     linear_attention as ref_linear_attention)
 from repro.models import chunk_scan as ref_chunk  # noqa: E402
@@ -245,3 +246,60 @@ def test_wrapper_refuses_host_tensors():
     q, k, v, lw, _ = map(_t, _arrays(2, 32, 8, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.linear_attention_cuda(q, k, v, lw)
+
+
+#: the reference's full-width configs whose mixer runs the linear attention
+LINEAR_ARCHS = [a for a in ref_configs.ARCHS
+                if ref_configs.get_config(a).mixer in ("rwkv6", "hymba")]
+
+
+@pytest.mark.parametrize("arch", LINEAR_ARCHS)
+def test_kernel_head_dims_take_every_reference_config(arch):
+    """The kernel's head-dim limit takes the linear attention call of every
+    full-width reference config: RWKV6 heads of rwkv_head_size, hymba's
+    SSM heads (dk = ssm_state, dv = d_head; src/repro/models/ssm.py:87-99)."""
+    cfg = ref_configs.get_config(arch)
+    if cfg.mixer == "rwkv6":
+        dk = dv = cfg.rwkv_head_size
+    else:
+        dk, dv = cfg.ssm_state, cfg.d_head
+    assert max(dk, dv) <= kernel.MAX_HEAD_DIM
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (2, 128, 8, 8, 64), (3, 100, 8, 12, 16), (2, 90, 4, 8, 32),
+    (1, 64, 16, 4, 16)])
+def test_workspace_holds_each_chunk_state_and_decay(bh, t, dk, dv, chunk):
+    """The wrapper's workspace has room for exactly what the chunk-parallel
+    form keeps between its launches, as the plain version computes it: the
+    state entering every chunk (a ragged tail is a chunk of its own) and
+    every chunk's total log decay.  Those states, folded chunk by chunk with
+    the plain version's chunk math, are the per-step recurrence's state at
+    each chunk's first token."""
+    rng = np.random.default_rng(7)
+    q, k = (torch.from_numpy(rng.standard_normal((bh, t, dk),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((bh, t, dv), dtype=np.float32))
+    lw = torch.from_numpy(-rng.uniform(1e-4, 1.0, (bh, t, dk))
+                          .astype(np.float32))
+    entering, totals = [], []
+    state = torch.zeros(bh, dk, dv)
+    for a in range(0, t, chunk):
+        e = min(a + chunk, t)
+        entering.append(state)
+        totals.append(lw[:, a:e].sum(1))
+        _, state = chunk_scan.chunked_linear_attention(
+            q[:, a:e], k[:, a:e], v[:, a:e], lw[:, a:e], chunk=e - a,
+            init_state=state, return_state=True)
+    s_enter, la_tot = torch.stack(entering, 1), torch.stack(totals, 1)
+    assert kernel.workspace_floats(bh, t, dk, dv, chunk) == (
+        s_enter.numel() + la_tot.numel())
+
+    step = torch.zeros(bh, dk, dv)
+    for i in range(t):
+        if i % chunk == 0:
+            torch.testing.assert_close(s_enter[:, i // chunk], step,
+                                       rtol=TOL, atol=TOL)
+        _, step = chunk_scan.step_linear_attention(
+            q[:, i], k[:, i], v[:, i], lw[:, i], step)

@@ -35,7 +35,10 @@ SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4)}
 #: (bh, T, dk, dv, inclusive, bonus, scalar decay): the reference's test
 #: cases (tests/test_linear_attention_kernel.py:28-55), a ragged length,
 #: a hymba-like inclusive scalar-decay head (dk 16, dv 64) and rwkv6-1.6b
-#: heads (dk = dv = 64) at a prefill length
+#: heads (dk = dv = 64) at a prefill length; then the widest heads the
+#: kernel takes (128), head dims that are no whole number of 16-byte
+#: vectors (4-byte copies), an inclusive ragged length and one shorter
+#: than every chunk
 CASES = {
     **{f"t{t}-dv{dv}-{'incl' if inc else 'excl'}": (2, t, 8, dv, inc, False,
                                                      False)
@@ -45,6 +48,10 @@ CASES = {
     "ragged": (4, 1000, 64, 64, False, True, False),
     "hymba_like": (25, 512, 16, 64, True, False, True),
     "rwkv6_heads": (32, 1024, 64, 64, False, True, False),
+    "wide": (4, 300, 128, 128, False, True, False),
+    "odd_dims": (3, 100, 10, 6, False, True, False),
+    "incl_ragged": (4, 1000, 16, 64, True, False, True),
+    "short": (2, 9, 64, 64, False, True, False),
 }
 
 
@@ -55,7 +62,9 @@ def hopper():
     return torch.device("cuda")
 
 
-def _inputs(case, dtype, device, seed=0):
+def _inputs(case, dtype, device, seed=0, misaligned=False):
+    """Inputs from numpy; ``misaligned`` puts q, k, v and log_w each one
+    element into its storage (contiguous, rows off 16-byte alignment)."""
     bh, t, dk, dv, _, use_bonus, scalar = CASES[case]
     rs = np.random.RandomState(seed)
     q, k = (rs.randn(bh, t, dk).astype(np.float32) for _ in range(2))
@@ -63,7 +72,14 @@ def _inputs(case, dtype, device, seed=0):
     lw = -np.clip(rs.rand(bh, t, 1 if scalar else dk), 1e-4, 1.0).astype(
         np.float32)
     u = rs.randn(bh, dk).astype(np.float32) if use_bonus else None
-    cast = lambda a: torch.from_numpy(a).to(getattr(torch, dtype)).to(device)
+
+    def cast(a, dt=getattr(torch, dtype)):
+        x = torch.from_numpy(a).to(dt).to(device)
+        if misaligned:
+            buf = torch.empty(x.numel() + 1, dtype=dt, device=device)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(x.shape)
+        return x
     return (cast(q), cast(k), cast(v), cast(lw),
             torch.from_numpy(u).to(device) if u is not None else None)
 
@@ -92,6 +108,47 @@ def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, chunk):
     ref = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
                            chunk=chunk, impl="torch_ref")
     _check(out, ref, dtype)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("chunk", kernel.CHUNKS)
+@pytest.mark.parametrize("inclusive", [False, True])
+def test_long_prefill_whole(hopper, inclusive, chunk):
+    """rwkv6-1.6b's 32 heads of 64 at the long prefill call's length, T =
+    16384, compared whole: exclusive with the bonus (RWKV6) and inclusive
+    without it (the SSM form), fp32."""
+    rs = np.random.RandomState(3)
+    bh, t, d = 32, 16384, 64
+    q, k, v = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32)).to(
+        hopper) for _ in range(3))
+    lw = torch.from_numpy(-np.clip(rs.rand(bh, t, d), 1e-4, 1.0).astype(
+        np.float32)).to(hopper)
+    u = None if inclusive else torch.from_numpy(
+        rs.randn(bh, d).astype(np.float32)).to(hopper)
+    before = kernel.launches
+    out = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
+                           chunk=chunk, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
+                           chunk=chunk, impl="torch_ref")
+    _check(out, ref, "float32")
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("chunk", kernel.CHUNKS)
+@pytest.mark.parametrize("case", ["ragged", "incl_ragged", "wide"])
+def test_misaligned_rows_take_the_four_byte_copies(hopper, case, chunk):
+    """fp32 inputs one element into their storage take the 4-byte copies
+    and agree with the plain version."""
+    q, k, v, lw, u = _inputs(case, "float32", hopper, misaligned=True)
+    assert q.data_ptr() % 16 != 0
+    inclusive = CASES[case][4]
+    out = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
+                           chunk=chunk, impl="cuda")
+    ref = linear_attention(q, k, v, lw, bonus=u, inclusive=inclusive,
+                           chunk=chunk, impl="torch_ref")
+    _check(out, ref, "float32")
 
 
 @pytest.mark.requires_h100
