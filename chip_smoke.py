@@ -67,10 +67,16 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 4d. Fastpath vs plain: the hot-key matcher against its plain version at
    the reference's cases (every value dtype, int32 and int64 keys, every
    ``block_b``), at batches of 8192 and 65536 against tables of 1 to
-   4096 keys with int32 and fp32 values, a table of duplicate keys and an
-   all-miss batch; exact for integer values, 1e-6 for float ones; times
-   the kernel and the plain version (no single PyTorch call computes this
-   function).
+   4096 keys with int32 and fp32 values, a table of duplicate keys, an
+   all-miss batch, a table whose keys share one probe chain and int64
+   keys apart only in their high 32 bits; each case on the raw table
+   (the dense body) and on the prepared table (the body the kernel picks,
+   then each body), the miss count against the plain hit count; exact
+   for integer values, 1e-6 for float ones; times each body eager and in
+   a CUDA graph of 100 launches (host = eager minus graph), the raw
+   wrapper per ``block_b`` and the plain version (no single PyTorch call
+   computes this function), and logs where the hashed body overtakes the
+   dense one.
 5. Serve path: ``repro_torch.launch.serve.build_engine`` serves qwen3-0.6b
    at full width (28 layers, d=1024, vocab 151936; random weights from
    seed 0) in fp32, through the default safety controller that explores
@@ -127,7 +133,10 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    ``RequestGenerator`` traffic whose addresses shift at the midpoint,
    ranking the sizes by call rate while its change detector reads the
    table's share of the rows; it must re-instrument after the shift, and
-   its output must equal the generic's on every 10th step.
+   its output must equal the generic's on every 10th step.  At M = 16 and
+   8192 the profiler reads the device's busy share over 200 steady
+   all-hit calls of the fast path and its launches a call, which must be
+   one K5 launch and nothing else.
 
 In phases 5, 7, 9, 10, 12 and 13 (the main paths) the launch counters and the
 registry's fallback counts are zeroed just before and read just after;
@@ -325,12 +334,20 @@ FASTPATH_TEST_CASES = [(64, 8, 3, 16), (100, 4, 1, 8), (256, 32, 2, 4)]
 FASTPATH_BATCHES = (8192, 65536)
 FASTPATH_TABLES = (1, 4, 16, 256, 4096)
 FASTPATH_TOL = 1e-6
+#: table sizes between which the body threshold is read (device time of
+#: each body in a CUDA graph of FASTPATH_GRAPH_LAUNCHES launches)
+FASTPATH_THRESHOLD = (2, 8, 32, 64, 128)
+FASTPATH_GRAPH_LAUNCHES = 100
 #: the router (phase 13): addresses a batch, fig 4's LPM table sizes and
 #: hot addresses, fig 9's table size, iterations, dwell and candidate
 #: fast-path sizes (benchmarks/fig4_fastpath.py, fig9_fastpath_size.py)
 ROUTER_BATCH = 8192
 FIG4_TABLES = (16, 128, 1024, 8192)
 FIG4_HOT = 16
+#: LPM sizes whose fast path is profiled (device busy share, launches a
+#: call) over this many steady calls
+FIG4_PROFILE = (16, 8192)
+FIG4_PROFILE_CALLS = 200
 FIG9_TABLE = 512
 FIG9_ITERS = 700
 FIG9_DWELL = 30
@@ -363,18 +380,36 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled(fn, calls: int, attempts: int = 3):
+    """``calls`` calls of ``fn`` under the profiler (device activities
+    only), the wall seconds they took and the windows run.  The profiler
+    can drop a whole window's activities, so a window in which it saw
+    nothing on the device is run again, up to ``attempts`` times; then
+    this fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.key_averages()):
+            return prof, wall, window
+    fail(f"the profiler saw no device activity in {attempts} windows")
+
+
 def device_launches(fn, calls: int = 3) -> tuple[dict, float]:
     """What ``calls`` calls of ``fn`` launch on the card, by the profiler:
     device us a call by kernel (its name and template arguments) and
     launches a call, every device activity counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    prof, _, _ = profiled(fn, calls)
     us, launched = {}, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -383,8 +418,6 @@ def device_launches(fn, calls: int = 3) -> tuple[dict, float]:
         name = m.group(0) if m else e.key[:80]
         us[name] = us.get(name, 0.0) + e.self_device_time_total / calls
         launched += e.count
-    if not us:
-        fail("the profiler saw no device activity")
     return us, launched / calls
 
 
@@ -1234,26 +1267,46 @@ def _hgmma_by_function() -> dict:
 
 def _fastpath_cost(b: int, n: int, kw: int, v: int, key_itemsize: int,
                    value_itemsize: int) -> tuple[float, str]:
-    """Least time (ms) on the card: queries, keys and values read once,
-    out and hit written once, against the B * N * K key compares (two
-    int32 operations for an int64 key) at the int32 rate."""
+    """Least time (ms) on the card for the function's bytes: queries, keys
+    and values read once, out, hit and the miss count written once.  The
+    B * N * K compares are one body's work, not the function's (the hashed
+    body does not make them), so they bound nothing."""
     nbytes = ((b + n) * kw * key_itemsize + (n + b) * v * value_itemsize
-              + b)
-    ops_ = b * n * kw * (key_itemsize // 4)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops_ / PEAK_INT32_OPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+              + b + 4)
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def _colliding_keys(n: int, rs) -> "np.ndarray":
+    """``n`` int32 keys (K = 1) whose hashes all fall in one slot of the
+    table ``prepare_table`` builds for ``n`` keys (one probe chain)."""
+    import numpy as np
+
+    from repro_torch.kernels.fastpath import kernel
+
+    size = 2
+    while size < 2 * n:
+        size *= 2
+    cand = rs.permutation(8 * n * size).astype(np.int64)[:, None]
+    slot = kernel.hash_keys(cand) & np.uint64(size - 1)
+    same = cand[slot == np.bincount(slot.astype(np.int64)).argmax()]
+    if len(same) < 2 * n:
+        fail(f"fastpath: found {len(same)} keys of one slot, need {2 * n}")
+    return same.astype(np.int32)
 
 
 def phase_fastpath() -> dict:
-    """K5 against its plain version, exact for integer values, then
-    timed."""
+    """K5 against its plain version on both bodies (the raw table through
+    the op, the prepared table on each body and on the one the kernel
+    picks), exact for integer values, the miss count against the plain
+    hit count; then timed, eager and in a CUDA graph."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels.fastpath import kernel, ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
+    rs = np.random.RandomState(6)
     checked = 0
     max_err = 0.0
 
@@ -1270,17 +1323,18 @@ def phase_fastpath() -> dict:
             pick = torch.rand((b,), generator=gen, device=dev) < hot
             rows = torch.randint(0, n, (b,), generator=gen, device=dev)
             x = torch.where(pick[:, None], keys[rows], x)
-        if vdtype.is_floating_point:
-            vals = torch.randn((n, v), generator=gen, device=dev).to(vdtype)
-        else:
-            vals = torch.randint(-2 ** 30, 2 ** 30, (n, v), generator=gen,
-                                 device=dev).to(vdtype)
-        return x.to(kdtype), keys.to(kdtype), vals
+        return x.to(kdtype), keys.to(kdtype), values(n, v, vdtype)
 
-    def check(x, keys, vals, block_b, what):
-        nonlocal checked, max_err
-        out, hit = ops.lookup(x, keys, vals, block_b=block_b, impl="cuda")
-        ref, ref_hit = ops.lookup(x, keys, vals, impl="torch_ref")
+    def values(n, v, vdtype):
+        if vdtype.is_floating_point:
+            return torch.randn((n, v), generator=gen, device=dev).to(vdtype)
+        return torch.randint(-2 ** 30, 2 ** 30, (n, v), generator=gen,
+                             device=dev).to(vdtype)
+
+    readback = kernel.MissReadback()
+
+    def compare(out, hit, miss, ref, ref_hit, what):
+        nonlocal max_err
         torch.cuda.synchronize()
         if out.shape != ref.shape or out.dtype != ref.dtype \
                 or hit.dtype != torch.bool:
@@ -1289,7 +1343,10 @@ def phase_fastpath() -> dict:
         if not torch.equal(hit, ref_hit):
             fail(f"fastpath {what}: hit differs at "
                  f"{int((hit != ref_hit).sum())} rows")
-        if vals.dtype.is_floating_point:
+        if miss is not None and miss != int((~ref_hit).sum()):
+            fail(f"fastpath {what}: miss count {miss}, the plain version "
+                 f"misses {int((~ref_hit).sum())} rows")
+        if ref.dtype.is_floating_point:
             torch.testing.assert_close(
                 out.float(), ref.float(), rtol=FASTPATH_TOL,
                 atol=FASTPATH_TOL, msg=lambda m: f"fastpath {what}: {m}")
@@ -1299,8 +1356,26 @@ def phase_fastpath() -> dict:
         elif not torch.equal(out, ref):
             fail(f"fastpath {what}: integer sums differ at "
                  f"{int((out != ref).any(-1).sum())} rows")
+
+    def check(x, keys, vals, block_b, what):
+        """The raw table through the op (the dense body), the prepared
+        table through the op (the body the kernel picks) and on each body
+        with its miss count."""
+        nonlocal checked
+        ref, ref_hit = ops.lookup(x, keys, vals, impl="torch_ref")
+        compare(*ops.lookup(x, keys, vals, block_b=block_b, impl="cuda"),
+                None, ref, ref_hit, f"{what} raw")
+        table = kernel.prepare_table(keys, vals)
+        compare(*ops.lookup(x, keys, vals, block_b=block_b, impl="cuda",
+                            prepared=table), None, ref, ref_hit,
+                f"{what} prepared")
+        for body in kernel.BODIES:
+            out, hit = kernel.fastpath_cuda_prepared(
+                x, table, block_b=block_b, body=body, readback=readback)
+            compare(out, hit, readback.misses, ref, ref_hit,
+                    f"{what} prepared, {body} body")
         checked += 1
-        return hit
+        return ref_hit
 
     value_dtypes = (torch.float32, torch.bfloat16, torch.int32, torch.int64)
     for (b, n, kw, v), vdt, kdt, block_b in itertools.product(
@@ -1309,8 +1384,9 @@ def phase_fastpath() -> dict:
         x, keys, vals = inputs(b, n, kw, v, vdt, kdt, key_range=10)
         check(x, keys, vals, block_b, f"({b},{n},{kw},{v}) {vdt} keys {kdt} "
               f"block_b {block_b}")
+    router_tables = sorted(set(FASTPATH_TABLES) | set(FASTPATH_THRESHOLD))
     for b, n, (vdt, v) in itertools.product(
-            FASTPATH_BATCHES, FASTPATH_TABLES,
+            FASTPATH_BATCHES, router_tables,
             ((torch.int32, 1), (torch.float32, 16))):
         x, keys, vals = inputs(b, n, 1, v, vdt)
         for block_b in kernel.BLOCK_B:
@@ -1324,36 +1400,87 @@ def phase_fastpath() -> dict:
     x, keys, vals = inputs(8192, 4096, 1, 1, torch.int32, hot=0.0)
     if check(x, keys - 2 ** 20, vals, 256, "all miss").any():
         fail("fastpath: the all-miss batch hit")
-    log(f"fastpath: cuda == torch_ref at {checked} cases (the reference's "
-        f"{FASTPATH_TEST_CASES} x values fp32/bf16/int32/int64 x keys "
-        f"int32/int64 x block_b {kernel.BLOCK_B}; K = 1 at B "
-        f"{FASTPATH_BATCHES} x N {FASTPATH_TABLES} with int32 (V = 1) and "
-        f"fp32 (V = 16) values; duplicate keys; an all-miss batch), exact "
-        f"for integer values, within {FASTPATH_TOL} for float ones "
-        f"(max_abs_err {max_err:.3e})")
+    # a table whose keys all hash to one slot (one probe chain of 128),
+    # queried with its keys and with keys of the same slot it lacks
+    same = torch.as_tensor(_colliding_keys(128, rs), device=dev)
+    keys, absent = same[:128].contiguous(), same[128:]
+    pick = torch.randint(0, 128, (8192,), generator=gen, device=dev)
+    x = torch.where((torch.arange(8192, device=dev) % 2 == 0)[:, None],
+                    keys[pick], absent[pick]).contiguous()
+    check(x, keys, values(128, 16, torch.float32), 256, "one probe chain")
+    # int64 keys that differ only in their high 32 bits
+    high = (torch.arange(1, 257, device=dev, dtype=torch.int64) << 32) | 12345
+    keys = high[:, None].contiguous()
+    x = torch.cat([keys, keys + (1000 << 32), keys & 0xFFFFFFFF])
+    x = x[torch.randperm(x.shape[0], generator=gen, device=dev)].contiguous()
+    if int(check(x, keys, values(256, 2, torch.int64), 256,
+                 "int64 keys apart in the high bits").sum()) != 256:
+        fail("fastpath: the high-bit int64 keys did not hit exactly once")
+    log(f"fastpath: cuda == torch_ref at {checked} cases, each on the raw "
+        f"table (dense body) and on the prepared table (the picked body, "
+        f"dense, hashed; miss counts against the plain hit count) (the "
+        f"reference's {FASTPATH_TEST_CASES} x values fp32/bf16/int32/int64 "
+        f"x keys int32/int64 x block_b {kernel.BLOCK_B}; K = 1 at B "
+        f"{FASTPATH_BATCHES} x N {tuple(router_tables)} with int32 (V = 1) "
+        f"and fp32 (V = 16) values; duplicate keys; an all-miss batch; one "
+        f"probe chain; int64 keys apart in the high bits), exact for "
+        f"integer values, within {FASTPATH_TOL} for float ones (max_abs_err "
+        f"{max_err:.3e})")
 
     per_shape = []
     for b, n, (vdt, v) in itertools.product(
-            FASTPATH_BATCHES, FASTPATH_TABLES,
+            FASTPATH_BATCHES, router_tables,
             ((torch.int32, 1), (torch.float32, 16))):
         x, keys, vals = inputs(b, n, 1, v, vdt)
+        table = kernel.prepare_table(keys, vals)
+        timed = n in FASTPATH_TABLES
         kernel_ms = {str(bb): cuda_time_ms(
             lambda bb=bb: kernel.fastpath_cuda(x, keys, vals, block_b=bb),
-            100, 10) for bb in kernel.BLOCK_B}
+            100, 10) for bb in kernel.BLOCK_B} if timed else {}
+        by_body = {}
+        for name in kernel.BODIES:
+            run = (lambda name=name:
+                   kernel.fastpath_cuda_prepared(x, table, body=name))
+            by_body[name] = {
+                "ms": cuda_time_ms(run, 100, 10) if timed else None,
+                "graph_ms": graph_time_ms(run, FASTPATH_GRAPH_LAUNCHES)}
+        chosen = kernel.body(table)
         plain_ms = cuda_time_ms(
-            lambda: ops.lookup(x, keys, vals, impl="torch_ref"), 10, 2)
+            lambda: ops.lookup(x, keys, vals, impl="torch_ref"), 10, 2) \
+            if timed else None
         bound_ms, bound_by = _fastpath_cost(b, n, 1, v, 4,
                                             vals.element_size())
-        per_shape.append({"shape": [b, n, 1, v],
-                          "value_dtype": str(vdt).removeprefix("torch."),
-                          "kernel_ms_by_block_b": kernel_ms,
-                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "library_ms": None})
-        log(f"fastpath B={b} N={n} K=1 V={v} {vdt}: kernel "
-            + " ".join(f"b{bb} {ms:.4f}" for bb, ms in kernel_ms.items())
-            + f" ms; plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
-            f"({bound_by})")
-        del x, keys, vals
+        row = {"shape": [b, n, 1, v],
+               "value_dtype": str(vdt).removeprefix("torch."),
+               "body": chosen, "ms": by_body[chosen]["ms"],
+               "graph_ms": by_body[chosen]["graph_ms"],
+               "by_body": by_body, "kernel_ms_by_block_b": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "compares": b * n,
+               "library_ms": None}
+        per_shape.append(row)
+        eager = (" ".join(f"{k} eager {r['ms']:.4f}"
+                          for k, r in by_body.items()) + "; raw dense "
+                 + " ".join(f"b{bb} {ms:.4f}" for bb, ms in kernel_ms.items())
+                 + f"; plain {plain_ms:.4f}; ") if timed else ""
+        log(f"fastpath B={b} N={n} K=1 V={v} {vdt}: prepared picks {chosen}; "
+            + " ".join(f"{k} graph {r['graph_ms']:.5f}"
+                       for k, r in by_body.items())
+            + f" ms; {eager}bound {bound_ms:.6f} ms ({bound_by}; "
+            f"{100 * bound_ms / by_body[chosen]['graph_ms']:.1f} % of it in "
+            f"the graph); {b * n} compares for the dense body, unbounded")
+        del x, keys, vals, table
+    # the body threshold: where the hashed body's device time falls below
+    # the dense one's
+    for b, v in ((FASTPATH_BATCHES[0], 1), (FASTPATH_BATCHES[1], 16)):
+        rows = [r for r in per_shape if r["shape"][0] == b
+                and r["shape"][3] == v]
+        log(f"fastpath threshold B={b} V={v}: N -> dense / hashed graph ms: "
+            + ", ".join("{}: {:.5f} / {:.5f}".format(
+                r["shape"][1], r["by_body"]["dense"]["graph_ms"],
+                r["by_body"]["hashed"]["graph_ms"]) for r in rows)
+            + f"; prepared tables of >= {kernel.hash_min_keys()} keys take "
+            f"the hashed body")
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "checked": checked,
             "per_shape": per_shape}
@@ -2375,6 +2502,8 @@ def phase_router() -> dict:
         log(f"fig4 M={m}: generic {ms_g:.4f} ms, fast path {ms_f:.4f} ms "
             f"a batch of {ROUTER_BATCH} (all hit; speedup {ms_g / ms_f:.2f}"
             f"x)")
+        if m in FIG4_PROFILE:
+            fig4[-1].update(_router_profile(fp, batch, m, ms_f))
 
     fig4_launches = kernel.launches
     kernel.reset_launches()
@@ -2486,7 +2615,52 @@ def phase_router() -> dict:
         fail(f"the router path fell back: {fallbacks}")
     rt.shutdown()
     return {"launches": launched, "fig4_launches": fig4_launches,
-            "fig4": fig4, "sizes": sizes, "explorations": ex.explorations}
+            "fig4": fig4, "sizes": sizes, "explorations": ex.explorations,
+            "launches_per_call": max(r["launches_per_call"] for r in fig4
+                                     if "launches_per_call" in r)}
+
+
+def _router_profile(fp, batch, m: int, eager_ms: float) -> dict:
+    """The device's busy share over a steady window of all-hit calls of
+    the specialized function, by the profiler, and its launches a call;
+    fails unless each call launched K5 once and nothing else."""
+    import torch
+
+    from repro_torch.kernels.fastpath import kernel
+
+    for _ in range(10):
+        fp(batch)
+    before = kernel.launches
+    prof, wall, windows = profiled(lambda: fp(batch), FIG4_PROFILE_CALLS)
+    rep = _report_profile(prof, wall, FIG4_PROFILE_CALLS,
+                          what=f"fig4 M={m} all-hit fast-path calls (profiler "
+                               f"on)", unit="call")
+    if not rep:
+        fail(f"fig4 M={m}: the profiler saw no device activity")
+    launched = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launched[e.key] += e.count
+    others = {k[:80]: c for k, c in launched.items()
+              if not re.search(r"(dense|hashed)_kernel", k)}
+    per_call = sum(launched.values()) / FIG4_PROFILE_CALLS
+    k5_per_call = (kernel.launches - before) / (windows * FIG4_PROFILE_CALLS)
+    # The profiler may drop a short window's first activities: it decides
+    # what ran, kernel.launches how often.
+    if others or k5_per_call != 1 or per_call > 1:
+        fail(f"fig4 M={m}: an all-hit call of the specialized function "
+             f"made {k5_per_call:g} K5 launches and {per_call:g} device "
+             f"ops, not one K5 launch (others: {others})")
+    log(f"fig4 M={m}: device busy {100 * rep['busy_ms'] / rep['wall_ms']:.2f}"
+        f" % of the profiled window, {100 * rep['busy_ms'] / eager_ms:.2f} % "
+        f"of an unprofiled call ({eager_ms:.4f} ms); {k5_per_call:g} K5 "
+        f"launch a call, {per_call:g} device ops a call seen by the profiler "
+        f"({', '.join(k[:60] for k in launched)})")
+    return {"busy_share": rep["busy_ms"] / rep["wall_ms"],
+            "busy_share_unprofiled": rep["busy_ms"] / eager_ms,
+            "device_ms": rep["busy_ms"], "profiled_ms": rep["wall_ms"],
+            "launches_per_call": k5_per_call,
+            "device_ops_per_call": per_call}
 
 
 def main() -> None:
@@ -2677,7 +2851,10 @@ def main() -> None:
         "launches": router["launches"],
         "fig4_launches": router["fig4_launches"],
         "max_abs_err": fpk["max_abs_err"],
-        "ms": fp_at["kernel_ms_by_block_b"]["256"],
+        "ms": fp_at["ms"],
+        "graph_ms": fp_at["graph_ms"],
+        "body": fp_at["body"],
+        "launches_per_call": router["launches_per_call"],
         "plain_ms": fp_at["plain_ms"],
         "bound_ms": fp_at["bound_ms"],
         "bound_by": fp_at["bound_by"],
@@ -2685,7 +2862,9 @@ def main() -> None:
         "library_note": "no single PyTorch call matches keys and gathers "
                         "the summed values",
         "per": f"one router batch: {ROUTER_BATCH} int32 addresses against "
-               f"{FIG4_HOT} hot keys, int32 next hops, block_b 256",
+               f"a prepared table of {FIG4_HOT} hot keys, int32 next hops, "
+               f"block_b 256; launches_per_call: device launches a Fig 4 "
+               f"all-hit call of the specialized function",
         "shapes": fpk["per_shape"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

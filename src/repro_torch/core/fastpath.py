@@ -16,7 +16,15 @@ it compares the batch against a constant ``(N, ...)`` key table, takes the
 matching value rows, and skips the generic computation entirely when the
 whole batch hits.  The matcher runs through the ``fastpath`` kernel family
 (:mod:`repro_torch.kernels.fastpath`), so on the card it is the hand-written
-CUDA matcher.
+CUDA matcher, on a table prepared once when the function is specialized.
+
+One wait remains a call on the card: to skip the generic computation the
+host has to know whether the whole batch hit, so the matcher writes its
+miss count to a mapped host word and the call waits on the stream for it
+(no copy, no reduction launch).  The reference decides in the graph
+(``lax.cond``) and pays no such wait.  With
+``skip_generic_when_all_hit=False`` the call launches and returns without
+waiting.
 
 Dtypes follow the reference as JAX computes it, with 64-bit types off: a
 table or a requested dtype of int64 becomes int32, float64 float32 (values
@@ -139,20 +147,28 @@ def make_fastpath(
     path, others fall through (the specialization guard).
 
     The matcher is the ``fastpath`` op under ``impl`` (the registry's
-    choice when None); its table lives on ``device`` (``cuda`` unless
-    another is named), where the calls' inputs must lie.  The op sums the values of duplicate keys while the
-    reference takes the first matching row, so repeated keys are dropped
-    here, each key keeping its first row: the two agree on every input.
+    choice when None), resolved once here, as the reference's ``jax.jit``
+    traces it once; each call still checks the entry's device guard and
+    counts a fallback on a miss.  Its table lives on ``device`` (``cuda``
+    unless another is named), where the calls' inputs must lie.  The op
+    sums the values of duplicate keys while the reference takes the first
+    matching row, so repeated keys are dropped here, each key keeping its
+    first row: the two agree on every input.  On the ``cuda`` entry the
+    table is also prepared here, once (``ops.prepare``: the kernel's hashed
+    form), the counterpart of the reference baking it in as a constant.
 
-    With ``skip_generic_when_all_hit`` the function reads the batch's hit
-    count on the host (one synchronisation with the device a call, which
-    the reference's in-graph ``lax.cond`` does not pay) and returns the
-    table's rows without running ``generic_fn`` when every row hit.
+    With ``skip_generic_when_all_hit`` the function returns the table's rows
+    without running ``generic_fn`` when every row hit, which the host must
+    know: on the ``cuda`` entry the kernel writes the batch's miss count to
+    a mapped host word and the call waits on the stream once (the
+    reference's in-graph ``lax.cond`` pays no such wait); on ``torch_ref``
+    it reads ``hit.all()``.  With ``skip_generic_when_all_hit=False`` a
+    ``cuda`` call does not wait at all.
     """
     # The kernels import the core's spec points: import them here, not
     # when this module is imported.
     from repro_torch.kernels import registry
-    from repro_torch.kernels.fastpath import lookup
+    from repro_torch.kernels.fastpath import kernel, ops
 
     dev = compat.resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -167,27 +183,39 @@ def make_fastpath(
         flat_k, vals_c = flat_k[keep], vals_c[keep]
     flat_k = flat_k.contiguous()
     vals_flat = vals_c.reshape(vals_c.shape[0], -1).contiguous()
-    if dev.type == "cuda":
-        # build the matcher's library now, off the dispatch path
-        registry.default_registry.prepare("fastpath", impl)
+    select = registry.default_registry.bind("fastpath", impl)
+    # builds the matcher's library too, off the dispatch path
+    prepared = ops.prepare(flat_k, vals_flat, impl) \
+        if dev.type == "cuda" else None
+    readback = kernel.MissReadback() \
+        if prepared is not None and skip_generic_when_all_hit else None
+    dev_index = dev.index if dev.type == "cuda" else -1
+    key_dtype_c = flat_k.dtype
 
     def specialized(x: torch.Tensor) -> torch.Tensor:
-        if x.device != dev:
+        if x.get_device() != dev_index:
             raise ValueError(f"the fast-path table is on {dev}, the input "
                              f"on {x.device}")
         batchless = x.ndim == keys_c.ndim - 1
         xb = x[None] if batchless else x           # (B, *key_shape)
-        flat_x = xb.reshape(xb.shape[0], -1).to(flat_k.dtype)
+        flat_x = xb if xb.ndim == 2 and xb.dtype is key_dtype_c \
+            else xb.reshape(xb.shape[0], -1).to(key_dtype_c)
         # (B, V) rows of the matching key, 0 on a miss; hit (B,)
-        fast, hit = lookup(flat_x, flat_k, vals_flat, impl=impl)
+        entry = select(flat_x, flat_k, vals_flat)
+        if entry.name == "cuda":
+            fast, hit = entry.fn(flat_x, flat_k, vals_flat,
+                                 prepared=prepared, readback=readback)
+            all_hit = readback is not None and readback.misses == 0
+        else:
+            fast, hit = entry.fn(flat_x, flat_k, vals_flat)
+            all_hit = skip_generic_when_all_hit and bool(hit.all())
 
         def backfill():
             slow = generic_fn(xb)
             hb = hit.reshape(hit.shape + (1,) * (slow.ndim - hit.ndim))
             return torch.where(hb, fast, slow)
 
-        out = fast if skip_generic_when_all_hit and bool(hit.all()) \
-            else backfill()
+        out = fast if all_hit else backfill()
         return out[0] if batchless else out
 
     return specialized

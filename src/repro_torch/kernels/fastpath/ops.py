@@ -7,8 +7,14 @@ the registry's ``fallback_counts``.  The reference's ``_guard``
 (``src/repro/kernels/fastpath/ops.py:28-32``) also sends float queries to
 its plain version; here a CUDA call the kernel cannot take (float
 queries, a value dtype, a key width or a ``block_b`` it lacks, shapes
-that disagree) raises in the wrapper.  Where the reference pads the batch
-to ``block_b``, the kernel masks the ragged tail.
+that disagree, a prepared table of another device or key dtype) raises in
+the wrapper.  Where the reference pads the batch to ``block_b``, the
+kernel masks the ragged tail.
+
+A table that stays fixed across calls (a specialized handler's) is
+prepared once (:func:`prepare`) and passed as ``prepared=``: the ``cuda``
+entry then runs on its hashed form, while ``torch_ref`` ignores it and
+computes from the raw arrays, so the plain version stays the oracle.
 """
 from __future__ import annotations
 
@@ -17,9 +23,10 @@ import torch
 from repro_torch import compat
 from repro_torch.kernels import registry
 from repro_torch.kernels.fastpath import kernel, ref
-from repro_torch.kernels.fastpath.kernel import DEFAULT_BLOCK_B
+from repro_torch.kernels.fastpath.kernel import (DEFAULT_BLOCK_B,
+                                                 PreparedTable)
 
-__all__ = ["lookup"]
+__all__ = ["lookup", "prepare"]
 
 _INTEGER = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
 
@@ -31,8 +38,9 @@ def _guard(x, keys, values, **_kw):
 @registry.register("fastpath", "torch_ref", priority=0,
                    description="vectorized compare, onehot gather "
                                "(the numerical oracle)")
-def _lookup_torch_ref(x, keys, values, *, block_b=DEFAULT_BLOCK_B):
-    del block_b
+def _lookup_torch_ref(x, keys, values, *, block_b=DEFAULT_BLOCK_B,
+                      prepared=None, readback=None):
+    del block_b, prepared, readback
     return ref.lookup(x, keys, values)
 
 
@@ -41,9 +49,17 @@ def _lookup_torch_ref(x, keys, values, *, block_b=DEFAULT_BLOCK_B):
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
                    description="hot-key matcher in CUDA C++ for sm_90a "
-                               "(table staged in shared memory, exact "
-                               "integer sums)")
-def _lookup_cuda(x, keys, values, *, block_b=DEFAULT_BLOCK_B):
+                               "(dense compare of a staged table, or a "
+                               "prepared hash table; exact integer sums)")
+def _lookup_cuda(x, keys, values, *, block_b=DEFAULT_BLOCK_B, prepared=None,
+                 readback=None):
+    if prepared is not None:
+        if prepared.keys is not keys or prepared.values is not values:
+            raise ValueError("the prepared table was built from other keys "
+                             "or values than the call's")
+        return kernel.fastpath_cuda_prepared(x.contiguous(), prepared,
+                                             block_b=block_b,
+                                             readback=readback)
     if x.dtype not in _INTEGER or keys.dtype not in _INTEGER:
         raise TypeError(f"the fast-path kernel takes integer queries and "
                         f"keys, got {x.dtype} and {keys.dtype}")
@@ -52,15 +68,31 @@ def _lookup_cuda(x, keys, values, *, block_b=DEFAULT_BLOCK_B):
     kdt = torch.promote_types(x.dtype, keys.dtype)
     if kdt in (torch.int8, torch.int16, torch.uint8):
         kdt = torch.int32
-    return kernel.fastpath_cuda(x.to(kdt).contiguous(),
-                                keys.to(kdt).contiguous(),
-                                values.contiguous(), block_b=block_b)
+    args = (x.to(kdt).contiguous(), keys.to(kdt).contiguous(),
+            values.contiguous())
+    if readback is not None:
+        return kernel.fastpath_cuda(*args, block_b=block_b,
+                                    readback=readback)
+    return kernel.fastpath_cuda(*args, block_b=block_b)
 
 
 def lookup(x: torch.Tensor, keys: torch.Tensor, values: torch.Tensor, *,
-           block_b: int = DEFAULT_BLOCK_B, impl: str | None = None
+           block_b: int = DEFAULT_BLOCK_B, impl: str | None = None,
+           prepared: PreparedTable | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x (B, K)`` queries against ``keys (N, K)`` with ``values (N, V)``
-    -> ``(out (B, V), hit (B,) bool)``."""
+    -> ``(out (B, V), hit (B,) bool)``.  ``prepared``: the table's
+    :func:`prepare` form, which the ``cuda`` entry runs on."""
     return registry.dispatch("fastpath", impl, x, keys, values,
-                             block_b=block_b)
+                             block_b=block_b, prepared=prepared)
+
+
+def prepare(keys: torch.Tensor, values: torch.Tensor,
+            impl: str | None = None) -> PreparedTable | None:
+    """The table's prepared form (:func:`kernel.prepare_table`) for the
+    entry ``impl`` resolves to, if that is ``cuda`` and the table is on a
+    CUDA device; else None (counts no fallback: nothing is dispatched)."""
+    entry, _ = registry.default_registry.pick("fastpath", impl)
+    if entry.name != "cuda" or keys.device.type != "cuda":
+        return None
+    return kernel.prepare_table(keys, values)

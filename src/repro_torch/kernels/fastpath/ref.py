@@ -1,9 +1,14 @@
-"""Plain PyTorch version of the fast-path hot-key matcher (the oracle)."""
+"""Plain PyTorch versions of the fast-path hot-key matcher: :func:`lookup`
+on the raw table (the oracle), and :func:`lookup_prepared`, which probes a
+table's hashed form as the kernel's hashed body does (the CPU tests hold
+the host-side table construction with it)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["lookup"]
+from repro_torch.kernels.fastpath.kernel import PreparedTable, hash_keys
+
+__all__ = ["lookup", "lookup_prepared"]
 
 
 def lookup(x: torch.Tensor,        # (B, K) query keys
@@ -35,3 +40,34 @@ def lookup(x: torch.Tensor,        # (B, K) query keys
                       device=values.device)
     out.index_add_(0, rows, values[cols])
     return out, hit
+
+
+def lookup_prepared(x: torch.Tensor,    # (B, K) queries, the keys' dtype
+                    table: PreparedTable,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lookup` through ``table``'s hashed form: each query starts at
+    its hash's slot and probes linearly until it finds its key or an empty
+    slot, then takes that key's pre-summed row (rounded once to the values'
+    dtype)."""
+    slots, hkeys = table.slots, table.hkeys
+    vdtype = table.values.dtype
+    b, v = x.shape[0], table.values.shape[1]
+    mask = slots.shape[0] - 1
+    if hkeys.shape[0] == 0:
+        return (torch.zeros((b, v), dtype=vdtype, device=x.device),
+                torch.zeros((b,), dtype=torch.bool, device=x.device))
+    s = torch.as_tensor((hash_keys(x.cpu().numpy()) & mask).astype("int64"),
+                        device=x.device)
+    row = torch.full((b,), -1, dtype=torch.int64, device=x.device)
+    active = torch.ones((b,), dtype=torch.bool, device=x.device)
+    while bool(active.any()):
+        k = slots[s].long()
+        found = active & (k >= 0) & (hkeys[k.clamp(min=0)] == x).all(dim=-1)
+        row = torch.where(found, k, row)
+        active &= (k >= 0) & ~found
+        s = (s + 1) & mask
+    hit = row >= 0
+    out = torch.where(hit[:, None], table.hvalues[row.clamp(min=0)],
+                      torch.zeros((), dtype=table.hvalues.dtype,
+                                  device=x.device))
+    return out.to(vdtype), hit

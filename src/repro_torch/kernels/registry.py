@@ -194,9 +194,10 @@ class KernelRegistry:
         return self._families[family]
 
     # -- selection & dispatch -------------------------------------------------
-    def resolve(self, family: str, impl: str | None = None) -> KernelImpl:
-        """Pick the entry to run: ``impl`` if named and available, the best
-        available entry if ``impl`` is None/'auto', else the fallback."""
+    def pick(self, family: str,
+             impl: str | None = None) -> tuple[KernelImpl, str | None]:
+        """:meth:`resolve` without counting: the entry to run, and the name
+        of the unavailable entry it stands in for (None if none)."""
         fam = self._family(family)
         if impl is None:
             impl = env_impl()
@@ -206,14 +207,21 @@ class KernelRegistry:
                 raise RuntimeError(
                     f"kernel family {family!r} has no available impl on "
                     f"this host (registered: {sorted(fam)})")
-            return avail[0]
+            return avail[0], None
         entry = self.get(family, impl)
         if entry.is_available():
-            return entry
-        self._count_fallback(family, entry.name)
-        logger.debug("impl %s/%s unavailable on this host; falling back to "
-                     "%s", family, entry.name, FALLBACK_IMPL)
-        return self.get(family, FALLBACK_IMPL)
+            return entry, None
+        return self.get(family, FALLBACK_IMPL), entry.name
+
+    def resolve(self, family: str, impl: str | None = None) -> KernelImpl:
+        """Pick the entry to run: ``impl`` if named and available, the best
+        available entry if ``impl`` is None/'auto', else the fallback."""
+        entry, missing = self.pick(family, impl)
+        if missing is not None:
+            self._count_fallback(family, missing)
+            logger.debug("impl %s/%s unavailable on this host; falling back "
+                         "to %s", family, missing, FALLBACK_IMPL)
+        return entry
 
     def dispatch(self, family: str, impl: str | None,
                  *args: Any, **kwargs: Any) -> Any:
@@ -223,7 +231,31 @@ class KernelRegistry:
         stays selected — the next call re-checks, mirroring the trampoline's
         per-invocation guard semantics).
         """
-        entry = self.resolve(family, impl)
+        entry = self._guarded(family, self.resolve(family, impl), args,
+                              kwargs)
+        return entry.fn(*args, **kwargs)
+
+    def bind(self, family: str,
+             impl: str | None = None) -> Callable[..., KernelImpl]:
+        """For a caller that runs one family many times (a specialized
+        handler): resolves ``impl`` once, as the reference's ``jax.jit``
+        traces its dispatch once, and returns ``select(*args, **kwargs)``,
+        the entry :meth:`dispatch` would run for that call, counting its
+        fallbacks as :meth:`dispatch` does (an unavailable entry on every
+        call, a guard miss)."""
+        entry, missing = self.pick(family, impl)
+
+        def select(*args: Any, **kwargs: Any) -> KernelImpl:
+            if missing is not None:
+                self._count_fallback(family, missing)
+                return entry
+            return self._guarded(family, entry, args, kwargs)
+
+        return select
+
+    def _guarded(self, family: str, entry: KernelImpl, args: tuple,
+                 kwargs: dict) -> KernelImpl:
+        """``entry``, or ``torch_ref`` (counted) if its guard misses."""
         if entry.guard is not None and entry.name != FALLBACK_IMPL:
             try:
                 ok = bool(entry.guard(*args, **kwargs))
@@ -233,8 +265,8 @@ class KernelRegistry:
                 ok = False
             if not ok:
                 self._count_fallback(family, entry.name)
-                entry = self.get(family, FALLBACK_IMPL)
-        return entry.fn(*args, **kwargs)
+                return self.get(family, FALLBACK_IMPL)
+        return entry
 
     def prepare(self, family: str, impl: str | None) -> None:
         """Build and load the kernel library of the entry ``impl`` would

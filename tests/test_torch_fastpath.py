@@ -41,6 +41,7 @@ from repro_torch.core.instrumentation import HostRecorder  # noqa: E402
 from repro_torch.data import RequestGenerator  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.fastpath import kernel, lookup, ops  # noqa: E402
+from repro_torch.kernels.fastpath import ref  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -551,3 +552,228 @@ def test_quickstart_main_runs_on_cpu():
     result = mod.main(["--device", "cpu"])
     assert result["settled"] and result["guard_misses"] == 1
     assert result["selected"]["B"] in (4, 8, 16, 32, 64)
+
+
+# -- the prepared (hashed) table ------------------------------------------------------
+
+def _colliding(n):
+    """2n int32 keys (K = 1) whose hashes share one slot of the table
+    ``prepare_table`` builds for n keys."""
+    size = 2
+    while size < 2 * n:
+        size *= 2
+    cand = np.arange(8 * n * size, dtype=np.int64)[:, None]
+    slot = kernel.hash_keys(cand) & np.uint64(size - 1)
+    same = cand[slot == np.bincount(slot.astype(np.int64)).argmax()]
+    assert len(same) >= 2 * n
+    return same[:2 * n].astype(np.int32)
+
+
+#: (B, N, K, V, key dtype, value dtype, keys from 0..range or "chain")
+PREPARED_CASES = [
+    (64, 8, 3, 16, "int32", "float32", 10),
+    (100, 0, 1, 4, "int32", "float32", 10),
+    (100, 1, 1, 3, "int64", "int32", 10),
+    (256, 32, 2, 4, "int64", "bfloat16", 10),
+    (200, 40, 32, 5, "int32", "int64", 3),
+    (300, 64, 1, 2, "int32", "float32", "chain"),
+    (128, 500, 1, 1, "int32", "int32", 200),
+]
+
+
+def _prepared_inputs(b, n, kk, v, kdt, vdt, keys_from, seed):
+    rs = np.random.RandomState(seed)
+    if keys_from == "chain":
+        same = _colliding(n)
+        keys, absent = same[:n], same[n:]
+        x = np.where((np.arange(b) % 2 == 0)[:, None],
+                     keys[rs.randint(0, n, b)], absent[rs.randint(0, n, b)])
+    else:
+        keys = rs.randint(0, keys_from, (n, kk))
+        x = rs.randint(0, keys_from + 2, (b, kk))
+        if n:
+            pick = rs.rand(b) < 0.6
+            x[pick] = keys[rs.randint(0, n, pick.sum())]
+    if vdt in ("int32", "int64"):
+        vals = rs.randint(-2 ** 20, 2 ** 20, (n, v))
+    else:
+        vals = rs.randn(n, v)
+    return (x.astype(kdt), keys.astype(kdt),
+            vals.astype("float32" if vdt == "bfloat16" else vdt))
+
+
+@pytest.mark.parametrize("case", PREPARED_CASES,
+                         ids=[f"{c[1]}x{c[2]}-{c[4]}-{c[5]}-{c[6]}"
+                              for c in PREPARED_CASES])
+def test_lookup_prepared_matches_reference(case):
+    """The hashed form built on the host, probed by the plain
+    ``ref.lookup_prepared``, against ``ref.lookup``, the reference's
+    oracle and its Pallas kernel in interpret mode: duplicate keys (keys
+    from a small range), N = 0 and 1, K up to 32, int32 and int64 keys,
+    every value dtype, and a table whose keys share one probe chain
+    (queried with absent keys of the same slot too).  Integer values stay
+    under 2^24 in every sum, where the interpret kernel's fp32 product is
+    exact, and keys fit int32, as JAX holds them."""
+    b, n, kk, v, kdt, vdt, keys_from = case
+    x, keys, vals = _prepared_inputs(b, n, kk, v, kdt, vdt, keys_from,
+                                     seed=n + kk)
+    tvals = torch.from_numpy(vals).to(getattr(torch, vdt))
+    xt, kt = torch.from_numpy(x), torch.from_numpy(keys)
+    table = kernel.prepare_table(kt, tvals)
+    assert table.keys is kt and table.values is tvals
+    mask = table.slots.shape[0] - 1
+    assert mask & (mask + 1) == 0 and mask + 1 >= max(2, 2 * n)
+    out, hit = ref.lookup_prepared(xt, table)
+    o_port, h_port = ref.lookup(xt, kt, tvals)
+    assert out.dtype == tvals.dtype and out.shape == (b, v)
+    assert torch.equal(hit, h_port)
+    jvals = jnp.asarray(vals).astype(getattr(jnp, vdt))
+    jx = jnp.asarray(x.astype(np.int32))
+    jk = jnp.asarray(keys.astype(np.int32))
+    oracles = [(o_port, h_port), ref_oracle.lookup(jx, jk, jvals)]
+    if n:      # a zero-row table has no block for the Pallas kernel
+        oracles.append(_ref_interpret(jx, jk, jvals, block_b=32))
+    for o_ref, h_ref in oracles:
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(h_ref))
+        if vdt in ("int32", "int64"):
+            np.testing.assert_array_equal(out.numpy(), np.asarray(o_ref))
+        else:
+            o_ref = o_ref.float() if isinstance(o_ref, torch.Tensor) \
+                else np.asarray(o_ref.astype(jnp.float32))
+            np.testing.assert_allclose(out.float().numpy(), np.asarray(o_ref),
+                                       rtol=1e-6, atol=1e-6)
+
+
+def test_prepared_table_sums_duplicates_and_wraps():
+    """Duplicate keys' values are pre-summed once: integers wrap in their
+    own type, bf16 values sum in fp32 and round once."""
+    keys = torch.tensor([[7], [3], [7], [7]], dtype=torch.int32)
+    i32 = torch.tensor([[2 ** 31 - 1], [5], [1], [2]], dtype=torch.int32)
+    table = kernel.prepare_table(keys, i32)
+    assert table.hkeys[:, 0].tolist() == [7, 3]
+    assert table.hvalues[:, 0].tolist() == [-2 ** 31 + 2, 5]
+    x = torch.tensor([[7], [3], [9]], dtype=torch.int32)
+    out, hit = ref.lookup_prepared(x, table)
+    assert torch.equal(out, ref.lookup(x, keys, i32)[0])
+    assert hit.tolist() == [True, True, False]
+    bf = torch.tensor([[1.0], [5.0], [2 ** -8], [2 ** -8]],
+                      dtype=torch.bfloat16)
+    table = kernel.prepare_table(keys, bf)
+    assert table.hvalues.dtype == torch.float32
+    assert table.hvalues[0, 0].item() == 1.0 + 2 ** -7
+    out, _ = ref.lookup_prepared(x, table)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, ref.lookup(x, keys, bf)[0])
+
+
+#: a fixed key vector and its hashes, pinned: the card test
+#: (tests/test_torch_fastpath_cuda.py) checks the kernel library's hash on
+#: the same vector
+HASH_KEYS = [[0], [1], [-1], [2 ** 31 - 1], [-2 ** 31], [2 ** 40 + 12345]]
+HASH_PINNED = [16294208416658607535, 16490336266968443936,
+               15999695513772384452, 13807218343701425311,
+               547167690438560762, 1117476736002829374]
+
+
+def test_hash_is_pinned_and_matches_the_source():
+    """Python's hash gives the pinned outputs (the first is splitmix64's
+    first output from seed 0), and its constants are the .cu's: the one
+    function written twice."""
+    got = kernel.hash_keys(np.array(HASH_KEYS, np.int64))
+    assert got.dtype == np.uint64 and got.tolist() == HASH_PINNED
+    # the same in Python integers, mod 2^64
+    def mix(z):
+        m = 2 ** 64 - 1
+        z ^= z >> 30
+        z = z * kernel._MIX1 & m
+        z ^= z >> 27
+        z = z * kernel._MIX2 & m
+        return z ^ z >> 31
+    assert [mix(kernel._HASH_SEED ^ (k % 2 ** 64)) for (k,) in HASH_KEYS] \
+        == HASH_PINNED
+    # int32 keys hash as their sign-extended int64 value
+    assert kernel.hash_keys(np.array(HASH_KEYS[:5], np.int32)).tolist() \
+        == HASH_PINNED[:5]
+    # K > 1 chains the integers
+    two = kernel.hash_keys(np.array([[0, 1]], np.int64))[0]
+    assert two not in HASH_PINNED
+    src = kernel.SOURCE.read_text()
+    for name, value in (("kHashSeed", kernel._HASH_SEED),
+                        ("kMix1", kernel._MIX1), ("kMix2", kernel._MIX2)):
+        assert f"{name} = {value:#X}ull".replace("0X", "0x") in src, name
+    for shift in (30, 27, 31):
+        assert f"z ^= z >> {shift};" in src
+
+
+def test_lookup_with_prepared_on_cpu_runs_the_oracle():
+    """On the CPU ``lookup(..., prepared=)`` runs ``torch_ref`` on the raw
+    arrays, and ``ops.prepare`` gives no table (nothing is dispatched)."""
+    x, keys, vals = map(torch.from_numpy, _lookup_inputs(64, 8, 3, 16, 4))
+    table = kernel.prepare_table(keys, vals)
+    expect = lookup(x, keys, vals, impl="torch_ref")
+    got = lookup(x, keys, vals, impl="torch_ref", prepared=table)
+    assert all(torch.equal(a, b) for a, b in zip(got, expect))
+    assert ops.prepare(keys, vals, "cuda") is None
+    assert ops.prepare(keys, vals, "torch_ref") is None
+
+
+def test_cuda_entry_sends_a_prepared_table_to_its_wrapper(monkeypatch):
+    calls = []
+    monkeypatch.setattr(ops.kernel, "fastpath_cuda_prepared",
+                        lambda x, t, block_b, readback: calls.append(t))
+    x, keys, vals = map(torch.from_numpy, _lookup_inputs(8, 4, 1, 2, 5))
+    table = kernel.prepare_table(keys, vals)
+    ops._lookup_cuda(x, keys, vals, prepared=table)
+    assert calls == [table]
+    with pytest.raises(ValueError, match="other keys"):
+        ops._lookup_cuda(x, keys.clone(), vals, prepared=table)
+
+
+def test_prepared_wrapper_refuses_host_tensors():
+    x, keys, vals = map(torch.from_numpy, _lookup_inputs(8, 4, 1, 2, 6))
+    table = kernel.prepare_table(keys, vals)
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.fastpath_cuda_prepared(x, table)
+    with pytest.raises(ValueError, match="body"):
+        kernel.fastpath_cuda_prepared(x, table, body="sorted")
+    with pytest.raises(TypeError, match="int32 or int64"):
+        kernel.prepare_table(keys.float(), vals)
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("skip", [True, False])
+def test_make_fastpath_on_cpu_counts_its_fallback_as_before(skip):
+    """Asked for ``cuda`` with a host table, the specialized function runs
+    ``torch_ref`` and counts one fallback a call, as ``dispatch`` does; the
+    entry is resolved once, when the function is built."""
+    keys = np.array([[3, 1], [5, 2], [9, 9]], np.int32)
+    vals = _generic_t(torch.from_numpy(keys)).numpy()
+    f = fp.make_fastpath(_generic_t, fp.FastPathTable.from_arrays(keys, vals),
+                         skip_generic_when_all_hit=skip, impl="cuda",
+                         device=CPU)
+    counts = registry.default_registry.fallback_counts
+    before = counts.get(("fastpath", "cuda"), 0)
+    q = torch.from_numpy(np.array([[3, 1], [9, 9], [4, 4]], np.int32))
+    for batch in (q, q[:2]):                            # mixed, then all hit
+        np.testing.assert_array_equal(f(batch).numpy(),
+                                      _generic_t(batch).numpy())
+    assert counts[("fastpath", "cuda")] == before + 2
+    auto = fp.make_fastpath(_generic_t, fp.FastPathTable.from_arrays(
+        keys, vals), skip_generic_when_all_hit=skip, device=CPU)
+    before = dict(counts)
+    if not compat.has_hopper():
+        auto(q)
+        assert dict(counts) == before          # torch_ref chosen, no miss
+
+
+def test_registry_bind_resolves_once():
+    reg = registry.KernelRegistry()
+    reg.register("fam", "torch_ref")(lambda x: ("ref", x))
+    reg.register("fam", "fast", priority=5,
+                 guard=lambda x: x > 0)(lambda x: ("fast", x))
+    select = reg.bind("fam", None)
+    assert select(3).name == "fast"
+    assert select(-1).name == "torch_ref"
+    assert reg.fallback_counts == {("fam", "fast"): 1}
+    assert reg.pick("fam", "fast") == (reg.get("fam", "fast"), None)

@@ -145,3 +145,178 @@ def test_make_fastpath_on_the_card(hopper, skip):
         out = f(xb)
         assert kernel.launches == before + 1
         torch.testing.assert_close(out, generic(xb), rtol=1e-6, atol=1e-6)
+
+
+# -- the prepared table: both bodies, the miss count, the specialized call -------------
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("body", kernel.BODIES)
+@pytest.mark.parametrize("kdtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("vdtype", VALUE_DTYPES)
+@pytest.mark.parametrize("case", CASES)
+def test_prepared_bodies_match_torch_ref(hopper, case, vdtype, kdtype, body):
+    """Each body on a prepared table, at the reference's cases, the
+    router's and the 4096-key shapes; its miss count equals the plain
+    version's misses."""
+    x, keys, vals = _inputs(*case, vdtype, kdtype, hopper)
+    table = kernel.prepare_table(keys, vals)
+    readback = kernel.MissReadback()
+    before = kernel.launches
+    out, hit = kernel.fastpath_cuda_prepared(x, table, body=body,
+                                             readback=readback)
+    assert kernel.launches == before + 1
+    ref_out, ref_hit = lookup(x, keys, vals, impl="torch_ref")
+    _check(out, hit, ref_out, ref_hit)
+    assert readback.misses == int((~ref_hit).sum())
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("case", CASES)
+def test_raw_miss_count_and_readback(hopper, case):
+    """The raw wrapper's miss count, written to a mapped host word (the
+    call then waits on the stream), equals ``(~hit).sum()``, and a launch
+    without the word leaves it alone; the op with a prepared table runs the
+    body ``kernel.body`` names."""
+    x, keys, vals = _inputs(*case, torch.float32, torch.int32, hopper)
+    readback = kernel.MissReadback()
+    assert readback.device_address
+    out, hit = kernel.fastpath_cuda(x, keys, vals, readback=readback)
+    assert readback.misses == int((~hit).sum())
+    readback._word.value = -1
+    kernel.fastpath_cuda(x, keys, vals)
+    torch.cuda.synchronize()
+    assert readback.misses == -1
+    table = kernel.prepare_table(keys, vals)
+    assert kernel.body(table) == ("hashed" if case[1] >= kernel.hash_min_keys()
+                                  else "dense")
+    out3, hit3 = lookup(x, keys, vals, impl="cuda", prepared=table)
+    _check(out3, hit3, out, hit)
+
+
+@pytest.mark.requires_h100
+def test_hash_of_the_library_is_pinned(hopper):
+    """The .cu's hash on the CPU tests' pinned key vector
+    (tests/test_torch_fastpath.py::HASH_KEYS, HASH_PINNED)."""
+    keys = np.array([[0], [1], [-1], [2 ** 31 - 1], [-2 ** 31],
+                     [2 ** 40 + 12345]], np.int64)
+    pinned = [16294208416658607535, 16490336266968443936,
+              15999695513772384452, 13807218343701425311,
+              547167690438560762, 1117476736002829374]
+    out = np.zeros(len(keys), np.uint64)
+    kernel.load_library().fastpath_hash(keys.ctypes.data, len(keys), 1,
+                                        out.ctypes.data)
+    assert out.tolist() == pinned == kernel.hash_keys(keys).tolist()
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("body", kernel.BODIES)
+def test_probe_chain_and_high_bit_keys(hopper, body):
+    """A table whose keys share one probe chain, queried with its keys and
+    absent keys of the same slot; int64 keys apart only in their high 32
+    bits."""
+    n, size = 128, 256
+    cand = np.arange(8 * n * size, dtype=np.int64)[:, None]
+    slot = kernel.hash_keys(cand) & np.uint64(size - 1)
+    same = cand[slot == np.bincount(slot.astype(np.int64)).argmax()]
+    keys = torch.as_tensor(same[:n].astype(np.int32), device=hopper)
+    x = torch.as_tensor(np.concatenate([same[:2 * n], same[:n]])
+                        .astype(np.int32), device=hopper)
+    vals = torch.randn((n, 16), device=hopper)
+    high = ((torch.arange(1, 65, dtype=torch.int64, device=hopper) << 32)
+            | 77)[:, None].contiguous()
+    hx = torch.cat([high, high + (1000 << 32), high & 0xFFFFFFFF])
+    hvals = torch.arange(64, dtype=torch.int64, device=hopper)[:, None] + 1
+    readback = kernel.MissReadback()
+    for q, k, v in ((x, keys, vals), (hx, high, hvals)):
+        table = kernel.prepare_table(k, v)
+        out, hit = kernel.fastpath_cuda_prepared(q, table, body=body,
+                                                 readback=readback)
+        _check(out, hit, *lookup(q, k, v, impl="torch_ref"))
+        assert readback.misses == int((~hit).sum()) > 0
+    assert int(hit.sum()) == 64
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("body", kernel.BODIES)
+def test_launches_replay_in_a_cuda_graph(hopper, body):
+    """Captured launches replay with the right outputs, and leave the
+    stream's scratch word at 0: a launch on the capture stream after the
+    replays counts its misses right."""
+    x, keys, vals = _inputs(8192, 256, 1, 1, torch.int32, torch.int32,
+                            hopper)
+    table = kernel.prepare_table(keys, vals)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        kernel.fastpath_cuda_prepared(x, table, body=body)   # warm the stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        results = [kernel.fastpath_cuda_prepared(x, table, body=body)
+                   for _ in range(3)]
+    ref_out, ref_hit = lookup(x, keys, vals, impl="torch_ref")
+    readback = kernel.MissReadback()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, hit in results:
+            _check(out, hit, ref_out, ref_hit)
+        with torch.cuda.stream(side):
+            kernel.fastpath_cuda_prepared(x, table, body=body,
+                                          readback=readback)
+        assert readback.misses == int((~ref_hit).sum())
+
+
+@pytest.mark.requires_h100
+def test_prepared_table_of_another_device_or_dtype_raises(hopper):
+    x, keys, vals = _inputs(64, 8, 2, 3, torch.float32, torch.int32, hopper)
+    table = kernel.prepare_table(keys, vals)
+    host = kernel.prepare_table(keys.cpu(), vals.cpu())
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.fastpath_cuda_prepared(x, host)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernel.fastpath_cuda_prepared(x.long(), table)
+    with pytest.raises(TypeError, match="one dtype"):
+        lookup(x.long(), keys, vals, impl="cuda", prepared=table)
+    with pytest.raises(ValueError, match="body"):
+        kernel.fastpath_cuda_prepared(x, table, body="sorted")
+    assert kernel.launches == before
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("m", [1, 16, 256])
+def test_make_fastpath_all_hit_is_one_launch(hopper, m):
+    """An all-hit call of the specialized function makes one K5 launch and
+    nothing else on the card (by ``kernel.launches`` and the profiler): no
+    reduction, no copy; its output equals the generic's, and a batch with
+    misses still backfills through the generic."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def generic(xb):
+        return (xb.to(torch.int64) * 7 + 3).to(torch.int32)
+
+    rs = np.random.RandomState(m)
+    hot = rs.choice(2 ** 30, m, replace=False).astype(np.int32)[:, None]
+    table = fp.FastPathTable.from_arrays(hot, generic(torch.from_numpy(hot))
+                                         .numpy())
+    f = fp.make_fastpath(generic, table)
+    xb = torch.as_tensor(hot[rs.randint(0, m, 8192)], device=hopper)
+    f(xb)
+    torch.cuda.synchronize()
+    calls = 20
+    before = kernel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [f(xb) for _ in range(calls)]
+        torch.cuda.synchronize()
+    assert kernel.launches == before + calls
+    # The profiler may drop the first activities of a short window, so it
+    # decides what ran, and kernel.launches how often.
+    ops_ = [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ops_) == 1 and 0 < ops_[0][1] <= calls, ops_
+    assert ("dense_kernel" if m < kernel.hash_min_keys()
+            else "hashed_kernel") in ops_[0][0]
+    assert all(torch.equal(out, generic(xb)) for out in outs)
+    mixed = xb.clone()
+    mixed[::3] = 2 ** 30 + 5
+    assert torch.equal(f(mixed), generic(mixed))
