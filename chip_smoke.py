@@ -138,10 +138,34 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    all-hit calls of the fast path and its launches a call, which must be
    one K5 launch and nothing else.
 
-In phases 5, 7, 9, 10, 12 and 13 (the main paths) the launch counters and the
-registry's fallback counts are zeroed just before and read just after;
-every kernel of the path must have launched and none may have fallen
-back.  The line
+14. Warm restart: full-width qwen3-0.6b at batch 1 (one prefill and one
+   decode context) with ``--cache-dir`` and the plain Controller, run
+   twice, each in a fresh process (``chip_smoke.py --restart-run DIR``)
+   with K1's built library moved out of ``build/kernels`` (put back
+   after). The cold run builds K1 with ``nvcc``, serves until both
+   contexts settle and saves spec_state; the warm run must restore, start
+   every seeded context in EXPLOIT on its saved config, make no ``nvcc``
+   build, count cache hits and launch K1. Prints both times-to-settled,
+   the ``nvcc`` seconds saved and the cache hits.
+15. Tenants: a full-width qwen3-0.6b tenant and a full-width rwkv6-1.6b
+   tenant (DRR weights 2:1, batch 1) served on the card; per-tenant
+   completions, latency percentiles, host ms a step and K1 launches (each
+   tenant's steps must launch it); the tenants' contexts disjoint; both
+   kept busy until every context settles, then a second tenant engine
+   restores them from spec_state with zero variant builds.
+16. Fleet: ``python -m repro_torch.launch.serve --device cuda --replicas 2
+   --plane-dir P --cache-dir C --portable-cache`` at the CLI's reduced
+   width, cold then warm on the same P and C, K1's library out of
+   ``build/kernels`` each time: both workers ready, every request served,
+   merged percentiles printed, every replica launching K1; no warm
+   replica builds a library with ``nvcc``; ``python -m
+   repro_torch.launch.status`` renders the snapshot.
+
+In phases 5, 7, 9, 10, 12, 13 and 15 (the main paths) the launch counters
+and the registry's fallback counts are zeroed just before and read just
+after; every kernel of the path must have launched and none may have
+fallen back (phases 14 and 16 count K1's launches in their own
+processes).  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -152,14 +176,19 @@ import collections
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+#: working directories of phases 14-16 (git-ignored ``build/``)
+SCRATCH = ROOT / "build" / "smoke"
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 #: outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -352,6 +381,33 @@ FIG9_TABLE = 512
 FIG9_ITERS = 700
 FIG9_DWELL = 30
 FIG9_SIZES = (1, 4, 16)
+#: the restart (phase 14): full-width qwen3 at batch 1 (two contexts,
+#: prefill and decode), the plain Controller so a short run settles; a
+#: request is offered whenever the engine is idle, until every context has
+#: settled or the cap
+RESTART_ARGS = ["--device", "cuda", "--batch", "1", "--max-len", "256",
+                "--prefill-chunk", "16", "--dwell", "2", "--no-safety",
+                "--bucket-dwell", "100000", "--kv-dwell", "100000"]
+RESTART_STEP_CAP = 800
+RESTART_TIMEOUT_S = 300
+#: the tenants (phase 15): full-width qwen3 (weight 2) and rwkv6 (weight
+#: 1) at batch 1 (a prefill and a decode context each), requests per
+#: tenant, then one request a tenant in flight until every context settles
+TENANTS = ("q=qwen3-0.6b::2", "r=rwkv6-1.6b::1")
+TENANT_ARGS = ["--device", "cuda", "--batch", "1", "--max-len", "256",
+               "--prefill-chunk", "16", "--dwell", "2", "--requests", "3",
+               "--rate", "2", "--scheduler", "drr"]
+TENANT_SETTLE_CAP = 600
+#: the fleet (phase 16): the CLI at its reduced width, two replicas, run
+#: cold then warm on one plane and one portable cache; round-robin, so
+#: both replicas serve (join-shortest-queue sent every request to one in a
+#: probe: a worker busy building its first variants reports no depth)
+FLEET_ARGS = ["--device", "cuda", "--replicas", "2", "--router",
+              "round-robin", "--requests", "4", "--rate", "4", "--steps",
+              "400", "--dwell", "2",
+              "--no-safety", "--portable-cache", "--plane-poll-s", "0.25"]
+FLEET_TIMEOUT_S = 300
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2663,7 +2719,465 @@ def _router_profile(fp, batch, m: int, eager_ms: float) -> dict:
             "device_ops_per_call": per_call}
 
 
-def main() -> None:
+
+# -- phases 14-16: warm restart, tenants, fleet -----------------------------------
+
+def _library_logs() -> dict:
+    from repro_torch.kernels import build
+
+    return {name: {"built": info["built"],
+                   "seconds": round(info["seconds"], 4)}
+            for name, info in build.build_logs().items()}
+
+
+def restart_run(cache_dir: str) -> None:
+    """One run of the restart phase, in a process of its own (``python3
+    chip_smoke.py --restart-run DIR``): full-width qwen3 with
+    ``--cache-dir DIR`` serves until its contexts settle, shuts down
+    (saving spec_state), and prints one JSON line."""
+    import torch
+
+    from repro_torch import compat, configs
+    from repro_torch.kernels.rmsnorm import kernel
+    from repro_torch.launch.serve import build_engine, synthetic_workload
+
+    compat.resolve_device("cuda")
+    cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
+    args = engine_args(RESTART_ARGS + ["--cache-dir", cache_dir])
+    t0 = time.perf_counter()
+    built = build_engine(args, cfg=cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine, ctl, handler = built.engine, built.controller, built.handler
+    seeded = {k: dict(v) for k, v in handler._seeded.items()}
+    offered = iter([r for _, r in synthetic_workload(
+        RESTART_STEP_CAP, 1000.0, seed=0)])
+    served = []
+    labels = ("cache_dtype", "rmsnorm_impl")
+    admitted = {}                        # context -> (phase, config) at entry
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    settled_s = None
+    steps = 0
+    while steps < RESTART_STEP_CAP \
+            and time.perf_counter() - t0 < RESTART_TIMEOUT_S:
+        if not engine.active and not len(engine.queue):
+            if settled_s is not None:
+                break
+            served.append(next(offered))
+            engine.submit(served[-1])
+        engine.step()
+        steps += 1
+        for k, st in ctl.status().items():
+            admitted.setdefault(k, (st["phase"], {
+                label: st["active"].get(label) for label in labels}))
+        if settled_s is None and {k[0] for k in ctl.contexts()} == {
+                "prefill", "decode"} and ctl.settled():
+            settled_s = time.perf_counter() - t0
+            # Settled: stop exploring (host-clock noise can re-trigger the
+            # change detector), finish the request in flight, then save.
+            engine.controller = None
+    engine.drain(timeout_s=120.0)
+    engine.controller = ctl
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    status = ctl.status()
+    contexts = {repr(k): {"phase": st["phase"],
+                          "explorations": st["explorations"],
+                          "at_admission": admitted[k][0],
+                          "active": {label: repr(st["active"].get(label))
+                                     for label in labels}}
+                for k, st in status.items()}
+    checked = [(admitted[k], seeded[_encode(k)]) for k in admitted
+               if _encode(k) in seeded]
+    seeded_ok = bool(checked) and all(
+        phase == "exploit" and all(cfg[label] == want.get(label)
+                                   for label in labels)
+        for (phase, cfg), want in checked)
+    tokens_ok = all(r.payload is not None
+                    and len(r.payload) == r.max_new_tokens
+                    and all(0 <= t < cfg.vocab_size for t in r.payload)
+                    for r in served)
+    out = {"restored": built.restored,
+           "seeded": sorted(seeded),
+           "seeded_ok": seeded_ok,
+           "build_s": build_s, "settled_s": settled_s, "wall_s": wall,
+           "steps": steps, "requests": len(served), "tokens_ok": tokens_ok,
+           "contexts": contexts,
+           "launches": kernel.launches,
+           "compile": built.rt.compile_stats(),
+           "libraries": _library_logs()}
+    engine.shutdown(state_dir=cache_dir)
+    print(json.dumps(out), flush=True)
+
+
+def _encode(key) -> str:
+    from repro_torch.core import encode_context_key
+
+    return encode_context_key(key)
+
+
+def _run(cmd: list, timeout_s: float, what: str) -> tuple[str, float]:
+    """Run ``cmd`` from the checkout with the port on the path; its
+    stdout and wall seconds.  Fails on a non-zero exit or a timeout (the
+    child is killed)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout_s, cwd=ROOT, env=env)
+    except subprocess.TimeoutExpired:
+        fail(f"{what} did not finish in {timeout_s:.0f}s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-6000:]}")
+    return proc.stdout, wall
+
+
+class _LibraryMovedOut:
+    """K1's built library moved out of the build directory for the block
+    (a run inside finds none and must build it or take it from the variant
+    cache), and put back after."""
+
+    def __init__(self):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.rmsnorm import kernel
+
+        self.path = build.library_path("rmsnorm", kernel.SOURCE)
+        self.kept = self.path.with_name(self.path.name + ".kept")
+
+    def clear(self) -> None:
+        self.path.unlink(missing_ok=True)
+
+    def __enter__(self):
+        if not self.path.is_file():
+            fail(f"K1's library {self.path} is not built")
+        os.replace(self.path, self.kept)
+        return self
+
+    def __exit__(self, *exc):
+        os.replace(self.kept, self.path)
+        return False
+
+
+def phase_restart() -> dict:
+    """Phase 14: full-width qwen3 with ``--cache-dir``, cold then warm,
+    each in a fresh process with K1's library out of the build directory:
+    the cold run builds it with nvcc, explores and saves; the warm run
+    restores, seeds its contexts (EXPLOIT, saved configs) and loads K1 from
+    the variant cache with no nvcc build."""
+    cache_dir = tempfile.mkdtemp(prefix="restart_", dir=SCRATCH)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--restart-run",
+           cache_dir]
+    runs = {}
+    with _LibraryMovedOut() as lib:
+        for name in ("cold", "warm"):
+            lib.clear()
+            out, wall = _run(cmd, RESTART_TIMEOUT_S + 300,
+                             f"the {name} restart run")
+            runs[name] = (json.loads(out.strip().splitlines()[-1]), wall)
+    (cold, cold_wall), (warm, warm_wall) = runs["cold"], runs["warm"]
+    for name, run, wall in (("cold", cold, cold_wall),
+                            ("warm", warm, warm_wall)):
+        log(f"restart {name}: process {wall:.1f}s, engine built in "
+            f"{run['build_s']:.2f}s, time-to-settled "
+            f"{run['settled_s']}s, {run['steps']} steps, "
+            f"{run['requests']} requests, K1 launches {run['launches']}, "
+            f"restored={run['restored']} seeded={run['seeded']}, "
+            f"builds={json.dumps(run['compile']['xla_compiles'])} "
+            f"cache_hits={run['compile']['cache_hits']} "
+            f"libraries={json.dumps(run['libraries'])}")
+        log(f"restart {name}: contexts {json.dumps(run['contexts'])}")
+    nvcc_s = cold["libraries"].get("rmsnorm", {}).get("seconds", 0.0)
+    log(f"restart: time-to-settled cold {cold['settled_s']}s -> warm "
+        f"{warm['settled_s']}s; nvcc seconds saved {nvcc_s}; warm cache "
+        f"hits {warm['compile']['cache_hits']}")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    if cold["settled_s"] is None:
+        fail("the cold restart run did not settle its contexts")
+    if not cold["libraries"].get("rmsnorm", {}).get("built"):
+        fail("the cold restart run did not build K1 with nvcc")
+    if not warm["restored"] or not warm["seeded"] or not warm["seeded_ok"]:
+        fail(f"the warm run did not start its contexts from the saved "
+             f"configs: {warm['seeded']} {warm['contexts']}")
+    built = [n for n, i in warm["libraries"].items() if i["built"]]
+    if built or "rmsnorm" not in warm["libraries"]:
+        fail(f"the warm run built {built} with nvcc or never loaded K1: "
+             f"{warm['libraries']}")
+    if warm["compile"]["cache_hits"] <= 0:
+        fail("the warm run counted no cache hit")
+    if warm["settled_s"] is None:
+        fail("the warm run did not settle")
+    for name, run in (("cold", cold), ("warm", warm)):
+        if run["launches"] <= 0:
+            fail(f"the {name} restart run launched K1 no time")
+        if not run["tokens_ok"]:
+            fail(f"the {name} restart run served a request wrongly")
+    return {"cold": cold, "warm": warm, "nvcc_s": nvcc_s,
+            "cold_wall": cold_wall, "warm_wall": warm_wall,
+            "launches": warm["launches"]}
+
+
+def _frozen_group(stacks):
+    """A ControllerGroup over the tenants' handlers sweeping what
+    ``build_tenant_engine``'s Controllers sweep, with no change detector
+    (a settled context stays settled)."""
+    from repro_torch.core import ChangeDetector, Controller, ExhaustiveSweep
+    from repro_torch.serve import ControllerGroup
+
+    pairs = []
+    for st in stacks.values():
+        space = st.handler.spec_space()
+        labels = ["cache_dtype", "rmsnorm_impl"] + (
+            ["chunk_len"] if st.cfg.mixer == "rwkv6" else [])
+        pairs.append((st.handler, Controller(
+            st.handler, (lambda space=space, labels=labels:
+                         ExhaustiveSweep.from_space(space, labels)),
+            dwell=2, change_detector=lambda: ChangeDetector(float("inf")),
+            wait_compiles=False, prefetch=2)))
+    return ControllerGroup(pairs)
+
+
+def phase_tenants() -> dict:
+    """Phase 15: a full-width qwen3 tenant and a full-width rwkv6 tenant
+    (DRR weights 2:1) served on the card; their contexts disjoint, both
+    tenants' steps launching K1; then the tenant contexts restored from
+    spec_state with zero builds."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.rmsnorm import kernel
+    from repro_torch.launch.serve import build_tenant_engine, tenant_schedule
+    from repro_torch.serve import OpenLoopSource, Request, parse_tenant_arg
+
+    tenants = [parse_tenant_arg(t, default_slo_ms=2000.0) for t in TENANTS]
+    cfgs = {"q": configs.get_config("qwen3-0.6b"),
+            "r": configs.get_config("rwkv6-1.6b")}
+    cfgs = {k: c.replace(compute_dtype="float32") for k, c in cfgs.items()}
+    state = tempfile.mkdtemp(prefix="tenants_", dir=SCRATCH)
+    args = engine_args(TENANT_ARGS + ["--cache-dir", state])
+    t0 = time.perf_counter()
+    built = build_tenant_engine(args, tenants, cfgs=cfgs)
+    torch.cuda.synchronize()
+    log(f"tenants: built {len(tenants)} full-width tenants in "
+        f"{time.perf_counter() - t0:.1f}s")
+    params = {n: st.params for n, st in built.stacks.items()}
+    engine, group = built.engine, built.group
+    per = {n: {"steps": 0, "s": 0.0, "launches": 0} for n in built.stacks}
+    for name, ex in engine.executor.executors.items():
+        def wrapped(batch, _ex=ex.execute, _p=per[name]):
+            before, t = kernel.launches, time.perf_counter()
+            out = _ex(batch)
+            _p["s"] += time.perf_counter() - t
+            _p["steps"] += 1
+            _p["launches"] += kernel.launches - before
+            return out
+        ex.execute = wrapped
+    schedule = tenant_schedule(args, tenants)
+    requests = [r for _, r in schedule]
+    kernel.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+    t0 = time.perf_counter()
+    engine.run(source=OpenLoopSource(engine.queue, schedule),
+               max_steps=2000, duration_s=300.0)
+    # finish what is in flight, admission left open (drain would close it)
+    while (engine.active or len(engine.queue)) \
+            and time.perf_counter() - t0 < 300.0:
+        engine.step()
+    drained = all(r.done for r in requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    fallbacks = dict(registry.default_registry.fallback_counts)
+    per_main = {n: dict(p) for n, p in per.items()}
+    served = engine.stats()["serve"]
+    log(f"tenants: served {served['completed']}/{len(requests)} requests, "
+        f"{served['completed_tokens']} tokens in {wall:.1f}s; K1 launches "
+        f"{launches}, fallbacks {fallbacks}")
+    for name, sub in served["tenants"].items():
+        p = per_main[name]
+        log(f"tenant {name}: completed={sub['completed']} latency p50/p95/"
+            f"p99 ms {sub['latency_p50_ms']} / {sub['latency_p95_ms']} / "
+            f"{sub['latency_p99_ms']}; {p['steps']} steps, "
+            f"{1e3 * p['s'] / max(p['steps'], 1):.2f} ms a step (host "
+            f"clock), K1 launches {p['launches']}")
+    # For the restore: the tenants' Controllers with the change detector
+    # off (as tests/test_serve_tenants.py's restore case runs them), each
+    # tenant offered one request at a time until its contexts settle.
+    engine.controller = group = _frozen_group(built.stacks)
+    ctls = {n: group.controllers[st.handler.name]
+            for n, st in built.stacks.items()}
+    extra = 0
+    for _ in range(TENANT_SETTLE_CAP):
+        if group.settled() and len(group.contexts()) >= 4:
+            break
+        for t in tenants:
+            done = ctls[t.name].settled() and len(
+                ctls[t.name].contexts()) >= 2
+            if not done and \
+                    not any(r.tenant == t.name for r in engine.active) and \
+                    not engine.queue.peek_tenant(t.name):
+                engine.submit(Request(prompt_tokens=64, max_new_tokens=4,
+                                      tenant=t.name))
+                extra += 1
+        engine.step()
+    engine.drain(timeout_s=300.0)
+    settled = group.settled()
+    tuned = {n: {_encode(k): dict(c) for k, c in ctl.best_configs().items()
+                 if c is not None}
+             for n, ctl in group.controllers.items()}
+    contexts = {n: [k for k in st.handler.contexts() if k != "default"]
+                for n, st in built.stacks.items()}
+    engine.shutdown(state_dir=state)
+    log(f"tenants: settled={settled} after {extra} more requests; contexts "
+        f"{json.dumps({n: [repr(k) for k in c] for n, c in contexts.items()})}")
+
+    if not drained or served["completed"] != len(requests):
+        fail(f"tenants served {served['completed']} of {len(requests)}")
+    for r in requests:
+        vocab = cfgs[r.tenant].vocab_size
+        if r.payload is None or len(r.payload) != r.max_new_tokens or \
+                not all(0 <= t < vocab for t in r.payload):
+            fail(f"tenant request {r.rid} got {r.payload!r}")
+    for n, keys in contexts.items():
+        if not keys or any(k[0] != n for k in keys):
+            fail(f"tenant {n}'s contexts are not its own: {keys}")
+        if per_main[n]["launches"] <= 0:
+            fail(f"tenant {n}'s steps launched K1 no time")
+    if any(k[0].startswith("rmsnorm") for k in fallbacks):
+        fail(f"rmsnorm fell back on the tenant path: {fallbacks}")
+    if not settled:
+        fail("the tenant contexts did not settle")
+
+    # -- restore the tenant contexts from spec_state: zero builds ----------
+    del built, engine, group
+    torch.cuda.empty_cache()
+    again = build_tenant_engine(args, tenants, cfgs=cfgs, params=params)
+    again.engine.controller = again.group = _frozen_group(again.stacks)
+    seeded = {n: sorted(st.handler._seeded)
+              for n, st in again.stacks.items()}
+    for _ in range(40):
+        for t in tenants:
+            if not any(r.tenant == t.name for r in again.engine.active) and \
+                    not again.engine.queue.peek_tenant(t.name):
+                again.engine.submit(Request(prompt_tokens=64,
+                                            max_new_tokens=4,
+                                            tenant=t.name))
+        again.engine.step()
+    again.engine.drain(timeout_s=300.0)
+    warm = again.rt.compile_stats()
+    restored_ok = all(
+        ctl.settled(context=k) and
+        _encode(k) in tuned[n] and
+        dict(ctl.best_configs()[k]) == tuned[n][_encode(k)]
+        for n, ctl in again.group.controllers.items()
+        for k in ctl.contexts() if _encode(k) in tuned[n])
+    again.engine.shutdown()
+    shutil.rmtree(state, ignore_errors=True)
+    log(f"tenants restore: restored={again.restored} seeded {seeded}; "
+        f"builds={warm['xla_compiles']} cache_hits={warm['cache_hits']} "
+        f"same configs={restored_ok}")
+    if not again.restored or not all(seeded.values()):
+        fail(f"the tenant contexts were not seeded: {seeded}")
+    if warm["xla_compiles"] != 0 or warm["cache_hits"] <= 0:
+        fail(f"the tenant restore built variants: {warm}")
+    if not restored_ok:
+        fail("a restored tenant context did not keep its saved config")
+    return {"launches": launches, "per_tenant": per_main,
+            "served": served, "wall": wall,
+            "restore": {"builds": warm["xla_compiles"],
+                        "cache_hits": warm["cache_hits"]}}
+
+
+def _fleet_replicas(out: str) -> dict:
+    """``replica N: ... rmsnorm_launches=.. libraries={..} compile={..}``
+    lines of the fleet driver, parsed."""
+    reps = {}
+    for line in out.splitlines():
+        m = re.match(r"replica (\S+): steps=(\d+) time_to_settled_s=(\S+) "
+                     r"rmsnorm_launches=(\d+) libraries=(\{.*\}) "
+                     r"compile=(\{.*\})$", line)
+        if m:
+            reps[m.group(1)] = {
+                "steps": int(m.group(2)),
+                "time_to_settled_s": (None if m.group(3) == "None"
+                                      else float(m.group(3))),
+                "launches": int(m.group(4)),
+                "libraries": json.loads(m.group(5)),
+                "compile": json.loads(m.group(6))}
+    return reps
+
+
+def phase_fleet() -> dict:
+    """Phase 16: ``python -m repro_torch.launch.serve --replicas 2`` with a
+    plane and a portable cache on the card, at the CLI's reduced width,
+    cold (K1's library out of the build directory: the replicas build it)
+    then warm (out again: the replicas load it from the shared cache and
+    start from the plane); the snapshot rendered by launch.status."""
+    plane = tempfile.mkdtemp(prefix="plane_", dir=SCRATCH)
+    cache = tempfile.mkdtemp(prefix="fleet_", dir=SCRATCH)
+    snap = os.path.join(cache, "snapshot.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *FLEET_ARGS,
+           "--plane-dir", plane, "--cache-dir", cache,
+           "--telemetry-snapshot", snap]
+    runs = {}
+    with _LibraryMovedOut() as lib:
+        for name in ("cold", "warm"):
+            lib.clear()
+            out, wall = _run(cmd, FLEET_TIMEOUT_S, f"the {name} fleet")
+            reps = _fleet_replicas(out)
+            served = re.search(r"fleet served (\d+) requests", out)
+            pct = re.search(r"fleet p50/p95/p99 latency ms: (.*)$", out,
+                            re.M)
+            log(f"fleet {name}: process {wall:.1f}s; "
+                + "; ".join(ln for ln in out.splitlines()
+                            if ln.startswith(("fleet", "router"))))
+            for r, st in sorted(reps.items()):
+                log(f"fleet {name} replica {r}: steps={st['steps']} "
+                    f"time_to_settled_s={st['time_to_settled_s']} "
+                    f"K1 launches={st['launches']} builds="
+                    f"{st['compile']['xla_compiles']} cache_hits="
+                    f"{st['compile']['cache_hits']} libraries="
+                    f"{json.dumps(st['libraries'])}")
+            want = 2 * int(FLEET_ARGS[FLEET_ARGS.index("--requests") + 1])
+            if "fleet: 2 workers ready" not in out or len(reps) != 2:
+                fail(f"the {name} fleet did not run two workers:\n{out}")
+            if served is None or int(served.group(1)) != want:
+                fail(f"the {name} fleet served {served and served.group(1)}"
+                     f" of {want} requests")
+            if pct is None:
+                fail(f"the {name} fleet printed no merged percentiles")
+            if any(st["launches"] <= 0 for st in reps.values()):
+                fail(f"a {name} replica launched K1 no time")
+            runs[name] = {"wall": wall, "replicas": reps,
+                          "percentiles": pct.group(1)}
+    status = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.status", snap],
+        capture_output=True, text=True, timeout=60, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    log("fleet status:\n" + status.stdout.rstrip())
+    shutil.rmtree(plane, ignore_errors=True)
+    shutil.rmtree(cache, ignore_errors=True)
+    if status.returncode != 0 or "[fleet]" not in status.stdout:
+        fail(f"launch.status did not render the fleet snapshot: "
+             f"{status.stdout}{status.stderr}")
+    warm = runs["warm"]["replicas"]
+    built = {r: [n for n, i in st["libraries"].items() if i["built"]]
+             for r, st in warm.items()}
+    if any(built.values()) or any("rmsnorm" not in st["libraries"]
+                                  for st in warm.values()):
+        fail(f"a warm replica built a library with nvcc: {built}")
+    if any(st["compile"]["cache_hits"] <= 0 for st in warm.values()):
+        fail("a warm replica counted no cache hit")
+    if not any(i["built"] for st in runs["cold"]["replicas"].values()
+               for i in st["libraries"].values()):
+        fail("no cold replica built K1 with nvcc")
+    return {"runs": runs,
+            "launches": sum(st["launches"] for st in warm.values())}
+
+def main(argv: list[str]) -> None:
     try:
         import torch
     except ImportError:
@@ -2675,6 +3189,9 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository", 3)
     sys.path.insert(0, str(ROOT / "src"))
+    if argv[:1] == ["--restart-run"]:
+        restart_run(argv[1])             # one run of phase 14, in its process
+        return
 
     from repro_torch import compat, configs
 
@@ -2704,6 +3221,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     table1 = phase_table1()
     router = phase_router()
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    restart = phase_restart()
+    tenant = phase_tenants()
+    fleet = phase_fleet()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -2762,6 +3283,10 @@ def main() -> None:
         "prefill_launches": prefill["rmsnorm_launches"],
         "rwkv6_prefill_launches": rprefill["rms_launches"],
         "rwkv6_serve_launches": rserve["launches"],
+        "restart_launches": restart["launches"],
+        "tenant_launches": {n: p["launches"]
+                            for n, p in tenant["per_tenant"].items()},
+        "fleet_launches": fleet["launches"],
         "shapes": rms["per_shape"],
     }, {
         "name": "attention",
@@ -2874,4 +3399,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

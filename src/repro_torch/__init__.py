@@ -4,7 +4,9 @@ A second package beside the JAX reference (``repro``), mirroring its
 layout: ``core`` (the specialization runtime), ``kernels`` (hand-written
 CUDA kernels for ``sm_90a`` beside their plain PyTorch versions),
 ``models``, ``configs``, ``training`` (step builders), ``serve`` (the
-continuous-batching engine) and ``launch`` (entry points).  It imports
+continuous-batching engine, tenants and the fleet), ``checkpoint``
+(parameters and specialization state on disk) and ``launch`` (entry
+points).  It imports
 ``torch`` and numpy, never JAX.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """

@@ -19,8 +19,8 @@ Policy API (used by the system's fixed code):
     ``.specialize``, ``.add_custom_spec``
 
 Building blocks: policies, metrics, guards, instrumentation, and the
-Morpheus-style fast-path specialization (``fastpath``).  The persistent
-variant cache waits for ROADMAP M3.
+Morpheus-style fast-path specialization (``fastpath``), and the
+persistent variant cache of built kernel libraries (``VariantCache``).
 """
 from repro_torch.core.points import (DISABLED, AssumePoint, Config,
                                      CustomPoint, EnumPoint, GenericPoint,
@@ -28,6 +28,7 @@ from repro_torch.core.points import (DISABLED, AssumePoint, Config,
                                      cartesian, config_key)
 from repro_torch.core.specializer import (SpecCtx, Specialized,
                                           discover_space, specialize_builder)
+from repro_torch.core.variant_cache import VariantCache
 from repro_torch.core.compile_service import (CompileService,
                                               PRIORITY_ACTIVATE,
                                               PRIORITY_SPECULATIVE)
@@ -52,7 +53,7 @@ __all__ = [
     "GenericPoint", "RangePoint", "SpecPoint", "SpecSpace", "cartesian",
     "config_key", "SpecCtx", "Specialized", "discover_space",
     "specialize_builder", "CompileService", "PRIORITY_ACTIVATE",
-    "PRIORITY_SPECULATIVE", "ContextView", "DEFAULT_CONTEXT",
+    "PRIORITY_SPECULATIVE", "VariantCache", "ContextView", "DEFAULT_CONTEXT",
     "Handler", "IridescentRuntime", "Variant", "encode_context_key",
     "ContextualBandit", "Controller", "CoordinateDescent", "CostAwareUCB",
     "EpsilonGreedy", "ExhaustiveSweep", "Explorer", "Phase", "Policy",

@@ -35,7 +35,13 @@ Components, mapped from the paper:
   (the paper's exception-unwind path, minus the exception: a guard runs
   before the variant, so there are no side effects to roll back).
 * **Variant cache** — built variants are cached by configuration in
-  memory.  The persistent on-disk cache is not ported yet (ROADMAP M3).
+  memory, and — when the runtime is given a
+  :class:`~repro_torch.core.variant_cache.VariantCache` — the kernel
+  libraries each variant loaded persist on disk across process restarts,
+  so a warm restart reaches its tuned configuration with zero ``nvcc``
+  calls.  The reference's demotion of a variant whose AOT executable
+  keeps failing has no counterpart: the port has no AOT step, a variant
+  runs its closure eagerly.
 * **Errors** — an exception inside a variant propagates to the caller, and
   a failed build (a kernel library that does not compile) is raised by the
   next call routed to that context.
@@ -58,6 +64,7 @@ from repro_torch.core.metrics import (AtomicCounter, ThroughputCounter,
                                       ThroughputWindow)
 from repro_torch.core.points import DISABLED, Config, SpecSpace, config_key
 from repro_torch.core.specializer import Specialized, specialize_builder
+from repro_torch.core.variant_cache import VariantCache
 
 logger = logging.getLogger("repro_torch.core.runtime")
 
@@ -162,11 +169,12 @@ class Variant:
     configuration, plus whether the kernels it names are built."""
 
     __slots__ = ("specialized", "compiled", "compile_time_s",
-                 "build_time_s", "_calls", "_guard_misses")
+                 "build_time_s", "from_cache", "_calls", "_guard_misses")
 
     def __init__(self, specialized: Specialized):
         self.specialized = specialized
         self.compiled = False          # every named kernel built and loaded
+        self.from_cache = False        # its libraries came from the disk cache
         self.compile_time_s: float | None = None
         self.build_time_s: float | None = None
         self._calls = AtomicCounter()
@@ -516,26 +524,63 @@ class Handler:
         variant.build_time_s = time.perf_counter() - t0
         return variant
 
-    def _compile_variant(self, variant: Variant) -> None:
-        """Build and load every kernel library the variant's configuration
-        names: each spec point with a ``prepare`` hook gets the variant's
-        value for it (its default where the config leaves it out, as the
-        builder resolved it).  Shapes do not matter, so this runs at build
-        time.  A build failure raises."""
-        if variant.compiled:
-            return
-        t0 = time.perf_counter()
+    def _cache_key(self, ctx: _Context, variant: Variant) -> str | None:
+        """The variant's persistent-cache key.  Its argument component is
+        the context: libraries do not depend on shapes and are built
+        before the context's first call is seen (the serve engine's
+        contexts are its shape classes)."""
+        cache = self.runtime.variant_cache
+        if cache is None:
+            return None
+        return cache.entry_key(self.name, config_key(variant.config),
+                               variant.specialized.instrumented,
+                               f"context={encode_context_key(ctx.key)}")
+
+    @staticmethod
+    def _prepare_libraries(variant: Variant) -> None:
         spec = variant.specialized
         for label, point in spec.space.points.items():
             prepare = getattr(point, "prepare", None)
             if prepare is not None:
                 value = spec.config.get(label, DISABLED)
                 prepare(point.default if value is DISABLED else value)
+
+    def _compile_variant(self, ctx: _Context, variant: Variant) -> None:
+        """Build and load every kernel library the variant's configuration
+        names: each spec point with a ``prepare`` hook gets the variant's
+        value for it (its default where the config leaves it out, as the
+        builder resolved it).  Shapes do not matter, so this runs at build
+        time.  With a persistent cache the entry is probed first: a hit
+        puts the libraries back under their hashed names, so loading them
+        calls no ``nvcc``; a miss builds and stores what was loaded.  A
+        build failure raises."""
+        from repro_torch.kernels import build
+
+        if variant.compiled:
+            return
+        t0 = time.perf_counter()
+        cache_key = self._cache_key(ctx, variant)
+        cache = self.runtime.variant_cache
+        if cache_key is not None and cache.load(cache_key) is not None:
+            self._prepare_libraries(variant)
+            variant.compiled = True
+            variant.from_cache = True
+            variant.compile_time_s = time.perf_counter() - t0
+            self.runtime.compile_service.note_compile(None, cache_hit=True)
+            return
+        with build.record_loads() as loads:
+            self._prepare_libraries(variant)
         variant.compiled = True
         variant.compile_time_s = time.perf_counter() - t0
         self.runtime.compile_service.note_compile(
             variant.compile_time_s, cache_hit=False,
             build_s=variant.build_time_s)
+        if cache_key is not None:
+            cache.store(cache_key, loads,
+                        meta={"handler": self.name,
+                              "context": encode_context_key(ctx.key),
+                              "config": {k: repr(v)
+                                         for k, v in variant.config.items()}})
 
     # -- snapshot publication ---------------------------------------------------
     def _rebuild_snapshot_locked(self, ctx: _Context) -> None:
@@ -600,7 +645,7 @@ class Handler:
 
         def build() -> Variant:
             variant = self._build_variant(config, instrument)
-            self._compile_variant(variant)
+            self._compile_variant(ctx, variant)
             with self._lock:
                 variant = ctx.variants.setdefault(key, variant)
             return variant
@@ -972,6 +1017,7 @@ class Handler:
             "guard_misses": self.guard_misses,
             "active": dict(active.config) if active is not None else None,
             "compiled": sum(1 for _, v in vs if v.compiled),
+            "from_cache": sum(1 for _, v in vs if v.from_cache),
             "compile_times_s": {
                 str(dict(k[1])): v.compile_time_s for k, v in vs
                 if v.compile_time_s is not None
@@ -1083,15 +1129,14 @@ class IridescentRuntime:
     """Paper Table 2 policy API: the object the *fixed code* talks to."""
 
     def __init__(self, max_compile_workers: int = 2, async_compile: bool = True,
-                 guards_enabled: bool = True, variant_cache: Any = None):
-        if variant_cache is not None:
-            raise NotImplementedError(
-                "the persistent variant cache is not ported yet "
-                "(ROADMAP M3: variant_cache)")
+                 guards_enabled: bool = True,
+                 variant_cache: "VariantCache | str | None" = None):
         self.handlers: dict[str, Handler] = {}
         self.custom_generators: dict[str, Callable] = {}
         self.guards_enabled = guards_enabled
-        self.variant_cache = None
+        if isinstance(variant_cache, str):
+            variant_cache = VariantCache(variant_cache)
+        self.variant_cache = variant_cache
         self.compile_service = CompileService(
             workers=max_compile_workers if async_compile else 0)
 
@@ -1156,8 +1201,11 @@ class IridescentRuntime:
         return {name: h.spec_state() for name, h in self.handlers.items()}
 
     def compile_stats(self) -> dict:
-        """Aggregate compile telemetry (the service's counters)."""
-        return self.compile_service.stats()
+        """Aggregate compile telemetry: service counters + cache stats."""
+        out = self.compile_service.stats()
+        if self.variant_cache is not None:
+            out["cache"] = self.variant_cache.stats.as_dict()
+        return out
 
     def shutdown(self) -> None:
         self.compile_service.shutdown(wait=True)

@@ -9,9 +9,17 @@ never load a half-written file.  Within a process each library is built
 and loaded once, under a lock of its own: compile-service worker threads
 may ask for it concurrently, and building one library never blocks a
 caller of another.  Once loaded, a library is returned without locking.
+
+Two hooks serve the persistent variant cache
+(:mod:`repro_torch.core.variant_cache`): :func:`record_loads` reports
+which libraries the calls made inside it asked for (a variant's
+"compile"), and :func:`install_library` puts a cached library back under
+its hashed name, so the next :func:`load_cuda_library` loads it without
+calling ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +30,9 @@ from pathlib import Path
 
 from repro_torch import compat
 
-__all__ = ["NVCC_FLAGS", "load_cuda_library", "build_log"]
+__all__ = ["NVCC_FLAGS", "load_cuda_library", "build_log", "build_logs",
+           "library_path", "source_digest", "record_loads",
+           "install_library"]
 
 #: ``sm_90a`` (not ``sm_90``): wgmma and setmaxnreg exist only there.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,6 +44,8 @@ _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: name -> {"path", "seconds", "built", "log"} of each library loaded
 _logs: dict[str, dict] = {}
+#: per thread: the lists of :func:`record_loads` scopes open on it
+_recording = threading.local()
 
 
 def build_log(name: str) -> dict | None:
@@ -42,9 +54,67 @@ def build_log(name: str) -> dict | None:
     return _logs.get(name)
 
 
+def build_logs() -> dict[str, dict]:
+    """:func:`build_log` of every library loaded in this process."""
+    return dict(_logs)
+
+
+def library_path(name: str, source: Path) -> Path:
+    """Where the library built from ``source`` lives: its name carries
+    the hash of the source and of :data:`NVCC_FLAGS`."""
+    return compat.BUILD_DIR / f"lib{name}-{source_digest(Path(source))}.so"
+
+
+def source_digest(source: Path) -> str:
+    """The hash a build of ``source`` is named by (source and flags)."""
+    return hashlib.sha1(source.read_bytes()
+                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+
+
+@contextlib.contextmanager
+def record_loads():
+    """Collect ``(name, source)`` of every library that
+    :func:`load_cuda_library` is asked for on this thread inside the
+    block, whether it was built, found on disk or already loaded."""
+    scopes = getattr(_recording, "scopes", None)
+    if scopes is None:
+        scopes = _recording.scopes = []
+    loads: list[tuple[str, Path]] = []
+    scopes.append(loads)
+    try:
+        yield loads
+    finally:
+        scopes.remove(loads)
+
+
+def install_library(name: str, source: Path, digest: str,
+                    blob: bytes) -> bool:
+    """Write a cached build of library ``name`` under its hashed name, so
+    loading it calls no ``nvcc``.  Refuses (returns False) a build whose
+    ``digest`` is not that of the current ``source``: a stale library is
+    never served.  Writes under the name's lock, to a temporary name
+    then renamed, like a build."""
+    source = Path(source)
+    if not source.is_file() or digest != source_digest(source):
+        return False
+    out = library_path(name, source)
+    with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        if not out.is_file():
+            compat.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            tmp.write_bytes(blob)
+            os.replace(tmp, out)
+    return True
+
+
 def load_cuda_library(name: str, source: Path) -> ctypes.CDLL:
     """The loaded shared library compiled from ``source``; compiles it on
     first use.  Raises if no CUDA compiler is found or the build fails."""
+    for loads in getattr(_recording, "scopes", ()):
+        loads.append((name, Path(source)))
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -61,9 +131,7 @@ def load_cuda_library(name: str, source: Path) -> ctypes.CDLL:
 
 
 def _build(name: str, source: Path) -> tuple[Path, dict]:
-    digest = hashlib.sha1(source.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = compat.BUILD_DIR / f"lib{name}-{digest}.so"
+    out = library_path(name, source)
     if out.is_file():
         return out, {"path": str(out), "seconds": 0.0, "built": False,
                      "log": ""}

@@ -8,8 +8,10 @@ every packed batch through the handler's per-context dispatch and feeds
 the per-context Controller.  :mod:`repro_torch.serve.kv` keeps every
 request's decode state in block-paged host pools and
 :mod:`repro_torch.serve.executor` runs chunked prefill and decode as
-separate ``(phase, bucket)`` contexts of one serve handler.  Tenancy and
-the fleet wait for ROADMAP M10.
+separate ``(phase, bucket)`` contexts of one serve handler.
+:mod:`repro_torch.serve.tenancy` serves several models as tenants of one
+engine, and :mod:`repro_torch.serve.fleet` spreads traffic over replicas
+that share a specialization plane.
 """
 from repro_torch.serve.request import Completion, Request, next_request_id
 from repro_torch.serve.queue import (AdmissionQueue, OpenLoopSource,
@@ -27,6 +29,9 @@ from repro_torch.serve.executor import (DecodeExecutor, PhasedExecutor,
                                         PrefillExecutor)
 from repro_torch.serve.engine import BatchExecutor, ServeEngine
 from repro_torch.serve.shadow import ShadowEvaluator
+from repro_torch.serve.tenancy import (ControllerGroup, MultiTenantExecutor,
+                                       TenantSpec, make_tenant_context_fn,
+                                       parse_tenant_arg)
 
 __all__ = [
     "Completion", "Request", "next_request_id",
@@ -40,4 +45,6 @@ __all__ = [
     "kv_plan_builder",
     "DecodeExecutor", "PhasedExecutor", "PrefillExecutor",
     "BatchExecutor", "ServeEngine", "ShadowEvaluator",
+    "ControllerGroup", "MultiTenantExecutor", "TenantSpec",
+    "make_tenant_context_fn", "parse_tenant_arg",
 ]

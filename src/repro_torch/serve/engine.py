@@ -33,6 +33,7 @@ config with zero recompiles.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Callable, Protocol
 
@@ -340,20 +341,74 @@ class ServeEngine:
 
     def shutdown(self, state_dir: str | None = None,
                  drain_timeout_s: float | None = 30.0) -> None:
-        """Drain, close the shadow tap, stop compile workers.
+        """Drain, checkpoint specialization state, stop compile workers.
 
-        ``state_dir`` (persisting the tuned per-context configurations to
-        ``<state_dir>/spec_state.json``) is not ported yet and raises.
+        With ``state_dir``, the tuned per-context configurations (model
+        handler *and* bucket-plan handler) are persisted to
+        ``<state_dir>/spec_state.json``.  Persistence is **per context**:
+        a context whose search has settled saves its tuned config; a
+        context still mid-sweep (e.g. a workload class that only appeared
+        during drain) is left out, so a candidate config never becomes
+        the next restart's "winner" — without holding every settled
+        context's result hostage to one straggler.
         """
-        if state_dir is not None:
-            raise NotImplementedError(
-                "persisting spec_state is not ported yet (ROADMAP M3: "
-                "checkpoint/store.py)")
         self.drain(timeout_s=drain_timeout_s)
         runtime = self.handler.runtime
+        if state_dir is not None:
+            from repro_torch.checkpoint import save_spec_state
+            save_spec_state(os.path.join(state_dir, "spec_state.json"),
+                            runtime, keep=self._spec_state_filter(),
+                            safety=self._safety_state())
         if self.shadow is not None:
             self.shadow.close()
         runtime.shutdown()
+
+    def _controller_pairs(self) -> list:
+        """Every ``(handler_name, controller)`` this engine persists: the
+        model controller — or, multi-tenant, every tenant controller a
+        :class:`~repro_torch.serve.tenancy.ControllerGroup` aggregates — plus
+        the bucket and KV plan tuners."""
+        pairs = []
+        sub = getattr(self.controller, "pairs", None)
+        if sub:
+            pairs.extend((h.name, c) for h, c in sub)
+        else:
+            pairs.append((self.handler.name, self.controller))
+        if self.tuner is not None:
+            pairs.append((self.tuner.handler.name, self.tuner.controller))
+        if self.kv_tuner is not None:
+            pairs.append((self.kv_tuner.handler.name,
+                          self.kv_tuner.controller))
+        return pairs
+
+    def _safety_state(self) -> dict | None:
+        """Per-handler safety payload for ``save_spec_state`` (v3): any
+        controller exposing ``safety_state()`` (the SafetyController)
+        contributes its last-known-good and quarantine maps."""
+        out = {}
+        for name, ctl in self._controller_pairs():
+            fn = getattr(ctl, "safety_state", None)
+            if callable(fn):
+                state = fn()
+                if state.get("last_known_good") or state.get("quarantined"):
+                    out[name] = state
+        return out or None
+
+    def _spec_state_filter(self):
+        """``keep(handler, encoded_key)`` predicate: drop contexts whose
+        controller is still exploring; everything else persists."""
+        from repro_torch.core.runtime import encode_context_key
+        unsettled: dict[str, set] = {}
+        for name, ctl in self._controller_pairs():
+            if ctl is None:
+                continue
+            drop = {encode_context_key(k) for k in ctl.contexts()
+                    if not ctl.settled(context=k)}
+            if drop:
+                unsettled[name] = drop
+        if not unsettled:
+            return None
+        return lambda name, enc: enc not in unsettled.get(name, ())
 
     # -- telemetry ---------------------------------------------------------------
     def stats(self) -> dict:

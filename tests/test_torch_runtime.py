@@ -1,6 +1,6 @@
 """The port's runtime: a variant's "compile" builds the kernel libraries
-its configuration names, a failed build surfaces at the next call, and the
-pieces not ported yet refuse loudly."""
+its configuration names, a failed build surfaces at the next call, and a
+persistent variant cache carries variants across runtimes."""
 import dataclasses
 
 import pytest
@@ -71,9 +71,22 @@ def test_arg_specs_record_shape_dtype_device(runtime):
     assert kwargs == {}
 
 
-def test_variant_cache_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP M3"):
-        IridescentRuntime(variant_cache="somewhere")
+def test_variant_cache_keeps_variants_across_runtimes(tmp_path):
+    """``IridescentRuntime(variant_cache=DIR)``: a second runtime on the
+    same directory finds both variants, prepared with no build counted."""
+    for run in range(2):
+        PREPARED.clear()
+        rt = IridescentRuntime(max_compile_workers=1,
+                               variant_cache=str(tmp_path))
+        h = rt.register("h", _builder)
+        h.specialize({"impl": "fast"}, wait=True)
+        torch.testing.assert_close(h(torch.ones(3)), 2 * torch.ones(3))
+        stats = rt.compile_stats()
+        rt.shutdown()
+        assert PREPARED == ["plain", "fast"]      # libraries loaded again
+        assert h.stats()["from_cache"] == 2 * run
+        assert (stats["xla_compiles"], stats["cache_hits"]) == (
+            (2, 0) if run == 0 else (0, 2))
 
 
 @pytest.mark.parametrize("available", [True, False])

@@ -8,6 +8,7 @@ numerics); greedy decoding must then give the same tokens per request.
 """
 import argparse
 import ast
+import json
 import pathlib
 
 import pytest
@@ -125,13 +126,72 @@ def test_device_defaults_to_cuda(monkeypatch, entry):
     assert all(t.device.type == "cpu" for t in leaves)
 
 
-@pytest.mark.parametrize("flag", [["--cache-dir", "x"], ["--replicas", "2"],
-                                  ["--tenant", "a=qwen3-0.6b"],
-                                  ["--plane-dir", "x"]])
-def test_unported_flags_exit_naming_roadmap(flag, capsys):
+#: a short CPU run of the driver (reduced qwen3-0.6b)
+CLI = ["--device", "cpu", "--steps", "200", "--requests", "4", "--rate",
+       "40", "--dwell", "2", "--compile-workers", "1"]
+
+
+def _main(capsys, *extra):
+    serve.main(CLI + list(extra))
+    return capsys.readouterr().out
+
+
+def _line(out, prefix):
+    return next(ln for ln in out.splitlines() if ln.startswith(prefix))
+
+
+def test_cache_dir_warm_restart(tmp_path, capsys):
+    """``--cache-dir`` twice: the second run restores the saved spec state
+    and finds its variants in the cache."""
+    cache = str(tmp_path / "cache")
+    cold = _main(capsys, "--cache-dir", cache)
+    assert "restored spec state" not in cold
+    assert (tmp_path / "cache" / "spec_state.json").is_file()
+    warm = _main(capsys, "--cache-dir", cache)
+    assert _line(warm, "restored spec state:")
+    stats = json.loads(_line(warm, "compile stats: ")[len("compile stats: "):])
+    assert stats["cache_hits"] > 0
+    assert "served 4 requests" in warm
+
+
+def test_tenant_flag_serves_each_tenant(capsys):
+    out = _main(capsys, "--tenant", "a=qwen3-0.6b:60000:2", "--tenant",
+                "b=qwen3-0.6b")
+    assert "served 8 requests" in out and "across 2 tenants" in out
+    assert "tenant a: completed=4" in out and "tenant b: completed=4" in out
+    assert '"weights": {"a": 2.0, "b": 1.0}' in out   # drr by default
+
+
+def test_plane_dir_publishes_and_seeds(tmp_path, capsys):
+    plane = str(tmp_path / "plane")
+    # the plain Controller settles within a short run
+    out = _main(capsys, "--plane-dir", plane, "--replica-id", "r0",
+                "--requests", "12", "--steps", "400", "--no-safety")
+    published = int(_line(out, "plane: published").split()[2])
+    assert published > 0
+    out = _main(capsys, "--plane-dir", plane, "--replica-id", "r1",
+                "--no-safety")
+    assert _line(out, "plane: seeded contexts=")
+
+
+def test_replicas_run_a_fleet_of_workers(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")    # two workers share a host
+    snap = tmp_path / "snap.json"
+    out = _main(capsys, "--replicas", "2", "--requests", "2",
+                "--plane-dir", str(tmp_path / "plane"),
+                "--cache-dir", str(tmp_path / "cache"), "--portable-cache",
+                "--telemetry-snapshot", str(snap))
+    assert "fleet: 2 workers ready" in out
+    assert "fleet served 4 requests" in out
+    assert _line(out, "fleet p50/p95/p99 latency ms:")
+    assert _line(out, "replica 0:") and _line(out, "replica 1:")
+    assert json.loads(snap.read_text())["mode"] == "fleet"
+
+
+def test_tenant_with_replicas_errors_as_reference(capsys):
     with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu"] + flag)
-    assert "ROADMAP" in capsys.readouterr().err
+        serve.main(CLI + ["--tenant", "a=qwen3-0.6b", "--replicas", "2"])
+    assert "--tenant is single-process" in capsys.readouterr().err
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
