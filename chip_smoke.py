@@ -161,10 +161,38 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    replica builds a library with ``nvcc``; ``python -m
    repro_torch.launch.status`` renders the snapshot.
 
-In phases 5, 7, 9, 10, 12, 13 and 15 (the main paths) the launch counters
-and the registry's fallback counts are zeroed just before and read just
-after; every kernel of the path must have launched and none may have
-fallen back (phases 14 and 16 count K1's launches in their own
+17. Families' prefill at full width and full depth: (a) K1 at every
+   family width, K2 at every family's heads (deepseek-7b's MHA 32/32 and
+   yi-6b's 32/4 of 128, minitron-4b's 24/8, internvl2-2b's 16/8,
+   musicgen-medium's 24/24 of 64, hymba-1.5b's 25/5 of 64 with its window
+   of 1024) at every tile pair and K4 as hymba's SSM heads call it
+   (25 heads, 4096, N 16, dv 64: inclusive, q/k broadcast over the heads,
+   a scalar decay) at every chunk, each against its plain version (fp32,
+   the tolerances of phases 3, 4 and 4b); K2 at hymba's windowed shape and
+   K4 at hymba's shape timed beside the plain version, the library call
+   and the bound; (b) deepseek-7b, minitron-4b, internvl2-2b and
+   musicgen-medium (their stub frontends take embeds drawn from the
+   seed), yi-6b and hymba-1.5b, one at a time, random weights from seed 0
+   in fp32: one (1, 4096) prefill through ``make_prefill_builder``'s
+   generic variant (timed: tok/s), one under ``torch.profiler`` (device
+   busy share, device ms and CUDA launches by kernel: K1, K2, K4, GEMMs,
+   other), and the same call pinned to the plain versions, their logits
+   within a max relative difference of 1e-3; each call must launch K1
+   2L + 1 times (hymba 4L + 1), K2 L times and (hymba) K4 L times; then
+   hymba's prefill handler under a Controller whose CoordinateDescent
+   sweeps ``attention_impl`` x tiles x ``linear_attention_impl`` x
+   ``chunk_len`` over (1, 4096) calls until it settles.
+18. Families' serving at full width: ``build_engine`` serves hymba-1.5b
+   (batch 4, ``--max-len 1024``, its window) and yi-6b (batch 4,
+   ``--max-len 256``), 4 requests of 64 prompt and 16 new tokens each,
+   every context pinned to the kernels (fp32 cache), then the same engine
+   pinned to the plain versions: the greedy tokens must be equal; served
+   tok/s, p50/p95 latency and the handler's host ms a step.
+
+In phases 5, 7, 9, 10, 12, 13, 15, 17 and 18 (the main paths) the launch
+counters and the registry's fallback counts are zeroed just before and
+read just after; every kernel of the path must have launched and none
+may have fallen back (phases 14 and 16 count K1's launches in their own
 processes).  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -299,8 +327,9 @@ LINATT_TEST_CASES = [
 ]
 #: full-width rwkv6-1.6b time mix at batch 1: 32 heads of 64, exclusive with
 #: the bonus, at a ragged length, the prefill path's and the long call's;
-#: then a hymba-like inclusive scalar-decay head (dk 16, dv 64), off this
-#: path but cheap
+#: then hymba-1.5b's SSM heads (25 heads, dk 16, dv 64, inclusive, scalar
+#: decay) at its prefill length, with independent q/k per head (phase 17
+#: holds the broadcast call)
 RWKV_HEADS = 32
 RWKV_HEAD = 64
 RWKV_LAYERS = 24
@@ -407,6 +436,25 @@ FLEET_ARGS = ["--device", "cuda", "--replicas", "2", "--router",
               "400", "--dwell", "2",
               "--no-safety", "--portable-cache", "--plane-poll-s", "0.25"]
 FLEET_TIMEOUT_S = 300
+#: the families (phases 17-18) at full width and full depth, in the order
+#: phase 17 loads them (one at a time, the largest first); the last two
+#: stay loaded for phase 18.  The stub frontends take embeds.
+FAMILY_ARCHS = ("deepseek-7b", "minitron-4b", "internvl2-2b",
+                "musicgen-medium", "yi-6b", "hymba-1.5b")
+FAMILY_PREFILL = (1, 4096)
+#: hymba's prefill Controller: its builder's kernel points
+HYMBA_SWEEP_LABELS = ["attention_impl", "block_q", "block_kv",
+                      "linear_attention_impl", "chunk_len"]
+#: phase 18: (arch, --max-len) served at batch 4 (hymba at its window:
+#: its attention cache pages per request only up to it), requests of
+#: FAMILY_SERVE_PROMPT prompt tokens and FAMILY_SERVE_NEW new ones
+FAMILY_SERVE = (("hymba-1.5b", 1024), ("yi-6b", 256))
+FAMILY_SERVE_ARGS = ["--device", "cuda", "--batch", "4", "--prefill-chunk",
+                     "16", "--compile-workers", "1", "--no-safety",
+                     "--bucket-dwell", "100000", "--kv-dwell", "100000"]
+FAMILY_SERVE_REQUESTS = 4
+FAMILY_SERVE_PROMPT = 64
+FAMILY_SERVE_NEW = 16
 
 
 def log(msg: str) -> None:
@@ -3177,6 +3225,483 @@ def phase_fleet() -> dict:
     return {"runs": runs,
             "launches": sum(st["launches"] for st in warm.values())}
 
+def _hold_kernel(what: str, out, ref, limits) -> float:
+    """Hold a kernel's ``out`` to its plain version's ``ref`` within each
+    (rtol, atol) of ``limits``; its largest difference."""
+    import torch
+
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        fail(f"{what}: got {tuple(out.shape)} {out.dtype}, wanted "
+             f"{tuple(ref.shape)} {ref.dtype}")
+    for rt, at in limits:
+        torch.testing.assert_close(
+            out, ref, rtol=rt, atol=at,
+            msg=lambda m: f"{what} (rtol {rt}, atol {at}): {m}")
+    return (out - ref).abs().max().item()
+
+
+def phase_family_kernels() -> dict:
+    """Phase 17a: K1, K2 and K4 against their plain versions at the shapes
+    the families' (1, 4096) prefills give them, fp32: K1 at every width,
+    K2 at every family's heads (hymba's with its window) at every tile
+    pair, K4 as hymba's SSM heads call it (q = C and k = B one row a step
+    broadcast over the heads, one log decay a (head, step) broadcast over
+    the state) at every chunk.  Then K2 at hymba's windowed shape and K4 at
+    hymba's shape timed beside the plain version, the library call (K2:
+    ``scaled_dot_product_attention`` with the window as a mask) and the
+    bound (K2 counting only the pairs under the window)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.linear_attention import kernel as la_kernel
+    from repro_torch.kernels.linear_attention import ops as la_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    s = FAMILY_PREFILL[1]
+    cfgs = [configs.get_config(a) for a in FAMILY_ARCHS]
+    tiles = [(bq, bkv) for bq in attn_kernel.BLOCK_Q
+             for bkv in attn_kernel.BLOCK_KV]
+    err = {"rmsnorm": 0.0, "attention": 0.0, "linear_attention": 0.0}
+    checked = collections.Counter()
+
+    def hold(family, what, out, ref, limits):
+        torch.cuda.synchronize()
+        err[family] = max(err[family], _hold_kernel(f"{family} {what}", out,
+                                                    ref, limits))
+        checked[family] += 1
+
+    rms_limits = [(TOL["float32"], TOL["float32"])]
+    attn_limits = [(ATTN_TOL["float32"],) * 2, ATTN_SCALED_TOL["float32"]]
+    la_limits = [(LINATT_TOL["float32"],) * 2, LINATT_SCALED_TOL["float32"]]
+    widths = sorted({c.d_model for c in cfgs})
+    for d in widths:
+        x = torch.randn((s, d), generator=gen, device=dev)
+        w = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        hold("rmsnorm", f"({s}, {d})", rms_ops.rmsnorm(x, w, impl="cuda"),
+             rms_ops.rmsnorm(x, w, impl="torch_ref"), rms_limits)
+    heads = sorted({(c.n_heads, c.n_kv_heads, c.d_head, c.window or 0)
+                    for c in cfgs})
+    for h, hk, dh, window in heads:
+        window = window or None
+        q = torch.randn((1, h, s, dh), generator=gen, device=dev)
+        k, v = (torch.randn((1, hk, s, dh), generator=gen, device=dev)
+                for _ in range(2))
+        ref = attn_ops.attention(q, k, v, window=window, impl="torch_ref")
+        for bq, bkv in tiles:
+            hold("attention", f"(1,{h}/{hk},{s},{dh}) window={window} "
+                 f"tiles {bq}x{bkv}",
+                 attn_ops.attention(q, k, v, window=window, impl="cuda",
+                                    block_q=bq, block_kv=bkv), ref,
+                 attn_limits)
+        del q, k, v, ref
+    hy = configs.get_config("hymba-1.5b")
+    h, hk, n, dh, window = (hy.ssm_heads, hy.n_kv_heads, hy.ssm_state,
+                            hy.d_head, hy.window)
+    cq, ck = (torch.randn((1, s, n), generator=gen, device=dev)
+              for _ in range(2))
+    q, k = cq.expand(h, s, n), ck.expand(h, s, n)
+    v = torch.randn((h, s, dh), generator=gen, device=dev)
+    lw = -torch.rand((h, s, 1), generator=gen, device=dev).clamp(1e-4, 1.0)
+    for c in la_kernel.CHUNKS:
+        kw = dict(inclusive=True, chunk=c)
+        hold("linear_attention", f"hymba ({h},{s},{n},{dh}) chunk {c}",
+             la_ops.linear_attention(q, k, v, lw, impl="cuda", **kw),
+             la_ops.linear_attention(q, k, v, lw, impl="torch_ref", **kw),
+             la_limits)
+    torch.cuda.empty_cache()
+    log(f"family kernels: cuda == torch_ref for K1 at ({s}, d) d in "
+        f"{widths} (tol {TOL['float32']:g}; max_abs_err "
+        f"{err['rmsnorm']:.3e}), K2 at (1, H/Hk, {s}, dh, window) in "
+        f"{heads} at tiles {tiles} (tols {attn_limits}; max_abs_err "
+        f"{err['attention']:.3e}), K4 at hymba's ({h}, {s}, {n}, {dh}) "
+        f"inclusive broadcast call at chunks {la_kernel.CHUNKS} (tols "
+        f"{la_limits}; max_abs_err {err['linear_attention']:.3e}); "
+        f"{dict(checked)} checks")
+
+    # K4 timed as the SSM calls it: the op makes q, k and the decay
+    # contiguous (the decay expanded to (h, s, n)) before the kernel; the
+    # kernel alone on those inputs, the op, and the plain version.
+    qc, kc = q.contiguous(), k.contiguous()
+    lwc = lw.expand(h, s, n).contiguous()
+    la = {"shape": [h, s, n, dh], "kernel_ms_by_chunk": {},
+          "op_ms_by_chunk": {}, "plain_ms_by_chunk": {},
+          "bound_ms_by_chunk": {}, "bound_by_chunk": {}}
+    for c in la_kernel.CHUNKS:
+        la["kernel_ms_by_chunk"][str(c)] = cuda_time_ms(
+            lambda c=c: la_kernel.linear_attention_cuda(
+                qc, kc, v, lwc, inclusive=True, chunk=c), 100, 10)
+        la["op_ms_by_chunk"][str(c)] = cuda_time_ms(
+            lambda c=c: la_ops.linear_attention(
+                q, k, v, lw, inclusive=True, chunk=c, impl="cuda"), 100, 10)
+        la["plain_ms_by_chunk"][str(c)] = cuda_time_ms(
+            lambda c=c: la_ops.linear_attention(
+                q, k, v, lw, inclusive=True, chunk=c, impl="torch_ref"), 5, 1)
+        (la["bound_ms_by_chunk"][str(c)],
+         la["bound_by_chunk"][str(c)]) = _linatt_cost(h, s, n, dh, c, 4, True,
+                                                      False)
+    log(f"linear attention at hymba's SSM call ({h},{s},{n},{dh}) fp32 "
+        f"inclusive, scalar decay: kernel "
+        + " ".join(f"c{c} {ms:.4f} ({100 * la['bound_ms_by_chunk'][c] / ms:.1f}%)"
+                   for c, ms in la["kernel_ms_by_chunk"].items())
+        + " ms (% of the bound); the op with its copies "
+        + " ".join(f"c{c} {ms:.4f}" for c, ms in la["op_ms_by_chunk"].items())
+        + " ms; plain " + " ".join(f"c{c} {ms:.3f}" for c, ms in
+                                   la["plain_ms_by_chunk"].items())
+        + " ms; bound " + " ".join(
+            f"c{c} {ms:.4f} ({la['bound_by_chunk'][c]})"
+            for c, ms in la["bound_ms_by_chunk"].items()) + " ms")
+    del q, k, v, lw, qc, kc, lwc, cq, ck
+
+    # K2 timed at hymba's windowed prefill shape.
+    q3 = torch.randn((h, s, dh), generator=gen, device=dev)
+    k3, v3 = (torch.randn((hk, s, dh), generator=gen, device=dev)
+              for _ in range(2))
+    q4, k4, v4 = (x[None] for x in (q3, k3, v3))
+    at = {"shape": [1, h, hk, s, dh, dh], "window": window,
+          "kernel_ms_by_tiles": {
+              f"{bq}x{bkv}": cuda_time_ms(
+                  lambda bq=bq, bkv=bkv: attn_kernel.flash_attention_cuda(
+                      q3, k3, v3, window=window, block_q=bq, block_kv=bkv),
+                  50, 5)
+              for bq, bkv in tiles},
+          "plain_ms": cuda_time_ms(
+              lambda: attn_ops.ref.attention(q4, k4, v4, window=window), 10,
+              2)}
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    at["library_ms"] = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                               enable_gqa=True), 20, 3)
+    torch.testing.assert_close(
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                       enable_gqa=True),
+        attn_ops.ref.attention(q4, k4, v4, window=window),
+        rtol=ATTN_TOL["float32"], atol=ATTN_TOL["float32"],
+        msg=lambda m: f"sdpa with the window mask is not the same "
+                      f"function: {m}")
+    at["bound_ms"], at["bound_by"] = _attention_cost(1, h, hk, s, s, dh, dh,
+                                                    4, True, window)
+    at["pairs"] = _attention_pairs(s, s, True, window, 0)
+    best = min(at["kernel_ms_by_tiles"], key=at["kernel_ms_by_tiles"].get)
+    at["body"] = attn_kernel.body(torch.float32, dh, dh,
+                                  block_q=int(best.split("x")[0]),
+                                  block_kv=int(best.split("x")[1]))
+    log(f"attention at hymba's prefill (1,{h}/{hk},{s},{dh}) fp32 causal, "
+        f"window {window} ({at['pairs']} pairs of {s * (s + 1) // 2} "
+        f"causal): kernel "
+        + " ".join(f"{t} {ms:.4f} ({100 * at['bound_ms'] / ms:.1f}%)"
+                   for t, ms in at["kernel_ms_by_tiles"].items())
+        + f" ms (% of the bound; best {best}, {at['body']['body']} body); "
+        f"plain {at['plain_ms']:.3f} ms; sdpa with the window mask "
+        f"{at['library_ms']:.3f} ms; bound {at['bound_ms']:.4f} ms "
+        f"({at['bound_by']})")
+    del q3, k3, v3, q4, k4, v4, mask
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "checked": dict(checked),
+            "hymba_attention": at, "hymba_linear_attention": la}
+
+
+def _kernel_class(name: str) -> str:
+    """The port's kernels by their CUDA symbols, the matrix products by
+    cuBLAS's, the rest as other."""
+    for pattern, label in ((r"rmsnorm_(regs|general)", "K1 rmsnorm"),
+                           (r"\b(ring|simple)_kernel", "K2 attention"),
+                           (r"\b(summary|fold|output)_kernel",
+                            "K4 linear attention"),
+                           (r"gemm|xmma|cutlass|cublas", "GEMM")):
+        if re.search(pattern, name, re.IGNORECASE):
+            return label
+    return "other"
+
+
+def _profile_by_kernel(prof, wall: float, what: str) -> dict:
+    """Device ms and CUDA launches of one profiled call by kernel class,
+    and the device's busy share of the call's wall."""
+    import torch
+
+    ms, count = collections.Counter(), collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        label = _kernel_class(e.key)
+        ms[label] += e.self_device_time_total / 1e3
+        count[label] += e.count
+    busy = sum(ms.values())
+    log(f"profile: {what}: wall {1e3 * wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}% of wall); by "
+        f"kernel: " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * v / busy:.1f}%) x{count[k]}"
+            for k, v in ms.most_common()))
+    return {"wall_ms": 1e3 * wall, "busy_ms": busy,
+            "busy_share": busy / (1e3 * wall), "ms_by_kernel": dict(ms),
+            "cuda_launches_by_kernel": dict(count)}
+
+
+def _hymba_sweep(cfg, params, batch) -> dict:
+    """hymba's prefill handler under a Controller whose CoordinateDescent
+    sweeps its kernel points over (1, 4096) calls until it settles, as
+    phase 9 runs rwkv6's."""
+    import torch
+
+    from repro_torch.core import (DEFAULT_CONTEXT, Controller,
+                                  CoordinateDescent, IridescentRuntime)
+    from repro_torch.training import make_prefill_builder
+
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("prefill_step", make_prefill_builder(cfg))
+    space = handler.spec_space()
+    controller = Controller(
+        handler, lambda: CoordinateDescent(space, labels=HYMBA_SWEEP_LABELS,
+                                           max_passes=1),
+        dwell=PREFILL_DWELL, wait_compiles=True, prefetch=0)
+    tokens = FAMILY_PREFILL[0] * FAMILY_PREFILL[1]
+    for calls in range(1, 101):
+        logits = handler(params, batch)
+        torch.cuda.synchronize()
+        controller.step()
+        if controller.settled():
+            break
+    else:
+        fail("the hymba prefill Controller did not settle in 100 calls")
+    if not torch.isfinite(logits[0, -1]).all():
+        fail("hymba sweep: non-finite logits")
+    del logits
+    chosen = controller.best_configs()[DEFAULT_CONTEXT]
+    rates = []
+    for phase, config, rate in controller.histories()[DEFAULT_CONTEXT]:
+        rates.append({"config": json.loads(_config_str(config)),
+                      "tok_s": rate * tokens})
+        log(f"hymba prefill sweep: {phase.value} {_config_str(config)} -> "
+            f"{rate * tokens:.1f} tok/s ({1e3 / rate:.1f} ms/call)")
+    log(f"hymba prefill sweep: settled after {calls} calls on "
+        f"{_config_str(chosen)}")
+    rt.shutdown()
+    return {"calls": calls, "chosen": json.loads(_config_str(chosen)),
+            "candidates": rates,
+            "settled_tok_s": controller.best(DEFAULT_CONTEXT)[1] * tokens}
+
+
+def phase_family_prefill(arch: str, keep: bool) -> dict:
+    """Phase 17b for one family at full width and full depth: one
+    (1, 4096) prefill through ``make_prefill_builder``'s generic variant,
+    timed, then profiled, then the same call pinned to the plain versions;
+    their logits within PARITY_TOL; each call's K1, K2 (and hymba's K4)
+    launches from the wrappers' counts.  hymba then runs its Controller
+    sweep.  The weights are freed unless ``keep``."""
+    import torch
+
+    from repro_torch import compat, configs
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.linear_attention import kernel as la_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import transformer as model
+    from repro_torch.training import make_prefill_builder
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config(arch).replace(compute_dtype="float32")
+    hymba = cfg.mixer == "hymba"
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in compat.tree_leaves(params))
+    log(f"family prefill: {arch} ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}"
+        f"{f', window {cfg.window}, {cfg.ssm_heads} SSM heads of state {cfg.ssm_state}' if hymba else ''}"
+        f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f"{f', {cfg.frontend} frontend (embeds)' if cfg.frontend else ''}) "
+        f"params {n_params / 1e6:.1f}M ({4 * n_params / 1e9:.2f} GB fp32), "
+        f"drawn in {time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, s = FAMILY_PREFILL
+    if cfg.frontend:
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                       device=dev)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("prefill_step", make_prefill_builder(cfg))
+    counters = {"rmsnorm": rms_kernel, "attention": attn_kernel,
+                "linear_attention": la_kernel}
+    per_call = {"rmsnorm": 2 * cfg.n_layers + 1 + (2 * cfg.n_layers
+                                                   if hymba else 0),
+                "attention": cfg.n_layers,
+                "linear_attention": cfg.n_layers if hymba else 0}
+
+    # the main path: the generic variant, twice (the second timed)
+    for k in counters.values():
+        k.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+    seconds = []
+    for _ in range(2):
+        t = time.perf_counter()
+        logits = handler(params, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+    launches = {n: k.launches for n, k in counters.items()}
+    fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                 registry.default_registry.fallback_counts.items()}
+    if fallbacks:
+        fail(f"{arch} prefill fell back: {fallbacks}")
+    for n, want in per_call.items():
+        if launches[n] != 2 * want:
+            fail(f"{arch} prefill: {n} launched {launches[n]} times over 2 "
+                 f"calls; wanted {want} a call")
+    if logits.shape != (b, s, cfg.padded_vocab_size) \
+            or not torch.isfinite(logits).all():
+        fail(f"{arch} prefill logits {tuple(logits.shape)} or non-finite")
+    tok_s = b * s / seconds[1]
+    prof, wall, _ = profiled(lambda: handler(params, batch), 1)
+    profile = _profile_by_kernel(prof, wall, f"{arch} full-width ({b}, {s}) "
+                                 f"prefill call (generic variant, profiler "
+                                 f"on)")
+    del prof
+
+    plain_cfg = {"rmsnorm_impl": "torch_ref", "attention_impl": "torch_ref"}
+    if hymba:
+        plain_cfg["linear_attention_impl"] = "torch_ref"
+    _pin(handler, plain_cfg)
+    t = time.perf_counter()
+    plain = handler(params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    rt.shutdown()
+    v = cfg.vocab_size
+    rel = ((logits[..., :v] - plain[..., :v]).abs().max()
+           / plain[..., :v].abs().max().clamp_min(1e-30)).item()
+    agree = int((logits[..., :v].argmax(-1) == plain[..., :v].argmax(-1))
+                .sum())
+    del logits, plain
+    log(f"family prefill: {arch} ({b}, {s}) {'embeds' if cfg.frontend else 'tokens'}: "
+        f"generic variant {1e3 * seconds[1]:.1f} ms ({tok_s:.1f} tok/s; "
+        f"first call {1e3 * seconds[0]:.1f} ms), plain {1e3 * plain_s:.1f} "
+        f"ms; launches a call {per_call}; max relative logits diff "
+        f"generic vs plain {rel:.3e} (tol {PARITY_TOL:g}); argmax agrees "
+        f"on {agree}/{b * s}")
+    if rel > PARITY_TOL:
+        fail(f"{arch} prefill parity: relative diff {rel:.3e} > "
+             f"{PARITY_TOL}")
+    sweep = _hymba_sweep(cfg, params, batch) if hymba else None
+    out = {"arch": arch, "n_params": n_params, "call_ms": 1e3 * seconds[1],
+           "first_ms": 1e3 * seconds[0], "tok_s": tok_s,
+           "plain_ms": 1e3 * plain_s, "max_rel": rel,
+           "argmax_agree": agree, "launches": launches,
+           "per_call": per_call, "profile": profile, "sweep": sweep}
+    if keep:
+        out["params"] = params
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_serve(arch: str, max_len: int, params) -> dict:
+    """Phase 18 for one family: ``build_engine`` at full width, batch 4,
+    serves FAMILY_SERVE_REQUESTS requests with every context pinned to the
+    kernels (fp32 cache), then the same engine pinned to the plain
+    versions; the greedy tokens must be equal."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import Controller, ExhaustiveSweep
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import OpenLoopSource, Request
+
+    cfg = configs.get_config(arch).replace(compute_dtype="float32")
+    args = engine_args(FAMILY_SERVE_ARGS + ["--arch", arch, "--max-len",
+                                            str(max_len)])
+    extra = {"chunk_len": 64} if cfg.mixer == "hymba" else {}
+    out = {}
+    for impl in ("cuda", "torch_ref"):
+        built = build_engine(args, cfg=cfg, params=params)
+        pinned = {"cache_dtype": "float32", "rmsnorm_impl": impl, **extra}
+        # every (phase, bucket) context on the pinned config before its
+        # first step, and a Controller that proposes nothing else
+        for key in itertools.product(("prefill", "decode"),
+                                     range(1, args.batch + 1)):
+            built.handler.specialize(pinned, wait=True, context=key)
+        built.engine.controller = Controller(
+            built.handler, lambda p=pinned: ExhaustiveSweep([dict(p)]),
+            dwell=1000, wait_compiles=True, prefetch=0)
+        spent = {"s": 0.0, "steps": 0}
+        execute = built.engine.executor.handler
+
+        def timed(*a, _fn=execute, **k):
+            t = time.perf_counter()
+            r = _fn(*a, **k)
+            spent["s"] += time.perf_counter() - t
+            spent["steps"] += 1
+            return r
+
+        built.engine.executor.handler = timed
+        reqs = [Request(rid=5000 + i, prompt_tokens=FAMILY_SERVE_PROMPT,
+                        max_new_tokens=FAMILY_SERVE_NEW)
+                for i in range(FAMILY_SERVE_REQUESTS)]
+        rms_kernel.reset_launches()
+        registry.default_registry.fallback_counts.clear()
+        t0 = time.perf_counter()
+        built.engine.run(source=OpenLoopSource(built.engine.queue,
+                                               [(0.0, r) for r in reqs]),
+                         max_steps=2000, duration_s=300.0)
+        drained = built.engine.drain(timeout_s=300.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rms_kernel.launches
+        fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                     registry.default_registry.fallback_counts.items()}
+        stats = built.engine.stats()
+        served = stats["serve"]
+        built.engine.shutdown()
+        if not drained or served["completed"] != len(reqs) or any(
+                r.payload is None or len(r.payload) != FAMILY_SERVE_NEW
+                or not all(0 <= t < cfg.vocab_size for t in r.payload)
+                for r in reqs):
+            fail(f"{arch} serve ({impl}): served {served['completed']} of "
+                 f"{len(reqs)} requests, payloads "
+                 f"{[r.payload for r in reqs]}")
+        if fallbacks:
+            fail(f"{arch} serve ({impl}) fell back: {fallbacks}")
+        if (launches == 0) == (impl == "cuda"):
+            fail(f"{arch} serve ({impl}): {launches} K1 launches")
+        out[impl] = {"tokens": {r.rid: list(r.payload) for r in reqs},
+                     "wall_s": wall, "tok_s": served["completed_tokens"]
+                     / wall, "p50_ms": served["latency_p50_ms"],
+                     "p95_ms": served["latency_p95_ms"],
+                     "host_ms_a_step": 1e3 * spent["s"]
+                     / max(spent["steps"], 1),
+                     "steps": stats["phase_steps"], "launches": launches}
+        log(f"family serve: {arch} at batch {args.batch}, --max-len "
+            f"{max_len}, pinned to {impl}: served {served['completed']} "
+            f"requests ({FAMILY_SERVE_PROMPT} prompt + {FAMILY_SERVE_NEW} "
+            f"new tokens), {served['completed_tokens']} tokens in "
+            f"{wall:.2f}s ({out[impl]['tok_s']:.2f} tok/s); latency p50/p95 "
+            f"ms {served['latency_p50_ms']} / {served['latency_p95_ms']}; "
+            f"handler {out[impl]['host_ms_a_step']:.1f} ms a step (host "
+            f"clock, {spent['steps']} steps {stats['phase_steps']}); K1 "
+            f"launches {launches}")
+        del built
+        torch.cuda.empty_cache()
+    same = out["cuda"]["tokens"] == out["torch_ref"]["tokens"]
+    log(f"family serve: {arch} greedy tokens, kernels vs plain: "
+        f"{'equal' if same else 'DIFFER'} ({out['cuda']['tokens']})")
+    if not same:
+        fail(f"{arch} serve: greedy tokens differ between the kernels "
+             f"{out['cuda']['tokens']} and the plain versions "
+             f"{out['torch_ref']['tokens']}")
+    return out
+
+
 def main(argv: list[str]) -> None:
     try:
         import torch
@@ -3225,6 +3750,14 @@ def main(argv: list[str]) -> None:
     restart = phase_restart()
     tenant = phase_tenants()
     fleet = phase_fleet()
+    family_k = phase_family_kernels()
+    serve_archs = dict(FAMILY_SERVE)
+    family = {a: phase_family_prefill(a, keep=a in serve_archs)
+              for a in FAMILY_ARCHS}
+    family_serve = {a: phase_family_serve(a, max_len,
+                                          family[a].pop("params"))
+                    for a, max_len in FAMILY_SERVE}
+    torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -3270,7 +3803,10 @@ def main(argv: list[str]) -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + sum(
+            f["launches"]["rmsnorm"] for f in family.values()) + sum(
+            f["cuda"]["launches"] for f in family_serve.values()),
+        "serve_launches": main_path["launches"],
         "max_abs_err": rms["max_abs_err"],
         "ms": rms["ms"],
         "plain_ms": rms["plain_ms"],
@@ -3287,13 +3823,20 @@ def main(argv: list[str]) -> None:
         "tenant_launches": {n: p["launches"]
                             for n, p in tenant["per_tenant"].items()},
         "fleet_launches": fleet["launches"],
+        "family_prefill_launches": {a: f["launches"]["rmsnorm"]
+                                    for a, f in family.items()},
+        "family_serve_launches": {a: f["cuda"]["launches"]
+                                  for a, f in family_serve.items()},
+        "family_max_abs_err": family_k["max_abs_err"]["rmsnorm"],
         "shapes": rms["per_shape"],
     }, {
         "name": "attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:106",
-        "launches": prefill["attention_launches"],
+        "launches": prefill["attention_launches"] + sum(
+            f["launches"]["attention"] for f in family.values()),
+        "prefill_launches": prefill["attention_launches"],
         "max_abs_err": attn["max_abs_err"],
         "max_abs_err_by_dtype": attn["max_abs_err_by_dtype"],
         "ms": n * at["kernel_ms_by_tiles"][tiles],
@@ -3312,6 +3855,12 @@ def main(argv: list[str]) -> None:
                 "ms": mla_at["kernel_ms_by_tiles"][mla_tiles],
                 "bound_ms": mla_at["bound_ms"],
                 "library_ms": mla_at["library_ms"]},
+        "family_prefill_launches": {a: f["launches"]["attention"]
+                                    for a, f in family.items()},
+        "family_max_abs_err": family_k["max_abs_err"]["attention"],
+        "hymba": dict(family_k["hymba_attention"],
+                      per="one launch at hymba-1.5b's (1, 4096) prefill "
+                          "shape (a layer's attention branch)"),
         "shapes": attn["per_shape"],
     }, {
         "name": "linear_attention",
@@ -3319,7 +3868,9 @@ def main(argv: list[str]) -> None:
         "source": "src/repro_torch/kernels/linear_attention/csrc/"
                   "linear_attention.cu",
         "replaces": "src/repro/kernels/linear_attention/kernel.py:76",
-        "launches": rprefill["la_launches"],
+        "launches": rprefill["la_launches"] + sum(
+            f["launches"]["linear_attention"] for f in family.values()),
+        "rwkv6_prefill_launches": rprefill["la_launches"],
         "max_abs_err": linatt["max_abs_err"],
         "max_abs_err_by_dtype": linatt["max_abs_err_by_dtype"],
         "ms": rn * la_at["kernel_ms_by_chunk"][c],
@@ -3339,6 +3890,14 @@ def main(argv: list[str]) -> None:
         "cuda_launches_per_call":
             la_at["cuda_launches_per_call_by_chunk"][c],
         "launch_us": la_at["launch_us_by_chunk"][c],
+        "family_prefill_launches": {a: f["launches"]["linear_attention"]
+                                    for a, f in family.items()},
+        "family_max_abs_err": family_k["max_abs_err"]["linear_attention"],
+        "hymba": dict(family_k["hymba_linear_attention"],
+                      per="one call as hymba-1.5b's SSM heads make it in a "
+                          "(1, 4096) prefill layer: inclusive, no bonus, "
+                          "q/k broadcast over 25 heads, the decay "
+                          "expanded to (25, 4096, 16)"),
         "shapes": linatt["per_shape"],
     }, {
         "name": "matmul",

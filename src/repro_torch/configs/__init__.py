@@ -1,9 +1,11 @@
 """Architecture registry of the port: the configs ported so far.
 
-qwen3-0.6b (dense GQA with qk-norm and tied embeddings) and rwkv6-1.6b
-(attention-free, chunked linear attention) run on the port today; asking
-for another of the reference's architectures raises ``KeyError`` naming
-the ROADMAP item that brings it (M7).
+Dense GQA/MHA (qwen3-0.6b with qk-norm and tied embeddings, deepseek-7b,
+yi-6b, minitron-4b), the stub-frontend families (internvl2-2b's vision and
+musicgen-medium's audio frontends take precomputed embeddings), RWKV6
+(rwkv6-1.6b) and the attention + SSM hybrid (hymba-1.5b).  Asking for
+another of the reference's architectures (the MoE and MLA families) raises
+``KeyError`` naming the ROADMAP item that brings it (M7).
 """
 from __future__ import annotations
 
@@ -13,10 +15,14 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "ARCH_IDS", "get_config", "get_reduced"]
 
-ARCHS = ("qwen3_0_6b", "rwkv6_1_6b")
+ARCHS = ("internvl2_2b", "yi_6b", "deepseek_7b", "minitron_4b",
+         "qwen3_0_6b", "musicgen_medium", "rwkv6_1_6b", "hymba_1_5b")
 
 #: canonical CLI ids (the reference's spelling) -> module names
-_ALIAS = {"qwen3-0.6b": "qwen3_0_6b", "rwkv6-1.6b": "rwkv6_1_6b"}
+_ALIAS = {"internvl2-2b": "internvl2_2b", "yi-6b": "yi_6b",
+          "deepseek-7b": "deepseek_7b", "minitron-4b": "minitron_4b",
+          "qwen3-0.6b": "qwen3_0_6b", "musicgen-medium": "musicgen_medium",
+          "rwkv6-1.6b": "rwkv6_1_6b", "hymba-1.5b": "hymba_1_5b"}
 
 #: canonical arch ids
 ARCH_IDS = tuple(_ALIAS)

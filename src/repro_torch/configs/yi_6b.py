@@ -1,0 +1,16 @@
+"""yi-6b — llama-arch GQA [arXiv:2403.04652; hf].
+
+Assignment row: 32L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4,
+    d_ff=11008, vocab_size=64000, rope_theta=5e6,
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                          d_head=16, d_ff=128, vocab_size=512)

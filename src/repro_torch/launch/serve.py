@@ -5,6 +5,7 @@ Run:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --steps 60
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch hymba-1.5b --max-len 16
 
 The port of ``repro.launch.serve``.  Requests arrive open-loop
 (deterministic pseudo-Poisson at ``--rate``), pass a bounded admission
@@ -18,8 +19,11 @@ hand-written CUDA RMSNorm competes with the plain version on measured
 throughput.  The bucket scheme and the KV page geometry are tuned online
 by their own Controllers.
 
-The CLI serves the reduced ``--arch`` (qwen3-0.6b, or rwkv6-1.6b, whose
-contexts also explore ``chunk_len``) in fp32, as the reference does;
+The CLI serves the reduced ``--arch`` in fp32, as the reference does: any
+of ``configs.ARCH_IDS`` (rwkv6-1.6b's and hymba-1.5b's contexts also
+explore ``chunk_len``; hymba's attention cache is its window ring, which
+pages per request only while ``--max-len`` is at most the window: 16
+reduced, 1024 at full width);
 :func:`build_engine` and :func:`build_tenant_engine` take configs and
 parameters for other sizes (full width on the H100:
 ``configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")``).
@@ -60,18 +64,28 @@ KV_PAGE_SIZES = (8, 16, 64)
 def synthetic_workload(n: int, rate: float, seed: int = 0,
                        budgets=(4, 8, 16, 32),
                        prompts=(16, 64, 128), tenant: str | None = None,
-                       deadline_s: float | None = None
+                       deadline_s: float | None = None,
+                       max_len: int | None = None
                        ) -> list[tuple[float, Request]]:
     """Deterministic open-loop schedule: pseudo-Poisson arrivals at
     ``rate`` req/s with mixed prompt/decode lengths.  ``tenant`` and
     ``deadline_s`` stamp every request (multi-tenant runs give each
-    tenant its own schedule off its own seed substream)."""
+    tenant its own schedule off its own seed substream).  With ``max_len``
+    a request that would not fit the cache is cut to fit (its budget to at
+    most half of ``max_len``, its prompt to the rest), so a short cache
+    (hymba's window) still serves the mix; a request that fits is kept as
+    drawn."""
     rng = random.Random(seed)
     times = pseudo_poisson_times([(n / max(rate, 1e-9) * 4, rate)], seed=seed)
-    return [(t, Request(prompt_tokens=rng.choice(prompts),
-                        max_new_tokens=rng.choice(budgets),
-                        tenant=tenant, deadline_s=deadline_s))
-            for t in times[:n]]
+    out = []
+    for t in times[:n]:
+        prompt, budget = rng.choice(prompts), rng.choice(budgets)
+        if max_len is not None and prompt + budget > max_len:
+            budget = max(1, min(budget, max_len // 2))
+            prompt = max(1, min(prompt, max_len - budget))
+        out.append((t, Request(prompt_tokens=prompt, max_new_tokens=budget,
+                               tenant=tenant, deadline_s=deadline_s)))
+    return out
 
 
 #: (flag, args attribute) for every engine flag — the fleet front
@@ -445,7 +459,7 @@ def tenant_schedule(args, tenants) -> list:
         schedule += synthetic_workload(
             args.requests, args.rate,
             seed=substream_seed(args.seed, spec.name),
-            tenant=spec.name, deadline_s=spec.slo_s)
+            tenant=spec.name, deadline_s=spec.slo_s, max_len=args.max_len)
     return schedule
 
 
@@ -569,7 +583,8 @@ def _run_single(args) -> None:
         # contexts begin in EXPLOIT when their traffic materializes.
         print(f"plane: seeded contexts={list(built.handler._seeded)}")
 
-    schedule = synthetic_workload(args.requests, args.rate, seed=args.seed)
+    schedule = synthetic_workload(args.requests, args.rate, seed=args.seed,
+                                  max_len=args.max_len)
     source = OpenLoopSource(engine.queue, schedule)
 
     t0 = time.perf_counter()
@@ -672,7 +687,8 @@ def _run_fleet(args) -> None:
     schedule: list = []
     for i in range(args.replicas):
         schedule += synthetic_workload(args.requests, args.rate,
-                                       seed=substream_seed(args.seed, i))
+                                       seed=substream_seed(args.seed, i),
+                                       max_len=args.max_len)
     router = ReplicaRouter(replicas, policy=args.router)
     source = OpenLoopSource(router, schedule)
 

@@ -1,18 +1,22 @@
 """Model assembly: embeddings -> mixer/FFN layer stack -> LM head.
 
-The port of the reference's ``models/transformer.py`` for two families:
-dense GQA with a SwiGLU FFN (qwen3), and RWKV6 (time mix through the
-chunked linear attention, channel mix in place of the FFN).  It holds the
-full-sequence forward ``apply`` (prefill; its attention runs the flash
-attention kernel, its RWKV6 time mix the linear-attention kernel) and the
-cached ``decode_step``/``prefill_chunk`` of the serve step.  The model is
+The port of the reference's ``models/transformer.py`` for three mixers:
+dense GQA/MHA with a SwiGLU FFN (qwen3, deepseek-7b, yi-6b, minitron-4b,
+and the stub-frontend internvl2-2b and musicgen-medium, whose ``apply``
+takes precomputed ``embeds``), RWKV6 (time mix through the chunked linear
+attention, channel mix in place of the FFN) and Hymba (sliding-window
+attention and SSM heads side by side, each output normalised, averaged).
+It holds the full-sequence forward ``apply`` (prefill; its attention runs
+the flash attention kernel, its RWKV6 time mix and SSM heads the
+linear-attention kernel) and the cached ``decode_step``/``prefill_chunk``
+of the serve step.  The model is
 plain functions over a dict of tensors, with the reference's parameter
 layout: stacked ``dense_layers`` with a leading ``L`` axis, ``wq`` as
 ``(d, H, dh)`` and so on — so the reference's parameters convert leaf for
 leaf (:mod:`repro_torch.models.convert`) and many specialized variants
 share one copy of the weights.
 
-MLA, Hymba and MoE raise ``NotImplementedError`` (ROADMAP M7).  The layer
+MLA and MoE raise ``NotImplementedError`` (ROADMAP M7).  The layer
 stack is a Python loop (the reference's ``scan_layers`` and ``remat``
 belong to training, ROADMAP M8).  Caches are updated in place (see
 :mod:`repro_torch.models.attention` and :mod:`repro_torch.models.rwkv6`);
@@ -28,6 +32,7 @@ import torch
 from repro_torch import compat
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (KernelOptions, dense_init, embed_init,
                                        rms_norm, swiglu)
 from repro_torch.models.config import ModelConfig
@@ -55,22 +60,28 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mixer not in ("attn", "rwkv6") or (cfg.mixer == "attn"
-                                              and cfg.attn_kind != "gqa"):
+    if cfg.mixer not in ("attn", "rwkv6", "hymba") or (
+            cfg.mixer != "rwkv6" and cfg.attn_kind != "gqa"):
         raise NotImplementedError(
             f"{cfg.name}: mixer {cfg.mixer!r}/{cfg.attn_kind!r} is not "
-            f"ported yet (ROADMAP M7); the port runs dense GQA and RWKV6 "
+            f"ported yet (ROADMAP M7); the port runs GQA, RWKV6 and Hymba "
             f"models")
     if cfg.n_moe_layers:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP M7)")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP M7)")
 
 
 # -- params ------------------------------------------------------------------------
+
+def _init_mixer(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    if cfg.mixer == "hymba":
+        ones = lambda: torch.ones((cfg.d_model,), dtype=torch.float32,
+                                  device=gen.device)
+        return {"attn": attn_mod.init_gqa(gen, cfg),
+                "ssm": ssm_mod.init_ssm(gen, cfg),
+                "norm_a": ones(), "norm_s": ones()}
+    return attn_mod.init_gqa(gen, cfg)
+
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
     d = cfg.d_model
@@ -80,7 +91,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
         return {"norm1": ones(), "mixer": rwkv_mod.init_rwkv6(gen, cfg),
                 "norm2": ones()}
     return {"norm1": ones(),
-            "mixer": attn_mod.init_gqa(gen, cfg),
+            "mixer": _init_mixer(gen, cfg),
             "norm2": ones(),
             "ffn": {"wg": dense_init(gen, (d, cfg.d_ff)),
                     "wu": dense_init(gen, (d, cfg.d_ff)),
@@ -91,8 +102,10 @@ def _layer_axes(cfg: ModelConfig) -> dict:
     if cfg.mixer == "rwkv6":
         return {"norm1": (None,), "mixer": rwkv_mod.rwkv6_axes(cfg),
                 "norm2": (None,)}
-    return {"norm1": (None,), "mixer": attn_mod.gqa_axes(cfg),
-            "norm2": (None,),
+    mixer = ({"attn": attn_mod.gqa_axes(cfg), "ssm": ssm_mod.ssm_axes(cfg),
+              "norm_a": (None,), "norm_s": (None,)}
+             if cfg.mixer == "hymba" else attn_mod.gqa_axes(cfg))
+    return {"norm1": (None,), "mixer": mixer, "norm2": (None,),
             "ffn": {"wg": ("fsdp", "ffn"), "wu": ("fsdp", "ffn"),
                     "wd": ("ffn", "fsdp")}}
 
@@ -133,11 +146,32 @@ def param_axes(cfg: ModelConfig) -> dict:
 
 # -- forward ----------------------------------------------------------------------
 
+def _window(cfg: ModelConfig, opts: RunOptions) -> int | None:
+    """The attention window: the override, else (Hymba) the config's."""
+    if cfg.mixer == "hymba" and opts.window is None:
+        return cfg.window
+    return opts.window
+
+
+def _hymba_combine(lp: dict, a: torch.Tensor, s: torch.Tensor,
+                   cfg: ModelConfig, ko: KernelOptions) -> torch.Tensor:
+    """Each branch normalised by its own weight, then averaged."""
+    a = rms_norm(a, lp["norm_a"], cfg.rms_eps, ko)
+    s = rms_norm(s, lp["norm_s"], cfg.rms_eps, ko)
+    return 0.5 * (a + s)
+
+
 def _apply_mixer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
                  opts: RunOptions) -> torch.Tensor:
+    ko = opts.kernels
     if cfg.mixer == "rwkv6":
-        return rwkv_mod.apply_rwkv6(lp, x, cfg, opts.kernels)
-    return attn_mod.apply_gqa(lp, x, cfg, opts.kernels, window=opts.window)
+        return rwkv_mod.apply_rwkv6(lp, x, cfg, ko)
+    if cfg.mixer == "hymba":
+        a = attn_mod.apply_gqa(lp["attn"], x, cfg, ko,
+                               window=_window(cfg, opts))
+        s = ssm_mod.apply_ssm(lp["ssm"], x, cfg, ko)
+        return _hymba_combine(lp, a, s, cfg, ko)
+    return attn_mod.apply_gqa(lp, x, cfg, ko, window=opts.window)
 
 
 def _apply_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -198,16 +232,37 @@ def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 # -- decode ------------------------------------------------------------------------
 
+def _init_hymba_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      window: int | None = None,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: torch.device | str | None = None) -> dict:
+    """The attention ring bounded by the window (the override, else the
+    config's) beside the SSM row state."""
+    return {"attn": attn_mod.init_gqa_cache(cfg, batch, max_len,
+                                            window=window or cfg.window,
+                                            dtype=dtype, device=device),
+            "ssm": ssm_mod.init_ssm_cache(cfg, batch, dtype=dtype,
+                                          device=device)}
+
+
+def _hymba_cache_axes(cfg: ModelConfig) -> dict:
+    return {"attn": attn_mod.gqa_cache_axes(cfg),
+            "ssm": ssm_mod.ssm_cache_axes(cfg)}
+
+
 def _cache_fns(cfg: ModelConfig):
     if cfg.mixer == "rwkv6":
         return rwkv_mod.init_rwkv6_cache, rwkv_mod.rwkv6_cache_axes
+    if cfg.mixer == "hymba":
+        return _init_hymba_cache, _hymba_cache_axes
     return attn_mod.init_gqa_cache, attn_mod.gqa_cache_axes
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                opts: RunOptions | None = None,
                device: torch.device | str | None = None) -> dict:
-    """Per-layer caches (KV rings, or RWKV6 row state) stacked on a
+    """Per-layer caches (KV rings, RWKV6 row state, or Hymba's window
+    ring and SSM state) stacked on a
     leading ``L`` axis, on ``device`` (default ``cuda``, see
     :func:`repro_torch.compat.resolve_device`)."""
     _check_supported(cfg)
@@ -216,8 +271,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     one = init(cfg, batch, max_len, window=opts.window,
                dtype=_dtype(opts.decode_cache_dtype),
                device=compat.resolve_device(device))
-    return {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
-            for k, v in one.items()}
+    return compat.tree_map(
+        lambda v: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim), one)
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
@@ -232,6 +287,12 @@ def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
     xin = rms_norm(x, lp["norm1"], cfg.rms_eps, ko)
     if cfg.mixer == "rwkv6":
         h, lc = rwkv_mod.decode_rwkv6(lp["mixer"], lc, xin, pos, cfg, ko)
+    elif cfg.mixer == "hymba":
+        mp = lp["mixer"]
+        ha, _ = attn_mod.decode_gqa(mp["attn"], lc["attn"], xin, pos, cfg,
+                                    ko, window=_window(cfg, opts))
+        hs, _ = ssm_mod.decode_ssm(mp["ssm"], lc["ssm"], xin, pos, cfg, ko)
+        h = _hymba_combine(mp, ha, hs, cfg, ko)
     else:
         h, lc = attn_mod.decode_gqa(lp["mixer"], lc, xin, pos, cfg, ko,
                                     window=opts.window)
@@ -278,7 +339,7 @@ def _cache_leaves(cfg: ModelConfig, cache: dict):
     ``cache_axes`` (generic across mixers): the seq capacity of its paged
     leaves (``seq_kv``: attention KV; None without), and its row-state
     leaves (``batch`` without ``seq_kv``: the RWKV6 state and token
-    shifts) with their batch axis."""
+    shifts, the SSM state and conv inputs) with their batch axis."""
     pairs = list(zip(compat.tree_leaves(cache), compat.tree_leaves(
         cache_axes(cfg), is_leaf=lambda a: isinstance(a, tuple))))
     max_len = next((leaf.shape[ax.index("seq_kv")] for leaf, ax in pairs

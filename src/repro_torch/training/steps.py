@@ -8,8 +8,8 @@ cache and logits dtypes) into the closure the runtime dispatches to.
 
 The port has the serving builders: the phase-disaggregated serve step,
 the full-sequence prefill step (the path of the flash attention kernel,
-and of the linear-attention kernel for rwkv6) and the single-token decode
-step.  They declare every spec label the
+and of the linear-attention kernel for rwkv6 and hymba's SSM heads) and
+the single-token decode step.  They declare every spec label the
 reference's builders declare.  Two candidate sets differ from the
 reference's, because they are tile sizes of the Hopper kernels rather than
 of the TPU's VMEM:
@@ -73,9 +73,11 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
     gradient-safe implementations) arrive with the train builder (ROADMAP
     M8).
     """
-    if cfg.mixer not in ("attn", "rwkv6"):
+    if cfg.mixer not in ("attn", "rwkv6", "hymba") or (
+            cfg.mixer != "rwkv6" and cfg.attn_kind != "gqa"):
         raise NotImplementedError(
-            f"mixer {cfg.mixer!r} is not ported yet (ROADMAP M7)")
+            f"mixer {cfg.mixer!r}/{cfg.attn_kind!r} is not ported yet "
+            f"(ROADMAP M7)")
     if cfg.is_moe:
         raise NotImplementedError("MoE is not ported yet (ROADMAP M7)")
     uses_attention = cfg.mixer in ("attn", "hymba")
@@ -131,11 +133,12 @@ def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
                          ) -> Callable[[SpecCtx], Callable]:
     """Handler builder for ``prefill_step(params, batch) -> logits``.
 
-    ``batch`` holds ``tokens (B, S)`` (or ``embeds (B, S, d)``); the step
-    runs the full-sequence forward
+    ``batch`` holds ``tokens (B, S)`` (or ``embeds (B, S, d)``, the stub
+    frontends' input); the step runs the full-sequence forward
     (:func:`repro_torch.models.transformer.apply`), whose attention is the
     flash attention kernel under ``attention_impl=cuda`` (an rwkv6 time
-    mix: the linear-attention kernel under ``linear_attention_impl=cuda``),
+    mix and hymba's SSM heads: the linear-attention kernel under
+    ``linear_attention_impl=cuda``),
     and returns the logits ``(B, S, V)`` in ``logits_dtype``.
     """
 

@@ -146,8 +146,8 @@ def test_prefill_chunk(setup):
 def test_unported_families_raise():
     cfg = configs.get_reduced("qwen3-0.6b")
     with pytest.raises(NotImplementedError, match="M7"):
-        model.cache_axes(cfg.replace(mixer="hymba"))
+        model.cache_axes(cfg.replace(attn_kind="mla"))
     with pytest.raises(NotImplementedError, match="M7"):
         model.cache_axes(cfg.replace(n_experts=4, top_k=2, moe_d_ff=32))
     with pytest.raises(KeyError, match="M7"):
-        configs.get_config("yi-6b")
+        configs.get_config("kimi-k2-1t-a32b")

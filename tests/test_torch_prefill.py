@@ -200,7 +200,7 @@ def test_builders_declare_the_reference_labels(setup, name, window):
 def test_builders_refuse_unported_mixers(setup):
     with pytest.raises(NotImplementedError, match="M7"):
         discover_space(steps.make_prefill_builder(
-            setup["cfg"].replace(mixer="hymba")))
+            setup["cfg"].replace(attn_kind="mla")))
     with pytest.raises(NotImplementedError, match="M7"):
         model.apply(setup["params"], setup["cfg"].replace(n_experts=4,
                                                           top_k=2,
