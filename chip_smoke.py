@@ -189,7 +189,37 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    pinned to the plain versions: the greedy tokens must be equal; served
    tok/s, p50/p95 latency and the handler's host ms a step.
 
-In phases 5, 7, 9, 10, 12, 13, 15, 17 and 18 (the main paths) the launch
+19. MoE + MLA prefill: (a) K1 at deepseek-v2-236b's widths 5120, 1536 and
+   512 (its pre-norms, MLA's ``q_norm`` and ``kv_norm``) and K2 at MLA's
+   (1, 128/128, 4096, 192/128) causal at every tile pair, against their
+   plain versions (the tolerances of phases 3 and 4), then K2 at that
+   shape timed beside the plain version, ``scaled_dot_product_attention``
+   and the bound; (b) deepseek-v2-236b at full width with its depth cut
+   to 4 layers (the dense first layer and three MoE layers of 160
+   experts: 53.2 GB of fp32 weights, random from seed 0), drawn into
+   stacks allocated once: one (1, 4096) prefill through
+   ``make_prefill_builder``'s generic variant (``moe_impl`` einsum; K1 4L
+   + 1 and K2 L launches a call), the same under ``moe_impl`` gather, both
+   timed and profiled (device busy share, device ms by class: GEMM, K2,
+   K1, the MoE dispatch's sorts, scans and scatters/gathers), then pinned
+   to the plain versions; the logits held to 1e-3, generic against plain
+   and gather against einsum, with the routing agreement per MoE layer
+   (the share of (token, slot) pairs with equal expert and keep) and each
+   variant's aux loss; then a Controller's CoordinateDescent over
+   ``attention_impl`` x tiles x ``moe_impl`` x ``moe_ranking``
+   (``capacity_factor`` 1.25 and one group kept), counting the ``shard``
+   calls that ran as ``gather`` (no mesh).
+20. MoE + MLA serving: ``build_engine`` serves the same deepseek-v2 at
+   depth 4 as phase 18 serves its families (batch 4, ``--max-len 256``, 4
+   requests of 64 + 16 tokens, pinned to the kernels then to the plain
+   versions: equal greedy tokens), then one decode step per MoE impl
+   profiled; then kimi-k2-1t-a32b at its reduced config (one 384-expert
+   layer alone is 67.6 GB in fp32): a (1, 256) prefill as in phase 17b
+   and 4 served requests, each held to its plain run.  Each prints its
+   peak device memory.
+
+In phases 5, 7, 9, 10, 12, 13, 15, 17, 18, 19 and 20 (the main paths)
+the launch
 counters and the registry's fallback counts are zeroed just before and
 read just after; every kernel of the path must have launched and none
 may have fallen back (phases 14 and 16 count K1's launches in their own
@@ -201,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import itertools
 import json
 import math
@@ -455,6 +486,23 @@ FAMILY_SERVE_ARGS = ["--device", "cuda", "--batch", "4", "--prefill-chunk",
 FAMILY_SERVE_REQUESTS = 4
 FAMILY_SERVE_PROMPT = 64
 FAMILY_SERVE_NEW = 16
+#: phases 19-20: deepseek-v2-236b at full width, its depth cut to
+#: MOE_DEPTH layers (the dense first layer and three MoE layers: 53.2 GB
+#: of fp32 weights; its 60 layers are 943 GB, 5 would be 69.1 GB beside
+#: the activations of a (1, 4096) call on one 80 GB card)
+MOE_ARCH = "deepseek-v2-236b"
+MOE_DEPTH = 4
+MOE_PREFILL = (1, 4096)
+#: its prefill Controller: the attention points and the MoE dispatch.
+#: ``capacity_factor`` and ``moe_group`` stay at their defaults (1.25, one
+#: group): another capacity drops other tokens, a different result
+MOE_SWEEP_LABELS = ["attention_impl", "block_q", "block_kv", "moe_impl",
+                    "moe_ranking"]
+MOE_SERVE_MAX_LEN = 256
+#: kimi-k2-1t-a32b on one card only at its reduced config (one MoE layer
+#: of 384 experts is 67.6 GB in fp32): a prefill of this shape, then served
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_PREFILL = (1, 256)
 
 
 def log(msg: str) -> None:
@@ -3407,20 +3455,33 @@ def phase_family_kernels() -> dict:
             "hymba_attention": at, "hymba_linear_attention": la}
 
 
-def _kernel_class(name: str) -> str:
+#: PyTorch's device kernels of the MoE dispatch, by name (phases 19-20):
+#: the routing's top-k and the ``sort`` ranking (sorts, searchsorted),
+#: the ``cumsum`` ranking (scans), and the scatters and gathers that build
+#: the dispatch and capacity buffers and read them back (one-hot, index
+#: put/copy/select; the embedding lookup's gather falls here too)
+MOE_KERNEL_CLASSES = (
+    (r"sort", "MoE top-k/sort"),
+    (r"scan", "MoE cumsum"),
+    (r"scatter|gather|index", "MoE scatter/gather"))
+
+
+def _kernel_class(name: str, moe: bool = False) -> str:
     """The port's kernels by their CUDA symbols, the matrix products by
-    cuBLAS's, the rest as other."""
-    for pattern, label in ((r"rmsnorm_(regs|general)", "K1 rmsnorm"),
-                           (r"\b(ring|simple)_kernel", "K2 attention"),
-                           (r"\b(summary|fold|output)_kernel",
-                            "K4 linear attention"),
-                           (r"gemm|xmma|cutlass|cublas", "GEMM")):
+    cuBLAS's, (``moe``) the MoE dispatch's by PyTorch's, the rest as
+    other."""
+    classes = ((r"rmsnorm_(regs|general)", "K1 rmsnorm"),
+               (r"\b(ring|simple)_kernel", "K2 attention"),
+               (r"\b(summary|fold|output)_kernel", "K4 linear attention"),
+               (r"gemm|xmma|cutlass|cublas", "GEMM"))
+    for pattern, label in classes + (MOE_KERNEL_CLASSES if moe else ()):
         if re.search(pattern, name, re.IGNORECASE):
             return label
     return "other"
 
 
-def _profile_by_kernel(prof, wall: float, what: str) -> dict:
+def _profile_by_kernel(prof, wall: float, what: str,
+                       moe: bool = False) -> dict:
     """Device ms and CUDA launches of one profiled call by kernel class,
     and the device's busy share of the call's wall."""
     import torch
@@ -3429,7 +3490,7 @@ def _profile_by_kernel(prof, wall: float, what: str) -> dict:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        label = _kernel_class(e.key)
+        label = _kernel_class(e.key, moe)
         ms[label] += e.self_device_time_total / 1e3
         count[label] += e.count
     busy = sum(ms.values())
@@ -3443,10 +3504,11 @@ def _profile_by_kernel(prof, wall: float, what: str) -> dict:
             "cuda_launches_by_kernel": dict(count)}
 
 
-def _hymba_sweep(cfg, params, batch) -> dict:
-    """hymba's prefill handler under a Controller whose CoordinateDescent
-    sweeps its kernel points over (1, 4096) calls until it settles, as
-    phase 9 runs rwkv6's."""
+def _prefill_sweep(what: str, cfg, params, batch, labels: list) -> dict:
+    """A prefill handler under a Controller whose CoordinateDescent sweeps
+    ``labels`` over calls on ``batch`` until it settles, as phase 9 runs
+    rwkv6's (hymba: its kernel points; deepseek-v2: the attention points
+    and the MoE dispatch)."""
     import torch
 
     from repro_torch.core import (DEFAULT_CONTEXT, Controller,
@@ -3457,10 +3519,10 @@ def _hymba_sweep(cfg, params, batch) -> dict:
     handler = rt.register("prefill_step", make_prefill_builder(cfg))
     space = handler.spec_space()
     controller = Controller(
-        handler, lambda: CoordinateDescent(space, labels=HYMBA_SWEEP_LABELS,
+        handler, lambda: CoordinateDescent(space, labels=labels,
                                            max_passes=1),
         dwell=PREFILL_DWELL, wait_compiles=True, prefetch=0)
-    tokens = FAMILY_PREFILL[0] * FAMILY_PREFILL[1]
+    tokens = next(iter(batch.values())).shape[:2].numel()
     for calls in range(1, 101):
         logits = handler(params, batch)
         torch.cuda.synchronize()
@@ -3468,18 +3530,18 @@ def _hymba_sweep(cfg, params, batch) -> dict:
         if controller.settled():
             break
     else:
-        fail("the hymba prefill Controller did not settle in 100 calls")
+        fail(f"the {what} prefill Controller did not settle in 100 calls")
     if not torch.isfinite(logits[0, -1]).all():
-        fail("hymba sweep: non-finite logits")
+        fail(f"{what} sweep: non-finite logits")
     del logits
     chosen = controller.best_configs()[DEFAULT_CONTEXT]
     rates = []
     for phase, config, rate in controller.histories()[DEFAULT_CONTEXT]:
         rates.append({"config": json.loads(_config_str(config)),
                       "tok_s": rate * tokens})
-        log(f"hymba prefill sweep: {phase.value} {_config_str(config)} -> "
+        log(f"{what} prefill sweep: {phase.value} {_config_str(config)} -> "
             f"{rate * tokens:.1f} tok/s ({1e3 / rate:.1f} ms/call)")
-    log(f"hymba prefill sweep: settled after {calls} calls on "
+    log(f"{what} prefill sweep: settled after {calls} calls on "
         f"{_config_str(chosen)}")
     rt.shutdown()
     return {"calls": calls, "chosen": json.loads(_config_str(chosen)),
@@ -3487,13 +3549,15 @@ def _hymba_sweep(cfg, params, batch) -> dict:
             "settled_tok_s": controller.best(DEFAULT_CONTEXT)[1] * tokens}
 
 
-def phase_family_prefill(arch: str, keep: bool) -> dict:
-    """Phase 17b for one family at full width and full depth: one
-    (1, 4096) prefill through ``make_prefill_builder``'s generic variant,
-    timed, then profiled, then the same call pinned to the plain versions;
-    their logits within PARITY_TOL; each call's K1, K2 (and hymba's K4)
-    launches from the wrappers' counts.  hymba then runs its Controller
-    sweep.  The weights are freed unless ``keep``."""
+def phase_family_prefill(arch: str, keep: bool, cfg=None,
+                         shape: tuple = FAMILY_PREFILL) -> dict:
+    """Phase 17b for one family at full width and full depth (or at
+    ``cfg``: phase 20's reduced kimi-k2): one ``shape`` prefill through
+    ``make_prefill_builder``'s generic variant, timed, then profiled, then
+    the same call pinned to the plain versions; their logits within
+    PARITY_TOL; each call's K1, K2 (and hymba's K4) launches from the
+    wrappers' counts.  hymba then runs its Controller sweep.  The weights
+    are freed unless ``keep``."""
     import torch
 
     from repro_torch import compat, configs
@@ -3506,8 +3570,9 @@ def phase_family_prefill(arch: str, keep: bool) -> dict:
     from repro_torch.training import make_prefill_builder
 
     dev = torch.device("cuda")
-    cfg = configs.get_config(arch).replace(compute_dtype="float32")
+    cfg = cfg or configs.get_config(arch).replace(compute_dtype="float32")
     hymba = cfg.mixer == "hymba"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)
@@ -3521,7 +3586,7 @@ def phase_family_prefill(arch: str, keep: bool) -> dict:
         f"params {n_params / 1e6:.1f}M ({4 * n_params / 1e9:.2f} GB fp32), "
         f"drawn in {time.perf_counter() - t0:.1f}s")
     gen = torch.Generator(device=dev).manual_seed(17)
-    b, s = FAMILY_PREFILL
+    b, s = shape
     if cfg.frontend:
         batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
                                        device=dev)}
@@ -3587,16 +3652,19 @@ def phase_family_prefill(arch: str, keep: bool) -> dict:
         f"first call {1e3 * seconds[0]:.1f} ms), plain {1e3 * plain_s:.1f} "
         f"ms; launches a call {per_call}; max relative logits diff "
         f"generic vs plain {rel:.3e} (tol {PARITY_TOL:g}); argmax agrees "
-        f"on {agree}/{b * s}")
+        f"on {agree}/{b * s}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if rel > PARITY_TOL:
         fail(f"{arch} prefill parity: relative diff {rel:.3e} > "
              f"{PARITY_TOL}")
-    sweep = _hymba_sweep(cfg, params, batch) if hymba else None
+    sweep = (_prefill_sweep("hymba", cfg, params, batch, HYMBA_SWEEP_LABELS)
+             if hymba else None)
     out = {"arch": arch, "n_params": n_params, "call_ms": 1e3 * seconds[1],
            "first_ms": 1e3 * seconds[0], "tok_s": tok_s,
            "plain_ms": 1e3 * plain_s, "max_rel": rel,
            "argmax_agree": agree, "launches": launches,
-           "per_call": per_call, "profile": profile, "sweep": sweep}
+           "per_call": per_call, "profile": profile, "sweep": sweep,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     if keep:
         out["params"] = params
     del params, batch
@@ -3604,10 +3672,11 @@ def phase_family_prefill(arch: str, keep: bool) -> dict:
     return out
 
 
-def phase_family_serve(arch: str, max_len: int, params) -> dict:
-    """Phase 18 for one family: ``build_engine`` at full width, batch 4,
-    serves FAMILY_SERVE_REQUESTS requests with every context pinned to the
-    kernels (fp32 cache), then the same engine pinned to the plain
+def phase_family_serve(arch: str, max_len: int, params, cfg=None) -> dict:
+    """Phase 18 for one family: ``build_engine`` at full width (or at
+    ``cfg``: phase 20's deepseek-v2 at depth 4 and reduced kimi-k2), batch
+    4, serves FAMILY_SERVE_REQUESTS requests with every context pinned to
+    the kernels (fp32 cache), then the same engine pinned to the plain
     versions; the greedy tokens must be equal."""
     import torch
 
@@ -3618,7 +3687,8 @@ def phase_family_serve(arch: str, max_len: int, params) -> dict:
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import OpenLoopSource, Request
 
-    cfg = configs.get_config(arch).replace(compute_dtype="float32")
+    cfg = cfg or configs.get_config(arch).replace(compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
     args = engine_args(FAMILY_SERVE_ARGS + ["--arch", arch, "--max-len",
                                             str(max_len)])
     extra = {"chunk_len": 64} if cfg.mixer == "hymba" else {}
@@ -3680,7 +3750,8 @@ def phase_family_serve(arch: str, max_len: int, params) -> dict:
                      "p95_ms": served["latency_p95_ms"],
                      "host_ms_a_step": 1e3 * spent["s"]
                      / max(spent["steps"], 1),
-                     "steps": stats["phase_steps"], "launches": launches}
+                     "steps": stats["phase_steps"], "launches": launches,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"family serve: {arch} at batch {args.batch}, --max-len "
             f"{max_len}, pinned to {impl}: served {served['completed']} "
             f"requests ({FAMILY_SERVE_PROMPT} prompt + {FAMILY_SERVE_NEW} "
@@ -3689,7 +3760,8 @@ def phase_family_serve(arch: str, max_len: int, params) -> dict:
             f"ms {served['latency_p50_ms']} / {served['latency_p95_ms']}; "
             f"handler {out[impl]['host_ms_a_step']:.1f} ms a step (host "
             f"clock, {spent['steps']} steps {stats['phase_steps']}); K1 "
-            f"launches {launches}")
+            f"launches {launches}; peak device memory "
+            f"{out[impl]['peak_gb']:.2f} GB")
         del built
         torch.cuda.empty_cache()
     same = out["cuda"]["tokens"] == out["torch_ref"]["tokens"]
@@ -3700,6 +3772,369 @@ def phase_family_serve(arch: str, max_len: int, params) -> dict:
              f"{out['cuda']['tokens']} and the plain versions "
              f"{out['torch_ref']['tokens']}")
     return out
+
+# -- phases 19-20: MoE and MLA ----------------------------------------------------
+
+def _moe_cfg():
+    from repro_torch import configs
+
+    return configs.get_config(MOE_ARCH).replace(n_layers=MOE_DEPTH,
+                                                compute_dtype="float32")
+
+
+def phase_moe_kernels() -> dict:
+    """Phase 19a: K1 and K2 against their plain versions at the shapes
+    deepseek-v2's (1, 4096) prefill gives them, fp32: K1 at the widths of
+    its pre-norms, ``q_norm`` and ``kv_norm`` (5120, 1536, 512: the
+    general body), K2 at MLA's 128 heads (q/k 192, v 128; causal, scale
+    192^-0.5) at every tile pair.  Then K2 at that shape timed per tile
+    pair beside the plain version, ``scaled_dot_product_attention`` and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    cfg = _moe_cfg()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    s = MOE_PREFILL[1]
+    tiles = [(bq, bkv) for bq in attn_kernel.BLOCK_Q
+             for bkv in attn_kernel.BLOCK_KV]
+    err = {"rmsnorm": 0.0, "attention": 0.0}
+    widths = (cfg.d_model, cfg.q_lora_rank, cfg.kv_lora_rank)
+    for d in widths:
+        x = torch.randn((s, d), generator=gen, device=dev)
+        w = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        out = rms_ops.rmsnorm(x, w, impl="cuda")
+        torch.cuda.synchronize()
+        err["rmsnorm"] = max(err["rmsnorm"], _hold_kernel(
+            f"rmsnorm ({s}, {d})", out, rms_ops.rmsnorm(x, w,
+                                                        impl="torch_ref"),
+            [(TOL["float32"], TOL["float32"])]))
+    h, d, dv = (cfg.n_heads, cfg.nope_head_dim + cfg.rope_head_dim,
+                cfg.d_head)
+    scale = d ** -0.5
+    q, k = (torch.randn((1, h, s, d), generator=gen, device=dev)
+            for _ in range(2))
+    v = torch.randn((1, h, s, dv), generator=gen, device=dev)
+    ref = attn_ops.attention(q, k, v, scale=scale, impl="torch_ref")
+    limits = [(ATTN_TOL["float32"],) * 2, ATTN_SCALED_TOL["float32"]]
+    for bq, bkv in tiles:
+        out = attn_ops.attention(q, k, v, scale=scale, impl="cuda",
+                                 block_q=bq, block_kv=bkv)
+        torch.cuda.synchronize()
+        err["attention"] = max(err["attention"], _hold_kernel(
+            f"attention (1,{h}/{h},{s},{d}/{dv}) tiles {bq}x{bkv}", out,
+            ref, limits))
+        del out
+    del ref
+    log(f"moe kernels: cuda == torch_ref for K1 at ({s}, d) d in {widths} "
+        f"(tol {TOL['float32']:g}; max_abs_err {err['rmsnorm']:.3e}) and "
+        f"K2 at MLA's (1, {h}/{h}, {s}, {d}/{dv}) causal, scale {d}^-0.5, "
+        f"at tiles {tiles} (tols {limits}; max_abs_err "
+        f"{err['attention']:.3e})")
+
+    q3, k3, v3 = (x[0] for x in (q, k, v))
+    at = {"shape": [1, h, h, s, d, dv], "kernel_ms_by_tiles": {
+        f"{bq}x{bkv}": cuda_time_ms(
+            lambda bq=bq, bkv=bkv: attn_kernel.flash_attention_cuda(
+                q3, k3, v3, scale=scale, block_q=bq, block_kv=bkv), 10, 2)
+        for bq, bkv in tiles}}
+    at["plain_ms"] = cuda_time_ms(
+        lambda: attn_ops.ref.attention(q, k, v, scale=scale), 3, 1)
+    at["library_ms"] = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=scale), 10, 2)
+    at["bound_ms"], at["bound_by"] = _attention_cost(1, h, h, s, s, d, dv,
+                                                    4)
+    best = min(at["kernel_ms_by_tiles"], key=at["kernel_ms_by_tiles"].get)
+    at["best"] = best
+    at["body"] = attn_kernel.body(torch.float32, d, dv,
+                                  block_q=int(best.split("x")[0]),
+                                  block_kv=int(best.split("x")[1]))
+    log(f"attention at MLA's prefill (1,{h}/{h},{s},{d}/{dv}) fp32 causal: "
+        f"kernel " + " ".join(
+            f"{t} {ms:.4f} ({100 * at['bound_ms'] / ms:.1f}%)"
+            for t, ms in at["kernel_ms_by_tiles"].items())
+        + f" ms (% of the bound; best {best}, {at['body']['body']} body); "
+        f"plain {at['plain_ms']:.3f} ms; sdpa {at['library_ms']:.3f} ms; "
+        f"bound {at['bound_ms']:.4f} ms ({at['bound_by']})")
+    del q, k, v, q3, k3, v3
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "widths": list(widths), "mla_attention": at}
+
+
+class _RoutingLog:
+    """Records every ``assign_experts`` call's router logits, expert ids,
+    keep mask and aux loss term while it is entered (the routing of a
+    call's MoE layers, in order)."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self._inner = inner = moe_mod.assign_experts
+
+        def logged(logits, *a, **k):
+            out = inner(logits, *a, **k)
+            self.calls.append({"logits": logits.detach().clone(),
+                               "idx": out["idx"].clone(),
+                               "keep": out["keep"].clone(),
+                               "aux": out["aux"].item()})
+            return out
+
+        moe_mod.assign_experts = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+
+        moe_mod.assign_experts = self._inner
+
+
+def _aux_loss(routing: list) -> float:
+    """A call's MoE aux loss (``apply``'s second output) from its routing
+    log: the layers' terms summed, times the default ``aux_coef``."""
+    from repro_torch.models.moe import MoEOptions
+
+    return sum(c["aux"] for c in routing) * MoEOptions().aux_coef
+
+
+def _routing_agreement(a: list, b: list) -> list:
+    """Per MoE layer, the share of (token, slot) pairs routed to the same
+    expert with the same keep in two calls' routing logs."""
+    return [((x["idx"] == y["idx"]) & (x["keep"] == y["keep"]))
+            .float().mean().item() for x, y in zip(a, b)]
+
+
+def _near_tie_flips(a: list, b: list, k: int) -> list:
+    """Per MoE layer, the tokens whose expert set differs between two
+    calls, with the gap between the k-th and (k+1)-th router probability
+    in the first call (a flip at a near-tie has a gap near zero)."""
+    import torch
+
+    out = []
+    for x, y in zip(a, b):
+        differ = (x["idx"].sort(-1).values != y["idx"].sort(-1).values) \
+            .any(-1).nonzero().flatten()
+        probs = torch.softmax(x["logits"][differ], -1).sort(
+            -1, descending=True).values
+        out.append({"tokens": differ.tolist(),
+                    "gap": (probs[:, k - 1] - probs[:, k]).tolist()})
+    return out
+
+
+def phase_moe_prefill() -> dict:
+    """Phase 19b: deepseek-v2-236b at full width and depth MOE_DEPTH,
+    random weights from seed 0 in fp32: one (1, 4096) prefill through
+    ``make_prefill_builder``'s generic variant (``moe_impl`` einsum),
+    timed, each call's K1 (4L + 1: the pre-norms, MLA's two latent norms,
+    the final norm) and K2 (L) launches counted; profiled; the same call
+    pinned to ``moe_impl`` gather, timed and profiled; then pinned to the
+    plain versions.  Logits held to PARITY_TOL, generic against plain and
+    gather against einsum, with the routing agreement per MoE layer.  Then
+    the Controller sweep over MOE_SWEEP_LABELS.  Returns the weights for
+    phase 20."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as model
+    from repro_torch.training import make_prefill_builder
+
+    dev = torch.device("cuda")
+    cfg = _moe_cfg()
+    log(f"moe prefill: device memory held before the weights "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in compat.tree_leaves(params))
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"moe prefill: {MOE_ARCH} at full width, depth {cfg.n_layers} of "
+        f"60 ({cfg.n_layers - cfg.n_moe_layers} dense, {cfg.n_moe_layers} "
+        f"MoE layers; d={cfg.d_model}, MLA {cfg.n_heads} heads q_lora "
+        f"{cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} nope/rope "
+        f"{cfg.nope_head_dim}/{cfg.rope_head_dim} v {cfg.d_head}; "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of {cfg.moe_d_ff} + "
+        f"{cfg.n_shared_experts} shared; dense d_ff {cfg.d_ff}; vocab "
+        f"{cfg.vocab_size}) params {n_params / 1e6:.1f}M "
+        f"({4 * n_params / 1e9:.2f} GB fp32), drawn in "
+        f"{time.perf_counter() - t0:.1f}s, peak device memory "
+        f"{init_gb:.2f} GB")
+    b, s = MOE_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("prefill_step", make_prefill_builder(cfg))
+    counters = {"rmsnorm": rms_kernel, "attention": attn_kernel}
+    per_call = {"rmsnorm": 4 * cfg.n_layers + 1, "attention": cfg.n_layers}
+
+    def calls(n: int):
+        """``n`` calls of the active variant: the last logits, each call's
+        seconds, the last call's routing."""
+        seconds = []
+        for _ in range(n):
+            with _RoutingLog() as routing:
+                t = time.perf_counter()
+                logits = handler(params, batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t)
+        if logits.shape != (b, s, cfg.padded_vocab_size) \
+                or not torch.isfinite(logits).all():
+            fail(f"{MOE_ARCH} prefill logits {tuple(logits.shape)} or "
+                 f"non-finite")
+        return logits, seconds, routing.calls
+
+    def rel(a, ref):
+        v = cfg.vocab_size
+        return ((a[..., :v] - ref[..., :v]).abs().max()
+                / ref[..., :v].abs().max().clamp_min(1e-30)).item()
+
+    # the main path: the generic variant, twice (the second timed)
+    for k in counters.values():
+        k.reset_launches()
+    registry.default_registry.fallback_counts.clear()
+    einsum_logits, seconds, einsum_routing = calls(2)
+    launches = {n: k.launches for n, k in counters.items()}
+    fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                 registry.default_registry.fallback_counts.items()}
+    if fallbacks:
+        fail(f"{MOE_ARCH} prefill fell back: {fallbacks}")
+    for n, want in per_call.items():
+        if launches[n] != 2 * want:
+            fail(f"{MOE_ARCH} prefill: {n} launched {launches[n]} times "
+                 f"over 2 calls; wanted {want} a call")
+    aux = {"einsum": _aux_loss(einsum_routing)}
+    prof, wall, _ = profiled(lambda: handler(params, batch), 1)
+    profiles = {"einsum": _profile_by_kernel(
+        prof, wall, f"{MOE_ARCH} depth {cfg.n_layers} ({b}, {s}) prefill, "
+        f"generic variant (moe_impl einsum), profiler on", moe=True)}
+    del prof
+    ms = {"einsum": 1e3 * seconds[1]}
+    first_ms = 1e3 * seconds[0]
+
+    _pin(handler, {"moe_impl": "gather"})
+    gather_logits, seconds, gather_routing = calls(2)
+    ms["gather"] = 1e3 * seconds[1]
+    aux["gather"] = _aux_loss(gather_routing)
+    prof, wall, _ = profiled(lambda: handler(params, batch), 1)
+    profiles["gather"] = _profile_by_kernel(
+        prof, wall, f"{MOE_ARCH} depth {cfg.n_layers} ({b}, {s}) prefill, "
+        f"moe_impl gather, profiler on", moe=True)
+    del prof
+    gather_rel = rel(gather_logits, einsum_logits)
+    gather_agree = _routing_agreement(gather_routing, einsum_routing)
+    del gather_logits
+
+    _pin(handler, {"rmsnorm_impl": "torch_ref",
+                   "attention_impl": "torch_ref"})
+    plain_logits, seconds, plain_routing = calls(1)
+    ms["plain"] = 1e3 * seconds[0]
+    aux["plain"] = _aux_loss(plain_routing)
+    plain_rel = rel(einsum_logits, plain_logits)
+    plain_agree = _routing_agreement(einsum_routing, plain_routing)
+    flips = _near_tie_flips(plain_routing, einsum_routing, cfg.top_k)
+    del einsum_logits, plain_logits
+    rt.shutdown()
+    torch.cuda.empty_cache()
+    tok_s = {impl: b * s / (v / 1e3) for impl, v in ms.items()}
+    log(f"moe prefill: ({b}, {s}) tokens: generic (einsum) {ms['einsum']:.1f}"
+        f" ms ({tok_s['einsum']:.1f} tok/s; first call {first_ms:.1f} ms), "
+        f"gather {ms['gather']:.1f} ms ({tok_s['gather']:.1f} tok/s), plain "
+        f"{ms['plain']:.1f} ms; launches a call {per_call}; aux loss "
+        f"{aux}; max relative logits diff generic vs plain {plain_rel:.3e}, "
+        f"gather vs einsum {gather_rel:.3e} (tol {PARITY_TOL:g}); routing "
+        f"agreement per MoE layer generic vs plain {plain_agree}, gather vs "
+        f"einsum {gather_agree}; tokens routed apart generic vs plain, with "
+        f"the top-{cfg.top_k} gap: {flips}")
+    if gather_rel > PARITY_TOL or min(gather_agree) < 1.0:
+        fail(f"{MOE_ARCH} prefill: gather vs einsum relative diff "
+             f"{gather_rel:.3e} (tol {PARITY_TOL}), routing {gather_agree}")
+    if plain_rel > PARITY_TOL:
+        fail(f"{MOE_ARCH} prefill parity: relative diff {plain_rel:.3e} > "
+             f"{PARITY_TOL} (routing {plain_agree}, flips {flips})")
+
+    moe_mod.reset_degrades()
+    sweep = _prefill_sweep(MOE_ARCH, cfg, params, batch, MOE_SWEEP_LABELS)
+    sweep["shard_degrades"] = moe_mod.degrades
+    log(f"moe prefill sweep: moe_impl shard ran as gather (no mesh) in "
+        f"{moe_mod.degrades} MoE layer calls; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"params": params, "cfg": cfg, "n_params": n_params,
+            "init_peak_gb": init_gb, "ms": ms, "first_ms": first_ms,
+            "tok_s": tok_s, "aux": aux, "launches": launches,
+            "per_call": per_call, "rel": {"plain": plain_rel,
+                                          "gather": gather_rel},
+            "routing_agreement": {"plain": plain_agree,
+                                  "gather": gather_agree},
+            "flips": flips, "profiles": profiles, "sweep": sweep,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+
+def phase_moe_serve(cfg, params) -> dict:
+    """Phase 20a: ``build_engine`` serves deepseek-v2 at full width and
+    depth MOE_DEPTH as phase 18 serves its families (pinned to the
+    kernels, then to the plain versions: equal greedy tokens; ``moe_impl``
+    stays at its default, einsum).  Then one decode step at the engine's
+    batch, per MoE impl, profiled: the device ms by kernel class."""
+    import torch
+
+    from repro_torch.models import KernelOptions
+    from repro_torch.models import transformer as model
+    from repro_torch.models.moe import MoEOptions
+
+    served = phase_family_serve(MOE_ARCH, MOE_SERVE_MAX_LEN, params, cfg=cfg)
+    dev = torch.device("cuda")
+    batch = int(FAMILY_SERVE_ARGS[FAMILY_SERVE_ARGS.index("--batch") + 1])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    tokens = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.full((batch,), FAMILY_SERVE_PROMPT, dtype=torch.int32,
+                     device=dev)
+    decode = {}
+    for impl in ("einsum", "gather"):
+        opts = model.RunOptions(kernels=KernelOptions(rmsnorm_impl="cuda"),
+                                moe=MoEOptions(impl=impl),
+                                decode_cache_dtype="float32")
+        cache = model.init_cache(cfg, batch, MOE_SERVE_MAX_LEN, opts,
+                                 device=dev)
+
+        def step():
+            return model.decode_step(params, cache, tokens, pos, cfg, opts)
+
+        step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t) / 3
+        prof, wall, _ = profiled(step, 1)
+        decode[impl] = _profile_by_kernel(
+            prof, wall, f"{MOE_ARCH} depth {cfg.n_layers} decode step at "
+            f"batch {batch} (moe_impl {impl}, profiler on)", moe=True)
+        decode[impl]["step_ms"] = host_ms
+        del prof, cache
+    log(f"moe serve: one decode step at batch {batch}, "
+        + ", ".join(f"{impl} {d['step_ms']:.1f} ms (device busy "
+                    f"{d['busy_ms']:.1f} ms)" for impl, d in decode.items())
+        + " (host clock, 3 steps; device time by the profiler)")
+    return {"serve": served, "decode": decode}
 
 
 def main(argv: list[str]) -> None:
@@ -3757,7 +4192,20 @@ def main(argv: list[str]) -> None:
     family_serve = {a: phase_family_serve(a, max_len,
                                           family[a].pop("params"))
                     for a, max_len in FAMILY_SERVE}
+    # phase 18's engines hold its weights in reference cycles: collect them
+    # before 53 GB of deepseek-v2 weights need the card
+    gc.collect()
     torch.cuda.empty_cache()
+    moe_k = phase_moe_kernels()
+    moe = phase_moe_prefill()
+    moe_serve = phase_moe_serve(moe.pop("cfg"), moe.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kcfg = configs.get_reduced(KIMI_ARCH).replace(compute_dtype="float32")
+    kimi = phase_family_prefill(KIMI_ARCH, keep=True, cfg=kcfg,
+                                shape=KIMI_PREFILL)
+    kimi_serve = phase_family_serve(KIMI_ARCH, MOE_SERVE_MAX_LEN,
+                                    kimi.pop("params"), cfg=kcfg)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -3805,7 +4253,9 @@ def main(argv: list[str]) -> None:
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
         "launches": main_path["launches"] + sum(
             f["launches"]["rmsnorm"] for f in family.values()) + sum(
-            f["cuda"]["launches"] for f in family_serve.values()),
+            f["cuda"]["launches"] for f in family_serve.values())
+        + moe["launches"]["rmsnorm"] + moe_serve["serve"]["cuda"]["launches"]
+        + kimi["launches"]["rmsnorm"] + kimi_serve["cuda"]["launches"],
         "serve_launches": main_path["launches"],
         "max_abs_err": rms["max_abs_err"],
         "ms": rms["ms"],
@@ -3828,6 +4278,12 @@ def main(argv: list[str]) -> None:
         "family_serve_launches": {a: f["cuda"]["launches"]
                                   for a, f in family_serve.items()},
         "family_max_abs_err": family_k["max_abs_err"]["rmsnorm"],
+        "moe_prefill_launches": moe["launches"]["rmsnorm"],
+        "moe_serve_launches": moe_serve["serve"]["cuda"]["launches"],
+        "kimi_prefill_launches": kimi["launches"]["rmsnorm"],
+        "kimi_serve_launches": kimi_serve["cuda"]["launches"],
+        "moe_max_abs_err": moe_k["max_abs_err"]["rmsnorm"],
+        "moe_widths": moe_k["widths"],
         "shapes": rms["per_shape"],
     }, {
         "name": "attention",
@@ -3835,7 +4291,8 @@ def main(argv: list[str]) -> None:
         "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:106",
         "launches": prefill["attention_launches"] + sum(
-            f["launches"]["attention"] for f in family.values()),
+            f["launches"]["attention"] for f in family.values())
+        + moe["launches"]["attention"] + kimi["launches"]["attention"],
         "prefill_launches": prefill["attention_launches"],
         "max_abs_err": attn["max_abs_err"],
         "max_abs_err_by_dtype": attn["max_abs_err_by_dtype"],
@@ -3858,6 +4315,12 @@ def main(argv: list[str]) -> None:
         "family_prefill_launches": {a: f["launches"]["attention"]
                                     for a, f in family.items()},
         "family_max_abs_err": family_k["max_abs_err"]["attention"],
+        "moe_prefill_launches": moe["launches"]["attention"],
+        "kimi_prefill_launches": kimi["launches"]["attention"],
+        "moe_max_abs_err": moe_k["max_abs_err"]["attention"],
+        "mla128": dict(moe_k["mla_attention"],
+                       per=f"one launch at {MOE_ARCH}'s (1, 4096) prefill "
+                           f"shape (a layer's MLA attention)"),
         "hymba": dict(family_k["hymba_attention"],
                       per="one launch at hymba-1.5b's (1, 4096) prefill "
                           "shape (a layer's attention branch)"),

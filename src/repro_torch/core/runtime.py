@@ -657,6 +657,12 @@ class Handler:
             speculative=speculative)
         fut = req.future
 
+        def _park(err: BaseException) -> None:
+            with self._lock:
+                ctx.build_error = err
+                if ctx.snapshot is not None:
+                    self._rebuild_snapshot_locked(ctx)
+
         def _on_done(f: concurrent.futures.Future) -> None:
             if f.cancelled():
                 return
@@ -666,10 +672,7 @@ class Handler:
                 # on the context so its next call raises it.
                 logger.error("build of %s %s failed: %s: %s", self.name,
                              dict(config), type(err).__name__, err)
-                with self._lock:
-                    ctx.build_error = err
-                    if ctx.snapshot is not None:
-                        self._rebuild_snapshot_locked(ctx)
+                _park(err)
                 return
             if activate:
                 self._publish(ctx, key, epoch)
@@ -679,6 +682,12 @@ class Handler:
                 fut.result()
             except concurrent.futures.CancelledError:
                 pass
+            except Exception as err:
+                # A waiter wakes before the worker runs the done-callbacks:
+                # park the failure here too (idempotent), so that the
+                # context's next call raises it however the threads run.
+                _park(err)
+                raise
             else:
                 if activate:
                     # Worker-side done-callbacks may still be in flight;

@@ -5,6 +5,11 @@ oracle (reference ``ref.py``).
 only the (S, 2W) diagonal band of scores instead of the full (S, S)
 matrix; the ``swa_impl`` spec point selects it.
 
+Beyond :data:`SCORE_BYTES` of fp32 scores, ``attention`` forms them a
+block of heads at a time: the same function, in pieces that fit beside a
+large model's weights (deepseek-v2's 128 heads at S = 4096 would hold
+8.6 GB of scores at once, several times over).
+
 A query row with no valid column (only possible with ``q_offset < 0``)
 gets the mean of ``v`` here, as in the reference's oracle (its softmax over
 all-``NEG_INF`` scores is uniform); the CUDA kernel, like the reference's
@@ -17,6 +22,8 @@ import torch
 __all__ = ["attention", "banded_attention", "NEG_INF"]
 
 NEG_INF = -1e30
+#: the most fp32 scores (bytes) ``attention`` forms at once
+SCORE_BYTES = 2 ** 31
 
 
 def _repeat_kv(k: torch.Tensor, v: torch.Tensor,
@@ -49,6 +56,13 @@ def attention(
     k, v = _repeat_kv(k, v, h // hk)
     scale = scale if scale is not None else d ** -0.5
     q_offset = q_offset if q_offset is not None else skv - sq
+    step = max(1, SCORE_BYTES // (4 * b * sq * max(skv, 1)))
+    if step < h:
+        return torch.cat([
+            attention(q[:, i:i + step], k[:, i:i + step], v[:, i:i + step],
+                      causal=causal, window=window, scale=scale,
+                      q_offset=q_offset)
+            for i in range(0, h, step)], 1)
 
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale

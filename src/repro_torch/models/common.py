@@ -100,17 +100,23 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def _normal(gen, shape: tuple) -> torch.Tensor:
+    """A standard normal fp32 draw of ``shape`` from ``gen`` on its device
+    (or from a stand-in with a ``normal(shape)`` method, which
+    ``transformer.init_params`` uses to draw a layer into its stack)."""
+    if isinstance(gen, torch.Generator):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=gen.device)
+    return gen.normal(shape)
+
+
 def dense_init(gen: torch.Generator, shape: tuple, in_axis: int = 0,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Normal(0, fan_in^-1/2) weights, on the generator's device."""
     fan_in = shape[in_axis]
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * fan_in ** -0.5).to(dtype)
+    return _normal(gen, shape).mul_(fan_in ** -0.5).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: tuple,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * 0.02).to(dtype)
+    return _normal(gen, shape).mul_(0.02).to(dtype)

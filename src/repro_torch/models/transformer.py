@@ -1,43 +1,49 @@
 """Model assembly: embeddings -> mixer/FFN layer stack -> LM head.
 
-The port of the reference's ``models/transformer.py`` for three mixers:
-dense GQA/MHA with a SwiGLU FFN (qwen3, deepseek-7b, yi-6b, minitron-4b,
-and the stub-frontend internvl2-2b and musicgen-medium, whose ``apply``
-takes precomputed ``embeds``), RWKV6 (time mix through the chunked linear
-attention, channel mix in place of the FFN) and Hymba (sliding-window
-attention and SSM heads side by side, each output normalised, averaged).
+The port of the reference's ``models/transformer.py`` for every mixer
+and FFN it has.  Mixers: GQA/MHA (qwen3, deepseek-7b, yi-6b, minitron-4b,
+kimi-k2, and the stub-frontend internvl2-2b and musicgen-medium, whose
+``apply`` takes precomputed ``embeds``), MLA (deepseek-v2), RWKV6 (time
+mix through the chunked linear attention, channel mix in place of the
+FFN) and Hymba (sliding-window attention and SSM heads side by side, each
+output normalised, averaged).  FFNs: SwiGLU, or, after a dense prefix of
+``n_layers - n_moe_layers`` layers, MoE (kimi-k2, deepseek-v2).
 It holds the full-sequence forward ``apply`` (prefill; its attention runs
 the flash attention kernel, its RWKV6 time mix and SSM heads the
 linear-attention kernel) and the cached ``decode_step``/``prefill_chunk``
 of the serve step.  The model is
 plain functions over a dict of tensors, with the reference's parameter
-layout: stacked ``dense_layers`` with a leading ``L`` axis, ``wq`` as
-``(d, H, dh)`` and so on — so the reference's parameters convert leaf for
-leaf (:mod:`repro_torch.models.convert`) and many specialized variants
-share one copy of the weights.
+layout: stacked ``dense_layers`` and ``moe_layers`` with a leading ``L``
+axis, ``wq`` as ``(d, H, dh)`` and so on — so the reference's parameters
+convert leaf for leaf (:mod:`repro_torch.models.convert`) and many
+specialized variants share one copy of the weights.
 
-MLA and MoE raise ``NotImplementedError`` (ROADMAP M7).  The layer
-stack is a Python loop (the reference's ``scan_layers`` and ``remat``
-belong to training, ROADMAP M8).  Caches are updated in place (see
-:mod:`repro_torch.models.attention` and :mod:`repro_torch.models.rwkv6`);
-the decode entry points still return ``(logits, cache)``.
+The layer stack is a Python loop (the reference's ``scan_layers`` and
+``remat`` belong to training, ROADMAP M8).  Caches are updated in place
+(see :mod:`repro_torch.models.attention`, :mod:`repro_torch.models.mla`
+and :mod:`repro_torch.models.rwkv6`); the decode entry points still
+return ``(logits, cache)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from repro_torch import compat
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (KernelOptions, dense_init, embed_init,
                                        rms_norm, swiglu)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoEOptions
 
-__all__ = ["RunOptions", "init_params", "param_axes", "apply", "init_cache",
+__all__ = ["RunOptions", "check_supported", "init_params", "param_axes",
+           "apply", "init_cache",
            "cache_axes", "decode_step", "prefill_chunk", "lm_head_weight"]
 
 
@@ -50,6 +56,7 @@ class RunOptions:
     """
 
     kernels: KernelOptions = KernelOptions()
+    moe: MoEOptions = MoEOptions()
     window: int | None = None        # sliding-window override (long-context)
     logits_dtype: str = "float32"
     decode_cache_dtype: str = "bfloat16"
@@ -59,16 +66,13 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mixer not in ("attn", "rwkv6", "hymba") or (
-            cfg.mixer != "rwkv6" and cfg.attn_kind != "gqa"):
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a mixer the port does not have."""
+    if cfg.mixer not in ("attn", "rwkv6", "hymba") or \
+            cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: mixer {cfg.mixer!r}/{cfg.attn_kind!r} is not "
-            f"ported yet (ROADMAP M7); the port runs GQA, RWKV6 and Hymba "
-            f"models")
-    if cfg.n_moe_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP M7)")
+            f"{cfg.name}: no mixer {cfg.mixer!r}/{cfg.attn_kind!r}; the "
+            f"port has attn (gqa, mla), rwkv6 and hymba")
 
 
 # -- params ------------------------------------------------------------------------
@@ -80,34 +84,49 @@ def _init_mixer(gen: torch.Generator, cfg: ModelConfig) -> dict:
         return {"attn": attn_mod.init_gqa(gen, cfg),
                 "ssm": ssm_mod.init_ssm(gen, cfg),
                 "norm_a": ones(), "norm_s": ones()}
+    if cfg.attn_kind == "mla":
+        return mla_mod.init_mla(gen, cfg)
     return attn_mod.init_gqa(gen, cfg)
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _mixer_axes(cfg: ModelConfig) -> dict:
+    if cfg.mixer == "rwkv6":
+        return rwkv_mod.rwkv6_axes(cfg)
+    if cfg.mixer == "hymba":
+        return {"attn": attn_mod.gqa_axes(cfg), "ssm": ssm_mod.ssm_axes(cfg),
+                "norm_a": (None,), "norm_s": (None,)}
+    if cfg.attn_kind == "mla":
+        return mla_mod.mla_axes(cfg)
+    return attn_mod.gqa_axes(cfg)
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, moe: bool) -> dict:
     d = cfg.d_model
     ones = lambda: torch.ones((d,), dtype=torch.float32, device=gen.device)
     if cfg.mixer == "rwkv6":
         # the channel mix's parameters live inside the mixer dict
         return {"norm1": ones(), "mixer": rwkv_mod.init_rwkv6(gen, cfg),
                 "norm2": ones()}
-    return {"norm1": ones(),
-            "mixer": _init_mixer(gen, cfg),
-            "norm2": ones(),
-            "ffn": {"wg": dense_init(gen, (d, cfg.d_ff)),
+    p = {"norm1": ones(), "mixer": _init_mixer(gen, cfg), "norm2": ones()}
+    if moe:
+        p["moe"] = moe_mod.init_moe(gen, cfg)
+    else:
+        p["ffn"] = {"wg": dense_init(gen, (d, cfg.d_ff)),
                     "wu": dense_init(gen, (d, cfg.d_ff)),
-                    "wd": dense_init(gen, (cfg.d_ff, d))}}
+                    "wd": dense_init(gen, (cfg.d_ff, d))}
+    return p
 
 
-def _layer_axes(cfg: ModelConfig) -> dict:
+def _layer_axes(cfg: ModelConfig, moe: bool) -> dict:
+    ax = {"norm1": (None,), "mixer": _mixer_axes(cfg), "norm2": (None,)}
     if cfg.mixer == "rwkv6":
-        return {"norm1": (None,), "mixer": rwkv_mod.rwkv6_axes(cfg),
-                "norm2": (None,)}
-    mixer = ({"attn": attn_mod.gqa_axes(cfg), "ssm": ssm_mod.ssm_axes(cfg),
-              "norm_a": (None,), "norm_s": (None,)}
-             if cfg.mixer == "hymba" else attn_mod.gqa_axes(cfg))
-    return {"norm1": (None,), "mixer": mixer, "norm2": (None,),
-            "ffn": {"wg": ("fsdp", "ffn"), "wu": ("fsdp", "ffn"),
-                    "wd": ("ffn", "fsdp")}}
+        pass
+    elif moe:
+        ax["moe"] = moe_mod.moe_axes(cfg)
+    else:
+        ax["ffn"] = {"wg": ("fsdp", "ffn"), "wu": ("fsdp", "ffn"),
+                     "wd": ("ffn", "fsdp")}
+    return ax
 
 
 def _stack_axes(ax: dict) -> dict:
@@ -116,29 +135,98 @@ def _stack_axes(ax: dict) -> dict:
                            is_leaf=lambda x: isinstance(x, tuple))
 
 
+class _StackDraw:
+    """Stands in for the generator while a layer initializer runs:
+    ``dense_init`` asks it for each normal draw in turn (:meth:`normal`).
+
+    The shape pass (``slots=None``) draws nothing: its tensors are on the
+    meta device, and ``draws`` keeps them in draw order, so that the
+    leaves that are a draw as it came (no arithmetic after it) can be told
+    apart.  A drawing pass fills ``slots[j]``, the layer's slice of the
+    stacked leaf that draw ``j`` is, in place from ``gen``; a draw without
+    a slot (None) is made fresh.
+    """
+
+    def __init__(self, gen: torch.Generator, slots: list | None = None):
+        self.gen = gen
+        self.slots = slots
+        self.device = gen.device if slots is not None else \
+            torch.device("meta")
+        self.draws: list[torch.Tensor] = []
+
+    def normal(self, shape: tuple) -> torch.Tensor:
+        if self.slots is None:
+            out = torch.empty(shape, dtype=torch.float32, device="meta")
+        else:
+            out = self.slots[len(self.draws)]
+            if out is None:
+                out = torch.empty(shape, dtype=torch.float32,
+                                  device=self.device)
+            out.normal_(generator=self.gen)
+        self.draws.append(out)
+        return out
+
+
+def _init_stack(gen: torch.Generator, n: int,
+                init: Callable[[Any], dict]) -> dict:
+    """``n`` layers of ``init`` stacked on a leading axis, each stacked
+    leaf allocated once and every layer drawn into its slice, from ``gen``
+    in the order ``n`` calls of ``init(gen)`` would draw them (a list of
+    layers and a ``torch.stack`` would hold two copies of the stack)."""
+    shape = _StackDraw(gen)
+    tree = init(shape)
+    leaves, treedef = compat.tree_flatten(tree)
+    stacked = [torch.empty((n,) + tuple(leaf.shape), dtype=leaf.dtype,
+                           device=gen.device) for leaf in leaves]
+    # which draw, if any, each leaf is as it came
+    drawn = {id(t): j for j, t in enumerate(shape.draws)}
+    as_drawn = {drawn[id(leaf)]: i for i, leaf in enumerate(leaves)
+                if id(leaf) in drawn}
+    for layer in range(n):
+        draw = _StackDraw(gen, [
+            stacked[as_drawn[j]][layer] if j in as_drawn else None
+            for j in range(len(shape.draws))])
+        for i, leaf in enumerate(compat.tree_leaves(init(draw))):
+            dest = stacked[i][layer]
+            if leaf.data_ptr() != dest.data_ptr():
+                dest.copy_(leaf)
+    return compat.tree_unflatten(treedef, stacked)
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Random parameters on ``gen``'s device, drawn from ``gen``."""
-    _check_supported(cfg)
+    """Random parameters on ``gen``'s device, drawn from ``gen``: the
+    embedding, the ``n_layers - n_moe_layers`` dense layers, the MoE
+    layers, then the untied LM head."""
+    check_supported(cfg)
+    n_moe = cfg.n_moe_layers
+    n_dense = cfg.n_layers - n_moe
     p: dict[str, Any] = {
         "embed": embed_init(gen, (cfg.padded_vocab_size, cfg.d_model)),
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                  device=gen.device),
     }
-    layers = [_init_layer(gen, cfg) for _ in range(cfg.n_layers)]
-    p["dense_layers"] = compat.tree_map(lambda *ls: torch.stack(ls), *layers)
-    del layers
+    if n_dense:
+        p["dense_layers"] = _init_stack(
+            gen, n_dense, lambda g: _init_layer(g, cfg, moe=False))
+    if n_moe:
+        p["moe_layers"] = _init_stack(
+            gen, n_moe, lambda g: _init_layer(g, cfg, moe=True))
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab_size))
     return p
 
 
 def param_axes(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
+    check_supported(cfg)
+    n_moe = cfg.n_moe_layers
     ax: dict[str, Any] = {
         "embed": ("vocab", "embed"),
         "final_norm": (None,),
-        "dense_layers": _stack_axes(_layer_axes(cfg)),
     }
+    if cfg.n_layers - n_moe:
+        ax["dense_layers"] = _stack_axes(_layer_axes(cfg, moe=False))
+    if n_moe:
+        ax["moe_layers"] = _stack_axes(_layer_axes(cfg, moe=True))
     if not cfg.tie_embeddings:
         ax["lm_head"] = ("fsdp", "vocab")
     return ax
@@ -171,32 +259,42 @@ def _apply_mixer(lp: dict, x: torch.Tensor, cfg: ModelConfig,
                                window=_window(cfg, opts))
         s = ssm_mod.apply_ssm(lp["ssm"], x, cfg, ko)
         return _hymba_combine(lp, a, s, cfg, ko)
+    if cfg.attn_kind == "mla":
+        return mla_mod.apply_mla(lp, x, cfg, ko, window=opts.window)
     return attn_mod.apply_gqa(lp, x, cfg, ko, window=opts.window)
 
 
-def _apply_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _apply_ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, opts: RunOptions,
+               moe: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's FFN and its MoE aux loss (None for a dense FFN)."""
     if cfg.mixer == "rwkv6":
-        return rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], x, cfg)
+        return rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], x, cfg), None
+    if moe:
+        return moe_mod.apply_moe(lp["moe"], x, cfg, opts.moe)
     f = lp["ffn"]
     cdt = x.dtype
-    return swiglu(x, f["wg"].to(cdt), f["wu"].to(cdt), f["wd"].to(cdt))
+    return swiglu(x, f["wg"].to(cdt), f["wu"].to(cdt), f["wd"].to(cdt)), None
 
 
 def _layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-               opts: RunOptions) -> torch.Tensor:
+               opts: RunOptions, moe: bool):
     ko = opts.kernels
     x = x + _apply_mixer(lp["mixer"], rms_norm(x, lp["norm1"], cfg.rms_eps,
                                                ko), cfg, opts)
-    return x + _apply_ffn(lp, rms_norm(x, lp["norm2"], cfg.rms_eps, ko),
-                          cfg)
+    f, aux = _apply_ffn(lp, rms_norm(x, lp["norm2"], cfg.rms_eps, ko), cfg,
+                        opts, moe)
+    return x + f, aux
 
 
 def _run_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
-               opts: RunOptions) -> torch.Tensor:
+               opts: RunOptions, moe: bool, aux: torch.Tensor):
+    """The stack's layers in turn; ``aux`` plus their MoE aux losses."""
     n_layers = compat.tree_leaves(stacked)[0].shape[0]
     for i in range(n_layers):
-        x = _layer_fwd(_layer(stacked, i), x, cfg, opts)
-    return x
+        x, layer_aux = _layer_fwd(_layer(stacked, i), x, cfg, opts, moe)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux
 
 
 def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
@@ -206,8 +304,9 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
     """Full-sequence forward.  Returns (logits (B,S,V) in
     ``opts.logits_dtype``, aux) — or (hidden (B,S,d), aux) with
     ``return_hidden``.  ``V`` is the padded vocab, as in the reference;
-    ``aux`` (the MoE auxiliary loss) is a float32 zero for dense models."""
-    _check_supported(cfg)
+    ``aux`` is the float32 sum of the MoE layers' auxiliary losses (zero
+    for dense models)."""
+    check_supported(cfg)
     cdt = _dtype(cfg.compute_dtype)
     if embeds is None:
         if tokens is None:
@@ -215,9 +314,12 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
         x = params["embed"][tokens.long()].to(cdt)
     else:
         x = embeds.to(cdt)
-    x = _run_stack(params["dense_layers"], x, cfg, opts)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps, opts.kernels)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "dense_layers" in params:
+        x, aux = _run_stack(params["dense_layers"], x, cfg, opts, False, aux)
+    if "moe_layers" in params:
+        x, aux = _run_stack(params["moe_layers"], x, cfg, opts, True, aux)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, opts.kernels)
     if return_hidden:
         return x, aux
     logits = x @ lm_head_weight(params, cfg)
@@ -255,17 +357,19 @@ def _cache_fns(cfg: ModelConfig):
         return rwkv_mod.init_rwkv6_cache, rwkv_mod.rwkv6_cache_axes
     if cfg.mixer == "hymba":
         return _init_hymba_cache, _hymba_cache_axes
+    if cfg.attn_kind == "mla":
+        return mla_mod.init_mla_cache, mla_mod.mla_cache_axes
     return attn_mod.init_gqa_cache, attn_mod.gqa_cache_axes
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                opts: RunOptions | None = None,
                device: torch.device | str | None = None) -> dict:
-    """Per-layer caches (KV rings, RWKV6 row state, or Hymba's window
-    ring and SSM state) stacked on a
+    """Per-layer caches (KV rings, MLA's latent rings, RWKV6 row state, or
+    Hymba's window ring and SSM state) stacked on a
     leading ``L`` axis, on ``device`` (default ``cuda``, see
     :func:`repro_torch.compat.resolve_device`)."""
-    _check_supported(cfg)
+    check_supported(cfg)
     opts = opts or RunOptions()
     init, _ = _cache_fns(cfg)
     one = init(cfg, batch, max_len, window=opts.window,
@@ -276,13 +380,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
+    check_supported(cfg)
     _, axes = _cache_fns(cfg)
     return _stack_axes(axes(cfg))
 
 
 def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
-                  cfg: ModelConfig, opts: RunOptions):
+                  cfg: ModelConfig, opts: RunOptions, moe: bool):
     ko = opts.kernels
     xin = rms_norm(x, lp["norm1"], cfg.rms_eps, ko)
     if cfg.mixer == "rwkv6":
@@ -293,6 +397,9 @@ def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
                                     ko, window=_window(cfg, opts))
         hs, _ = ssm_mod.decode_ssm(mp["ssm"], lc["ssm"], xin, pos, cfg, ko)
         h = _hymba_combine(mp, ha, hs, cfg, ko)
+    elif cfg.attn_kind == "mla":
+        h, lc = mla_mod.decode_mla(lp["mixer"], lc, xin, pos, cfg, ko,
+                                   window=opts.window)
     else:
         h, lc = attn_mod.decode_gqa(lp["mixer"], lc, xin, pos, cfg, ko,
                                     window=opts.window)
@@ -303,6 +410,8 @@ def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
         f = rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], xin2, cfg,
                                              x_prev=x_prev)
         lc["x_cm"].copy_(xin2[:, 0])
+    elif moe:
+        f, _ = moe_mod.apply_moe(lp["moe"], xin2, cfg, opts.moe)
     else:
         ff = lp["ffn"]
         f = swiglu(xin2, ff["wg"].to(xin2.dtype), ff["wu"].to(xin2.dtype),
@@ -320,14 +429,18 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: ModelConfig,
                 opts: RunOptions) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens (B,) int, pos scalar or (B,) ->
-    (logits (B,V), cache).  ``cache`` is updated in place and returned."""
-    _check_supported(cfg)
+    (logits (B,V), cache).  ``cache`` is updated in place and returned;
+    its first ``n_layers - n_moe_layers`` layers go with ``dense_layers``,
+    the rest with ``moe_layers``."""
+    check_supported(cfg)
     cdt = _dtype(cfg.compute_dtype)
     x = params["embed"][tokens.long()].to(cdt)[:, None]     # (B,1,d)
-    stacked = params["dense_layers"]
+    n_dense = cfg.n_layers - cfg.n_moe_layers
     for i in range(cfg.n_layers):
-        x, _ = _layer_decode(_layer(stacked, i), _layer(cache, i), x, pos,
-                             cfg, opts)
+        moe = i >= n_dense
+        lp = _layer(params["moe_layers"], i - n_dense) if moe else \
+            _layer(params["dense_layers"], i)
+        x, _ = _layer_decode(lp, _layer(cache, i), x, pos, cfg, opts, moe)
     xf = rms_norm(x, params["final_norm"], cfg.rms_eps, opts.kernels)
     head = lm_head_weight(params, cfg)
     logits = (xf[:, 0] @ head).to(torch.float32)

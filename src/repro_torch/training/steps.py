@@ -40,6 +40,7 @@ from repro_torch.kernels.rmsnorm.kernel import BLOCK_ROWS, DEFAULT_BLOCK_ROWS
 from repro_torch.models import transformer as model
 from repro_torch.models.common import KernelOptions
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoEOptions
 from repro_torch.models.transformer import RunOptions
 
 __all__ = ["SHARDING_PROFILES", "make_prefill_builder", "make_decode_builder",
@@ -67,19 +68,17 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
     candidates are not the reference's); ``chunk_len`` (rwkv6/hymba) the
     linear attention's chunk, in the reference's (16, 32, 64), which the
     kernel instantiates as they are; ``swa_impl`` is declared for a
-    sliding-window model or ``window`` override only.  ``logits_dtype``
-    sets the full-sequence forward's logits (decode logits are always
-    fp32, as in the reference).  The training points (``remat``,
-    gradient-safe implementations) arrive with the train builder (ROADMAP
-    M8).
+    sliding-window model or ``window`` override only.  A MoE model
+    declares the reference's dispatch points with its labels, candidates
+    and defaults: ``moe_impl`` (einsum, gather, shard — ``shard`` runs
+    ``gather`` until the port has a mesh, ROADMAP M12),
+    ``capacity_factor``, ``moe_group`` and ``moe_ranking``.
+    ``logits_dtype`` sets the full-sequence forward's logits (decode logits
+    are always fp32, as in the reference).  The training points
+    (``remat``, gradient-safe implementations) arrive with the train
+    builder (ROADMAP M8).
     """
-    if cfg.mixer not in ("attn", "rwkv6", "hymba") or (
-            cfg.mixer != "rwkv6" and cfg.attn_kind != "gqa"):
-        raise NotImplementedError(
-            f"mixer {cfg.mixer!r}/{cfg.attn_kind!r} is not ported yet "
-            f"(ROADMAP M7)")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP M7)")
+    model.check_supported(cfg)
     uses_attention = cfg.mixer in ("attn", "hymba")
     uses_linear_attention = cfg.mixer in ("rwkv6", "hymba")
     ko = KernelOptions(
@@ -105,8 +104,20 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
                             guarded=False)
                   if (cfg.window or window) else "full"),
     )
+    moe = MoEOptions()
+    if cfg.is_moe:
+        moe = MoEOptions(
+            impl=spec.enum("moe_impl", "einsum",
+                           ("einsum", "gather", "shard"), guarded=False),
+            capacity_factor=spec.enum("capacity_factor", 1.25,
+                                      (1.0, 1.25, 1.5, 2.0), guarded=False),
+            group_size=spec.enum("moe_group", 0, (0, 1024, 4096),
+                                 guarded=False),
+            ranking=spec.enum("moe_ranking", "cumsum", ("cumsum", "sort"),
+                              guarded=False),
+        )
     return RunOptions(
-        kernels=ko, window=window,
+        kernels=ko, moe=moe, window=window,
         logits_dtype=spec.enum("logits_dtype", "float32",
                                ("float32", "bfloat16"), guarded=False))
 

@@ -1,17 +1,25 @@
-"""The dense, stub-frontend and hybrid families of the port against the JAX
-reference, at each family's reduced config in fp32, from the same
+"""The dense, stub-frontend, hybrid and MoE families of the port against the
+JAX reference, at each family's reduced config in fp32, from the same
 parameters: deepseek-7b (MHA), yi-6b and minitron-4b (GQA), internvl2-2b
 (vision stub) and musicgen-medium (audio stub), which take precomputed
-``embeds``, and hymba-1.5b (sliding-window attention beside SSM heads).
+``embeds``, hymba-1.5b (sliding-window attention beside SSM heads), and
+the MoE models deepseek-v2-236b (MLA) and kimi-k2-1t-a32b (GQA), each a
+dense first layer then MoE layers.
 
 For each: the configs field for field, ``param_count``, the parameter and
 cache layouts, the full-sequence logits (tokens, and ``embeds`` for the two
 frontends), a chain of decode steps, a chunked prefill with ragged rows
 and an idle one, the prefill handler through each package's
-``IridescentRuntime``, and the builders' spec labels.  Then greedy serving
-through each package's ``build_engine`` for reduced yi-6b and hymba-1.5b
-(at ``--max-len 16``, its window).  These are the port's counterparts of
-the dense, vlm, audio and hymba cases of tests/test_models.py.
+``IridescentRuntime``, and the builders' spec labels (a MoE model's
+dispatch points with their candidates and defaults).  Then greedy serving
+through each package's ``build_engine`` for reduced yi-6b, hymba-1.5b (at
+``--max-len 16``, its window) and deepseek-v2-236b.  These are the port's
+counterparts of the dense, vlm, audio, hymba and moe cases of
+tests/test_models.py; the forward, decode and chunked prefill run at
+capacity factor 4.0 as those do (tests/test_models.py:14-17: a decode
+step routes other tokens than the forward, so parity between the two
+holds only where capacity does not bind), the handlers at the builders'
+default 1.25, where both packages drop the same slots.
 
 Tolerance 1e-4 in fp32, as tests/test_torch_model.py: the two frameworks
 sum the matrix products, the softmax and the chunk states in different
@@ -36,6 +44,7 @@ from repro.core import IridescentRuntime as RefRuntime  # noqa: E402
 from repro.core.specializer import discover_space as ref_discover  # noqa: E402
 from repro.launch import serve as ref_serve  # noqa: E402
 from repro.models import KernelOptions as RefKernelOptions  # noqa: E402
+from repro.models import MoEOptions as RefMoEOptions  # noqa: E402
 from repro.models import transformer as ref_model  # noqa: E402
 from repro.serve import OpenLoopSource as RefSource  # noqa: E402
 from repro.serve import Request as RefRequest  # noqa: E402
@@ -47,6 +56,7 @@ from repro_torch.core.specializer import discover_space  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import KernelOptions, params_from_numpy  # noqa: E402
 from repro_torch.models import transformer as model  # noqa: E402
+from repro_torch.models.moe import MoEOptions  # noqa: E402
 from repro_torch.serve import OpenLoopSource, Request  # noqa: E402
 from repro_torch.training import steps  # noqa: E402
 
@@ -58,7 +68,14 @@ MAX_LEN = 16
 CHUNK_LEN = 16
 
 ARCHS = ("deepseek-7b", "yi-6b", "minitron-4b", "internvl2-2b",
-         "musicgen-medium", "hymba-1.5b")
+         "musicgen-medium", "hymba-1.5b", "deepseek-v2-236b",
+         "kimi-k2-1t-a32b")
+MOE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
+#: the reference's MoE dispatch points: label -> (default, candidates)
+MOE_POINTS = {"moe_impl": ("einsum", ("einsum", "gather", "shard")),
+              "capacity_factor": (1.25, (1.0, 1.25, 1.5, 2.0)),
+              "moe_group": (0, (0, 1024, 4096)),
+              "moe_ranking": ("cumsum", ("cumsum", "sort"))}
 FRONTENDS = ("internvl2-2b", "musicgen-medium")
 
 
@@ -74,10 +91,10 @@ def setup(request):
     embeds = rs.randn(B, S, cfg.d_model).astype(np.float32)
     ref_opts = ref_model.RunOptions(
         kernels=RefKernelOptions(impl="xla", chunk_len=CHUNK_LEN),
-        decode_cache_dtype="float32")
+        moe=RefMoEOptions(capacity_factor=4.0), decode_cache_dtype="float32")
     opts = model.RunOptions(
         kernels=KernelOptions(impl="torch_ref", chunk_len=CHUNK_LEN),
-        decode_cache_dtype="float32")
+        moe=MoEOptions(capacity_factor=4.0), decode_cache_dtype="float32")
     return dict(arch=arch, ref_cfg=ref_cfg, cfg=cfg, ref_params=ref_params,
                 params=params_from_numpy(np_params, "cpu"), tokens=tokens,
                 embeds=embeds, ref_opts=ref_opts, opts=opts)
@@ -121,14 +138,16 @@ def test_param_count_matches_reference(arch):
     cfg, ref_cfg = configs.get_config(arch), ref_configs.get_config(arch)
     assert cfg.param_count() == ref_cfg.param_count()
     assert cfg.active_param_count() == ref_cfg.active_param_count()
-    # the analytic count is the port's tree less the vocab padding and the
-    # final norm (which the count leaves out, as the reference's does)
+    # the analytic count is the port's tree less the vocab padding, the
+    # final norm and MLA's two latent norms (which the count leaves out,
+    # as the reference's does)
     small = configs.get_reduced(arch)
     fresh = model.init_params(torch.Generator().manual_seed(0), small)
     pad = (small.padded_vocab_size - small.vocab_size) * small.d_model * (
         1 if small.tie_embeddings else 2)
+    latent_norms = small.n_layers * (small.q_lora_rank + small.kv_lora_rank)
     assert sum(a.numel() for a in compat.tree_leaves(fresh)) == \
-        small.param_count() + pad + small.d_model
+        small.param_count() + pad + small.d_model + latent_norms
 
 
 # -- layouts --------------------------------------------------------------------
@@ -166,12 +185,14 @@ def test_apply_matches_reference(setup, mode):
     else:
         kw = {"tokens": torch.from_numpy(s["tokens"])}
         ref_kw = {"tokens": jnp.asarray(s["tokens"])}
-    ref_out, _ = ref_model.apply(s["ref_params"], s["ref_cfg"],
-                                 s["ref_opts"], **ref_kw)
+    ref_out, ref_aux = ref_model.apply(s["ref_params"], s["ref_cfg"],
+                                       s["ref_opts"], **ref_kw)
     out, aux = model.apply(s["params"], s["cfg"], s["opts"], **kw)
     assert tuple(out.shape) == (B, S, s["cfg"].padded_vocab_size)
-    assert out.dtype == torch.float32 and float(aux) == 0.0
+    assert out.dtype == torch.float32 and aux.dtype == torch.float32
+    assert (float(aux) > 0.0) == s["cfg"].is_moe     # the MoE layers' aux
     _close(out, ref_out)
+    _close(aux, ref_aux)
 
 
 def test_prefill_handler_matches_reference(setup):
@@ -213,6 +234,11 @@ def test_builders_declare_the_reference_labels(setup, name):
     if setup["cfg"].mixer == "hymba":
         assert {"attention_impl", "linear_attention_impl", "chunk_len",
                 "swa_impl"} <= set(space.labels())
+    if setup["cfg"].is_moe:
+        for label, (default, candidates) in MOE_POINTS.items():
+            for sp in (space, ref_space):
+                assert sp[label].default == default
+                assert tuple(sp[label].candidates()) == candidates
 
 
 # -- decode ---------------------------------------------------------------------
@@ -338,7 +364,7 @@ def _serve(built, controller_cls, sweep_cls, source_cls, request_cls,
     return {r.rid: list(r.payload) for r in reqs}
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "hymba-1.5b", "deepseek-v2-236b"])
 def test_served_tokens_match_reference(arch):
     """Both engines serve the same requests from the same weights with
     every context pinned (fp32 cache, plain rmsnorm; chunk 16 for hymba):
@@ -389,7 +415,8 @@ def test_synthetic_workload_fits_the_cache(max_len):
 
 
 @pytest.mark.parametrize("arch,max_len", [("hymba-1.5b", "16"),
-                                          ("musicgen-medium", "256")])
+                                          ("musicgen-medium", "256"),
+                                          ("deepseek-v2-236b", "256")])
 def test_cli_serves_the_family(capsys, arch, max_len):
     serve.main(["--device", "cpu", "--arch", arch, "--max-len", max_len,
                 "--steps", "80", "--requests", "4", "--dwell", "3",

@@ -144,10 +144,53 @@ def test_prefill_chunk(setup):
 
 
 def test_unported_families_raise():
+    """Every one of the reference's ten architectures resolves in the port
+    (MLA and MoE included); an unknown arch id still raises ``KeyError``
+    and an unknown mixer ``NotImplementedError``."""
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    for arch in ref_configs.ARCH_IDS:
+        assert dataclasses.asdict(configs.get_config(arch)) == \
+            dataclasses.asdict(ref_configs.get_config(arch))
+        assert model.cache_axes(configs.get_reduced(arch)) == \
+            ref_model.cache_axes(ref_configs.get_reduced(arch))
+    with pytest.raises(KeyError, match="unknown arch 'gpt-5'"):
+        configs.get_config("gpt-5")
     cfg = configs.get_reduced("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="M7"):
-        model.cache_axes(cfg.replace(attn_kind="mla"))
-    with pytest.raises(NotImplementedError, match="M7"):
-        model.cache_axes(cfg.replace(n_experts=4, top_k=2, moe_d_ff=32))
-    with pytest.raises(KeyError, match="M7"):
-        configs.get_config("kimi-k2-1t-a32b")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        model.cache_axes(cfg.replace(mixer="mamba"))
+    with pytest.raises(NotImplementedError, match="sparse"):
+        model.param_axes(cfg.replace(attn_kind="sparse"))
+
+
+def _stacked_draws(gen, cfg):
+    """The parameters as ``init_params`` drew them before it drew each
+    layer into stacks allocated once: every layer of a stack drawn whole,
+    then ``torch.stack``-ed (two copies of the stack at the peak)."""
+    from repro_torch.models.common import dense_init, embed_init
+
+    p = {"embed": embed_init(gen, (cfg.padded_vocab_size, cfg.d_model)),
+         "final_norm": torch.ones((cfg.d_model,))}
+    n_dense = cfg.n_layers - cfg.n_moe_layers
+    for name, n, moe in (("dense_layers", n_dense, False),
+                         ("moe_layers", cfg.n_moe_layers, True)):
+        if n:
+            layers = [model._init_layer(gen, cfg, moe) for _ in range(n)]
+            p[name] = compat.tree_map(lambda *ls: torch.stack(ls), *layers)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab_size))
+    return p
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_init_params_equals_the_stacked_draws(arch):
+    """Drawing each layer into its slice of the stacks keeps the draw
+    order: the same seed gives the same weights as the stacked draws, leaf
+    for leaf (so the families ported before keep their weights)."""
+    cfg = configs.get_reduced(arch)
+    got = model.init_params(torch.Generator().manual_seed(5), cfg)
+    want = _stacked_draws(torch.Generator().manual_seed(5), cfg)
+    leaves, want_leaves = compat.tree_flatten(got), compat.tree_flatten(want)
+    assert leaves[1] == want_leaves[1]                   # the same tree
+    for leaf, want_leaf in zip(leaves[0], want_leaves[0]):
+        assert leaf.is_contiguous()
+        assert torch.equal(leaf, want_leaf)

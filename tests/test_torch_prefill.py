@@ -198,15 +198,24 @@ def test_builders_declare_the_reference_labels(setup, name, window):
 
 
 def test_builders_refuse_unported_mixers(setup):
-    with pytest.raises(NotImplementedError, match="M7"):
+    """The prefill builder takes MLA and MoE now: its space for reduced
+    deepseek-v2 and kimi-k2 is the reference's, label for label with the
+    same candidates and defaults.  A mixer the port does not have is still
+    refused."""
+    for arch in ("deepseek-v2-236b", "kimi-k2-1t-a32b"):
+        ref_space = ref_discover(ref_steps.make_prefill_builder(
+            ref_configs.get_reduced(arch), kernel_impl="xla"))
+        space = discover_space(steps.make_prefill_builder(
+            configs.get_reduced(arch)))
+        assert space.labels() == ref_space.labels()
+        for label in ("moe_impl", "capacity_factor", "moe_group",
+                      "moe_ranking", "logits_dtype", "sharding_profile"):
+            assert space[label].default == ref_space[label].default
+            assert tuple(space[label].candidates()) == \
+                tuple(ref_space[label].candidates())
+    with pytest.raises(NotImplementedError, match="mamba"):
         discover_space(steps.make_prefill_builder(
-            setup["cfg"].replace(attn_kind="mla")))
-    with pytest.raises(NotImplementedError, match="M7"):
-        model.apply(setup["params"], setup["cfg"].replace(n_experts=4,
-                                                          top_k=2,
-                                                          moe_d_ff=32),
-                    model.RunOptions(),
-                    tokens=torch.from_numpy(setup["tokens"]))
+            setup["cfg"].replace(mixer="mamba")))
 
 
 def test_cpu_tensors_never_launch_the_kernel(setup):

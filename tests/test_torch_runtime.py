@@ -2,6 +2,7 @@
 its configuration names, a failed build surfaces at the next call, and a
 persistent variant cache carries variants across runtimes."""
 import dataclasses
+import sys
 
 import pytest
 
@@ -61,6 +62,29 @@ def test_failed_build_raises_at_next_call(runtime):
     with pytest.raises(RuntimeError, match="variant build") as info:
         h(x)
     assert "library failed to build" in str(info.value.__cause__)
+
+
+def test_failed_build_is_parked_before_the_waiter_returns():
+    """The worker wakes a ``wait=True`` caller before it runs the build's
+    done-callbacks, so the failure is parked on the waiter's side too:
+    the next call raises it however the threads interleave (100 rounds
+    with a 1 us switch interval; the callback alone missed ~1 in 150)."""
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(100):
+            rt = IridescentRuntime(max_compile_workers=1)
+            try:
+                h = rt.register("h", _builder)
+                h(torch.ones(3))
+                with pytest.raises(RuntimeError, match="failed to build"):
+                    h.specialize({"impl": "broken"}, wait=True)
+                with pytest.raises(RuntimeError, match="variant build"):
+                    h(torch.ones(3))
+            finally:
+                rt.shutdown()
+    finally:
+        sys.setswitchinterval(interval)
 
 
 def test_arg_specs_record_shape_dtype_device(runtime):
