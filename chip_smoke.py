@@ -218,12 +218,36 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    and 4 served requests, each held to its plain run.  Each prints its
    peak device memory.
 
+21. Training at full width: (a) qwen3-0.6b (28 layers, d=1024, 596 M
+   parameters; random weights from seed 0) in fp32 through
+   ``make_train_builder`` on an ``IridescentRuntime``, ``SyntheticLM``
+   batches of (8, 512) on the card, a Controller whose CoordinateDescent
+   sweeps the CLI's labels (``remat``, ``microbatch``, ``logits_dtype``,
+   ``rmsnorm_impl``) at dwell 3 until it settles (30-60 steps): step ms
+   by CUDA events, tok/s and TFLOP/s per candidate, peak memory per
+   ``remat``, the loss by step (the last 10 steps' mean must fall below
+   the first), the Controller's rate for the chosen config within 10 % of
+   the event-timed step; (b) one profiled step: device busy share and
+   device ms by class (GEMM, the plain attention's ops forward and
+   backward, softmax/elementwise, the optimizer); (c) one step of reduced
+   qwen3 on the card against the CPU's: loss within 1e-5 relative, every
+   gradient leaf within 1e-4 of its max; (d) a full-width restart: save at
+   step k, 2 steps, restore, replay, the losses within 1e-5; then
+   ``python -m repro_torch.launch.train --size 100m --explore --dwell 3
+   --ckpt DIR`` for 40 steps and again for 60, which must resume at step
+   40 with a restored tuned config.
+22. MoE dispatch exploration: ``examples/moe_exploration_torch.py`` on the
+   card (reduced kimi-k2, 16 experts, top 4; an ExhaustiveSweep over
+   ``moe_impl`` x ``moe_ranking``), the selected dispatch.
+
 In phases 5, 7, 9, 10, 12, 13, 15, 17, 18, 19 and 20 (the main paths)
 the launch
 counters and the registry's fallback counts are zeroed just before and
 read just after; every kernel of the path must have launched and none
 may have fallen back (phases 14 and 16 count K1's launches in their own
-processes).  The line
+processes).  In phases 21 and 22 (training) the same counts are zeroed
+and must stay 0: a train step declares the gradient-safe entries, and no
+kernel has a backward.  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -503,6 +527,30 @@ MOE_SERVE_MAX_LEN = 256
 #: of 384 experts is 67.6 GB in fp32): a prefill of this shape, then served
 KIMI_ARCH = "kimi-k2-1t-a32b"
 KIMI_PREFILL = (1, 256)
+
+#: phases 21-22 (training): qwen3-0.6b at full width on SyntheticLM
+#: batches of (B, S); the optimizer of the run; the Controller's dwell and
+#: the steps it may take (at least TRAIN_MIN_STEPS, so the loss has
+#: steps to fall over)
+TRAIN_BATCH = (8, 512)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=200)
+TRAIN_DWELL = 3
+TRAIN_STEP_CAP = 60
+TRAIN_MIN_STEPS = 30
+#: the Controller's rate for the chosen config against the event-timed
+#: step (its window also holds the host's work between steps)
+TRAIN_RATE_TOL = 0.10
+#: the card's step against the host's: fp32 products summed in other
+#: orders, the embedding gather's backward accumulating with atomics
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: the reduced configs held card against host: a GQA stack, and MLA
+#: (whose attention falls through to the step-wide implementation)
+TRAIN_PARITY_ARCHS = ("qwen3-0.6b", "deepseek-v2-236b")
+#: the CLI twice on one --ckpt (40 then 60 steps); dwell 3 lets its
+#: Controller settle, and save the tuned config, within the 40
+TRAIN_CLI_ARGS = ["--size", "100m", "--explore", "--dwell", "3"]
+TRAIN_CLI_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -4137,6 +4185,449 @@ def phase_moe_serve(cfg, params) -> dict:
     return {"serve": served, "decode": decode}
 
 
+# -- training (phases 21-22) -------------------------------------------------------
+
+TRAIN_KERNELS = ("rmsnorm", "attention", "linear_attention", "matmul",
+                 "fastpath")
+
+
+def _kernel_modules() -> dict:
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.fastpath import kernel as fp_kernel
+    from repro_torch.kernels.linear_attention import kernel as la_kernel
+    from repro_torch.kernels.matmul import kernel as mm_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+
+    return dict(zip(TRAIN_KERNELS, (rms_kernel, attn_kernel, la_kernel,
+                                    mm_kernel, fp_kernel)))
+
+
+class _NoKernelUnderTraining:
+    """Zeroes every kernel's launch count on entry and snapshots the
+    registry's fallback counts; ``check()`` fails if a kernel launched or
+    a fallback was counted since (a train step declares the gradient-safe
+    entries, so neither may happen) and returns the launch counts."""
+
+    def __enter__(self):
+        from repro_torch.kernels import registry
+
+        self.mods = _kernel_modules()
+        for mod in self.mods.values():
+            mod.reset_launches()
+        self.fallbacks = dict(registry.default_registry.fallback_counts)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def check(self, what: str) -> dict:
+        from repro_torch.kernels import registry
+
+        launches = {name: mod.launches for name, mod in self.mods.items()}
+        if any(launches.values()):
+            fail(f"{what}: a kernel launched under training: {launches}")
+        after = dict(registry.default_registry.fallback_counts)
+        if after != self.fallbacks:
+            fail(f"{what}: the registry counted fallbacks: "
+                 f"{self.fallbacks} -> {after}")
+        return launches
+
+
+def _train_cost(cfg, b: int, s: int) -> float:
+    """TFLOP of one train step (forward and backward, 3x the forward's
+    products): the parameters' products at 2 flops a weight a token (the
+    tied LM head included), and the plain attention's full causal score
+    and value products."""
+    n_layer = (cfg.d_model * cfg.n_heads * cfg.d_head * 2
+               + cfg.d_model * cfg.n_kv_heads * cfg.d_head * 2
+               + 3 * cfg.d_model * cfg.d_ff)
+    params = cfg.n_layers * n_layer + cfg.d_model * cfg.padded_vocab_size
+    attn = cfg.n_layers * 2 * 2 * b * cfg.n_heads * s * s * cfg.d_head
+    return 3 * (2 * params * b * s + attn) / 1e12
+
+
+def _train_profile(prof, wall: float) -> dict:
+    """Device ms of one profiled train step by class: GEMM (cuBLAS's
+    symbols, outside the attention), the plain attention's ops (the
+    kernels under the ranges ``attention`` opens for every mixer's call,
+    ``PROFILE_RANGE``, and the backward nodes those ranges created,
+    linked by autograd sequence number), the
+    optimizer (under ``smoke::optimizer``) and the rest
+    (softmax/elementwise); and the busy share of the step's wall.  Fails
+    if no attention was seen: the step runs attention in every layer."""
+    import torch
+
+    from repro_torch.kernels.attention.ops import PROFILE_RANGE
+
+    cuda = torch.autograd.DeviceType.CUDA
+    # the named ranges also appear on the device's timeline (user
+    # annotations spanning their kernels): not device work of their own
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == cuda and not e.key.startswith("smoke::")
+                  and e.key != PROFILE_RANGE)
+    events = [e for e in prof.events() if e.device_type != cuda]
+
+    def walk(e):
+        yield e
+        for c in e.cpu_children:
+            yield from walk(c)
+
+    att_seq = {d.sequence_nr for e in events if e.name == PROFILE_RANGE
+               for d in walk(e) if d.sequence_nr >= 0}
+
+    def label(e, kernel: str) -> str:
+        node = e
+        while node is not None:
+            if node.name == "smoke::optimizer":
+                return "optimizer"
+            if node.name == PROFILE_RANGE or (
+                    node.name.startswith("autograd::engine::evaluate_function")
+                    and node.sequence_nr in att_seq):
+                return "attention (plain ops)"
+            node = node.cpu_parent
+        if re.search(r"gemm|xmma|cutlass|cublas", kernel, re.IGNORECASE):
+            return "GEMM"
+        return "softmax/elementwise"
+
+    ms, count = collections.Counter(), collections.Counter()
+    rest = collections.Counter()        # the softmax/elementwise class
+    for e in events:
+        for k in e.kernels:
+            cls = label(e, k.name)
+            ms[cls] += k.duration / 1e3
+            count[cls] += 1
+            if cls == "softmax/elementwise":
+                rest[f"{e.name} / {k.name[:60]}"] += k.duration / 1e3
+    linked = sum(ms.values())
+    if not ms["attention (plain ops)"] or not att_seq:
+        fail(f"train profile: no attention kernels or backward nodes under "
+             f"{PROFILE_RANGE}: {dict(ms)}")
+    log(f"train profile: one step, wall {1e3 * wall:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of "
+        f"wall), {linked:.1f} ms linked to the ops that launched them; by "
+        f"class: " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * v / max(linked, 1e-9):.1f}%) "
+            f"x{count[k]}" for k, v in ms.most_common()))
+    for name, v in rest.most_common(6):
+        log(f"  softmax/elementwise: {v:7.1f} ms  {name}")
+    return {"wall_ms": 1e3 * wall, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e6 / wall, "linked_ms": linked,
+            "ms_by_class": dict(ms), "launches_by_class": dict(count),
+            "attention_backward_nodes": len(att_seq)}
+
+
+def _profiled_train_step(handler, state, batch):
+    """One train step under the profiler (CPU ops and CUDA kernels), the
+    optimizer inside a named range (the attention opens its own); returns
+    the new state and the classified profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.training import steps as steps_mod
+
+    apply_updates = steps_mod.apply_updates
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    steps_mod.apply_updates = ranged("smoke::optimizer", apply_updates)
+    try:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, metrics = handler(state, batch)
+                float(metrics["loss"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if any(e.device_type == torch.autograd.DeviceType.CUDA
+                   for e in prof.key_averages()):
+                return state, _train_profile(prof, wall)
+    finally:
+        steps_mod.apply_updates = apply_updates
+    fail("the profiler saw no device activity in 3 train steps")
+
+
+def _train_key(config: dict, space) -> str:
+    """The explored labels' values of ``config``, each point's default
+    where the config leaves it out (the generic variant's): one key per
+    train candidate."""
+    from repro_torch.launch.train import EXPLORE_LABELS
+
+    return json.dumps({label: _setting(config, label,
+                                       space.points[label].default)
+                       for label in EXPLORE_LABELS})
+
+
+def phase_train(cfg) -> dict:
+    """Phase 21a-b: full-width qwen3-0.6b training through the entry
+    points: ``make_train_builder`` on an ``IridescentRuntime``,
+    ``SyntheticLM`` batches of TRAIN_BATCH on the card, a Controller whose
+    CoordinateDescent sweeps the CLI's labels (``remat``, ``microbatch``,
+    ``logits_dtype``, ``rmsnorm_impl``) at dwell TRAIN_DWELL until it
+    settles (at most TRAIN_STEP_CAP steps), each step timed by CUDA events
+    and its peak memory read; then one profiled step.  No kernel may
+    launch and no fallback may be counted.  Returns the state for the
+    restart (21d)."""
+    import torch
+
+    from repro_torch.core import (DEFAULT_CONTEXT, Controller,
+                                  CoordinateDescent, IridescentRuntime)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import EXPLORE_LABELS
+    from repro_torch.models import transformer as model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.training import make_train_builder
+
+    dev = torch.device("cuda")
+    b, s = TRAIN_BATCH
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    del params
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"train: qwen3-0.6b at full width, {cfg.param_count() / 1e6:.1f} M "
+        f"params; params, m and v hold {held:.2f} GB; batch ({b}, {s})")
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg))
+    space = handler.spec_space()
+    controller = Controller(
+        handler, lambda: CoordinateDescent(space, labels=EXPLORE_LABELS,
+                                           max_passes=1),
+        dwell=TRAIN_DWELL, wait_compiles=True, prefetch=0)
+    it = iter(SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
+                          device=dev))
+    step_ms, peaks, losses, by_step = (collections.defaultdict(list), {},
+                                       [], [])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with _NoKernelUnderTraining() as guard:
+        for step in range(1, TRAIN_STEP_CAP + 1):
+            batch = next(it)
+            key = _train_key(handler.active_config(), space)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start.record()
+            state, metrics = handler(state, batch)
+            end.record()
+            losses.append(float(metrics["loss"]))   # waits for the card
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            remat = json.loads(key).get("remat", "none")
+            peaks[remat] = max(peaks.get(remat, 0.0),
+                               torch.cuda.max_memory_allocated() / 1e9)
+            step_ms[key].append(ms)
+            by_step.append((key, ms))
+            controller.step()
+            if controller.settled() and step >= TRAIN_MIN_STEPS:
+                break
+        else:
+            fail(f"the train Controller did not settle in {TRAIN_STEP_CAP} "
+                 f"steps")
+        wall = time.perf_counter() - t0
+        state, profile = _profiled_train_step(handler, state, next(it))
+        launches = guard.check("train sweep")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: non-finite loss: {losses}")
+    last = statistics.fmean(losses[-10:])
+    log(f"train: {step} steps in {wall:.1f} s; loss by step: "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not last < losses[0]:
+        fail(f"train: the last 10 steps' mean loss {last:.4f} is not below "
+             f"the first {losses[0]:.4f}")
+    best = controller.best_configs()[DEFAULT_CONTEXT]
+    chosen = json.loads(_config_str(best))
+    chosen_key = _train_key(best, space)
+    tflop = _train_cost(cfg, b, s)
+    candidates = {}
+    for key, times in step_ms.items():
+        med = statistics.median(times)
+        candidates[key] = {"steps": len(times), "step_ms": med,
+                           "tok_s": b * s / med * 1e3,
+                           "tflop_s": tflop / med * 1e3}
+        log(f"train candidate {key}: {len(times)} steps, median "
+            f"{med:.1f} ms/step (CUDA events), {b * s / med * 1e3:.1f} "
+            f"tok/s, {tflop / med * 1e3:.1f} TFLOP/s")
+    for phase_, config, rate in controller.histories()[DEFAULT_CONTEXT]:
+        log(f"train sweep: {phase_.value} {_config_str(config)} -> "
+            f"{rate:.3f} steps/s ({1e3 / rate:.1f} ms/step)")
+    rate = controller.best(DEFAULT_CONTEXT)[1]
+    event_ms = candidates[chosen_key]["step_ms"]
+    gap = abs(1e3 / rate - event_ms) / event_ms
+    log(f"train: settled on {chosen_key}: the Controller's rate "
+        f"{rate:.3f} steps/s = {1e3 / rate:.1f} ms/step against "
+        f"{event_ms:.1f} ms by CUDA events ({100 * gap:.1f}% apart)")
+    if gap > TRAIN_RATE_TOL:
+        fail(f"train: the Controller's rate is {100 * gap:.1f}% from the "
+             f"event-timed step (limit {100 * TRAIN_RATE_TOL:.0f}%)")
+    log("train: peak memory by remat: " + ", ".join(
+        f"{k} {v:.2f} GB" for k, v in peaks.items()))
+    log(f"train: {tflop:.2f} TFLOP a step; kernel launches under training "
+        f"{launches}, no fallback")
+    rt.shutdown()
+    return {"state": state, "handler_config": chosen, "steps": step,
+            "losses": losses, "first_loss": losses[0],
+            "last10_mean_loss": last, "candidates": candidates,
+            "chosen": chosen_key, "controller_ms": 1e3 / rate,
+            "event_ms": event_ms, "rate_gap": gap, "peak_gb": peaks,
+            "weights_gb": held, "tflop": tflop, "profile": profile,
+            "launches": launches}
+
+
+def _reduced_step_parity() -> dict:
+    """Phase 21c: one train step of reduced qwen3 and of reduced
+    deepseek-v2 (MLA: its attention has no point of its own and takes the
+    step-wide implementation) on the card against the same step of the
+    port on the CPU, both under the options the train builder declares:
+    the loss within TRAIN_LOSS_RTOL relative, every gradient leaf within
+    TRAIN_GRAD_TOL of its max, and no kernel launched on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch import compat, configs
+    from repro_torch.core.specializer import SpecCtx
+    from repro_torch.models import transformer as model
+    from repro_torch.training import cross_entropy
+    from repro_torch.training.steps import (_value_and_grad,
+                                            run_options_from_spec)
+
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = configs.get_reduced(arch).replace(compute_dtype="float32")
+        params = model.init_params(torch.Generator().manual_seed(0), cfg)
+        rs = np.random.RandomState(7)
+        toks = torch.from_numpy(
+            rs.randint(0, cfg.vocab_size, (4, 65)).astype(np.int32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        opts = run_options_from_spec(SpecCtx(config={}), cfg,
+                                     differentiable=True)
+
+        def loss(p, bt, cfg=cfg, opts=opts):
+            lg, aux = model.apply(p, cfg, opts, tokens=bt["tokens"])
+            return cross_entropy(lg, bt["labels"]) + aux
+
+        to_card = lambda tree: compat.tree_map(lambda t: t.cuda(), tree)
+        host_loss, host = _value_and_grad(loss, params, batch)
+        with _NoKernelUnderTraining() as guard:
+            card_loss, card = _value_and_grad(loss, to_card(params),
+                                              to_card(batch))
+            torch.cuda.synchronize()
+            guard.check(f"train parity ({arch})")
+        loss_rel = abs(float(card_loss) - float(host_loss)) / abs(
+            float(host_loss))
+        grad_rel = max(float((g.cpu() - w).abs().max())
+                       / max(float(w.abs().max()), 1e-30)
+                       for w, g in zip(host, card))
+        log(f"train parity: reduced {arch} step, card vs host: loss "
+            f"{float(card_loss):.7f} vs {float(host_loss):.7f} "
+            f"({loss_rel:.3e} relative), gradients within {grad_rel:.3e} of "
+            f"each leaf's max, no kernel launched")
+        if loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL:
+            fail(f"train parity ({arch}): loss {loss_rel:.3e} (limit "
+                 f"{TRAIN_LOSS_RTOL}), gradients {grad_rel:.3e} (limit "
+                 f"{TRAIN_GRAD_TOL})")
+        out[arch] = {"loss_rel": loss_rel, "grad_rel": grad_rel}
+    return out
+
+
+def phase_train_restart(cfg, train: dict) -> dict:
+    """Phase 21d: tests/test_system.py's restart sequence at full width on
+    the settled config: save the state at step k, run 2 more steps,
+    restore, replay them: the final losses within TRAIN_LOSS_RTOL.  Then
+    the CLI twice on one ``--ckpt`` directory: the second run must resume
+    at step 40 with a restored tuned configuration."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import make_train_builder
+
+    b, s = TRAIN_BATCH
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("train_step", make_train_builder(
+        cfg, OptConfig(**TRAIN_OPT)))
+    _pin(handler, train["handler_config"])
+    ds = SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
+                     device="cuda")
+    k = train["steps"] + 1
+    ckpt = SCRATCH / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    state = train.pop("state")
+    with _NoKernelUnderTraining() as guard:
+        t0 = time.perf_counter()
+        mgr.save(k, state, extra_meta={"data_step": k}, block=True)
+        save_s = time.perf_counter() - t0
+        for i in range(k, k + 2):
+            state, m = handler(state, ds.place(ds.batch_at(i)))
+        direct = float(m["loss"])
+        t0 = time.perf_counter()
+        state, meta = mgr.restore(state)
+        restore_s = time.perf_counter() - t0
+        for i in range(meta["data_step"], k + 2):
+            state, m = handler(state, ds.place(ds.batch_at(i)))
+        replay = float(m["loss"])
+        guard.check("train restart")
+    gap = abs(replay - direct) / abs(direct)
+    size = sum(f.stat().st_size for f in ckpt.rglob("*.npz")) / 1e9
+    log(f"train restart: {size:.2f} GB saved in {save_s:.1f} s, restored "
+        f"in {restore_s:.1f} s; loss after 2 steps {direct:.7f} direct, "
+        f"{replay:.7f} replayed ({gap:.3e} relative)")
+    if gap > TRAIN_LOSS_RTOL:
+        fail(f"train restart: replayed loss {gap:.3e} from the direct one")
+    del state
+    rt.shutdown()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    cli = SCRATCH / "train_cli"
+    shutil.rmtree(cli, ignore_errors=True)
+    runs = []
+    for steps in (40, 60):
+        out, wall = _run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_CLI_ARGS, "--steps", str(steps), "--ckpt",
+                          str(cli)], TRAIN_CLI_TIMEOUT_S,
+                         f"the training CLI (--steps {steps})")
+        runs.append(out)
+        for line in out.splitlines():
+            if not line.startswith("compile stats"):
+                log(f"train cli ({steps}): {line[:240]}")
+        log(f"train cli ({steps}): {wall:.1f} s")
+    if "resumed" in runs[0] or "resumed from step 40" not in runs[1] \
+            or "restored tuned config: {" not in runs[1]:
+        fail("train cli: the second run did not resume at step 40 with a "
+             "restored tuned config")
+    shutil.rmtree(cli, ignore_errors=True)
+    return {"save_s": save_s, "restore_s": restore_s, "ckpt_gb": size,
+            "direct_loss": direct, "replay_loss": replay, "rel_gap": gap}
+
+
+def phase_moe_train() -> dict:
+    """Phase 22: ``examples/moe_exploration_torch.py`` on the card (reduced
+    kimi-k2, 16 experts, top 4; its ExhaustiveSweep over ``moe_impl`` x
+    ``moe_ranking``): the selected dispatch, each candidate's rate, no
+    kernel launched."""
+    with _NoKernelUnderTraining() as guard:
+        out = _load_example("moe_exploration_torch").main(
+            ["--device", "cuda"])
+        guard.check("moe exploration")
+    if not out["settled"] or not all(math.isfinite(x)
+                                     for x in out["losses"]):
+        fail(f"moe exploration: settled {out['settled']}, losses "
+             f"{out['losses']}")
+    log(f"moe exploration: selected {out['selected']}; loss "
+        f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")
+    return out
+
+
 def main(argv: list[str]) -> None:
     try:
         import torch
@@ -4206,6 +4697,14 @@ def main(argv: list[str]) -> None:
                                 shape=KIMI_PREFILL)
     kimi_serve = phase_family_serve(KIMI_ARCH, MOE_SERVE_MAX_LEN,
                                     kimi.pop("params"), cfg=kcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(cfg)
+    train["parity"] = _reduced_step_parity()
+    train["restart"] = phase_train_restart(cfg, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_train()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -4249,6 +4748,7 @@ def main(argv: list[str]) -> None:
     kernels = [{
         "name": "rmsnorm",
         "route": "cuda",
+        "train_launches": train["launches"]["rmsnorm"],
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
         "launches": main_path["launches"] + sum(
@@ -4288,6 +4788,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "attention",
         "route": "cuda",
+        "train_launches": train["launches"]["attention"],
         "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:106",
         "launches": prefill["attention_launches"] + sum(
@@ -4328,6 +4829,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "linear_attention",
         "route": "cuda",
+        "train_launches": train["launches"]["linear_attention"],
         "source": "src/repro_torch/kernels/linear_attention/csrc/"
                   "linear_attention.cu",
         "replaces": "src/repro/kernels/linear_attention/kernel.py:76",
@@ -4365,6 +4867,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "matmul",
         "route": "cuda",
+        "train_launches": train["launches"]["matmul"],
         "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul/kernel.py:43",
         "launches": table1["launches"],
@@ -4393,6 +4896,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "fastpath",
         "route": "cuda",
+        "train_launches": train["launches"]["fastpath"],
         "source": "src/repro_torch/kernels/fastpath/csrc/fastpath.cu",
         "replaces": "src/repro/kernels/fastpath/kernel.py:44",
         "launches": router["launches"],

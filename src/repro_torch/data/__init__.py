@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import RequestGenerator
+from repro_torch.data.pipeline import RequestGenerator, SyntheticLM
 
-__all__ = ["RequestGenerator"]
+__all__ = ["RequestGenerator", "SyntheticLM"]

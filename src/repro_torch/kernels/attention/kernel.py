@@ -31,6 +31,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["BLOCK_Q", "BLOCK_KV", "BODIES", "DEFAULT_BLOCK_Q",
            "DEFAULT_BLOCK_KV", "MAX_HEAD_DIM", "MAX_VALUE_HEAD_DIM", "SOURCE",
@@ -119,6 +120,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     new ``(BH, Sq, Dv)`` tensor of ``q.dtype``.  Ragged lengths need no
     padding: the kernel masks the edge tiles."""
     global launches
+    refuse_autograd("flash_attention_cuda", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda needs CUDA tensors, "

@@ -13,6 +13,8 @@ CUDA kernel masks the ragged edge tiles instead, so it takes every length.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch import compat
@@ -21,7 +23,10 @@ from repro_torch.kernels.attention import kernel, ref
 from repro_torch.kernels.attention.kernel import (DEFAULT_BLOCK_KV,
                                                   DEFAULT_BLOCK_Q)
 
-__all__ = ["attention"]
+__all__ = ["PROFILE_RANGE", "attention"]
+
+#: the profiler range of every :func:`attention` call
+PROFILE_RANGE = "repro_torch::attention"
 
 
 def _guard(q, k, v, **_kw):
@@ -80,7 +85,15 @@ def attention(
     impl: str | None = None,
     swa_impl: str = "full",
 ) -> torch.Tensor:
-    return registry.dispatch(
-        "attention", impl, q, k, v, causal=causal, window=window,
-        scale=scale, q_offset=q_offset, block_q=block_q, block_kv=block_kv,
-        swa_impl=swa_impl)
+    """Dispatch to the ``impl`` entry.  Under an active profiler the call
+    is the range :data:`PROFILE_RANGE`, which every mixer's attention
+    shares: a profile can tell the plain version's ops (and, through
+    their autograd sequence numbers, their backward) from the rest."""
+    ranged = (torch.profiler.record_function(PROFILE_RANGE)
+              if torch.autograd._profiler_enabled()
+              else contextlib.nullcontext())
+    with ranged:
+        return registry.dispatch(
+            "attention", impl, q, k, v, causal=causal, window=window,
+            scale=scale, q_offset=q_offset, block_q=block_q,
+            block_kv=block_kv, swa_impl=swa_impl)

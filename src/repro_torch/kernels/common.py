@@ -16,7 +16,22 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.registry import canonical_name, env_impl
 
-__all__ = ["canonical_name", "env_impl", "cdiv", "pad_to_multiple"]
+__all__ = ["canonical_name", "env_impl", "cdiv", "pad_to_multiple",
+           "refuse_autograd"]
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise if a kernel wrapper is called under autograd on a tensor that
+    requires grad.  No kernel of the port has a backward: it writes into a
+    fresh tensor that carries no ``grad_fn``, so every gradient through
+    the call would be cut without a word.  A differentiated step pins its
+    implementations to ``torch_ref`` instead."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward and was called on a tensor that "
+            f"requires grad; run the step under torch.no_grad() or pin its "
+            f"implementation to torch_ref")
 
 
 def cdiv(a: int, b: int) -> int:

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["BLOCK_B", "BODIES", "DEFAULT_BLOCK_B", "MAX_KEY_WIDTH",
            "MissReadback", "PreparedTable", "SOURCE", "body",
@@ -413,6 +414,7 @@ def fastpath_cuda(x: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
     V) of values.dtype, hit (B,) bool)``, ``out`` rows 0 where ``hit`` is
     False; with ``readback`` the batch's miss count lands there and the
     call waits on the stream."""
+    refuse_autograd("fastpath_cuda", values)
     dev = x.get_device()
     b, kw = x.shape if x.dim() == 2 else (0, 0)
     n, v = values.shape if values.dim() == 2 else (0, 0)
@@ -437,6 +439,7 @@ def fastpath_cuda_prepared(x: torch.Tensor, table: PreparedTable, *,
     ``x``'s device, whose keys have ``x``'s dtype: the hashed body for a
     table of at least ``kHashMinKeys`` keys, the dense one below, unless
     ``body`` (one of :data:`BODIES`) names one."""
+    refuse_autograd("fastpath_cuda_prepared", table.values)
     dev = x.get_device()
     if not (dev >= 0 and dev == table.device and x.dtype is table.kdtype
             and x.dim() == 2 and x.size(1) == table.kw and x.is_contiguous()

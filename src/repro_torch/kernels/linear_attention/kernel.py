@@ -29,6 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["CHUNKS", "MAX_HEAD_DIM", "SOURCE", "launches",
            "load_library", "linear_attention_cuda", "reset_launches",
@@ -90,6 +91,7 @@ def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (both fp32), all contiguous on one CUDA device.  Returns a new
     ``(BH, T, dv)`` tensor of ``v.dtype``."""
     global launches
+    refuse_autograd("linear_attention_cuda", q, k, v, log_w, bonus)
     for name, t in (("q", q), ("k", k), ("v", v), ("log_w", log_w),
                     ("bonus", bonus)):
         if t is None:

@@ -42,6 +42,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["BODIES", "CARD_TILES", "DEFAULT_TILES", "SOURCE", "TEST_TILES",
            "TILES", "body", "launches", "load_library", "matmul_cuda",
@@ -111,6 +112,7 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
     checks and raises unless the shape is a multiple of the tiles.
     Returns a new ``(m, n)`` tensor."""
     global launches
+    refuse_autograd("matmul_cuda", x, y)
     for name, t in (("x", x), ("y", y)):
         if t.device.type != "cuda":
             raise ValueError(f"matmul_cuda needs CUDA tensors, {name} is on "

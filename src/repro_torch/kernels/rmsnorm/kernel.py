@@ -30,6 +30,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["BLOCK_ROWS", "DEFAULT_BLOCK_ROWS", "SOURCE", "launches",
            "load_library", "reset_launches", "rmsnorm_cuda",
@@ -161,6 +162,7 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *,
     ``x``'s device (the launch fails and raises if the runtime's current
     device is another)."""
     global launches
+    refuse_autograd("rmsnorm_cuda", x, weight)
     dev = x.get_device()
     d = x.size(-1) if x.dim() else 0
     if not (_ok(x, weight, dev, d) and block_rows in BLOCK_ROWS):
@@ -187,6 +189,7 @@ def rmsnorm_pair_cuda(x0: torch.Tensor, w0: torch.Tensor, x1: torch.Tensor,
     """``(rmsnorm(x0, w0), rmsnorm(x1, w1))`` in one launch: each as
     :func:`rmsnorm_cuda`, both of one dtype, width and device."""
     global launches
+    refuse_autograd("rmsnorm_pair_cuda", x0, w0, x1, w1)
     dev = x0.get_device()
     d = x0.size(-1) if x0.dim() else 0
     if not (_ok(x0, w0, dev, d) and block_rows in BLOCK_ROWS):

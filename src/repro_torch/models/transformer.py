@@ -18,8 +18,12 @@ axis, ``wq`` as ``(d, H, dh)`` and so on — so the reference's parameters
 convert leaf for leaf (:mod:`repro_torch.models.convert`) and many
 specialized variants share one copy of the weights.
 
-The layer stack is a Python loop (the reference's ``scan_layers`` and
-``remat`` belong to training, ROADMAP M8).  Caches are updated in place
+The layer stack is a Python loop (the reference's ``lax.scan`` over
+layers has no counterpart: eager PyTorch pays nothing per layer to
+compile).  Activation checkpointing of each layer is a spec point
+(``RunOptions.remat`` in {none, dots, full}, :func:`_remat_wrap`); it
+changes the memory a differentiated step holds, never its result.
+Caches are updated in place
 (see :mod:`repro_torch.models.attention`, :mod:`repro_torch.models.mla`
 and :mod:`repro_torch.models.rwkv6`); the decode entry points still
 return ``(logits, cache)``.
@@ -27,9 +31,11 @@ return ``(logits, cache)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch import compat
 from repro_torch.models import attention as attn_mod
@@ -57,6 +63,7 @@ class RunOptions:
 
     kernels: KernelOptions = KernelOptions()
     moe: MoEOptions = MoEOptions()
+    remat: str = "none"              # none | dots | full
     window: int | None = None        # sliding-window override (long-context)
     logits_dtype: str = "float32"
     decode_cache_dtype: str = "bfloat16"
@@ -286,12 +293,62 @@ def _layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + f, aux
 
 
+#: the matrix products ``dots`` saves: 2-D products with no batch dims,
+#: as the reference's ``checkpoint_dots_with_no_batch_dims`` (``x @ w``
+#: over (B, S, d) folds to ``mm``; ``bmm``, the attention's and the
+#: experts' batched products, is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation checkpointing policy ``remat``:
+    ``none`` keeps every activation for the backward; ``full`` keeps only
+    the layer's inputs and recomputes the rest; ``dots`` keeps the outputs
+    of the 2-D matrix products (:data:`_DOTS`) and recomputes the rest.
+    Outside autograd (no input requires grad) each runs ``fn`` once.
+
+    On this port ``dots`` trades speed for nothing at qwen3-0.6b's width
+    (fp32, (8, 512), an H100; ``tools/remat_profile.py``): it spares the
+    device ~29 ms a step of the products ``full`` recomputes, but its
+    policy runs as a Python dispatch mode over every op of the forward
+    and of the recompute, which costs the host ~150 ms a step more than
+    ``full``; the backward waits on that recompute, so the step is slower
+    than under ``full`` (650 against 638 ms) and holds ~3.3 GB more.  It
+    stays a candidate, as in the reference, so tuned configs replay; the
+    Controller measures it like the others."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            torch_checkpoint.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _save_dots))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _run_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
                opts: RunOptions, moe: bool, aux: torch.Tensor):
-    """The stack's layers in turn; ``aux`` plus their MoE aux losses."""
-    n_layers = compat.tree_leaves(stacked)[0].shape[0]
-    for i in range(n_layers):
-        x, layer_aux = _layer_fwd(_layer(stacked, i), x, cfg, opts, moe)
+    """The stack's layers in turn, each under the ``remat`` policy;
+    ``aux`` plus their MoE aux losses."""
+    body = _remat_wrap(functools.partial(_layer_fwd, cfg=cfg, opts=opts,
+                                         moe=moe), opts.remat)
+    leaves, treedef = compat.tree_flatten(stacked)
+    # one unbind a leaf: its backward stacks the layers' gradients once,
+    # where indexing each layer's slice would build a zero-filled gradient
+    # of the whole stack per layer and add them (quadratic in depth)
+    per_layer = [leaf.unbind(0) for leaf in leaves]
+    for i in range(leaves[0].shape[0]):
+        lp = compat.tree_unflatten(treedef, [u[i] for u in per_layer])
+        x, layer_aux = body(lp, x)
         if layer_aux is not None:
             aux = aux + layer_aux
     return x, aux

@@ -23,13 +23,23 @@ of the TPU's VMEM:
   kernel, the one size the library instantiates until a measurement on
   the card picks others.
 
-The train builder waits for ROADMAP M8.
+The train builder (:func:`make_train_builder`) declares the reference's
+training points on top: ``remat`` (activation checkpointing per layer),
+``microbatch`` (gradient accumulation), ``logits_layout`` (declared for
+replay: one device has one placement), ``loss_chunk`` (the chunked
+cross-entropy) and ``sharding_profile``; its ``*_impl`` points are pinned
+to gradient-safe entries (``torch_ref``): no hand-written kernel of the
+port has a backward, as no Pallas kernel of the reference has one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import importlib
+from typing import Any, Callable
 
+import torch
+
+from repro_torch import compat
 from repro_torch.core.specializer import SpecCtx
 from repro_torch.kernels import registry as kernel_registry
 from repro_torch.kernels.attention.kernel import (BLOCK_KV, BLOCK_Q,
@@ -42,9 +52,11 @@ from repro_torch.models.common import KernelOptions
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoEOptions
 from repro_torch.models.transformer import RunOptions
+from repro_torch.optim import OptConfig, apply_updates
 
-__all__ = ["SHARDING_PROFILES", "make_prefill_builder", "make_decode_builder",
-           "make_serve_builder", "phase_context_fn", "run_options_from_spec"]
+__all__ = ["SHARDING_PROFILES", "make_train_builder", "make_prefill_builder",
+           "make_decode_builder", "make_serve_builder", "phase_context_fn",
+           "run_options_from_spec", "cross_entropy", "chunked_cross_entropy"]
 
 #: the reference's layout profiles.  The label and its candidates are kept
 #: so tuned configs replay; on one device every profile is the same
@@ -55,7 +67,9 @@ SHARDING_PROFILES = ("dp", "fsdp", "fsdp_pods", "fsdp_noexp", "seq",
 
 def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
                           kernel_impl: str | None = None,
-                          window: int | None = None) -> RunOptions:
+                          window: int | None = None,
+                          for_decode: bool = False,
+                          differentiable: bool = False) -> RunOptions:
     """Declare the model-level spec points and bundle the chosen constants.
 
     The implementation choice per kernel family the step exercises
@@ -74,23 +88,36 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
     ``gather`` until the port has a mesh, ROADMAP M12),
     ``capacity_factor``, ``moe_group`` and ``moe_ranking``.
     ``logits_dtype`` sets the full-sequence forward's logits (decode logits
-    are always fp32, as in the reference).  The training points
-    (``remat``, gradient-safe implementations) arrive with the train
-    builder (ROADMAP M8).
+    are always fp32, as in the reference).  ``remat`` (none, dots, full)
+    is declared unless ``for_decode`` (every builder but the train
+    builder passes it, as in the reference).  With ``differentiable``
+    every ``*_impl`` point is pinned to a gradient-safe entry
+    (``registry.impl_point(require_grad=True)``), and so is the step-wide
+    ``KernelOptions.impl`` (``torch_ref``, overriding ``kernel_impl``),
+    which a family without a point of its own falls through to: the step
+    runs under autograd, which the registry's dispatch cannot see.
     """
     model.check_supported(cfg)
     uses_attention = cfg.mixer in ("attn", "hymba")
     uses_linear_attention = cfg.mixer in ("rwkv6", "hymba")
+    if differentiable:
+        # the step-wide choice reaches every family the step routes without
+        # a point of its own (MLA's attention): pin it to the entry every
+        # family registers as gradient-safe, declaring no point for it
+        kernel_impl = kernel_registry.FALLBACK_IMPL
     ko = KernelOptions(
         impl=kernel_impl,
         rmsnorm_impl=kernel_registry.impl_point(spec, "rmsnorm",
-                                                default=kernel_impl),
+                                                default=kernel_impl,
+                                                require_grad=differentiable),
         attention_impl=(kernel_registry.impl_point(spec, "attention",
-                                                   default=kernel_impl)
+                                                   default=kernel_impl,
+                                                   require_grad=differentiable)
                         if uses_attention else None),
         linear_attention_impl=(
             kernel_registry.impl_point(spec, "linear_attention",
-                                       default=kernel_impl)
+                                       default=kernel_impl,
+                                       require_grad=differentiable)
             if uses_linear_attention else None),
         block_q=spec.enum("block_q", DEFAULT_BLOCK_Q, BLOCK_Q,
                           guarded=False),
@@ -116,8 +143,11 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
             ranking=spec.enum("moe_ranking", "cumsum", ("cumsum", "sort"),
                               guarded=False),
         )
+    # what each remat policy costs on the card: models.transformer._remat_wrap
+    remat = (spec.enum("remat", "none", ("none", "dots", "full"),
+                       guarded=False) if not for_decode else "none")
     return RunOptions(
-        kernels=ko, moe=moe, window=window,
+        kernels=ko, moe=moe, remat=remat, window=window,
         logits_dtype=spec.enum("logits_dtype", "float32",
                                ("float32", "bfloat16"), guarded=False))
 
@@ -155,7 +185,7 @@ def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
 
     def builder(spec: SpecCtx) -> Callable:
         opts = run_options_from_spec(spec, cfg, kernel_impl=kernel_impl,
-                                     window=window)
+                                     window=window, for_decode=True)
         _declare_sharding(spec)
 
         def prefill_step(params, batch):
@@ -179,7 +209,8 @@ def make_decode_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
 
     def builder(spec: SpecCtx) -> Callable:
         opts = _with_cache_points(spec, run_options_from_spec(
-            spec, cfg, kernel_impl=kernel_impl, window=window))
+            spec, cfg, kernel_impl=kernel_impl, window=window,
+            for_decode=True))
 
         def serve_step(params, cache, tokens, pos):
             return model.decode_step(params, cache, tokens, pos, cfg, opts)
@@ -221,7 +252,7 @@ def make_serve_builder(cfg: ModelConfig, *, kernel_impl: str | None = None
 
     def builder(spec: SpecCtx) -> Callable:
         opts = _with_cache_points(spec, run_options_from_spec(
-            spec, cfg, kernel_impl=kernel_impl))
+            spec, cfg, kernel_impl=kernel_impl, for_decode=True))
 
         def serve_step(params, cache, tokens, pos, n_new):
             if tokens.ndim == 2:
@@ -230,5 +261,137 @@ def make_serve_builder(cfg: ModelConfig, *, kernel_impl: str | None = None
             return model.decode_step(params, cache, tokens, pos, cfg, opts)
 
         return serve_step
+
+    return builder
+
+
+# -- loss --------------------------------------------------------------------------
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 token NLL summed over valid (label >= 0) positions, and
+    their count."""
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.clamp_min(0)[..., None].long())[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - ll) * mask), mask.sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Token CE without materializing the full (B,S,V) fp32 logits.
+
+    The LM head product and the fp32 log-sum-exp run per sequence chunk,
+    so peak logits memory is (B, chunk, V).  The same math as
+    :func:`cross_entropy`; ``chunk`` must divide S.
+    """
+    s = hidden.shape[1]
+    if s % chunk:
+        raise ValueError(f"loss_chunk {chunk} does not divide S = {s}")
+    total, count = 0.0, 0.0
+    for i in range(0, s, chunk):
+        t, c = _token_nll(hidden[:, i:i + chunk] @ head,
+                          labels[:, i:i + chunk])
+        total, count = total + t, count + c
+    return total / torch.clamp(count, min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token CE in fp32, mean over valid (label >= 0) positions."""
+    total, count = _token_nll(logits, labels)
+    return total / torch.clamp(count, min=1.0)
+
+
+# -- train ------------------------------------------------------------------------
+
+def _value_and_grad(loss_fn: Callable, params: Any, batch: dict
+                    ) -> tuple[torch.Tensor, list]:
+    """``loss_fn(params, batch)`` and its fp32 gradient per leaf of
+    ``params`` (flattened order; zeros for a leaf the loss does not use,
+    as ``jax.grad`` gives)."""
+    leaves, treedef = compat.tree_flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(compat.tree_unflatten(treedef, live), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return loss.detach(), [
+        torch.zeros_like(p, dtype=torch.float32) if g is None
+        else g.to(torch.float32) for p, g in zip(leaves, grads)]
+
+
+def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig
+                       ) -> Callable[[SpecCtx], Callable]:
+    """Returns the handler builder for ``train_step(state, batch)``.
+
+    ``state = {"params": ..., "opt": ...}`` (the optimizer state of
+    :func:`repro_torch.optim.init_opt_state`); ``batch`` holds ``labels``
+    and ``tokens`` (or ``embeds``), each with the batch on its leading
+    axis.  Returns ``(new state, {"loss": fp32 0-d tensor})``; the step is
+    functional (the input state is left unchanged, see
+    :mod:`repro_torch.optim.adamw`), so a guard miss may re-dispatch the
+    same inputs.  The loss stays on the device: reading it is the
+    caller's synchronisation.
+
+    The reference's points, labels, candidates and defaults (all internal
+    tuning parameters, so none carries a guard): those of
+    :func:`run_options_from_spec` with ``remat`` and every implementation
+    pinned to a gradient-safe entry (the step-wide one too, so no family
+    reaches a kernel); ``microbatch`` (1, 2, 4: the batch's
+    leading axis split as ``(micro, -1)``, the gradients summed, then
+    divided by ``micro``); ``logits_layout`` (declared for replay; one
+    placement on one device); ``loss_chunk`` (0 = the full logits, else
+    :func:`chunked_cross_entropy` over chunks of that many positions,
+    which must divide S) and ``sharding_profile``.
+    """
+
+    def builder(spec: SpecCtx) -> Callable:
+        opts = run_options_from_spec(spec, cfg, differentiable=True)
+        micro = spec.enum("microbatch", 1, (1, 2, 4), guarded=False)
+        spec.enum("logits_layout", "sharded", ("sharded", "gathered"),
+                  guarded=False)
+        loss_chunk = spec.enum("loss_chunk", 0, (0, 16, 256, 512, 1024),
+                               guarded=False)   # 0 = unchunked (generic)
+        _declare_sharding(spec)
+        if opts.remat != "none":
+            # a non-reentrant checkpoint's first call imports torch._dynamo
+            # (seconds): import it while the variant builds, off the
+            # critical path, not inside the first step
+            importlib.import_module("torch._dynamo")
+
+        def loss_fn(params, batch):
+            if loss_chunk:
+                hidden, aux = model.apply(
+                    params, cfg, opts, tokens=batch.get("tokens"),
+                    embeds=batch.get("embeds"), return_hidden=True)
+                head = model.lm_head_weight(params, cfg)
+                return chunked_cross_entropy(
+                    hidden, head, batch["labels"], loss_chunk) + aux
+            logits, aux = model.apply(
+                params, cfg, opts, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"))
+            return cross_entropy(logits, batch["labels"]) + aux
+
+        def train_step(state, batch):
+            params = state["params"]
+            grads, loss_total = None, None
+            for i in range(micro):
+                mb = batch if micro == 1 else {
+                    k: v.reshape((micro, -1) + tuple(v.shape[1:]))[i]
+                    for k, v in batch.items()}
+                li, gi = _value_and_grad(loss_fn, params, mb)
+                grads = gi if grads is None else [
+                    a + b for a, b in zip(grads, gi)]
+                loss_total = li if loss_total is None else loss_total + li
+            if micro > 1:
+                grads = [g / micro for g in grads]
+            _, treedef = compat.tree_flatten(params)
+            new_params, new_opt = apply_updates(
+                params, compat.tree_unflatten(treedef, grads), state["opt"],
+                opt_cfg)
+            return ({"params": new_params, "opt": new_opt},
+                    {"loss": loss_total / micro})
+
+        return train_step
 
     return builder

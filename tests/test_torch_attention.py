@@ -192,3 +192,19 @@ def test_kernel_head_dims_take_every_reference_config(arch):
     else:
         d = dv = cfg.d_head
     assert d <= kernel.MAX_HEAD_DIM and dv <= kernel.MAX_VALUE_HEAD_DIM
+
+
+def test_attention_opens_its_profiler_range():
+    """Under an active profiler every call is the range
+    ``ops.PROFILE_RANGE`` (every mixer's attention goes through it, so a
+    profile can classify the plain version's ops), and the result is the
+    same."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (1, 2, 8, 16)).astype(np.float32))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = attention(q, q, q, impl="torch_ref")
+    names = [e.name for e in prof.events()]
+    assert names.count(ops.PROFILE_RANGE) == 1
+    torch.testing.assert_close(out, attention(q, q, q, impl="torch_ref"))

@@ -208,6 +208,7 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 20
     for path in files:
         for name in _imported_modules(path):
