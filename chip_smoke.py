@@ -234,20 +234,39 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    gradient leaf within 1e-4 of its max; (d) a full-width restart: save at
    step k, 2 steps, restore, replay, the losses within 1e-5; then
    ``python -m repro_torch.launch.train --size 100m --explore --dwell 3
-   --ckpt DIR`` for 40 steps and again for 60, which must resume at step
-   40 with a restored tuned config.
+   --ckpt-every 40 --ckpt DIR`` for 80 steps and again for 100, which must resume at step
+   80 with a restored tuned config.
 22. MoE dispatch exploration: ``examples/moe_exploration_torch.py`` on the
    card (reduced kimi-k2, 16 experts, top 4; an ExhaustiveSweep over
    ``moe_impl`` x ``moe_ranking``), the selected dispatch.
+
+23. The distributed layer on one card: a one-rank NCCL group (``file://``
+   rendezvous under ``build/smoke/mesh``) and ``make_local_mesh(1, 1)``
+   on ``cuda``; (a) ``compressed_psum`` of a (4096, 4096) fp32 tensor over
+   ``data`` within int8 error of it (relative error < 0.02), a profiler
+   window whose all-gather ran on int8 data and put work on the device
+   (at one rank NCCL copies the payload rather than running a ring);
+   (b) deepseek-v2-236b's MoE layer at full width (160 experts, top 6,
+   two shared; 15.2 GB fp32) on a (1, 4096) input under ``shard`` (the
+   explicit expert-parallel block, all 160 experts local) and
+   ``gather``, at the first capacity factor at which no token is dropped:
+   outputs within 1e-5 relative, each timed; (c) one full-width qwen3-0.6b
+   train step on ``SyntheticLM`` (8, 512) under the ``fsdp`` profile
+   with DTensor parameters, from phase 21's initial state, against the
+   plain step: loss and every parameter within 1e-5 relative, each step's
+   ms (DTensor's own cost on one card); (d) (c)'s parameters saved and
+   restored with ``axes=`` onto the mesh: placed by their axes and equal.
+   The group is destroyed at the end of the phase.
 
 In phases 5, 7, 9, 10, 12, 13, 15, 17, 18, 19 and 20 (the main paths)
 the launch
 counters and the registry's fallback counts are zeroed just before and
 read just after; every kernel of the path must have launched and none
 may have fallen back (phases 14 and 16 count K1's launches in their own
-processes).  In phases 21 and 22 (training) the same counts are zeroed
-and must stay 0: a train step declares the gradient-safe entries, and no
-kernel has a backward.  The line
+processes).  In phases 21 and 22 (training) and 23 (the mesh) the same
+counts are zeroed and must stay 0: a train step declares the
+gradient-safe entries, no kernel has a backward, and a step under a mesh
+pins every implementation to its plain version.  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -547,10 +566,30 @@ TRAIN_GRAD_TOL = 1e-4
 #: the reduced configs held card against host: a GQA stack, and MLA
 #: (whose attention falls through to the step-wide implementation)
 TRAIN_PARITY_ARCHS = ("qwen3-0.6b", "deepseek-v2-236b")
-#: the CLI twice on one --ckpt (40 then 60 steps); dwell 3 lets its
-#: Controller settle, and save the tuned config, within the 40
-TRAIN_CLI_ARGS = ["--size", "100m", "--explore", "--dwell", "3"]
+#: the CLI twice on one --ckpt.  It saves the tuned config only at a
+#: checkpoint step on which its Controller is settled.  At dwell 3 the
+#: sweep settles at step 28, and the change detector first reads the
+#: settled rate at step 40: an asynchronous save still writing then (one
+#: at step 20) can make it re-explore at step 40, and the save at 40
+#: makes it re-explore at step 43, to settle again at 70.  So the first
+#: run saves at 40 and 80, with no save before 40
+TRAIN_CLI_ARGS = ["--size", "100m", "--explore", "--dwell", "3",
+                  "--ckpt-every", "40"]
+TRAIN_CLI_STEPS = (80, 100)
 TRAIN_CLI_TIMEOUT_S = 300
+
+# phase 23: the distributed layer on a one-rank NCCL group, a (1, 1) mesh
+MESH_PSUM = (4096, 4096)
+MESH_PSUM_RTOL = 0.02
+MESH_PSUM_PROFILE_CALLS = 10
+MESH_PSUM_PAD_S = 0.1
+MESH_MOE_INPUT = (1, 4096)
+MESH_MOE_RTOL = 1e-5
+#: capacity factors tried in turn for the MoE layer: the first at which no
+#: token is dropped is used (shard and gather then compute one function)
+MESH_MOE_FACTORS = (1.25, 2.0, 4.0, 8.0)
+MESH_TRAIN_RTOL = 1e-5
+MESH_TIMED_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -4542,7 +4581,7 @@ def phase_train_restart(cfg, train: dict) -> dict:
     the settled config: save the state at step k, run 2 more steps,
     restore, replay them: the final losses within TRAIN_LOSS_RTOL.  Then
     the CLI twice on one ``--ckpt`` directory: the second run must resume
-    at step 40 with a restored tuned configuration."""
+    at the first run's last step with a restored tuned configuration."""
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
@@ -4591,7 +4630,7 @@ def phase_train_restart(cfg, train: dict) -> dict:
     cli = SCRATCH / "train_cli"
     shutil.rmtree(cli, ignore_errors=True)
     runs = []
-    for steps in (40, 60):
+    for steps in TRAIN_CLI_STEPS:
         out, wall = _run([sys.executable, "-m", "repro_torch.launch.train",
                           *TRAIN_CLI_ARGS, "--steps", str(steps), "--ckpt",
                           str(cli)], TRAIN_CLI_TIMEOUT_S,
@@ -4601,10 +4640,13 @@ def phase_train_restart(cfg, train: dict) -> dict:
             if not line.startswith("compile stats"):
                 log(f"train cli ({steps}): {line[:240]}")
         log(f"train cli ({steps}): {wall:.1f} s")
-    if "resumed" in runs[0] or "resumed from step 40" not in runs[1] \
+    first = TRAIN_CLI_STEPS[0]
+    if "resumed" in runs[0] or f"resumed from step {first}" not in runs[1] \
             or "restored tuned config: {" not in runs[1]:
-        fail("train cli: the second run did not resume at step 40 with a "
-             "restored tuned config")
+        said = [ln[:120] for ln in runs[1].splitlines()
+                if ln.startswith(("resumed", "restored"))]
+        fail(f"train cli: the second run did not resume at step {first} "
+             f"with a restored tuned config (it said {said})")
     shutil.rmtree(cli, ignore_errors=True)
     return {"save_s": save_s, "restore_s": restore_s, "ckpt_gb": size,
             "direct_loss": direct, "replay_loss": replay, "rel_gap": gap}
@@ -4625,6 +4667,274 @@ def phase_moe_train() -> dict:
              f"{out['losses']}")
     log(f"moe exploration: selected {out['selected']}; loss "
         f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")
+    return out
+
+
+def _mesh_psum(mesh) -> dict:
+    """Phase 23a: ``compressed_psum`` of a MESH_PSUM fp32 tensor over the
+    ``data`` dim: within int8 error of ``x``, and a profiler window in
+    which the NCCL all-gather ran on the int8 payload (its c10d op's input
+    dtype) and put work on the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import compression
+
+    x = torch.randn(MESH_PSUM, generator=torch.Generator(
+        device="cuda").manual_seed(23), device="cuda")
+    y = compression.compressed_psum(x, "data", mesh)
+    torch.cuda.synchronize()
+    rel = float((y - x).abs().max() / x.abs().max())
+    # the profiler can drop a window's device activities (see profiled):
+    # a window without the collective's device work is run again.  The
+    # window holds MESH_PSUM_PROFILE_CALLS calls with the host idle for
+    # MESH_PSUM_PAD_S on each side: late in a long process the device's
+    # timestamps can fall just outside a window of one 0.5 ms call
+    # (windows of one call came back empty in two of three whole runs)
+    for window in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            time.sleep(MESH_PSUM_PAD_S)
+            for _ in range(MESH_PSUM_PROFILE_CALLS):
+                compression.compressed_psum(x, "data", mesh)
+            torch.cuda.synchronize()
+            time.sleep(MESH_PSUM_PAD_S)
+        # the ops' input types, from the trace (FunctionEvent has no dtypes
+        # in every release): the c10d all-gather's payload and NCCL's own
+        # record
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        gathers = [(ev["name"], ev.get("args", {}).get("Input type"),
+                    ev.get("args", {}).get("dtype")) for ev in events
+                   if "allgather" in ev.get("name", "").lower().replace(
+                       "_", "") or ev.get("args", {}).get("Collective name")]
+        device = sorted({e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA})
+        nccl = [n for n in device
+                if "nccl" in n.lower() or "memcpy" in n.lower()]
+        if nccl:
+            break
+    ms = cuda_time_ms(lambda: compression.compressed_psum(x, "data", mesh),
+                      iters=20, warmup=3)
+    log(f"mesh psum: compressed_psum of {MESH_PSUM} fp32 over data (1 "
+        f"rank): {rel:.3e} relative to x (limit {MESH_PSUM_RTOL}); "
+        f"{ms:.3f} ms a call (CUDA events); collective ops {gathers}; "
+        f"the collectives' device activity {nccl} (profiler window "
+        f"{window})")
+    if not rel < MESH_PSUM_RTOL:
+        fail(f"mesh psum: {rel:.3e} relative error (limit {MESH_PSUM_RTOL})")
+    if not any("signed char" in (types or ()) or dtype == "Char"
+               for _, types, dtype in gathers):
+        fail(f"mesh psum: no all-gather on int8 data in the window: "
+             f"{gathers}")
+    if not nccl:
+        fail(f"mesh psum: the collective put nothing on the device: "
+             f"{device}")
+    return {"rel_err": rel, "ms": ms, "collectives": gathers,
+            "device_activity": nccl, "windows": window}
+
+
+def _mesh_moe(mesh) -> dict:
+    """Phase 23b: deepseek-v2-236b's MoE layer at full width (160 experts,
+    top 6, two shared) on a MESH_MOE_INPUT input, under ``shard`` (the
+    explicit expert-parallel block, all 160 experts local) and under
+    ``gather``, at the first capacity factor at which neither drops a
+    token: the outputs within MESH_MOE_RTOL relative, each timed."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import (DEFAULT_RULES,
+                                                  mesh_context, replicate)
+    from repro_torch.models import moe as moe_mod
+
+    cfg = configs.get_config(MOE_ARCH).replace(compute_dtype="float32")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    p = moe_mod.init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+    gb = sum(t.numel() * 4 for t in itertools.chain(
+        *(v.values() if isinstance(v, dict) else [v] for v in p.values())))
+    b, s = MESH_MOE_INPUT
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    e, k, t = cfg.n_experts, cfg.top_k, b * s
+    with torch.no_grad():
+        _, _, idx = moe_mod._route(x.reshape(t, -1) @ p["router"], k)
+        load = torch.bincount(idx.reshape(-1), minlength=e)
+    for factor in MESH_MOE_FACTORS:
+        cap = moe_mod._capacity(t, k, e, factor)
+        if int(load.max()) <= cap:
+            break
+    else:
+        fail(f"mesh moe: the busiest expert takes {int(load.max())} slots, "
+             f"more than any capacity of {MESH_MOE_FACTORS}")
+    drops = int((load - cap).clamp_min(0).sum())
+    out, ms = {}, {}
+    moe_mod.reset_degrades()
+    with torch.no_grad(), mesh_context(mesh, DEFAULT_RULES):
+        for impl in ("shard", "gather"):
+            opts = moe_mod.MoEOptions(impl=impl, capacity_factor=factor)
+            fn = lambda: moe_mod.apply_moe(p, x, cfg, opts)
+            out[impl] = replicate(fn()[0])
+            ms[impl] = cuda_time_ms(fn, iters=5, warmup=1)
+    degrades = moe_mod.degrades
+    rel = float((out["shard"] - out["gather"]).abs().max()
+                / out["gather"].abs().max())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"mesh moe: {MOE_ARCH} MoE layer at full width ({e} experts, top "
+        f"{k}, {cfg.n_shared_experts} shared; {gb / 1e9:.1f} GB fp32), "
+        f"({b}, {s}) input, capacity factor {factor} (capacity {cap}, "
+        f"busiest expert {int(load.max())}, {drops} tokens dropped): shard "
+        f"{ms['shard']:.2f} ms, gather {ms['gather']:.2f} ms (CUDA "
+        f"events); outputs {rel:.3e} apart relative; shard degrades "
+        f"{degrades}; peak {peak:.1f} GB")
+    if drops or degrades or not rel <= MESH_MOE_RTOL:
+        fail(f"mesh moe: {drops} drops, {degrades} degrades, outputs "
+             f"{rel:.3e} apart (limit {MESH_MOE_RTOL})")
+    del p, x, out
+    return {"capacity_factor": factor, "capacity": cap, "drops": drops,
+            "max_load": int(load.max()), "shard_ms": ms["shard"],
+            "gather_ms": ms["gather"], "rel_err": rel, "weights_gb": gb / 1e9,
+            "peak_gb": peak}
+
+
+def _mesh_train(cfg, mesh) -> dict:
+    """Phase 23c-d: one full-width qwen3-0.6b train step on a
+    ``SyntheticLM`` TRAIN_BATCH batch under the ``fsdp`` profile on the
+    mesh (DTensor parameters), from phase 21's initial state (weights from
+    seed 0, the first batch of seed 1), against the plain step: the loss
+    and every parameter within MESH_TRAIN_RTOL relative; each step timed.
+    Then the mesh step's parameters saved and restored with ``axes=`` onto
+    the mesh: every leaf placed by its axes and equal to the saved one."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.specializer import specialize_builder
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import (DEFAULT_RULES, is_dtensor,
+                                                  mesh_context, replicate,
+                                                  spec_for_axes)
+    from repro_torch.models import transformer as model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.training import make_train_builder
+
+    dev = torch.device("cuda")
+    b, s = TRAIN_BATCH
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    batch = next(iter(SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
+                                  device=dev)))
+    config = {"sharding_profile": "fsdp"}
+    steps = {"plain": specialize_builder(
+        make_train_builder(cfg, opt_cfg), config).fn,
+        "mesh": specialize_builder(
+        make_train_builder(cfg, opt_cfg, mesh), config).fn}
+    new, loss, ms = {}, {}, {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for name, step in steps.items():
+        t0 = time.perf_counter()
+        new[name], m = step(state, batch)
+        loss[name] = float(m["loss"])
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(MESH_TIMED_STEPS):
+            torch.cuda.synchronize()
+            start.record()
+            _, m = step(state, batch)
+            end.record()
+            float(m["loss"])
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms[name] = statistics.median(times)
+        log(f"mesh train: {name} step {ms[name]:.1f} ms (median of "
+            f"{MESH_TIMED_STEPS}, CUDA events; first call {first_s:.1f} s "
+            f"wall), loss {loss[name]:.7f}")
+    leaves = compat.tree_leaves(new["mesh"]["params"])
+    if not all(is_dtensor(t) for t in leaves):
+        fail("mesh train: a parameter came back as a plain tensor")
+    loss_rel = abs(loss["mesh"] - loss["plain"]) / abs(loss["plain"])
+    param_rel = max(float((replicate(a) - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+                    for a, w in zip(leaves, compat.tree_leaves(
+                        new["plain"]["params"])))
+    log(f"mesh train: loss {loss_rel:.3e} apart relative, parameters "
+        f"within {param_rel:.3e} of each leaf's max; DTensor's overhead on "
+        f"one card {ms['mesh'] - ms['plain']:.1f} ms a step")
+    if loss_rel > MESH_TRAIN_RTOL or param_rel > MESH_TRAIN_RTOL:
+        fail(f"mesh train: loss {loss_rel:.3e}, parameters {param_rel:.3e} "
+             f"(limit {MESH_TRAIN_RTOL})")
+    del new["plain"]
+
+    ckpt = SCRATCH / "mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(1, new["mesh"]["params"], block=True)
+    save_s = time.perf_counter() - t0
+    axes = model.param_axes(cfg)
+    with mesh_context(mesh, DEFAULT_RULES):
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(params, axes=axes)
+        restore_s = time.perf_counter() - t0
+        want = compat.tree_leaves(spec_for_axes(axes, params),
+                                  is_leaf=lambda v: isinstance(v, tuple))
+    got = compat.tree_leaves(restored)
+    placed = all(is_dtensor(g) and tuple(g.placements) == w[1]
+                 for g, w in zip(got, want))
+    equal = all(torch.equal(replicate(g), replicate(a))
+                for g, a in zip(got, leaves))
+    log(f"mesh restore: saved in {save_s:.1f} s, restored with axes= onto "
+        f"the mesh in {restore_s:.1f} s; placed by the axes: {placed}; "
+        f"leaves equal: {equal}")
+    if not (placed and equal):
+        fail(f"mesh restore: placed {placed}, equal {equal}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"plain_ms": ms["plain"], "mesh_ms": ms["mesh"],
+            "loss_rel": loss_rel, "param_rel": param_rel,
+            "loss": loss["mesh"], "save_s": save_s, "restore_s": restore_s}
+
+
+def phase_mesh(cfg) -> dict:
+    """Phase 23: the distributed layer on the card.  A one-rank NCCL group
+    (``file://`` rendezvous under the script's work directory) and
+    ``make_local_mesh(1, 1)`` on ``cuda``; (a) ``compressed_psum``, (b)
+    the ``shard`` MoE at deepseek-v2's width, (c) a DTensor train step of
+    qwen3-0.6b at full width, (d) its checkpoint restored onto the mesh.
+    Every step under the mesh pins its implementations to ``torch_ref``:
+    no kernel may launch and no fallback may be counted.  The group is
+    destroyed at the end, so later work sees a clean process."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    work = SCRATCH / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1)
+        log(f"mesh: {mesh}")
+        out = {"psum": _mesh_psum(mesh)}
+        with _NoKernelUnderTraining() as guard:
+            out["moe"] = _mesh_moe(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["train"] = _mesh_train(cfg, mesh)
+            out["launches"] = guard.check("mesh")
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -4705,6 +5015,9 @@ def main(argv: list[str]) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_moe_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(cfg)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -4748,6 +5061,7 @@ def main(argv: list[str]) -> None:
     kernels = [{
         "name": "rmsnorm",
         "route": "cuda",
+        "mesh_launches": mesh["launches"]["rmsnorm"],
         "train_launches": train["launches"]["rmsnorm"],
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
@@ -4788,6 +5102,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "attention",
         "route": "cuda",
+        "mesh_launches": mesh["launches"]["attention"],
         "train_launches": train["launches"]["attention"],
         "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:106",
@@ -4829,6 +5144,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "linear_attention",
         "route": "cuda",
+        "mesh_launches": mesh["launches"]["linear_attention"],
         "train_launches": train["launches"]["linear_attention"],
         "source": "src/repro_torch/kernels/linear_attention/csrc/"
                   "linear_attention.cu",
@@ -4867,6 +5183,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "matmul",
         "route": "cuda",
+        "mesh_launches": mesh["launches"]["matmul"],
         "train_launches": train["launches"]["matmul"],
         "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul/kernel.py:43",
@@ -4896,6 +5213,7 @@ def main(argv: list[str]) -> None:
     }, {
         "name": "fastpath",
         "route": "cuda",
+        "mesh_launches": mesh["launches"]["fastpath"],
         "train_launches": train["launches"]["fastpath"],
         "source": "src/repro_torch/kernels/fastpath/csrc/fastpath.cu",
         "replaces": "src/repro/kernels/fastpath/kernel.py:44",

@@ -9,9 +9,10 @@ under the reference's ``"/"``-joined tree paths (dict keys sorted, list
 and tuple positions by index), so a checkpoint written by the JAX package
 restores into the port's parameter tree, and the reverse.  numpy has no
 bfloat16: a bf16 tensor is written widened to fp32, and ``restore`` casts
-every leaf to its template leaf's dtype and device.  Re-sharding on
-restore (the reference's ``axes``) waits for the distributed layer
-(ROADMAP M12) and raises.
+every leaf to its template leaf's dtype and device.  A DTensor leaf is
+written whole (gathered from its shards), and ``restore(axes=...)`` under
+an active mesh places each leaf on the *current* mesh by its logical
+axes: elastic re-sharding from any saved layout.
 
 Specialization state also persists here: the checkpoint directory carries
 a ``variants/`` subdirectory (the runtime's persistent
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch import compat
+from repro_torch.distributed.sharding import (current_mesh, replicate,
+                                              spec_for_axes)
 
 logger = logging.getLogger("repro_torch.checkpoint.store")
 
@@ -404,7 +407,7 @@ def _leaves_with_paths(tree: Any, path: tuple = ()):
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = replicate(leaf.detach())      # a DTensor's whole value
         if t.dtype is torch.bfloat16:
             t = t.float()                 # numpy has no bfloat16
         return t.cpu().numpy()
@@ -414,6 +417,14 @@ def _to_numpy(leaf: Any) -> np.ndarray:
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
     return {_path_key(path): _to_numpy(leaf)
             for path, leaf in _leaves_with_paths(tree) if leaf is not None}
+
+
+def _place(arr: torch.Tensor, sharding: Any) -> torch.Tensor:
+    """``arr`` (the whole value, on every rank) as a DTensor placed by
+    ``sharding`` (``(mesh, placements)``)."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh, place = sharding
+    return distribute_tensor(arr, mesh, list(place))
 
 
 def _process_index() -> int:
@@ -513,14 +524,17 @@ class CheckpointManager:
         """Restore into the structure of ``template``: each tensor leaf
         lands on its template leaf's device and dtype.
 
-        ``axes`` (the reference's logical-axes tree, for re-sharding onto
-        the active mesh) is not supported: the port has no distributed
-        layer yet (ROADMAP M12).
+        If ``axes`` (the logical-axes tree of ``template``) is given and a
+        mesh is active (:func:`~repro_torch.distributed.sharding.mesh_context`),
+        each leaf is placed on the current mesh by
+        ``spec_for_axes(axes, template)`` (``distribute_tensor``): elastic
+        re-sharding across meshes.  With no mesh ``axes`` changes nothing.
         """
-        if axes is not None:
-            raise NotImplementedError(
-                "re-sharding a checkpoint onto a mesh (axes=...) needs the "
-                "distributed layer, not ported yet (ROADMAP M12)")
+        shardings = None
+        if axes is not None and current_mesh() is not None:
+            shardings = compat.tree_leaves(
+                spec_for_axes(axes, template),
+                is_leaf=lambda x: isinstance(x, tuple) or x is None)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -528,7 +542,7 @@ class CheckpointManager:
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         with np.load(os.path.join(d, f"shard_{_process_index()}.npz")) as data:
-            leaves = []
+            leaves, placed = [], 0      # placed: the non-None leaves so far
             for path, leaf in _leaves_with_paths(template):
                 if leaf is None:
                     leaves.append(None)
@@ -537,6 +551,9 @@ class CheckpointManager:
                 if isinstance(leaf, torch.Tensor):
                     arr = torch.from_numpy(np.array(arr)).to(
                         device=leaf.device, dtype=leaf.dtype)
+                    if shardings is not None:
+                        arr = _place(arr, shardings[placed])
+                placed += 1
                 leaves.append(arr)
         _, treedef = compat.tree_flatten(template,
                                          is_leaf=lambda x: x is None)

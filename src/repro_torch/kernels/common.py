@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.registry import canonical_name, env_impl
 
 __all__ = ["canonical_name", "env_impl", "cdiv", "pad_to_multiple",
@@ -22,10 +23,15 @@ __all__ = ["canonical_name", "env_impl", "cdiv", "pad_to_multiple",
 
 def refuse_autograd(name: str, *tensors: torch.Tensor | None) -> None:
     """Raise if a kernel wrapper is called under autograd on a tensor that
-    requires grad.  No kernel of the port has a backward: it writes into a
-    fresh tensor that carries no ``grad_fn``, so every gradient through
-    the call would be cut without a word.  A differentiated step pins its
-    implementations to ``torch_ref`` instead."""
+    requires grad, or on a DTensor.  No kernel of the port has a backward:
+    it writes into a fresh tensor that carries no ``grad_fn``, so every
+    gradient through the call would be cut without a word.  Nor does one
+    take a DTensor: it would read only the local shard.  A differentiated
+    or sharded step pins its implementations to ``torch_ref`` instead."""
+    if any(is_dtensor(t) for t in tensors):
+        raise RuntimeError(
+            f"{name} takes plain tensors and was called on a DTensor; a "
+            f"step under a mesh pins its implementation to torch_ref")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -16,6 +16,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import compat
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              local_shard, logical_to_spec,
+                                              placements, replicate,
+                                              shard_index)
 from repro_torch.kernels.attention import attention as attn_op
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
@@ -23,7 +27,7 @@ from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_gqa", "gqa_axes", "apply_gqa", "init_gqa_cache",
-           "gqa_cache_axes", "decode_gqa"]
+           "gqa_cache_axes", "decode_gqa", "sharded_attention"]
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -68,7 +72,57 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     cos, sin = rope(positions, cfg.d_head, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = constrain(q, ("batch", "heads", "seq", "head_dim"))
+    k = constrain(k, ("batch", "kv_heads", "seq", "head_dim"))
+    v = constrain(v, ("batch", "kv_heads", "seq", "head_dim"))
     return q, k, v
+
+
+def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_axis: str = "kv_heads", **kw) -> torch.Tensor:
+    """``attn_op(q, k, v, **kw)`` (B,H,S,dh); under a mesh on each rank's
+    own shard, as GSPMD partitions the reference's attention: the batch
+    over the data dims and the heads over the model dim (heads are
+    independent), the sequence gathered (causal attention needs every
+    key).  Each rank computes only its heads, and holds only their
+    scores.  Where the kv heads stay replicated (their count does not
+    divide the dim) a rank takes the kv heads of its own q heads, and its
+    gradient for k and v is a partial sum over the heads' mesh dims.
+    Returns a DTensor placed as q's shards (a plain tensor without a
+    mesh)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return attn_op(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor
+    q_spec = logical_to_spec(("batch", "heads"), q.shape, mesh)
+    kv_spec = logical_to_spec(("batch", kv_axis), k.shape, mesh)
+    heads = q_spec[1] if len(q_spec) > 1 else None
+    heads = (heads,) if isinstance(heads, str) else (heads or ())
+    kv_split = len(kv_spec) > 1 and kv_spec[1] is not None
+    partial = {n: "partial" for n in heads} if not kv_split else None
+    ql = local_shard(q, mesh, q_spec)
+    kl, vl = (local_shard(t, mesh, kv_spec, partial) for t in (k, v))
+    if heads and not kv_split:
+        # the kv heads of this rank's q heads: one per group of them, or
+        # one per q head where the rank's heads split a group
+        h_loc, g = ql.shape[1], q.shape[1] // k.shape[1]
+        first = shard_index(mesh, heads) * h_loc
+        idx = torch.arange(first, first + h_loc, device=ql.device) // g
+        if h_loc % g == 0:
+            idx = idx[::g]
+        kl, vl = kl.index_select(1, idx), vl.index_select(1, idx)
+    out = attn_op(ql, kl, vl, **kw)
+    return DTensor.from_local(out, mesh, placements(q_spec, mesh),
+                              run_check=False)
+
+
+def attention_inputs(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The decode attention's inputs under a mesh: the batch dim sharded,
+    the heads replicated (the cached steps attend over a replicated copy
+    of the cache, see ``training.steps._cached_step``; the plain products
+    fold (batch, heads) into one dim, which DTensor refuses while the
+    heads dim is sharded); without a mesh they pass untouched."""
+    return tuple(constrain(t, ("batch", None, None, None)) for t in ts)
 
 
 def apply_gqa(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -79,11 +133,13 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, opts, positions)
-    out = attn_op(q, k, v, causal=True, window=window,
-                  block_q=opts.block_q, block_kv=opts.block_kv,
-                  impl=opts.impl_for("attention"),
-                  swa_impl=opts.swa_impl)              # (B,H,S,dh)
-    return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = sharded_attention(q, k, v, causal=True, window=window,
+                            block_q=opts.block_q, block_kv=opts.block_kv,
+                            impl=opts.impl_for("attention"),
+                            swa_impl=opts.swa_impl)    # (B,H,S,dh)
+    out = constrain(out, ("batch", "heads", "seq", "head_dim"))
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return constrain(y, ("batch", "seq", None))
 
 
 # -- decode with ring-buffer cache ---------------------------------------------
@@ -119,6 +175,7 @@ def _attend(p: dict, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     ``valid`` (broadcastable to (B,Hk,G,w)); returns (B,1,d)."""
     b = q.shape[0]
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, = attention_inputs(q)
     qg = q.reshape(b, hk, h // hk, dh)
     scores = torch.einsum("bhgk,bhwk->bhgw", qg.to(torch.float32),
                           ck.to(torch.float32)) * (dh ** -0.5)
@@ -154,6 +211,9 @@ def decode_gqa(p: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
     w = ck.shape[2]
     slot = torch.remainder(pos, w).to(torch.long).reshape(1)
+    # the cache writes take replicated values under a mesh (no DTensor
+    # strategy for the index writes; the step's cache is replicated)
+    k, v = replicate(k), replicate(v)
     ck.index_copy_(2, slot, k.to(ck.dtype))
     cv.index_copy_(2, slot, v.to(cv.dtype))
     spos.index_copy_(0, slot, pos.to(spos.dtype).reshape(1))
@@ -178,6 +238,7 @@ def _decode_gqa_rows(p: dict, cache: dict, x: torch.Tensor,
     rows = torch.arange(b, device=x.device)
     slots = pos.clamp(0, w - 1).to(torch.long)
     keep = (pos < w)[:, None, None]
+    k, v = replicate(k), replicate(v)      # as in decode_gqa
     ck[rows, :, slots] = torch.where(keep, k[:, :, 0].to(ck.dtype),
                                      ck[rows, :, slots])
     cv[rows, :, slots] = torch.where(keep, v[:, :, 0].to(cv.dtype),

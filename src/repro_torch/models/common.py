@@ -6,6 +6,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.attention.kernel import (DEFAULT_BLOCK_KV,
                                                   DEFAULT_BLOCK_Q)
@@ -96,8 +97,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: silu(x@Wg) * (x@Wu) @ Wd."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """SwiGLU FFN: silu(x@Wg) * (x@Wu) @ Wd (the hidden ffn-sharded under
+    a mesh)."""
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = constrain(h, ("batch", "seq", "ffn"))
+    return h @ w_down
 
 
 def _normal(gen, shape: tuple) -> torch.Tensor:

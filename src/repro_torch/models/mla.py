@@ -19,8 +19,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import compat
-from repro_torch.kernels.attention import attention as attn_op
+from repro_torch.distributed.sharding import constrain, replicate
 from repro_torch.kernels.attention.ref import NEG_INF
+from repro_torch.models.attention import (attention_inputs,
+                                          sharded_attention)
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
                                        rms_norm, rope)
 from repro_torch.models.config import ModelConfig
@@ -92,11 +94,15 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig,
     v = torch.einsum("bsr,rhk->bhsk", ckv, p["w_uv"].to(cdt))
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope.expand(b, h, s, rd)], -1)
-    out = attn_op(q, k, v, causal=True, window=window,
-                  scale=(nd + rd) ** -0.5,
-                  block_q=opts.block_q, block_kv=opts.block_kv,
-                  impl=opts.impl_for("attention"))     # (B,H,S,dh)
-    return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(cdt))
+    q = constrain(q, ("batch", "heads", "seq", "head_dim"))
+    k = constrain(k, ("batch", "heads", "seq", "head_dim"))
+    v = constrain(v, ("batch", "heads", "seq", "head_dim"))
+    out = sharded_attention(q, k, v, kv_axis="heads", causal=True,
+                            window=window, scale=(nd + rd) ** -0.5,
+                            block_q=opts.block_q, block_kv=opts.block_kv,
+                            impl=opts.impl_for("attention"))  # (B,H,S,dh)
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(cdt))
+    return constrain(y, ("batch", "seq", None))
 
 
 # -- absorbed decode ---------------------------------------------------------
@@ -133,6 +139,7 @@ def _absorbed(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
     """Attention of the absorbed query over the latent cache, masked by
     ``valid`` (broadcastable to (B,H,w)); returns (B,1,d)."""
     f32 = torch.float32
+    q_nope, q_rope = attention_inputs(q_nope, q_rope)
     q_eff = torch.einsum("bhsk,rhk->bhr", q_nope, p["w_uk"].to(cdt))
     scores = (torch.einsum("bhr,bwr->bhw", q_eff.to(f32), cckv.to(f32))
               + torch.einsum("bhsk,bwk->bhw", q_rope.to(f32), ckr.to(f32))
@@ -162,6 +169,9 @@ def decode_mla(p: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
     cckv, ckr, spos = cache["ckv"], cache["k_rope"], cache["slot_pos"]
     w = cckv.shape[1]
     slot = torch.remainder(pos, w).to(torch.long).reshape(1)
+    # the cache writes take replicated values under a mesh (no DTensor
+    # strategy for the index writes; the step's cache is replicated)
+    ckv, k_rope = replicate(ckv), replicate(k_rope)
     cckv.index_copy_(1, slot, ckv.to(cckv.dtype))
     ckr.index_copy_(1, slot, k_rope[:, 0].to(ckr.dtype))
     spos.index_copy_(0, slot, pos.to(spos.dtype).reshape(1))
@@ -187,6 +197,7 @@ def _decode_mla_rows(p: dict, cache: dict, x: torch.Tensor,
     rows = torch.arange(b, device=x.device)
     slots = pos.clamp(0, w - 1).to(torch.long)
     keep = ((pos >= 0) & (pos < w))[:, None]
+    ckv, k_rope = replicate(ckv), replicate(k_rope)   # as in decode_mla
     cckv[rows, slots] = torch.where(keep, ckv[:, 0].to(cckv.dtype),
                                     cckv[rows, slots])
     ckr[rows, slots] = torch.where(keep, k_rope[:, 0, 0].to(ckr.dtype),

@@ -19,14 +19,22 @@ and drops under equal capacity settings):
 * ``"dense"``   — every expert computes every token, combined by the gates.
   Only sane at small sizes; the oracle (equal to the others when capacity
   does not bind).
-* ``"shard"``   — the reference's explicit expert parallelism over a
-  mesh's ``model`` axis.  With no mesh (the port runs on one device until
-  ROADMAP M12) it degrades to ``gather``, as the reference does when no
-  mesh with a ``model`` axis is active; :data:`degrades` counts each.
+* ``"shard"``   — explicit expert parallelism over a mesh's ``model``
+  dim (:func:`_shard_moe`, the reference's ``shard_map`` block): tokens
+  are data-sharded and so replicated across ``model``; each model rank
+  routes its data shard's tokens to its own ``E/|model|`` experts, and the
+  partial outputs combine with ONE all-reduce over ``model`` per layer.
+  Capacity is per (data shard, expert), the standard EP form.  With no
+  mesh, no ``model`` dim, or a ``model`` dim that does not divide E it
+  degrades to ``gather``, as the reference does; :data:`degrades` counts
+  each such call.
 
 The expert products run as one batched product over the experts.
 Routing, ranking and the aux loss are plain tensor code here, as in the
-reference: no kernel of its own.
+reference: no kernel of its own.  Under a mesh (not ``shard``) the
+routing and the index writes and reads of the dispatch run on replicated
+tensors (DTensor has no sharding strategy for them), and the expert
+products on the DTensors the reference's ``constrain`` points place.
 """
 from __future__ import annotations
 
@@ -34,16 +42,21 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (PartitionSpec, constrain,
+                                              current_mesh, local_shard,
+                                              mesh_context, mesh_shape,
+                                              placements, replicate)
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["MoEOptions", "init_moe", "moe_axes", "apply_moe",
            "assign_experts", "degrades", "reset_degrades"]
 
-#: ``impl="shard"`` calls run as ``gather`` (no mesh) since the last
-#: :func:`reset_degrades`
+#: ``impl="shard"`` calls run as ``gather`` (no mesh, no ``model`` dim, or
+#: one that does not divide E) since the last :func:`reset_degrades`
 degrades = 0
 
 
@@ -165,6 +178,8 @@ def _expert_ffn(buf: torch.Tensor, p: dict, cdt: torch.dtype) -> torch.Tensor:
     wg, wu, wd = p["wg"].to(cdt), p["wu"].to(cdt), p["wd"].to(cdt)
     h = F.silu(torch.einsum("...ecd,edf->...ecf", buf, wg)) \
         * torch.einsum("...ecd,edf->...ecf", buf, wu)
+    h = constrain(h, (None,) * (buf.ndim - 3) + ("experts", None,
+                                                 "expert_ffn"))
     return torch.einsum("...ecf,efd->...ecd", h, wd)
 
 
@@ -193,9 +208,15 @@ def _einsum_moe(a: dict, xf: torch.Tensor, p: dict, e: int, k: int,
     disp.index_put_((flat_t, col), keep)
     comb.index_put_((flat_t, col), a["w"].reshape(-1).to(cdt) * keep)
     disp = disp.reshape(n_groups, g, e, cap)
-    comb = comb.reshape(n_groups, g, e, cap)
+    # the combine weights carry the router's gradient: under a mesh they
+    # re-enter as a replicated DTensor (constrain), so it comes back plain
+    comb = constrain(comb.reshape(n_groups, g, e, cap), (None,) * 4)
     buf = torch.einsum("gtec,gtd->gecd", disp, xf.reshape(n_groups, g, d))
-    hbuf = _expert_ffn(buf, p, cdt)
+    # grouped: shard groups over data; one group: shard the capacity
+    cap_axes = (("moe_groups", "experts", None, None) if n_groups > 1
+                else (None, "experts", "expert_cap", None))
+    hbuf = constrain(_expert_ffn(constrain(buf, cap_axes), p, cdt),
+                     cap_axes)
     return torch.einsum("gtec,gecd->gtd", comb, hbuf).reshape(t, d)
 
 
@@ -211,10 +232,17 @@ def _gather_moe(a: dict, xf: torch.Tensor, p: dict, e: int, k: int,
         + a["pos"].reshape(-1)
     keep = a["keep"].reshape(-1)
     # a dropped slot lands in one extra row past the buffers, cut off after
+    # (the index write and read take replicated tensors under a mesh)
     buf = torch.zeros((rows + 1, d), dtype=cdt, device=xf.device)
-    buf.index_copy_(0, torch.where(keep, dest, rows), xf[flat_t])
-    hbuf = _expert_ffn(buf[:rows].reshape(t // g, e, cap, d), p, cdt)
-    gathered = hbuf.reshape(rows, d).index_select(
+    buf.index_copy_(0, torch.where(keep, dest, rows), replicate(xf)[flat_t])
+    # grouped: shard groups over data; one group: (E, C, d), the capacity
+    # sharded, as the reference lays it out
+    shape, cap_axes = (((t // g, e, cap, d), ("moe_groups", "experts",
+                                                None, None)) if g < t
+                       else ((e, cap, d), ("experts", "expert_cap", None)))
+    hbuf = constrain(_expert_ffn(constrain(
+        buf[:rows].reshape(shape), cap_axes), p, cdt), cap_axes)
+    gathered = replicate(hbuf).reshape(rows, d).index_select(
         0, torch.where(keep, dest, 0))
     gathered = gathered * (a["w"].reshape(-1).to(cdt) * keep.to(cdt))[:, None]
     return gathered.reshape(t, k, d).sum(1)
@@ -231,6 +259,127 @@ def _dense_moe(logits: torch.Tensor, xf: torch.Tensor, p: dict, e: int,
     return out, _aux(probs, idx, e)
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of ``group``; the gradient passes unchanged.
+
+    The sum's output feeds a tensor that is replicated over the group,
+    whose gradient reaches every rank whole: the matching collective of
+    the backward is the all-reduce of the inputs' gradients, which the
+    DTensors the block's inputs came from perform (their gradient
+    placement is ``Partial`` over the group, see :func:`_shard_moe`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _shard_moe(p: dict, xf: torch.Tensor, cfg: ModelConfig,
+               opts: MoEOptions, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism over the ``model`` dim (the module
+    docstring): the reference's ``shard_map`` block on local tensors.
+
+    Each rank takes its data shard's tokens ``xl (T_loc, d)`` (replicated
+    over ``model``; T must divide over the data dims, as the reference's
+    ``shard_map`` in_spec requires, else ValueError), the whole router and its model shard's ``E_loc``
+    experts (under an FSDP profile placing them is the per-layer weight
+    all-gather over ``data``).  It routes, fills local capacity buffers
+    with the reference's sentinel rule and ``sort`` positions, runs its
+    experts, and the partial outputs combine with one all-reduce over
+    ``model``.  The aux loss is the rank's own, averaged over the data
+    dims.
+
+    Gradients: what each rank computes from a replicated input is a
+    partial sum of that input's gradient, so the inputs' local tensors
+    carry ``Partial`` gradient placements over ``model`` (router, tokens)
+    and over the data dims (router, experts); the aux loss,
+    the same on every model rank, passes its gradient to each scaled by
+    ``1/|model|``.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+    sizes = mesh_shape(mesh)
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    cdt = xf.dtype
+    n_model = sizes["model"]
+    e_loc = e // n_model
+    t = xf.shape[0]
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
+    if t % n_dp:
+        raise ValueError(f"moe_impl=shard: the {t} tokens do not divide "
+                         f"over the data dims {dp} ({n_dp} shards)")
+    tok_spec = (dp if len(dp) > 1 else dp[0]) if dp else None
+    partial_tok = {a: "partial" for a in dp}
+    xl = local_shard(xf, mesh, PartitionSpec(tok_spec), {"model": "partial"})
+    router = local_shard(p["router"].to(cdt), mesh, PartitionSpec(),
+                    {**partial_tok, "model": "partial"})
+    wg, wu, wd = (local_shard(p[n].to(cdt), mesh, PartitionSpec("model"),
+                         partial_tok) for n in ("wg", "wu", "wd"))
+
+    t_loc = xl.shape[0]
+    cap = _capacity(t_loc, k, e, opts.capacity_factor)
+    probs, w, idx = _route(xl @ router, k)
+    base = mesh.get_local_rank("model") * e_loc
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(t_loc, device=xl.device).repeat_interleave(k)
+    local = (flat_e >= base) & (flat_e < base + e_loc)
+    le = torch.where(local, flat_e - base, e_loc)         # sentinel e_loc
+    pos = _rank_positions(le[None], e_loc + 1, "sort")[0]
+    keep = local & (pos < cap)
+    rows = e_loc * cap
+    dest = torch.where(keep, le * cap + pos, rows)        # rows: dropped
+    buf = torch.zeros((rows + 1, d), dtype=cdt, device=xl.device)
+    buf.index_copy_(0, dest, xl[flat_t])
+    buf = buf[:rows].reshape(e_loc, cap, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) \
+        * torch.einsum("ecd,edf->ecf", buf, wu)
+    hb = torch.einsum("ecf,efd->ecd", h, wd).reshape(rows, d)
+    gathered = hb.index_select(0, torch.where(keep, dest, 0))
+    gathered = gathered * (w.reshape(-1).to(cdt) * keep.to(cdt))[:, None]
+    out = _AllReduceSum.apply(gathered.reshape(t_loc, k, d).sum(1),
+                              mesh.get_group("model"))   # the ONE collective
+
+    aux = _ScaleGrad.apply(_aux(probs, idx, e), 1.0 / n_model)
+    for a in dp:
+        aux = _AllReduceSum.apply(aux / sizes[a], mesh.get_group(a))
+    out_place = placements(PartitionSpec(tok_spec), mesh)
+    out = DTensor.from_local(out, mesh, out_place, run_check=False)
+    aux = DTensor.from_local(aux, mesh, [Replicate()] * len(out_place),
+                             run_check=False)
+    return out, aux
+
+
+def _shard_mesh(e: int):
+    """The active mesh when ``shard`` can run on it, else None."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    sizes = mesh_shape(mesh)
+    if "model" not in sizes or e % sizes["model"]:
+        return None
+    return mesh
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               opts: MoEOptions) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (out (B,S,d), aux loss scalar (fp32) * aux_coef)."""
@@ -242,12 +391,21 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     t = b * s
     impl = opts.impl
     if impl == "shard":
-        impl = "gather"          # no mesh: the reference's guarded degrade
+        mesh = _shard_mesh(e)
+        if mesh is not None:
+            out, aux = _shard_moe(p, xf, cfg, opts, mesh)
+            return _with_shared(p, xf, out, cdt).reshape(b, s, d), \
+                aux * opts.aux_coef
+        impl = "gather"          # the reference's guarded degrade
         degrades += 1
 
-    logits = (xf @ p["router"].to(cdt)).to(torch.float32)
+    # routing on replicated logits under a mesh: no DTensor strategy for
+    # its sort, one-hot ranking and scatters
+    logits = replicate((xf @ p["router"].to(cdt)).to(torch.float32))
     if impl == "dense":
-        out, aux = _dense_moe(logits, xf, p, e, k)
+        with mesh_context(None):            # the oracle: all replicated
+            out, aux = _dense_moe(logits, replicate(xf), {
+                n: replicate(p[n]) for n in ("wg", "wu", "wd")}, e, k)
     elif impl in ("einsum", "gather"):
         g = opts.group_size if opts.group_size > 0 else t
         cap = _capacity(g, k, e, opts.capacity_factor)
@@ -257,9 +415,19 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
         out = fn(a, xf, p, e, k, cap, g)
     else:
         raise ValueError(f"unknown moe impl {opts.impl!r}")
+    # a plain output re-enters the mesh's tensors through constrain (its
+    # gradient then comes back plain)
+    out = constrain(out, ("batch", None))
+    return _with_shared(p, xf, out, cdt).reshape(b, s, d), \
+        constrain(aux, ()) * opts.aux_coef
 
-    if "shared" in p:
-        sh = p["shared"]
-        hs = F.silu(xf @ sh["wg"].to(cdt)) * (xf @ sh["wu"].to(cdt))
-        out = out + hs @ sh["wd"].to(cdt)
-    return out.reshape(b, s, d), aux * opts.aux_coef
+
+def _with_shared(p: dict, xf: torch.Tensor, out: torch.Tensor,
+                 cdt: torch.dtype) -> torch.Tensor:
+    """``out`` plus the shared experts' swiglu of ``xf``, if any."""
+    if "shared" not in p:
+        return out
+    sh = p["shared"]
+    hs = F.silu(xf @ sh["wg"].to(cdt)) * (xf @ sh["wu"].to(cdt))
+    hs = constrain(hs, ("batch", "ffn"))
+    return out + hs @ sh["wd"].to(cdt)

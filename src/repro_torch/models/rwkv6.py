@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import compat
+from repro_torch.distributed.sharding import constrain, replicate
 from repro_torch.kernels.linear_attention import linear_attention
 from repro_torch.models.chunk_scan import step_linear_attention
 from repro_torch.models.common import KernelOptions, dense_init, rms_norm
@@ -133,15 +134,18 @@ def apply_rwkv6(p: dict, x: torch.Tensor, cfg: ModelConfig,
     def bh(t):                                        # (B,S,d) -> (B*H,S,hs)
         return _heads(t, h, hs).transpose(1, 2).reshape(b * h, s, hs)
 
+    rh = constrain(_heads(r, h, hs).transpose(1, 2),
+                   ("batch", "heads", "seq", None))
     u_b = p["u"].to(torch.float32)[None].expand(b, h, hs)
     o = linear_attention(
-        bh(r), bh(k), bh(v), bh(lw), bonus=u_b.reshape(b * h, hs),
+        rh.reshape(b * h, s, hs), bh(k), bh(v), bh(lw),
+        bonus=u_b.reshape(b * h, hs),
         inclusive=False, chunk=min(opts.chunk_len, s),
         impl=opts.impl_for("linear_attention"))
     o = o.reshape(b, h, s, hs).transpose(1, 2)        # (B,S,H,hs)
     o = _head_norm(o, cfg, opts)
     o = o.reshape(b, s, d) * p["ln_x"].to(x.dtype) * g
-    return o @ p["wo"].to(x.dtype)
+    return constrain(o @ p["wo"].to(x.dtype), ("batch", "seq", None))
 
 
 def apply_rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -153,6 +157,7 @@ def apply_rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     cdt = x.dtype
     xk = _mix(x, x_prev, p["cm_mu_k"])
     kk = torch.square(F.relu(xk @ p["cm_wk"].to(cdt)))
+    kk = constrain(kk, ("batch", "seq", "ffn"))
     rr = torch.sigmoid(x @ p["cm_wr"].to(cdt))
     return rr * (kk @ p["cm_wv"].to(cdt))
 
@@ -199,6 +204,6 @@ def decode_rwkv6(p: dict, cache: dict, x: torch.Tensor, pos,
     o = _head_norm(o, cfg, opts)
     o = o.reshape(b, d) * p["ln_x"].to(x.dtype) * g
     y = (o @ p["wo"].to(x.dtype))[:, None]
-    cache["state"].copy_(new_state)
-    cache["x_tm"].copy_(xt)
+    cache["state"].copy_(replicate(new_state))   # replicated under a mesh
+    cache["x_tm"].copy_(replicate(xt))
     return y, cache

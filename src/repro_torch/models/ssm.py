@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import compat
+from repro_torch.distributed.sharding import constrain, replicate
 from repro_torch.kernels.linear_attention import linear_attention
 from repro_torch.models.chunk_scan import step_linear_attention
 from repro_torch.models.common import KernelOptions, dense_init
@@ -116,7 +117,8 @@ def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig,
                          impl=opts.impl_for("linear_attention"))
     o = o.reshape(b, h, s, dh).transpose(1, 2)        # (B,S,H,dh)
     o = o + xh * p["skip_d"].to(cdt)[None, None, :, None]
-    return o.reshape(b, s, h * dh) @ p["w_out"].to(cdt)
+    return constrain(o.reshape(b, s, h * dh) @ p["w_out"].to(cdt),
+                     ("batch", "seq", None))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
@@ -165,6 +167,6 @@ def decode_ssm(p: dict, cache: dict, x: torch.Tensor, pos,
         log_a[..., None], cache["state"], inclusive=True)
     o = o + xh * p["skip_d"].to(cdt)[None, :, None]
     y = (o.reshape(b, h * dh) @ p["w_out"].to(cdt))[:, None]
-    cache["state"].copy_(new_state)
-    conv.copy_(new_conv)
+    cache["state"].copy_(replicate(new_state))   # replicated under a mesh
+    conv.copy_(replicate(new_conv))
     return y, cache

@@ -38,6 +38,7 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch import compat
+from repro_torch.distributed.sharding import constrain, replicate
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -371,6 +372,7 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
         x = params["embed"][tokens.long()].to(cdt)
     else:
         x = embeds.to(cdt)
+    x = constrain(x, ("batch", "seq", None))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "dense_layers" in params:
         x, aux = _run_stack(params["dense_layers"], x, cfg, opts, False, aux)
@@ -379,7 +381,8 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, opts.kernels)
     if return_hidden:
         return x, aux
-    logits = x @ lm_head_weight(params, cfg)
+    logits = constrain(x @ lm_head_weight(params, cfg),
+                       ("batch", "seq", "vocab"))
     return logits.to(_dtype(opts.logits_dtype)), aux
 
 
@@ -466,7 +469,7 @@ def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
         x_prev = lc["x_cm"][:, None].to(xin2.dtype)
         f = rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], xin2, cfg,
                                              x_prev=x_prev)
-        lc["x_cm"].copy_(xin2[:, 0])
+        lc["x_cm"].copy_(replicate(xin2[:, 0]))   # replicated under a mesh
     elif moe:
         f, _ = moe_mod.apply_moe(lp["moe"], xin2, cfg, opts.moe)
     else:
@@ -492,6 +495,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     check_supported(cfg)
     cdt = _dtype(cfg.compute_dtype)
     x = params["embed"][tokens.long()].to(cdt)[:, None]     # (B,1,d)
+    x = constrain(x, ("batch", None, None))
     n_dense = cfg.n_layers - cfg.n_moe_layers
     for i in range(cfg.n_layers):
         moe = i >= n_dense

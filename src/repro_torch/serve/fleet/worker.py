@@ -98,6 +98,7 @@ class SubprocessReplica:
         self.stats: dict | None = None
         self._depth = 0
         self._ready = threading.Event()
+        self._said_ready = False
         self._wlock = threading.Lock()
         self.proc = subprocess.Popen(
             cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -119,6 +120,7 @@ class SubprocessReplica:
                 continue                  # stray print from a library
             kind = msg.get("type")
             if kind == "ready":
+                self._said_ready = True
                 self._ready.set()
             elif kind == "depth":
                 self._depth = int(msg.get("waiting", 0)) + \
@@ -136,8 +138,11 @@ class SubprocessReplica:
         self._ready.set()                 # EOF: never leave waiters hanging
 
     def wait_ready(self, timeout_s: float = 120.0) -> bool:
+        # the reader also wakes waiters at EOF, when the worker exited
+        # before it said ready (it may not be reaped yet: poll() alone
+        # could still see it running)
         ok = self._ready.wait(timeout_s)
-        return ok and self.proc.poll() is None
+        return ok and self._said_ready and self.proc.poll() is None
 
     def _write(self, msg: dict) -> bool:
         with self._wlock:

@@ -25,11 +25,24 @@ of the TPU's VMEM:
 
 The train builder (:func:`make_train_builder`) declares the reference's
 training points on top: ``remat`` (activation checkpointing per layer),
-``microbatch`` (gradient accumulation), ``logits_layout`` (declared for
-replay: one device has one placement), ``loss_chunk`` (the chunked
-cross-entropy) and ``sharding_profile``; its ``*_impl`` points are pinned
-to gradient-safe entries (``torch_ref``): no hand-written kernel of the
-port has a backward, as no Pallas kernel of the reference has one.
+``microbatch`` (gradient accumulation), ``logits_layout``, ``loss_chunk``
+(the chunked cross-entropy) and ``sharding_profile``; its ``*_impl``
+points are pinned to gradient-safe entries (``torch_ref``): no
+hand-written kernel of the port has a backward, as no Pallas kernel of the
+reference has one.
+
+Every builder takes the reference's ``mesh`` (a ``DeviceMesh`` with named
+dims, :mod:`repro_torch.launch.mesh`).  Under a mesh the step runs in
+:func:`~repro_torch.distributed.sharding.mesh_context` with the rules of
+its ``sharding_profile`` (:data:`SHARDING_PROFILES`): parameters (and
+gradients, new parameters and caches) are placed as DTensors by their
+logical axes, the models' ``constrain`` points place the activations, and
+DTensor inserts the collectives, as GSPMD does for the reference.  Under a
+mesh every ``*_impl`` point (and the step-wide choice) is pinned to
+``torch_ref``: the CUDA wrappers take plain tensors and raise on a
+DTensor, and the reference's own mesh path lowers its plain versions too
+(its dry run builds with ``kernel_impl="xla"``).  With no mesh every step
+runs exactly as before, on one device.
 """
 from __future__ import annotations
 
@@ -41,6 +54,9 @@ import torch
 
 from repro_torch import compat
 from repro_torch.core.specializer import SpecCtx
+from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
+                                              constrain, mesh_context,
+                                              replicate)
 from repro_torch.kernels import registry as kernel_registry
 from repro_torch.kernels.attention.kernel import (BLOCK_KV, BLOCK_Q,
                                                   DEFAULT_BLOCK_KV,
@@ -58,18 +74,64 @@ __all__ = ["SHARDING_PROFILES", "make_train_builder", "make_prefill_builder",
            "make_decode_builder", "make_serve_builder", "phase_context_fn",
            "run_options_from_spec", "cross_entropy", "chunked_cross_entropy"]
 
-#: the reference's layout profiles.  The label and its candidates are kept
-#: so tuned configs replay; on one device every profile is the same
-#: placement (the distributed slice, ROADMAP M12, gives them meaning).
-SHARDING_PROFILES = ("dp", "fsdp", "fsdp_pods", "fsdp_noexp", "seq",
-                     "serve_ep")
+# -- sharding profiles (layout specialization points) ---------------------------
+
+def _profile_dp(base: ShardingRules) -> ShardingRules:
+    """Pure DP: params replicated (generic; only fits small models)."""
+    return base.replace(fsdp=None, expert_fsdp=None, ffn="model",
+                        heads="model", vocab="model", experts="model")
+
+
+def _profile_fsdp(base: ShardingRules) -> ShardingRules:
+    """ZeRO-3 over the data dim + TP over the model dim (the default)."""
+    return base
+
+
+def _profile_fsdp_pods(base: ShardingRules) -> ShardingRules:
+    """ZeRO-3 over the data AND pod dims (max memory savings, gathers
+    across pods)."""
+    return base.replace(fsdp=("pod", "data"))
+
+
+def _profile_seq(base: ShardingRules) -> ShardingRules:
+    """Sequence parallelism: long-context activations sharded over
+    model."""
+    return base.replace(seq="model")
+
+
+def _profile_fsdp_noexp(base: ShardingRules) -> ShardingRules:
+    """FSDP for dense params; expert weights sharded over experts (model)
+    only: no per-layer expert-weight all-gathers, at the cost of E/|model|
+    experts resident per device."""
+    return base.replace(expert_fsdp=None)
+
+
+def _profile_serve_ep(base: ShardingRules) -> ShardingRules:
+    """Inference layout: no FSDP (nothing re-gathered per token); dense
+    params TP over model; experts sharded experts->data x inner-dim->model,
+    so decode dispatch moves activations instead of weights."""
+    return base.replace(fsdp=None, experts=("pod", "data"),
+                        expert_fsdp="model", expert_cap=None,
+                        moe_groups=None)
+
+
+#: the reference's layout profiles: each maps the default rules to its own
+SHARDING_PROFILES: dict[str, Callable[[ShardingRules], ShardingRules]] = {
+    "dp": _profile_dp,
+    "fsdp": _profile_fsdp,
+    "fsdp_pods": _profile_fsdp_pods,
+    "fsdp_noexp": _profile_fsdp_noexp,
+    "seq": _profile_seq,
+    "serve_ep": _profile_serve_ep,
+}
 
 
 def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
                           kernel_impl: str | None = None,
                           window: int | None = None,
                           for_decode: bool = False,
-                          differentiable: bool = False) -> RunOptions:
+                          differentiable: bool = False,
+                          sharded: bool = False) -> RunOptions:
     """Declare the model-level spec points and bundle the chosen constants.
 
     The implementation choice per kernel family the step exercises
@@ -84,9 +146,10 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
     kernel instantiates as they are; ``swa_impl`` is declared for a
     sliding-window model or ``window`` override only.  A MoE model
     declares the reference's dispatch points with its labels, candidates
-    and defaults: ``moe_impl`` (einsum, gather, shard — ``shard`` runs
-    ``gather`` until the port has a mesh, ROADMAP M12),
-    ``capacity_factor``, ``moe_group`` and ``moe_ranking``.
+    and defaults: ``moe_impl`` (einsum, gather, shard — ``shard`` is the
+    explicit expert parallelism over a mesh's ``model`` dim and runs
+    ``gather`` without one), ``capacity_factor``, ``moe_group`` and
+    ``moe_ranking``.
     ``logits_dtype`` sets the full-sequence forward's logits (decode logits
     are always fp32, as in the reference).  ``remat`` (none, dots, full)
     is declared unless ``for_decode`` (every builder but the train
@@ -96,10 +159,13 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
     ``KernelOptions.impl`` (``torch_ref``, overriding ``kernel_impl``),
     which a family without a point of its own falls through to: the step
     runs under autograd, which the registry's dispatch cannot see.
+    ``sharded`` (a step under a mesh) pins them the same way: the CUDA
+    wrappers take no DTensor.
     """
     model.check_supported(cfg)
     uses_attention = cfg.mixer in ("attn", "hymba")
     uses_linear_attention = cfg.mixer in ("rwkv6", "hymba")
+    differentiable = differentiable or sharded
     if differentiable:
         # the step-wide choice reaches every family the step routes without
         # a point of its own (MLA's attention): pin it to the entry every
@@ -152,24 +218,60 @@ def run_options_from_spec(spec: SpecCtx, cfg: ModelConfig, *,
                                ("float32", "bfloat16"), guarded=False))
 
 
-def _declare_sharding(spec: SpecCtx) -> None:
-    """The reference's layout profile, declared for replay: on one device
-    every profile is the same placement (ROADMAP M12 gives them
-    meaning)."""
-    spec.enum("sharding_profile", "fsdp", SHARDING_PROFILES, guarded=False)
+def _rules_from_spec(spec: SpecCtx, default: str = "fsdp") -> ShardingRules:
+    """The ``sharding_profile`` point and the rules it selects (with no
+    mesh the rules place nothing)."""
+    profile = spec.enum("sharding_profile", default,
+                        tuple(SHARDING_PROFILES), guarded=False)
+    return SHARDING_PROFILES[profile](DEFAULT_RULES)
 
 
-def _with_cache_points(spec: SpecCtx, opts: RunOptions) -> RunOptions:
-    """The cached steps' points: the KV cache dtype, and the cache layout
-    (declared for replay; one device has one layout)."""
+def _constrain_tree(tree: Any, axes_tree: Any) -> Any:
+    """Each leaf of ``tree`` constrained by its logical axes (a no-op
+    without a mesh)."""
+    return compat.tree_map(lambda x, a: x if x is None else constrain(x, a),
+                           tree, axes_tree, is_leaf=_is_axes)
+
+
+def _is_axes(x: Any) -> bool:
+    return isinstance(x, tuple) and not isinstance(x, torch.Tensor)
+
+
+def _with_cache_points(spec: SpecCtx, opts: RunOptions
+                       ) -> tuple[RunOptions, ShardingRules]:
+    """The cached steps' points: the KV cache dtype, the sharding profile
+    and the cache layout: ``seq`` shards the cache's sequence dim over the
+    model dim (kv head counts rarely divide a wide model dim), as in the
+    reference."""
     opts = dataclasses.replace(opts, decode_cache_dtype=spec.enum(
         "cache_dtype", "bfloat16", ("bfloat16", "float32"), guarded=False))
-    _declare_sharding(spec)
-    spec.enum("cache_layout", "seq", ("seq", "batch"), guarded=False)
-    return opts
+    rules = _rules_from_spec(spec)
+    if spec.enum("cache_layout", "seq", ("seq", "batch"),
+                 guarded=False) == "seq":
+        rules = rules.replace(seq_kv="model")
+    return opts, rules
 
 
-def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
+def _cached_step(step: Callable, params: dict, cache: dict,
+                 cfg: ModelConfig, mesh: Any, *args) -> tuple[Any, dict]:
+    """``step(params, cache, *args)`` (a decode step or chunked prefill,
+    which write the cache in place).  Under a mesh (already in its
+    context) the parameters and the cache are placed by their axes, and
+    the step writes into a replicated copy of the cache: the in-place
+    index writes have no DTensor sharding strategy.  The logits come back
+    as a plain tensor and the new cache placed by its axes (a new tree:
+    the caller's is not written)."""
+    if mesh is None:
+        return step(params, cache, *args)
+    params = _constrain_tree(params, model.param_axes(cfg))
+    axes = model.cache_axes(cfg)
+    work = compat.tree_map(replicate, _constrain_tree(cache, axes))
+    logits, work = step(params, work, *args)
+    return replicate(logits), _constrain_tree(work, axes)
+
+
+def make_prefill_builder(cfg: ModelConfig, mesh: Any = None, *,
+                         kernel_impl: str | None = None,
                          window: int | None = None
                          ) -> Callable[[SpecCtx], Callable]:
     """Handler builder for ``prefill_step(params, batch) -> logits``.
@@ -180,18 +282,23 @@ def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
     flash attention kernel under ``attention_impl=cuda`` (an rwkv6 time
     mix and hymba's SSM heads: the linear-attention kernel under
     ``linear_attention_impl=cuda``),
-    and returns the logits ``(B, S, V)`` in ``logits_dtype``.
+    and returns the logits ``(B, S, V)`` in ``logits_dtype``.  Under
+    ``mesh`` the parameters are placed by their axes and the logits come
+    back as a DTensor (vocab-sharded by the rules).
     """
 
     def builder(spec: SpecCtx) -> Callable:
         opts = run_options_from_spec(spec, cfg, kernel_impl=kernel_impl,
-                                     window=window, for_decode=True)
-        _declare_sharding(spec)
+                                     window=window, for_decode=True,
+                                     sharded=mesh is not None)
+        rules = _rules_from_spec(spec)
 
         def prefill_step(params, batch):
-            logits, _ = model.apply(params, cfg, opts,
-                                    tokens=batch.get("tokens"),
-                                    embeds=batch.get("embeds"))
+            with mesh_context(mesh, rules):
+                params = _constrain_tree(params, model.param_axes(cfg))
+                logits, _ = model.apply(params, cfg, opts,
+                                        tokens=batch.get("tokens"),
+                                        embeds=batch.get("embeds"))
             return logits
 
         return prefill_step
@@ -199,21 +306,29 @@ def make_prefill_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
     return builder
 
 
-def make_decode_builder(cfg: ModelConfig, *, kernel_impl: str | None = None,
+def make_decode_builder(cfg: ModelConfig, mesh: Any = None, *,
+                        kernel_impl: str | None = None,
                         window: int | None = None
                         ) -> Callable[[SpecCtx], Callable]:
     """Handler builder for ``serve_step(params, cache, tokens, pos)``: one
     new token for the whole batch against the KV cache
     (:func:`repro_torch.models.transformer.decode_step`; the cache is
-    updated in place).  Returns ``(logits (B, V), cache)``."""
+    updated in place).  Returns ``(logits (B, V), cache)``.  Under
+    ``mesh`` the returned cache is a new tree of DTensors placed by the
+    cache's axes, the reference's ``seq_kv="model"`` under
+    ``cache_layout="seq"`` (:func:`_cached_step`)."""
 
     def builder(spec: SpecCtx) -> Callable:
-        opts = _with_cache_points(spec, run_options_from_spec(
+        opts, rules = _with_cache_points(spec, run_options_from_spec(
             spec, cfg, kernel_impl=kernel_impl, window=window,
-            for_decode=True))
+            for_decode=True, sharded=mesh is not None))
 
         def serve_step(params, cache, tokens, pos):
-            return model.decode_step(params, cache, tokens, pos, cfg, opts)
+            with mesh_context(mesh, rules):
+                return _cached_step(
+                    lambda p, c: model.decode_step(p, c, tokens, pos, cfg,
+                                                   opts),
+                    params, cache, cfg, mesh)
 
         return serve_step
 
@@ -232,7 +347,8 @@ def phase_context_fn(args, kwargs) -> tuple[str, int]:
     return (phase, int(tokens.shape[0]))
 
 
-def make_serve_builder(cfg: ModelConfig, *, kernel_impl: str | None = None
+def make_serve_builder(cfg: ModelConfig, mesh: Any = None, *,
+                       kernel_impl: str | None = None
                        ) -> Callable[[SpecCtx], Callable]:
     """Handler builder for the phase-disaggregated
     ``serve_step(params, cache, tokens, pos, n_new)``.
@@ -246,19 +362,26 @@ def make_serve_builder(cfg: ModelConfig, *, kernel_impl: str | None = None
 
     ``pos (B,)`` is each row's write position; ``n_new (B,)`` the valid
     token count per row (prefill only).  Returns ``(logits (B, V), cache)``;
-    the cache is updated in place.  The port runs on one device (sharded
-    serving: ROADMAP M12).
+    the cache is updated in place (under ``mesh``: returned as a new tree
+    of DTensors, as :func:`make_decode_builder`'s).
     """
 
     def builder(spec: SpecCtx) -> Callable:
-        opts = _with_cache_points(spec, run_options_from_spec(
-            spec, cfg, kernel_impl=kernel_impl, for_decode=True))
+        opts, rules = _with_cache_points(spec, run_options_from_spec(
+            spec, cfg, kernel_impl=kernel_impl, for_decode=True,
+            sharded=mesh is not None))
 
-        def serve_step(params, cache, tokens, pos, n_new):
+        def step(params, cache, tokens, pos, n_new):
             if tokens.ndim == 2:
                 return model.prefill_chunk(params, cache, tokens, pos,
                                            n_new, cfg, opts)
             return model.decode_step(params, cache, tokens, pos, cfg, opts)
+
+        def serve_step(params, cache, tokens, pos, n_new):
+            with mesh_context(mesh, rules):
+                return _cached_step(
+                    lambda p, c: step(p, c, tokens, pos, n_new), params,
+                    cache, cfg, mesh)
 
         return serve_step
 
@@ -273,7 +396,10 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor
     their count."""
     lg = logits.to(torch.float32)
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.clamp_min(0)[..., None].long())[..., 0]
+    # DTensor's gather along a sharded vocab dim fails (its masked
+    # partial): the picked logits come from vocab-replicated logits
+    ll = torch.gather(constrain(lg, ("batch", "seq", None)), -1,
+                      labels.clamp_min(0)[..., None].long())[..., 0]
     mask = (labels >= 0).to(torch.float32)
     return torch.sum((lse - ll) * mask), mask.sum()
 
@@ -291,14 +417,23 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
         raise ValueError(f"loss_chunk {chunk} does not divide S = {s}")
     total, count = 0.0, 0.0
     for i in range(0, s, chunk):
-        t, c = _token_nll(hidden[:, i:i + chunk] @ head,
-                          labels[:, i:i + chunk])
+        lg = constrain(hidden[:, i:i + chunk] @ head,
+                       ("batch", "seq", "vocab"))
+        t, c = _token_nll(lg, labels[:, i:i + chunk])
         total, count = total + t, count + c
     return total / torch.clamp(count, min=1.0)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Token CE in fp32, mean over valid (label >= 0) positions."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  gather_logits: bool = False) -> torch.Tensor:
+    """Token CE in fp32, mean over valid (label >= 0) positions.
+
+    ``gather_logits`` (the ``logits_layout`` point) replicates the logits'
+    vocab dim first; otherwise they stay vocab-sharded through the
+    log-sum-exp under a mesh.
+    """
+    if gather_logits:
+        logits = constrain(logits, ("batch", "seq", None))
     total, count = _token_nll(logits, labels)
     return total / torch.clamp(count, min=1.0)
 
@@ -320,7 +455,7 @@ def _value_and_grad(loss_fn: Callable, params: Any, batch: dict
         else g.to(torch.float32) for p, g in zip(leaves, grads)]
 
 
-def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig
+def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig, mesh: Any = None
                        ) -> Callable[[SpecCtx], Callable]:
     """Returns the handler builder for ``train_step(state, batch)``.
 
@@ -339,20 +474,28 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig
     pinned to a gradient-safe entry (the step-wide one too, so no family
     reaches a kernel); ``microbatch`` (1, 2, 4: the batch's
     leading axis split as ``(micro, -1)``, the gradients summed, then
-    divided by ``micro``); ``logits_layout`` (declared for replay; one
-    placement on one device); ``loss_chunk`` (0 = the full logits, else
-    :func:`chunked_cross_entropy` over chunks of that many positions,
-    which must divide S) and ``sharding_profile``.
+    divided by ``micro``); ``logits_layout`` (``gathered`` replicates the
+    logits' vocab dim before the loss; one placement without a mesh);
+    ``loss_chunk`` (0 = the full logits, else :func:`chunked_cross_entropy`
+    over chunks of that many positions, which must divide S) and
+    ``sharding_profile``.
+
+    Under ``mesh`` the step runs in the profile's rules and places the
+    parameters, the gradients and the new parameters by their logical
+    axes (DTensors, as the reference's ``_constrain_tree``); the new
+    optimizer state follows the gradients' placement, and the loss comes
+    back as a plain tensor, the same on every rank.
     """
 
     def builder(spec: SpecCtx) -> Callable:
         opts = run_options_from_spec(spec, cfg, differentiable=True)
         micro = spec.enum("microbatch", 1, (1, 2, 4), guarded=False)
-        spec.enum("logits_layout", "sharded", ("sharded", "gathered"),
-                  guarded=False)
+        gather_logits = spec.enum("logits_layout", "sharded",
+                                  ("sharded", "gathered"),
+                                  guarded=False) == "gathered"
         loss_chunk = spec.enum("loss_chunk", 0, (0, 16, 256, 512, 1024),
                                guarded=False)   # 0 = unchunked (generic)
-        _declare_sharding(spec)
+        rules = _rules_from_spec(spec)
         if opts.remat != "none":
             # a non-reentrant checkpoint's first call imports torch._dynamo
             # (seconds): import it while the variant builds, off the
@@ -370,10 +513,16 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig
             logits, aux = model.apply(
                 params, cfg, opts, tokens=batch.get("tokens"),
                 embeds=batch.get("embeds"))
-            return cross_entropy(logits, batch["labels"]) + aux
+            return cross_entropy(logits, batch["labels"],
+                                 gather_logits) + aux
 
         def train_step(state, batch):
-            params = state["params"]
+            with mesh_context(mesh, rules):
+                return _train_step(state, batch)
+
+        def _train_step(state, batch):
+            ax = model.param_axes(cfg)
+            params = _constrain_tree(state["params"], ax)
             grads, loss_total = None, None
             for i in range(micro):
                 mb = batch if micro == 1 else {
@@ -386,11 +535,13 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig
             if micro > 1:
                 grads = [g / micro for g in grads]
             _, treedef = compat.tree_flatten(params)
-            new_params, new_opt = apply_updates(
-                params, compat.tree_unflatten(treedef, grads), state["opt"],
-                opt_cfg)
+            grads = _constrain_tree(compat.tree_unflatten(treedef, grads),
+                                    ax)
+            new_params, new_opt = apply_updates(params, grads, state["opt"],
+                                                opt_cfg)
+            new_params = _constrain_tree(new_params, ax)
             return ({"params": new_params, "opt": new_opt},
-                    {"loss": loss_total / micro})
+                    {"loss": replicate(loss_total / micro)})
 
         return train_step
 

@@ -275,7 +275,9 @@ def test_restore_latest_and_specific(tmp_path):
 
 def test_restore_casts_to_template_and_refuses_axes(tmp_path):
     """bf16 is written widened to fp32 (numpy has none) and cast back to
-    the template's dtype; re-sharding waits for the distributed layer."""
+    the template's dtype; with no mesh active, ``axes`` re-shards nothing
+    and the leaves land as without it (re-sharding onto a mesh:
+    tests/test_torch_distributed.py)."""
     mgr = checkpoint.CheckpointManager(str(tmp_path), async_save=False)
     x = torch.tensor([1.5, -2.25, 3.0], dtype=torch.bfloat16)
     mgr.save(1, {"x": x})
@@ -284,7 +286,9 @@ def test_restore_casts_to_template_and_refuses_axes(tmp_path):
     restored, _ = mgr.restore({"x": torch.zeros(3, dtype=torch.bfloat16)})
     assert restored["x"].dtype == torch.bfloat16
     torch.testing.assert_close(restored["x"], x, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-        mgr.restore({"x": x}, axes={"x": ("embed",)})
+    placed, _ = mgr.restore({"x": torch.zeros(3, dtype=torch.bfloat16)},
+                            axes={"x": ("embed",)})
+    assert type(placed["x"]) is torch.Tensor
+    torch.testing.assert_close(placed["x"], x, rtol=0, atol=0)
     with pytest.raises(FileNotFoundError):
         checkpoint.CheckpointManager(str(tmp_path / "empty")).restore({})

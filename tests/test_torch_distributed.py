@@ -1,0 +1,695 @@
+"""The port's distributed layer on 4 gloo ranks of the CPU, a
+(data=2, model=2) mesh, held to one process: a sharding never changes the
+numbers (GSPMD's contract, which the reference relies on).
+
+One module-scoped run spawns the ranks (a script in a subprocess, with a
+``file://`` rendezvous under ``tmp_path``, never a fixed port) and every
+rank records each check; the tests read the records:
+
+* ``compressed_psum``: int8 in the gathered buffer, and within int8 error
+  of the plain sum (relative error < 0.02 against 2 x);
+* the ``shard`` MoE against the reference's ``dense`` on the same numpy
+  weights (2e-5), its aux loss against the data shards' mean, and its
+  gradients against the single-process ``gather``'s (1e-5 relative);
+* the full-sequence attention on each rank's own heads
+  (:func:`repro_torch.models.attention.sharded_attention`) against the
+  plain attention on all of them, with kv heads split and replicated,
+  and its gradients;
+* the ``shard`` MoE refusing tokens that do not divide over ``data``;
+* sharded train steps, from the reference's initial state, against the
+  reference's jitted one-process step and the port's one-process step
+  (loss within 1e-5; the gradient, as the new first moment, and every
+  parameter within 1e-5 relative, at the default schedule: AdamW's
+  first step is about ``sign(g)``, so at a larger learning rate a
+  gradient near zero would turn a different order of the sums into a
+  visible update; under ``int8_ef`` the first moment at most one int8
+  step away in < 0.1 % of the elements): reduced qwen3 under ``dp``,
+  ``fsdp`` and ``seq``, reduced deepseek-v2 under ``fsdp`` and
+  ``fsdp_noexp``, each with ``compress`` none and ``int8_ef``; the
+  attention of each step ran on the rank's own batch rows and heads;
+* a reduced deepseek-v2 decode step under ``serve_ep`` against the
+  reference's jitted step (logits and cache, 1e-5) and the port's one
+  process;
+* ``restore(axes=...)`` onto the mesh.
+
+The reference's steps run in the test process while the ranks run.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as ref_configs  # noqa: E402
+from repro import optim as ref_optim  # noqa: E402
+from repro.core.specializer import specialize_builder as ref_specialize  # noqa: E402
+from repro.models import moe as ref_moe  # noqa: E402
+from repro.models import transformer as ref_model  # noqa: E402
+from repro.models.config import ModelConfig as RefModelConfig  # noqa: E402
+from repro.training import steps as ref_steps  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs import tuned  # noqa: E402
+
+#: the moe layer of the reference's test_distributed_small.py
+MOE_CFG = dict(name="m", family="moe", n_layers=1, d_model=32, n_heads=4,
+               n_kv_heads=2, d_ff=64, vocab_size=128, n_experts=8, top_k=2,
+               moe_d_ff=48, n_shared_experts=1)
+TRAIN_CASES = [("qwen3-0.6b", p, c) for p in ("dp", "fsdp", "seq")
+               for c in ("none", "int8_ef")] + \
+              [("deepseek-v2-236b", p, c) for p in ("fsdp", "fsdp_noexp")
+               for c in ("none", "int8_ef")]
+WORLD = 4
+TIMEOUT = 300
+B, S = 4, 16
+DECODE_STEPS = 3
+DECODE_CONFIG = {"sharding_profile": "serve_ep", "cache_dtype": "float32"}
+
+_RANKS = r'''
+import json, os, pickle, sys, traceback
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import compat, configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.specializer import specialize_builder
+from repro_torch.distributed import compression, sharding as sh
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe, transformer as model
+from repro_torch.models import train_state_from_numpy
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import RunOptions
+from repro_torch.optim import OptConfig, init_opt_state
+from repro_torch.training import steps
+
+TRAIN_CASES = json.loads(sys.argv[3])
+MOE_CFG = json.loads(sys.argv[4])
+B, S, DECODE_STEPS = 4, 16, 3
+DECODE_CONFIG = {"sharding_profile": "serve_ep", "cache_dtype": "float32"}
+
+
+def full(x):
+    return sh.replicate(x)
+
+
+def rel(a, b):
+    """max |a - b| over max |b|"""
+    a, b = full(a).double(), full(b).double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def quanta(a, b):
+    """(max |a - b| in int8 steps of b's per-tensor scale, share of the
+    elements that differ by more than 1e-5 relative)"""
+    a, b = full(a).double(), full(b).double()
+    d = (a - b).abs()
+    big = b.abs().max().clamp_min(1e-30)
+    return (float(d.max() / (big / 127)),
+            float((d > 1e-5 * big).double().mean()))
+
+
+def absdiff(a, b):
+    return float((full(a).double() - full(b).double()).abs().max())
+
+
+def check_psum(mesh):
+    x = torch.randn(64, 32, generator=torch.Generator().manual_seed(3))
+    wire = []
+    orig = dist.all_gather_into_tensor
+
+    def spy(out, inp, *a, **k):
+        wire.append(str(out.dtype))
+        return orig(out, inp, *a, **k)
+
+    dist.all_gather_into_tensor = spy
+    try:
+        y = compression.compressed_psum(x, "data", mesh)
+        tree = compression.compressed_psum_tree({"a": x, "b": [x[:4]]},
+                                                "model", mesh)
+    finally:
+        dist.all_gather_into_tensor = orig
+    return {"wire": wire, "rel": rel(y, 2 * x), "dtype": str(y.dtype),
+            "tree_rel": max(rel(tree["a"], 2 * x),
+                            rel(tree["b"][0], 2 * x[:4]))}
+
+
+def check_shard_moe(mesh, data):
+    cfg = ModelConfig(**MOE_CFG)
+    names = ["router", "wg", "wu", "wd"]
+    p = {n: torch.from_numpy(data[n]) for n in names}
+    p["shared"] = {n: torch.from_numpy(data["shared_" + n])
+                   for n in ("wg", "wu", "wd")}
+    x = torch.from_numpy(data["x"])
+    opts = moe.MoEOptions(impl="shard", capacity_factor=8.0)
+    moe.reset_degrades()
+
+    def leaves(tree):
+        return [t.detach().requires_grad_() for t in compat.tree_leaves(tree)]
+
+    _, td = compat.tree_flatten(p)
+    lp, lx = leaves(p), x.detach().requires_grad_()
+    with sh.mesh_context(mesh, sh.DEFAULT_RULES):
+        out, aux = moe.apply_moe(compat.tree_unflatten(td, lp), lx, cfg,
+                                 opts)
+        loss = full(torch.sum(out ** 2) + aux)
+        grads = torch.autograd.grad(loss, lp + [lx])
+        out_full, aux_full = full(out), full(aux)
+    deg = moe.degrades
+    # 3 tokens do not divide over data=2: refused, as the reference's
+    # shard_map in_spec refuses them (not a counted degrade)
+    try:
+        with sh.mesh_context(mesh, sh.DEFAULT_RULES):
+            moe.apply_moe(p, x[:1, :3], cfg, opts)
+        indivisible = "ran"
+    except ValueError as e:
+        indivisible = str(e)
+    # the oracle: gather on all tokens in one process; the aux loss is the
+    # mean of the two data shards' (the tokens of batch rows 0-1 and 2-3)
+    gopts = moe.MoEOptions(impl="gather", capacity_factor=8.0)
+    rp, rx = leaves(p), x.detach().requires_grad_()
+    pp = compat.tree_unflatten(td, rp)
+    o_ref, _ = moe.apply_moe(pp, rx, cfg, gopts)
+    aux_ref = 0.5 * (moe.apply_moe(pp, rx[:2], cfg, gopts)[1]
+                     + moe.apply_moe(pp, rx[2:], cfg, gopts)[1])
+    ref_grads = torch.autograd.grad(torch.sum(o_ref ** 2) + aux_ref,
+                                    rp + [rx])
+    return {"dense_err": absdiff(out_full, torch.from_numpy(data["dense"])),
+            "aux_err": abs(float(aux_full) - float(aux_ref)),
+            "grad_finite": all(bool(torch.isfinite(g).all()) for g in grads),
+            "grad_rel": max(rel(g, r) for g, r in zip(grads, ref_grads)),
+            "degrades": deg, "out_type": type(out).__name__,
+            "indivisible": indivisible, "degrades_after": moe.degrades}
+
+
+def load_state(workdir, arch, compress):
+    """The reference's initial train state, as the test process wrote it."""
+    with open(os.path.join(workdir, f"state_{arch}_{compress}.pkl"),
+              "rb") as f:
+        return train_state_from_numpy(pickle.load(f), "cpu")
+
+
+def train_setup(workdir, arch, compress):
+    cfg = configs.get_reduced(arch).replace(compute_dtype="float32")
+    opt = OptConfig(compress=compress)     # the default schedule
+    rs = np.random.RandomState(7)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, S + 1))
+                            .astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return cfg, opt, load_state(workdir, arch, compress), batch
+
+
+def attention_spy(seen):
+    """``attn_mod.attn_op`` that records the (q, k) shapes it is given."""
+    op = attn_mod.attn_op
+
+    def spy(q, k, v, **kw):
+        seen.append([list(q.shape), list(k.shape)])
+        return op(q, k, v, **kw)
+    return op, spy
+
+
+def check_train(mesh, workdir, rank, arch, profile, compress):
+    cfg, opt, state, batch = train_setup(workdir, arch, compress)
+    config = {"sharding_profile": profile}
+    plain = specialize_builder(steps.make_train_builder(cfg, opt),
+                               config).fn
+    sharded = specialize_builder(steps.make_train_builder(cfg, opt, mesh),
+                                 config).fn
+    ref_state, ref_m = plain(state, batch)
+    seen = []
+    op, attn_mod.attn_op = attention_spy(seen)
+    try:
+        new_state, m = sharded(state, batch)
+    finally:
+        attn_mod.attn_op = op
+    leaves = compat.tree_leaves(new_state["params"])
+    moments = compat.tree_leaves(new_state["opt"]["m"])
+    np.savez(os.path.join(workdir, f"train_{arch}_{profile}_{compress}"
+                                   f"_{rank}.npz"),
+             loss=np.float32(m["loss"]),
+             **{f"p{i}": full(x).numpy() for i, x in enumerate(leaves)},
+             **{f"m{i}": full(x).numpy() for i, x in enumerate(moments)})
+    placed = [tuple(repr(p) for p in x.placements) for x in leaves
+              if sh.is_dtensor(x)]
+    return {"loss_err": abs(float(m["loss"]) - float(ref_m["loss"])),
+            "loss_type": type(m["loss"]).__name__,
+            "param_rel": max(rel(a, b) for a, b in zip(
+                leaves, compat.tree_leaves(ref_state["params"]))),
+            "opt_rel": max(rel(a, b) for a, b in zip(
+                compat.tree_leaves(new_state["opt"]["m"]),
+                compat.tree_leaves(ref_state["opt"]["m"]))),
+            "opt_quanta": max(quanta(a, b) for a, b in zip(
+                compat.tree_leaves(new_state["opt"]["m"]),
+                compat.tree_leaves(ref_state["opt"]["m"]))),
+            "n_dtensor": len(placed), "n_leaves": len(leaves),
+            "sharded_leaves": sum(any("Shard" in p for p in pl)
+                                  for pl in placed),
+            "attn_shapes": sorted({json.dumps(x) for x in seen})}, \
+        (cfg, new_state)
+
+
+def check_local_attention(mesh):
+    """sharded_attention on (data=2, model=2) against the plain attention
+    on all heads, with 2 kv heads (split over model) and 1 (replicated:
+    each rank takes its q heads' kv head); gradients of q, k and v."""
+    from repro_torch.kernels.attention import attention
+    gen = torch.Generator().manual_seed(4)
+    out = {}
+    for hk in (2, 1):
+        q, k, v = (torch.randn(4, h, 8, 16, generator=gen)
+                   for h in (4, hk, hk))
+        w = torch.randn(4, 4, 8, 16, generator=gen)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        seen = []
+        op, attn_mod.attn_op = attention_spy(seen)
+        try:
+            with sh.mesh_context(mesh, sh.DEFAULT_RULES):
+                y = attn_mod.sharded_attention(*ins, causal=True,
+                                               impl="torch_ref")
+                placed = repr(tuple(y.placements))
+                y = full(y)
+                grads = torch.autograd.grad((y * w).sum(), ins)
+        finally:
+            attn_mod.attn_op = op
+        ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = attention(*ref_ins, causal=True, impl="torch_ref")
+        ref_grads = torch.autograd.grad((ref * w).sum(), ref_ins)
+        out[f"hk{hk}"] = {
+            "err": absdiff(y, ref), "placements": placed, "seen": seen,
+            "grad_rel": max(rel(g, r) for g, r in zip(grads, ref_grads))}
+    return out
+
+
+def check_decode(mesh, workdir, rank):
+    cfg = configs.get_reduced("deepseek-v2-236b").replace(
+        compute_dtype="float32")
+    params = load_state(workdir, "deepseek-v2-236b", "none")["params"]
+    plain = specialize_builder(steps.make_decode_builder(cfg),
+                               DECODE_CONFIG).fn
+    sharded = specialize_builder(steps.make_decode_builder(cfg, mesh),
+                                 DECODE_CONFIG).fn
+    opts = RunOptions(decode_cache_dtype="float32")
+    c_plain = model.init_cache(cfg, B, 8, opts, device="cpu")
+    c_mesh = model.init_cache(cfg, B, 8, opts, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (DECODE_STEPS, B)).astype(np.int32))
+    logit_err, cache_err, logits = 0.0, 0.0, []
+    for t in range(DECODE_STEPS):
+        pos = torch.tensor(t, dtype=torch.int32)
+        lg_p, c_plain = plain(params, c_plain, toks[t], pos)
+        lg_m, c_mesh = sharded(params, c_mesh, toks[t], pos)
+        logits.append(full(lg_m).numpy())
+        logit_err = max(logit_err, absdiff(lg_m, lg_p))
+        cache_err = max(cache_err, max(absdiff(a, b) for a, b in zip(
+            compat.tree_leaves(c_mesh), compat.tree_leaves(c_plain))))
+    placed = sorted({repr(tuple(x.placements))
+                     for x in compat.tree_leaves(c_mesh)})
+    np.savez(os.path.join(workdir, f"decode_{rank}.npz"),
+             logits=np.stack(logits),
+             **{f"c{i}": full(x).numpy()
+                for i, x in enumerate(compat.tree_leaves(c_mesh))})
+    return {"logit_err": logit_err, "cache_err": cache_err,
+            "cache_placements": placed}
+
+
+def check_restore(mesh, rank, workdir, cfg, state):
+    mgr = CheckpointManager(os.path.join(workdir, f"ckpt_{rank}"),
+                            async_save=False)
+    mgr.save(1, state["params"])
+    template = compat.tree_map(torch.zeros_like,
+                               model.init_params(
+                                   torch.Generator().manual_seed(1), cfg))
+    ax = model.param_axes(cfg)
+    rules = steps.SHARDING_PROFILES["fsdp"](sh.DEFAULT_RULES)
+    with sh.mesh_context(mesh, rules):
+        restored, meta = mgr.restore(template, axes=ax)
+        want = sh.spec_for_axes(ax, template)
+    got = compat.tree_leaves(restored)
+    wants = compat.tree_leaves(want, is_leaf=lambda x: isinstance(x, tuple))
+    return {"step": meta["step"],
+            "placed": all(tuple(g.placements) == w[1]
+                          for g, w in zip(got, wants)),
+            "err": max(absdiff(g, s) for g, s in zip(
+                got, compat.tree_leaves(state["params"])))}
+
+
+def check_refuse(mesh):
+    """Every CUDA wrapper refuses a DTensor before it looks at devices."""
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.fastpath import kernel as fp
+    from repro_torch.kernels.linear_attention import kernel as la
+    from repro_torch.kernels.matmul import kernel as mm
+    from repro_torch.kernels.rmsnorm import kernel as rms
+
+    with sh.mesh_context(mesh, sh.DEFAULT_RULES):
+        d2 = sh.constrain(torch.ones(8, 16), ("batch", "ffn"))
+        d3 = sh.constrain(torch.ones(4, 8, 16), ("batch", None, None))
+        d4 = sh.constrain(torch.ones(2, 4, 8, 16),
+                          ("batch", "heads", None, None))
+    w = torch.ones(16)
+    calls = {
+        "rmsnorm_cuda": lambda: rms.rmsnorm_cuda(d2, w),
+        "rmsnorm_pair_cuda": lambda: rms.rmsnorm_pair_cuda(d2, w, d2, w),
+        "flash_attention_cuda": lambda: attn.flash_attention_cuda(
+            d4, d4, d4),
+        "linear_attention_cuda": lambda: la.linear_attention_cuda(
+            d3, d3, d3, d3),
+        "matmul_cuda": lambda: mm.matmul_cuda(d2, d2),
+        "fastpath_cuda": lambda: fp.fastpath_cuda(
+            torch.ones(8, 1, dtype=torch.int32),
+            torch.ones(16, 1, dtype=torch.int32), d2),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = "ran"
+        except Exception as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def main(rank, world, init, workdir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    mesh = make_local_mesh(2, 2, device="cpu")
+    out = {}
+
+    def record(name, fn, *args):
+        try:
+            out[name] = fn(*args)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+        return out[name]
+
+    record("psum", check_psum, mesh)
+    record("refuse", check_refuse, mesh)
+    record("attention", check_local_attention, mesh)
+    with np.load(os.path.join(workdir, "moe.npz")) as data:
+        record("shard_moe", check_shard_moe, mesh, dict(data))
+    kept = None
+    for arch, profile, compress in TRAIN_CASES:
+        name = f"train:{arch}:{profile}:{compress}"
+        try:
+            out[name], res = check_train(mesh, workdir, rank, arch, profile,
+                                         compress)
+            if (arch, profile, compress) == ("qwen3-0.6b", "fsdp", "none"):
+                kept = res
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    record("decode", check_decode, mesh, workdir, rank)
+    if kept is not None:
+        record("restore", check_restore, mesh, rank, workdir, *kept)
+    with open(os.path.join(workdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    workdir = sys.argv[1]
+    init = "file://" + os.path.join(workdir, "rendezvous")
+    torch.multiprocessing.spawn(main, args=(int(sys.argv[2]), init, workdir),
+                                nprocs=int(sys.argv[2]))
+'''
+
+
+def _moe_inputs(path):
+    """Numpy weights and input for the shard MoE case, and the reference's
+    ``dense`` output on them (ample capacity: no token dropped)."""
+    cfg = RefModelConfig(**MOE_CFG)
+    rs = np.random.RandomState(11)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    w = lambda *s: (rs.randn(*s) * s[-2] ** -0.5).astype(np.float32)
+    data = {"router": w(d, e), "wg": w(e, d, f), "wu": w(e, d, f),
+            "wd": w(e, f, d), "shared_wg": w(d, f), "shared_wu": w(d, f),
+            "shared_wd": w(f, d),
+            "x": rs.randn(4, 16, d).astype(np.float32)}
+    p = {n: jnp.asarray(data[n]) for n in ("router", "wg", "wu", "wd")}
+    p["shared"] = {n: jnp.asarray(data["shared_" + n])
+                   for n in ("wg", "wu", "wd")}
+    out, _ = ref_moe.apply_moe(p, jnp.asarray(data["x"]), cfg,
+                               ref_moe.MoEOptions(impl="dense",
+                                                  capacity_factor=8.0))
+    data["dense"] = np.asarray(out)
+    np.savez(path, **data)
+
+
+def _ref_cfg(arch):
+    return ref_configs.get_reduced(arch).replace(compute_dtype="float32")
+
+
+def _reference_states(work):
+    """The reference's initial train state of each (arch, compress) of
+    TRAIN_CASES, as numpy, pickled for the ranks."""
+    states = {}
+    for arch, compress in sorted({(a, c) for a, _, c in TRAIN_CASES}):
+        opt = ref_optim.OptConfig(compress=compress)
+        params = ref_model.init_params(jax.random.PRNGKey(0), _ref_cfg(arch))
+        states[arch, compress] = jax.tree_util.tree_map(np.asarray, {
+            "params": params, "opt": ref_optim.init_opt_state(params, opt)})
+        with open(work / f"state_{arch}_{compress}.pkl", "wb") as f:
+            pickle.dump(states[arch, compress], f)
+    return states
+
+
+def _reference_train(states):
+    """The reference's jitted one-process train step from each state on
+    the ranks' batch: (loss, new params, new first moment), leaves."""
+    out = {}
+    for (arch, compress), state in states.items():
+        cfg = _ref_cfg(arch)
+        step = jax.jit(ref_specialize(ref_steps.make_train_builder(
+            cfg, ref_optim.OptConfig(compress=compress), kernel_impl="xla"),
+            {}).fn)
+        toks = np.random.RandomState(7).randint(
+            0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        new, m = step(state, {"tokens": toks[:, :-1],
+                              "labels": toks[:, 1:]})
+        leaves = lambda t: [np.asarray(x) for x in jax.tree_util.tree_leaves(t)]
+        out[arch, compress] = (float(m["loss"]), leaves(new["params"]),
+                               leaves(new["opt"]["m"]))
+    return out
+
+
+def _reference_decode(states):
+    """The reference's jitted decode step of reduced deepseek-v2 under
+    DECODE_CONFIG, DECODE_STEPS tokens from an empty cache: the logits of
+    each step and the last cache's leaves."""
+    cfg = _ref_cfg("deepseek-v2-236b")
+    step = jax.jit(ref_specialize(ref_steps.make_decode_builder(
+        cfg, kernel_impl="xla"), DECODE_CONFIG).fn)
+    cache = ref_model.init_cache(cfg, B, 8, ref_model.RunOptions(
+        decode_cache_dtype="float32"))
+    params = states["deepseek-v2-236b", "none"]["params"]
+    toks = np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (DECODE_STEPS, B)).astype(np.int32)
+    logits = []
+    for t in range(DECODE_STEPS):
+        lg, cache = step(params, cache, jnp.asarray(toks[t]), jnp.int32(t))
+        logits.append(np.asarray(lg))
+    return np.stack(logits), [np.asarray(x)
+                              for x in jax.tree_util.tree_leaves(cache)]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The ranks' records, the reference's results (computed here while
+    the ranks run) and the directory of the ranks' outputs."""
+    work = tmp_path_factory.mktemp("gloo")
+    _moe_inputs(work / "moe.npz")
+    states = _reference_states(work)
+    script = work / "ranks.py"
+    script.write_text(_RANKS)
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, str(script), str(work), str(WORLD),
+         json.dumps(TRAIN_CASES), json.dumps(MOE_CFG)],
+        env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        ref = {"train": _reference_train(states),
+               "decode": _reference_decode(states)}
+        _, err = proc.communicate(timeout=TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    recs = [json.loads((work / f"rank_{r}.json").read_text())
+            for r in range(WORLD)]
+    return {"ranks": recs, "ref": ref, "work": work}
+
+
+@pytest.fixture(scope="module")
+def ranks(run):
+    return run["ranks"]
+
+
+def _per_rank(ranks, name):
+    recs = [r[name] for r in ranks]
+    for rec in recs:
+        assert "error" not in rec, rec["error"]
+    return recs
+
+
+def test_compressed_psum_int8_on_the_wire(ranks):
+    for rec in _per_rank(ranks, "psum"):
+        assert rec["wire"][0] == "torch.int8"        # the payload
+        assert rec["wire"][1] == "torch.float32"     # the scales
+        assert rec["dtype"] == "torch.float32"
+        assert rec["rel"] < 0.02 and rec["tree_rel"] < 0.02
+
+
+def test_shard_moe_matches_reference_dense(ranks):
+    for rec in _per_rank(ranks, "shard_moe"):
+        assert rec["out_type"] == "DTensor"
+        assert rec["degrades"] == 0
+        assert rec["dense_err"] < 2e-5
+        assert rec["aux_err"] < 1e-6
+
+
+def test_shard_moe_refuses_tokens_that_do_not_divide_over_data(ranks):
+    for rec in _per_rank(ranks, "shard_moe"):
+        assert "do not divide over the data dims" in rec["indivisible"]
+        assert rec["degrades_after"] == 0
+
+
+def test_shard_moe_gradients_match_single_process_gather(ranks):
+    for rec in _per_rank(ranks, "shard_moe"):
+        assert rec["grad_finite"]
+        assert rec["grad_rel"] < 1e-5
+
+
+@pytest.mark.parametrize("arch,profile,compress", TRAIN_CASES)
+def test_sharded_train_step_matches_one_process(ranks, arch, profile,
+                                                compress):
+    for rec in _per_rank(ranks, f"train:{arch}:{profile}:{compress}"):
+        assert rec["loss_type"] == "Tensor"
+        assert rec["loss_err"] < 1e-5
+        assert rec["param_rel"] < 1e-5
+        if compress == "none":
+            assert rec["opt_rel"] < 1e-5
+        else:
+            # the compressed gradient is quantized with the global
+            # per-tensor scale, as on one device: an element whose value
+            # the order of the sums moves across a rounding boundary
+            # differs by one int8 step; a per-shard scale would move most
+            steps_, share = rec["opt_quanta"]
+            assert steps_ <= 1.001 and share < 1e-3
+        # every parameter comes back as a DTensor, some of them sharded
+        # (under dp too: heads, ffn and vocab over model)
+        assert rec["n_dtensor"] == rec["n_leaves"]
+        assert rec["sharded_leaves"] > 0
+        # the attention ran on the rank's 2 of 4 batch rows and its half
+        # of the heads, the whole sequence
+        heads = configs.get_reduced(arch).n_heads
+        assert rec["attn_shapes"]
+        for shapes in rec["attn_shapes"]:
+            q, _ = json.loads(shapes)
+            assert q[:3] == [B // 2, heads // 2, S], q
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|"""
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def _quanta(got, want):
+    """(max |got - want| in int8 steps of want's per-tensor scale, share of
+    the elements that differ by more than 1e-5 of want's largest)"""
+    big = max(float(np.abs(want).max()), 1e-30)
+    d = np.abs(got.astype(np.float64) - want)
+    return float(d.max()) / (big / 127), float((d > 1e-5 * big).mean())
+
+
+@pytest.mark.parametrize("arch,profile,compress", TRAIN_CASES)
+def test_sharded_train_step_matches_reference(run, arch, profile, compress):
+    """Every rank's sharded step against the reference's jitted
+    one-process step from the same state and batch."""
+    loss, params, moments = run["ref"]["train"][arch, compress]
+    for r in range(WORLD):
+        with np.load(run["work"] / f"train_{arch}_{profile}_{compress}"
+                                   f"_{r}.npz") as got:
+            assert abs(float(got["loss"]) - loss) < 1e-5
+            assert len(got.files) == 1 + len(params) + len(moments)
+            p_err = max(_rel(got[f"p{i}"], w) for i, w in enumerate(params))
+            m_got = [got[f"m{i}"] for i in range(len(moments))]
+        assert p_err < 1e-5
+        if compress == "none":
+            assert max(_rel(g, w) for g, w in zip(m_got, moments)) < 1e-5
+        else:
+            # the gradients agree within 1e-5 before the int8
+            # quantization: an element that close to a rounding boundary
+            # lands one int8 step (of the per-tensor scale) away
+            steps_, share = max(_quanta(g, w) for g, w in zip(m_got, moments))
+            assert steps_ <= 1.001 and share < 1e-3, (steps_, share)
+
+
+def test_cuda_wrappers_refuse_a_dtensor(ranks):
+    for rec in _per_rank(ranks, "refuse"):
+        assert len(rec) == 6
+        for name, what in rec.items():
+            assert what.startswith("RuntimeError") and "DTensor" in what, \
+                (name, what)
+
+
+def test_sharded_attention_runs_on_local_heads(ranks):
+    """Each rank attends with its 2 of 4 batch rows and 2 of 4 q heads:
+    with kv heads split (one of 2 each) and replicated (the one kv head
+    taken once per q head)."""
+    for rec in _per_rank(ranks, "attention"):
+        for name, kv_heads in (("hk2", 1), ("hk1", 2)):
+            r = rec[name]
+            assert r["err"] < 1e-6 and r["grad_rel"] < 1e-6, r
+            assert r["placements"] == "(Shard(dim=0), Shard(dim=1))"
+            assert r["seen"] == [[[2, 2, 8, 16], [2, kv_heads, 8, 16]]]
+
+
+def test_serve_ep_decode_step_matches_reference(run):
+    """Every rank's serve_ep decode steps against the reference's jitted
+    steps: the logits of each and the last cache, leaf by leaf."""
+    logits, cache = run["ref"]["decode"]
+    for r in range(WORLD):
+        with np.load(run["work"] / f"decode_{r}.npz") as got:
+            np.testing.assert_allclose(got["logits"], logits, rtol=1e-5,
+                                       atol=1e-5)
+            assert len(got.files) == 1 + len(cache)
+            for i, want in enumerate(cache):
+                np.testing.assert_allclose(got[f"c{i}"], want, rtol=1e-5,
+                                           atol=1e-5)
+
+
+def test_serve_ep_decode_step_matches_one_process(ranks):
+    for rec in _per_rank(ranks, "decode"):
+        assert rec["logit_err"] < 1e-5 and rec["cache_err"] < 1e-5
+        # cache_layout=seq: the latent cache's sequence dim over model
+        assert any("Shard(dim=2)" in p for p in rec["cache_placements"])
+
+
+def test_restore_reshards_onto_the_mesh(ranks):
+    for rec in _per_rank(ranks, "restore"):
+        assert rec["step"] == 1 and rec["placed"]
+        assert rec["err"] == 0.0
+
+
+def test_tuned_table_starts_empty():
+    assert tuned.TUNED == {}
+    spec = tuned.best_spec("deepseek-v2-236b", "train_4k")
+    assert spec == {}
+    spec["moe_impl"] = "shard"                 # a copy, not the table's
+    assert tuned.best_spec("deepseek-v2-236b", "train_4k") == {}
+    assert json.loads(tuned.spec_json("kimi-k2-1t-a32b", "decode_32k")) == {}

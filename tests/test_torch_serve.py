@@ -214,3 +214,18 @@ def test_port_imports_neither_jax_nor_reference():
         for name in _imported_modules(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_serve_adaptive_example_on_the_host(capsys):
+    """``examples/serve_adaptive_torch.py`` (the reference's
+    ``examples/serve_adaptive.py`` on the port) at a few steps; without
+    ``--steps`` it adds the reference's 240."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_serve_adaptive_torch", ROOT / "examples" / "serve_adaptive_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(["--device", "cpu", "--steps", "30", "--requests", "3",
+              "--dwell", "2"])
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out
