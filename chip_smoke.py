@@ -591,6 +591,48 @@ MESH_MOE_FACTORS = (1.25, 2.0, 4.0, 8.0)
 MESH_TRAIN_RTOL = 1e-5
 MESH_TIMED_STEPS = 3
 
+#: phase 24: the cached steps on the one-rank mesh (each rank writing and
+#: attending on its own cache shard) against the plain step: qwen3-0.6b
+#: served (batch, tokens) under each cache layout, deepseek-v2-236b at
+#: depth CACHED_MLA_DEPTH under serve_ep with the gather MoE (the einsum
+#: MoE's dispatch view fails DTensor's propagation under serve_ep on the
+#: card's torch 2.11: ROADMAP Faults); fp32 caches of CACHED_MAX_LEN
+CACHED_SERVE = (8, 32)
+CACHED_MLA = (4, 8)
+CACHED_MLA_DEPTH = 2
+CACHED_MAX_LEN = 64
+CACHED_RTOL = 1e-5
+#: the dry run held to the card: FLOPs equal, argument + temp within
+#: DRYRUN_PEAK_RTOL of the measured peak (phase 23's qwen3 train step)
+DRYRUN_FLOPS_RTOL = 1e-6
+DRYRUN_PEAK_RTOL = 0.15
+#: the dry-run CLI at the production mesh: its per-rank argument + temp at
+#: most the placed cache plus the parameters' local shards plus this
+DRYRUN_CLI_SLACK = 1e9
+DRYRUN_CLI = ["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--mesh",
+              "single", "--spec", '{"sharding_profile": "serve_ep"}']
+#: the subprocess of phase 24b: the dry run's count of the phase-23 train
+#: step on a fake world of one rank
+DRYRUN_PROBE = r"""
+import json, sys
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch import configs
+from repro_torch.launch import dryrun
+from repro_torch.optim import OptConfig
+
+b, s = json.loads(sys.argv[1])
+cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
+shape = configs.Shape("phase23", "train", s, b)
+dryrun.open_fake_world(1)
+mesh = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                  mesh_dim_names=("data", "model"))
+a = dryrun.analyze(cfg, shape, mesh, {"sharding_profile": "fsdp"},
+                   OptConfig(**json.loads(sys.argv[2])))
+a["roofline"] = dryrun.roofline(cfg, shape, dryrun._roofline_input(a), 1)
+print(json.dumps(a))
+"""
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -4938,6 +4980,259 @@ def phase_mesh(cfg) -> dict:
     return out
 
 
+def _cached_steps(name: str, cfg, params, mesh, config: dict, batch: int,
+                  tokens: int) -> dict:
+    """Phase 24a: ``tokens`` decode steps at ``batch`` of the decode
+    builder on ``mesh`` against the plain one (both ``torch_ref``), each
+    from an empty fp32 cache, on the same random tokens: the logits of
+    every step within CACHED_RTOL of the plain step's largest; each step
+    timed with CUDA events."""
+    import torch
+
+    from repro_torch.core.specializer import specialize_builder
+    from repro_torch.models import transformer as model
+    from repro_torch.models.transformer import RunOptions
+    from repro_torch.training import make_decode_builder
+
+    dev = torch.device("cuda")
+    config = dict(config, cache_dtype="float32")
+    step = {"plain": specialize_builder(make_decode_builder(
+        cfg, kernel_impl="torch_ref"), config).fn,
+        "mesh": specialize_builder(make_decode_builder(
+            cfg, mesh, kernel_impl="torch_ref"), config).fn}
+    opts = RunOptions(decode_cache_dtype="float32")
+    cache = {k: model.init_cache(cfg, batch, CACHED_MAX_LEN, opts,
+                                 device=dev) for k in step}
+    gen = torch.Generator(device=dev).manual_seed(24)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    err, ms = 0.0, {k: [] for k in step}
+    with torch.no_grad():
+        for t in range(tokens):
+            tok = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pos = torch.tensor(t, dtype=torch.int32, device=dev)
+            logits = {}
+            for k, fn in step.items():
+                torch.cuda.synchronize()
+                start.record()
+                logits[k], cache[k] = fn(params, cache[k], tok, pos)
+                end.record()
+                end.synchronize()
+                ms[k].append(start.elapsed_time(end))
+            if type(logits["mesh"]) is not torch.Tensor:
+                fail(f"cached {name}: the mesh step's logits came back as "
+                     f"{type(logits['mesh']).__name__}")
+            err = max(err, float((logits["mesh"] - logits["plain"]).abs()
+                                 .max() / logits["plain"].abs().max()))
+    med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    log(f"mesh cached {name}: {tokens} decode steps at batch {batch} "
+        f"({config}): mesh {med['mesh']:.1f} ms a step, plain "
+        f"{med['plain']:.1f} ms (median after the first, CUDA events); "
+        f"logits within {err:.3e} of the plain step's largest (limit "
+        f"{CACHED_RTOL})")
+    if not err <= CACHED_RTOL:
+        fail(f"mesh cached {name}: logits {err:.3e} apart (limit "
+             f"{CACHED_RTOL})")
+    del cache
+    return {"rel_err": err, "mesh_ms": med["mesh"], "plain_ms": med["plain"]}
+
+
+def _dryrun_held_to_card(cfg, mesh) -> dict:
+    """Phase 24b: the dry run's count of phase 23's train step (fsdp,
+    TRAIN_BATCH, fp32) on a fake world of one rank (a subprocess), then
+    the same step on the card under the mesh: its FLOPs by
+    ``FlopCounterMode`` (exact at one rank) equal to the count, its peak
+    (``max_memory_allocated`` above what was allocated before the state
+    was made) within DRYRUN_PEAK_RTOL of the predicted argument + temp;
+    its ms by CUDA events beside the roofline's terms."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.specializer import specialize_builder
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.training import make_train_builder
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_PROBE, json.dumps(TRAIN_BATCH),
+         json.dumps(TRAIN_OPT)], capture_output=True, text=True,
+        timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    probe_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dry run probe: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+    mem = pred["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    del params
+    b, s = TRAIN_BATCH
+    batch = next(iter(SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
+                                  device=dev)))
+    step = specialize_builder(make_train_builder(cfg, opt_cfg, mesh),
+                              {"sharding_profile": "fsdp"}).fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = step(state, batch)
+        float(out[1]["loss"])
+    del out
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = float(fc.get_total_flops())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(MESH_TIMED_STEPS):
+        torch.cuda.synchronize()
+        start.record()
+        out = step(state, batch)
+        end.record()
+        float(out[1]["loss"])
+        end.synchronize()
+        del out
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    flops_rel = abs(pred["flops"] - flops) / flops
+    peak_rel = abs(predicted - peak) / peak
+    rf = pred["roofline"]
+    log(f"dry run held to the card: phase 23's train step (fsdp, "
+        f"{TRAIN_BATCH}, fp32) counted on a fake world of one rank in "
+        f"{probe_s:.1f} s: {pred['flops']:.6e} FLOPs against "
+        f"FlopCounterMode's {flops:.6e} on the card ({flops_rel:.2e} "
+        f"apart, limit {DRYRUN_FLOPS_RTOL}); argument "
+        f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB + temp "
+        f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB = {predicted / 1e9:.3f} "
+        f"GB against a measured peak of {peak / 1e9:.3f} GB "
+        f"({peak_rel:.3f} apart, limit {DRYRUN_PEAK_RTOL}); largest at "
+        f"the peak {mem['peak_tensors'][:3]}; the step {ms:.1f} ms (median "
+        f"of {MESH_TIMED_STEPS}, CUDA events) against the roofline's "
+        f"compute {rf['compute_s'] * 1e3:.1f} ms (fp32 peak) and memory "
+        f"{rf['memory_s'] * 1e3:.1f} ms")
+    if not flops_rel <= DRYRUN_FLOPS_RTOL:
+        fail(f"dry run: FLOPs {pred['flops']} against {flops}")
+    if not peak_rel <= DRYRUN_PEAK_RTOL:
+        fail(f"dry run: predicted {predicted} bytes against a peak of "
+             f"{peak}")
+    del state, batch
+    return {"flops": pred["flops"], "card_flops": flops,
+            "predicted_bytes": predicted, "peak_bytes": peak,
+            "peak_rel": peak_rel, "ms": ms,
+            "compute_ms": rf["compute_s"] * 1e3,
+            "memory_ms": rf["memory_s"] * 1e3, "probe_s": probe_s}
+
+
+def _dryrun_cli() -> dict:
+    """Phase 24c: the dry-run CLI on the single-pod production mesh (256
+    ranks of the fake backend) for qwen3-0.6b's decode_32k under
+    serve_ep: it exits 0 and writes its artifact, whose per-rank argument
+    + temp is at most the placed cache plus the parameters' local shards
+    plus DRYRUN_CLI_SLACK (a working copy of the whole cache would be
+    481 GB)."""
+    out = SCRATCH / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+         "--out", str(out)], capture_output=True, text=True, timeout=900,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    secs = time.perf_counter() - t0
+    art = out / "single" / "qwen3-0.6b__decode_32k.json"
+    if proc.returncode != 0 or not art.exists():
+        fail(f"dry run CLI: exit {proc.returncode}, artifact "
+             f"{art.exists()}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    res = json.loads(art.read_text())
+    mem = res["full"]["memory"]
+    held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    bound = (mem["cache_placed_bytes"] + mem["params_size_in_bytes"]
+             + DRYRUN_CLI_SLACK)
+    rf = res["roofline"]
+    log(f"dry run CLI: {' '.join(DRYRUN_CLI)} in {secs:.1f} s: a rank "
+        f"holds {held / 1e9:.3f} GB (arguments "
+        f"{mem['argument_size_in_bytes'] / 1e9:.3f} + temp "
+        f"{mem['temp_size_in_bytes'] / 1e9:.3f}; the cache placed "
+        f"{mem['cache_placed_bytes'] / 1e9:.3f} of "
+        f"{mem['cache_whole_bytes'] / 1e9:.1f} GB whole; bound "
+        f"{bound / 1e9:.3f}); roofline compute {rf['compute_s']:.3e} s, "
+        f"memory {rf['memory_s']:.3e} s, collective "
+        f"{rf['collective_s']:.3e} s, {rf['dominant']}")
+    if held > bound:
+        fail(f"dry run CLI: {held} bytes a rank, over {bound}")
+    return {"seconds": secs, "held_bytes": held, "bound_bytes": bound,
+            "cache_placed_bytes": mem["cache_placed_bytes"]}
+
+
+def phase_cached_mesh(cfg) -> dict:
+    """Phase 24: the repaired cached steps, the dry run and its CLI.  A
+    one-rank NCCL group and ``make_local_mesh(1, 1)`` as in phase 23; (a)
+    the cached decode steps of qwen3-0.6b (both cache layouts) and of
+    deepseek-v2-236b at full width and depth CACHED_MLA_DEPTH (serve_ep)
+    against the plain step, no kernel launched and no fallback counted;
+    (b) the dry run held to the card; (c) the dry-run CLI at the
+    production mesh.  The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as model
+
+    work = SCRATCH / "cached_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, 1)
+        with _NoKernelUnderTraining() as guard:
+            params = model.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg)
+            b, n = CACHED_SERVE
+            for layout in ("seq", "batch"):
+                out[f"qwen3_{layout}"] = _cached_steps(
+                    f"{cfg.name} cache_layout={layout}", cfg, params, mesh,
+                    {"cache_layout": layout}, b, n)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            mcfg = configs.get_config(MOE_ARCH).replace(
+                compute_dtype="float32", n_layers=CACHED_MLA_DEPTH)
+            params = model.init_params(
+                torch.Generator(device=dev).manual_seed(0), mcfg)
+            b, n = CACHED_MLA
+            out["mla"] = _cached_steps(
+                f"{MOE_ARCH} depth {CACHED_MLA_DEPTH} serve_ep gather", mcfg,
+                params, mesh, {"sharding_profile": "serve_ep",
+                               "moe_impl": "gather"}, b, n)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["launches"] = guard.check("mesh cached")
+        out["dryrun"] = _dryrun_held_to_card(cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = _dryrun_cli()
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv: list[str]) -> None:
     try:
         import torch
@@ -5018,6 +5313,9 @@ def main(argv: list[str]) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     mesh = phase_mesh(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cached = phase_cached_mesh(cfg)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -5062,6 +5360,7 @@ def main(argv: list[str]) -> None:
         "name": "rmsnorm",
         "route": "cuda",
         "mesh_launches": mesh["launches"]["rmsnorm"],
+        "cached_mesh_launches": cached["launches"]["rmsnorm"],
         "train_launches": train["launches"]["rmsnorm"],
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:29",
@@ -5103,6 +5402,7 @@ def main(argv: list[str]) -> None:
         "name": "attention",
         "route": "cuda",
         "mesh_launches": mesh["launches"]["attention"],
+        "cached_mesh_launches": cached["launches"]["attention"],
         "train_launches": train["launches"]["attention"],
         "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:106",
@@ -5145,6 +5445,7 @@ def main(argv: list[str]) -> None:
         "name": "linear_attention",
         "route": "cuda",
         "mesh_launches": mesh["launches"]["linear_attention"],
+        "cached_mesh_launches": cached["launches"]["linear_attention"],
         "train_launches": train["launches"]["linear_attention"],
         "source": "src/repro_torch/kernels/linear_attention/csrc/"
                   "linear_attention.cu",
@@ -5184,6 +5485,7 @@ def main(argv: list[str]) -> None:
         "name": "matmul",
         "route": "cuda",
         "mesh_launches": mesh["launches"]["matmul"],
+        "cached_mesh_launches": cached["launches"]["matmul"],
         "train_launches": train["launches"]["matmul"],
         "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul/kernel.py:43",
@@ -5214,6 +5516,7 @@ def main(argv: list[str]) -> None:
         "name": "fastpath",
         "route": "cuda",
         "mesh_launches": mesh["launches"]["fastpath"],
+        "cached_mesh_launches": cached["launches"]["fastpath"],
         "train_launches": train["launches"]["fastpath"],
         "source": "src/repro_torch/kernels/fastpath/csrc/fastpath.cu",
         "replaces": "src/repro/kernels/fastpath/kernel.py:44",

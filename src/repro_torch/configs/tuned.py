@@ -5,10 +5,16 @@ The online explorer *discovers* these; the table warm-starts the next
 deployment so exploration begins from the incumbent instead of the
 generic config.
 
-``TUNED`` starts empty.  The reference's entries are hillclimb winners on
-a TPU mesh and say nothing about the card; the table is filled only from
-runs of the port's hillclimb on the card (ROADMAP M12b).  Until then
-:func:`best_spec` returns the generic (empty) config for every key.
+Every entry is the winner of the port's own hillclimb chain for its cell
+(``python -m repro_torch.launch.hillclimb``: the dry run on the
+single-pod (16, 16) mesh, ranked by the reciprocal of its H100 roofline
+time); none is the reference's, whose winners were ranked on a TPU.  A
+cell no chain covers gets the generic (empty) config.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b \\
+        --shape decode_32k --mesh single --spec "$(python -c 'from \\
+        repro_torch.configs.tuned import spec_json; \\
+        print(spec_json("kimi-k2-1t-a32b", "decode_32k"))')"
 """
 from __future__ import annotations
 
@@ -16,8 +22,23 @@ import json
 
 __all__ = ["TUNED", "best_spec", "spec_json"]
 
-#: (arch, shape name) -> spec-point overrides, from card runs only
-TUNED: dict[tuple[str, str], dict] = {}
+#: (arch, shape name) -> spec-point overrides, from the port's chains
+TUNED: dict[tuple[str, str], dict] = {
+    # a9_noremat, 1/roofline_s 0.0124; torch 2.13.0+cpu; H100 SXM5
+    # roofline, 700 W
+    ("kimi-k2-1t-a32b", "train_4k"): {
+        "moe_impl": "shard", "logits_dtype": "bfloat16",
+        "sharding_profile": "fsdp_noexp"},
+    # b2_moegather, 1/roofline_s 4.729; torch 2.13.0+cpu; H100 SXM5
+    # roofline, 700 W
+    ("kimi-k2-1t-a32b", "decode_32k"): {
+        "sharding_profile": "serve_ep", "moe_impl": "gather",
+        "moe_ranking": "sort"},
+    # c2_logitsbf16, 1/roofline_s 0.1160; torch 2.13.0+cpu; H100 SXM5
+    # roofline, 700 W
+    ("hymba-1.5b", "prefill_32k"): {
+        "swa_impl": "banded", "logits_dtype": "bfloat16"},
+}
 
 
 def best_spec(arch: str, shape: str) -> dict:

@@ -40,7 +40,9 @@ from repro_torch import compat
 __all__ = ["ShardingRules", "DEFAULT_RULES", "PartitionSpec", "mesh_context",
            "current_mesh", "current_rules", "constrain", "logical_to_spec",
            "placements", "named_sharding", "spec_for_axes", "mesh_shape",
-           "local_shard", "shard_index", "replicate", "is_dtensor"]
+           "local_shard", "shard_index", "replicate", "is_dtensor",
+           "shard_dims", "spec_of_dims", "local_view", "local_start",
+           "from_local", "reduce_over", "write_local"]
 
 
 # Logical axis vocabulary used across the model zoo:
@@ -306,6 +308,71 @@ def replicate(x: torch.Tensor) -> torch.Tensor:
     value on every rank; differentiable).  The degrade for an op that has
     no DTensor sharding strategy; ``x`` untouched without a mesh."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+def shard_dims(x: torch.Tensor) -> tuple[tuple[str, ...], ...]:
+    """Per tensor dim of ``x``, the mesh dims that split it (mesh order,
+    major first); every entry empty for a plain tensor."""
+    dims: list[tuple[str, ...]] = [()] * x.ndim
+    if is_dtensor(x):
+        for name, pl in zip(mesh_shape(x.device_mesh), x.placements):
+            if pl.is_shard():
+                dims[pl.dim] += (name,)
+    return tuple(dims)
+
+
+def spec_of_dims(dims: Sequence[tuple[str, ...]]) -> PartitionSpec:
+    """The :class:`PartitionSpec` of :func:`shard_dims`' entries."""
+    return PartitionSpec(*(None if not d else d[0] if len(d) == 1
+                           else tuple(d) for d in dims))
+
+
+def local_view(x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``x`` as a plain tensor sharing its storage
+    (an in-place write into it lands in ``x``); ``x`` itself when plain."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def local_start(x: torch.Tensor, dim: int) -> int:
+    """The global index of the first element of ``dim`` in this rank's
+    shard of ``x`` (0 for a plain tensor or an unsplit dim)."""
+    names = shard_dims(x)[dim]
+    if not names:
+        return 0
+    return shard_index(x.device_mesh, names) * local_view(x).shape[dim]
+
+
+def from_local(t: torch.Tensor, mesh: Any, spec: Sequence) -> torch.Tensor:
+    """Each rank's ``t`` as the shards of a DTensor placed by ``spec`` (the
+    mesh dims it does not name: the same value on every rank); ``t``
+    untouched without a mesh."""
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements(spec, mesh),
+                              run_check=False)
+
+
+def reduce_over(t: torch.Tensor, op: str, dims: Sequence[str],
+                mesh: Any) -> torch.Tensor:
+    """``t`` all-reduced (``op``: "sum" or "max") over the mesh dims
+    ``dims``, a functional collective on each; ``t`` without any."""
+    if not dims:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+    for name in dims:
+        t = funcol.all_reduce(t, op, mesh.get_group(name))
+    return t
+
+
+def write_local(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` where ``dst`` may be a DTensor: on each rank into
+    its own shard, ``src`` placed as ``dst`` is (a plain ``src`` is taken as
+    replicated); nothing is gathered to the whole of ``dst``."""
+    if is_dtensor(dst):
+        src = _to_dtensor(src, dst.device_mesh,
+                          tuple(dst.placements)).to_local()
+    local_view(dst).copy_(src)
 
 
 def spec_for_axes(axes_tree: Any, shapes_tree: Any = None,

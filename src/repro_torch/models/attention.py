@@ -9,7 +9,9 @@ Cache writes are in place (``index_copy_`` / ``index_put_``) where the
 reference rebuilds the whole cache with ``jnp.where`` /
 ``dynamic_update_slice``: the write touches one slot per row instead of
 copying every layer's cache each token.  The returned cache holds the
-same tensors as the one passed in.
+same tensors as the one passed in.  Under a mesh the decode writes and
+attends on each rank's own shard of the cache, as GSPMD partitions the
+reference's (:func:`decode_gqa`).
 """
 from __future__ import annotations
 
@@ -17,9 +19,12 @@ import torch
 
 from repro_torch import compat
 from repro_torch.distributed.sharding import (constrain, current_mesh,
-                                              local_shard, logical_to_spec,
-                                              placements, replicate,
-                                              shard_index)
+                                              from_local, local_shard,
+                                              local_start, local_view,
+                                              logical_to_spec, placements,
+                                              reduce_over,
+                                              shard_dims, shard_index,
+                                              spec_of_dims)
 from repro_torch.kernels.attention import attention as attn_op
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
@@ -27,7 +32,8 @@ from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_gqa", "gqa_axes", "apply_gqa", "init_gqa_cache",
-           "gqa_cache_axes", "decode_gqa", "sharded_attention"]
+           "gqa_cache_axes", "decode_gqa", "sharded_attention",
+           "softmax_weighted"]
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -59,13 +65,33 @@ def gqa_axes(cfg: ModelConfig) -> dict:
     return ax
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor,
+                  heads_axis: str) -> torch.Tensor:
+    """``einsum("bsd,dhk->bhsk", x, w)``.  Under a mesh whose dims the
+    ``heads_axis`` count does not divide (8 kv heads on a 16-way model
+    dim), on each rank's batch rows with the whole of ``w``: DTensor would
+    shard the product's flattened (heads, head_dim) dim over the model dim
+    and then fail to unflatten it.  The gradient of ``w`` is then a
+    partial sum over the batch's mesh dims, and the product comes back
+    placed by the batch."""
+    mesh = current_mesh()
+    if mesh is None or logical_to_spec((heads_axis,), w.shape[1:], mesh):
+        return torch.einsum("bsd,dhk->bhsk", x, w)
+    bspec = logical_to_spec(("batch",), x.shape, mesh)
+    batch = bspec[0] if bspec else ()
+    batch = (batch,) if isinstance(batch, str) else batch
+    xl = local_shard(x, mesh, bspec)
+    wl = local_shard(w, mesh, (), {n: "partial" for n in batch})
+    return from_local(torch.einsum("bsd,dhk->bhsk", xl, wl), mesh, bspec)
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  opts: KernelOptions, positions: torch.Tensor):
     """x (B,S,d) -> q (B,H,S,dh), k/v (B,Hk,S,dh) with rope applied."""
     cdt = x.dtype
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(cdt))
+    q = project_heads(x, p["wq"].to(cdt), "heads")
+    k = project_heads(x, p["wk"].to(cdt), "kv_heads")
+    v = project_heads(x, p["wv"].to(cdt), "kv_heads")
     if cfg.qk_norm:
         q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"], cfg.rms_eps,
                              opts)
@@ -116,15 +142,6 @@ def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               run_check=False)
 
 
-def attention_inputs(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The decode attention's inputs under a mesh: the batch dim sharded,
-    the heads replicated (the cached steps attend over a replicated copy
-    of the cache, see ``training.steps._cached_step``; the plain products
-    fold (batch, heads) into one dim, which DTensor refuses while the
-    heads dim is sharded); without a mesh they pass untouched."""
-    return tuple(constrain(t, ("batch", None, None, None)) for t in ts)
-
-
 def apply_gqa(p: dict, x: torch.Tensor, cfg: ModelConfig,
               opts: KernelOptions, *, window: int | None = None,
               positions: torch.Tensor | None = None) -> torch.Tensor:
@@ -168,22 +185,69 @@ def gqa_cache_axes(cfg: ModelConfig) -> dict:
     }
 
 
-def _attend(p: dict, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-            valid: torch.Tensor, cfg: ModelConfig,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    """Softmax attention of q (B,H,1,dh) over the cache, masked by
-    ``valid`` (broadcastable to (B,Hk,G,w)); returns (B,1,d)."""
-    b = q.shape[0]
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, = attention_inputs(q)
-    qg = q.reshape(b, hk, h // hk, dh)
+def softmax_weighted(scores: torch.Tensor, values: torch.Tensor, eq: str,
+                     seq_dims: tuple[str, ...] = (),
+                     mesh=None) -> torch.Tensor:
+    """``einsum(eq, softmax(scores), values)``, the softmax over the last
+    dim of ``scores`` (the cache slots).  With the slots split over the
+    mesh dims ``seq_dims`` each rank holds a part of them, and the
+    softmax is split as flash decoding splits it: each rank's max, sum of
+    exponentials and weighted sum of ``values``, the max all-reduced
+    (MAX), each part rescaled to it and the sums all-reduced (SUM), then
+    divided.  A rank whose slots are all masked (the finite ``NEG_INF``)
+    contributes weight 0 once any rank holds a valid slot."""
+    if not seq_dims:
+        return torch.einsum(eq, torch.softmax(scores, dim=-1), values)
+    m = reduce_over(scores.amax(-1, keepdim=True), "max", seq_dims, mesh)
+    e = torch.exp(scores - m)
+    den = reduce_over(e.sum(-1, keepdim=True), "sum", seq_dims, mesh)
+    num = reduce_over(torch.einsum(eq, e, values), "sum", seq_dims, mesh)
+    return num / den
+
+
+def _put(cl: torch.Tensor, dim: int, idx: torch.Tensor, new: torch.Tensor,
+         own: torch.Tensor | None) -> None:
+    """``cl``'s slots ``idx`` along ``dim`` set to ``new`` in place; where
+    ``own`` (broadcastable to ``new``) is false the slot keeps its value
+    (the write belongs to another rank's shard, or to no slot)."""
+    if own is not None:
+        new = torch.where(own, new, cl.index_select(dim, idx))
+    cl.index_copy_(dim, idx, new)
+
+
+def _attend(p: dict, ql: torch.Tensor, ckl: torch.Tensor, cvl: torch.Tensor,
+            valid: torch.Tensor, cfg: ModelConfig, out_dtype: torch.dtype,
+            dims: tuple, mesh) -> torch.Tensor:
+    """Softmax attention of this rank's q (b,h,1,dh) over its shard of the
+    cache (b,hk,w,dh), masked by ``valid`` (broadcastable to
+    (b,hk,G,w)); ``dims`` are the cache's :func:`shard_dims`, whose batch
+    and kv-head entries the local tensors already follow.  Returns
+    (B,1,d) (a DTensor under a mesh)."""
+    b, h, _, dh = ql.shape
+    hk = ckl.shape[1]
+    qg = ql.reshape(b, hk, h // hk, dh)
     scores = torch.einsum("bhgk,bhwk->bhgw", qg.to(torch.float32),
-                          ck.to(torch.float32)) * (dh ** -0.5)
+                          ckl.to(torch.float32)) * (cfg.d_head ** -0.5)
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgw,bhwk->bhgk", probs, cv.to(torch.float32))
-    out = out.reshape(b, h, 1, dh).to(out_dtype)
+    out = softmax_weighted(scores, cvl.to(torch.float32), "bhgw,bhwk->bhgk",
+                           dims[2], mesh)
+    out = from_local(out.reshape(b, h, 1, dh).to(out_dtype), mesh,
+                     spec_of_dims(dims[:2]))
     return torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(out_dtype))
+
+
+def _local_inputs(cache_leaf: torch.Tensor, *ts: torch.Tensor):
+    """The cache leaf's :func:`shard_dims`, the mesh, and ``ts`` (q, k, v
+    of the new token, (B, heads, 1, dh)) as this rank's plain shards: the
+    batch rows and kv heads the rank holds of the cache (the q heads of
+    its kv heads; the token's one slot unsplit).  Without a mesh the
+    tensors pass untouched."""
+    dims = shard_dims(cache_leaf)
+    mesh = current_mesh()
+    if mesh is None:
+        return dims, None, ts
+    spec = spec_of_dims(dims[:2])
+    return dims, mesh, tuple(local_shard(t, mesh, spec) for t in ts)
 
 
 def decode_gqa(p: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
@@ -203,24 +267,36 @@ def decode_gqa(p: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
     nothing, which is what lets chunked prefill keep inactive rows
     harmless.
 
-    The cache is updated in place and returned.
+    The cache is updated in place and returned.  Under a mesh the cache
+    leaves are DTensors placed by their axes, and each rank writes and
+    attends on its own shard (:func:`_local_inputs`): a slot is written
+    by the rank that holds it, and where the slots are split (the
+    ``seq`` cache layout) the softmax is split over the ranks
+    (:func:`softmax_weighted`).  Nothing of the cache's size moves.
     """
     if pos.ndim == 1:
         return _decode_gqa_rows(p, cache, x, pos, cfg, opts, window=window)
     q, k, v = _project_qkv(p, x, cfg, opts, pos[None])
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
     w = ck.shape[2]
+    dims, mesh, (q, k, v) = _local_inputs(ck, q, k, v)
+    ckl, cvl, sposl = local_view(ck), local_view(cv), local_view(spos)
+    s0, wl = local_start(ck, 2), ckl.shape[2]
+    pos = local_view(pos)
     slot = torch.remainder(pos, w).to(torch.long).reshape(1)
-    # the cache writes take replicated values under a mesh (no DTensor
-    # strategy for the index writes; the step's cache is replicated)
-    k, v = replicate(k), replicate(v)
-    ck.index_copy_(2, slot, k.to(ck.dtype))
-    cv.index_copy_(2, slot, v.to(cv.dtype))
-    spos.index_copy_(0, slot, pos.to(spos.dtype).reshape(1))
-    valid = (spos >= 0) & (spos <= pos)
+    # the slot's offset in this rank's shard; a rank that does not hold
+    # it keeps its slots (one index, clamped into range)
+    loc = slot - s0
+    own = ((loc >= 0) & (loc < wl)) if dims[2] else None
+    idx = loc.clamp(0, wl - 1)
+    _put(ckl, 2, idx, k.to(ckl.dtype), own)
+    _put(cvl, 2, idx, v.to(cvl.dtype), own)
+    sposl.index_copy_(0, slot, pos.to(sposl.dtype).reshape(1))
+    span = sposl[s0:s0 + wl]
+    valid = (span >= 0) & (span <= pos)
     if window is not None:
-        valid &= spos > pos - window
-    y = _attend(p, q, ck, cv, valid, cfg, x.dtype)
+        valid &= span > pos - window
+    y = _attend(p, q, ckl, cvl, valid, cfg, x.dtype, dims, mesh)
     return y, {"k": ck, "v": cv, "slot_pos": spos}
 
 
@@ -229,23 +305,30 @@ def _decode_gqa_rows(p: dict, cache: dict, x: torch.Tensor,
                      opts: KernelOptions, *,
                      window: int | None = None) -> tuple[torch.Tensor, dict]:
     """Vector-pos decode: row b at position pos[b] (see :func:`decode_gqa`)."""
-    b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, opts, pos[:, None, None])
     ck, cv = cache["k"], cache["v"]
     w = ck.shape[2]
-    # One slot per row: an in-range row writes its new k/v at pos[b]; an
-    # out-of-range row rewrites slot w-1 with the value already there.
-    rows = torch.arange(b, device=x.device)
-    slots = pos.clamp(0, w - 1).to(torch.long)
-    keep = (pos < w)[:, None, None]
-    k, v = replicate(k), replicate(v)      # as in decode_gqa
-    ck[rows, :, slots] = torch.where(keep, k[:, :, 0].to(ck.dtype),
-                                     ck[rows, :, slots])
-    cv[rows, :, slots] = torch.where(keep, v[:, :, 0].to(cv.dtype),
-                                     cv[rows, :, slots])
-    span = torch.arange(w, dtype=pos.dtype, device=x.device)
+    dims, mesh, (q, k, v) = _local_inputs(ck, q, k, v)
+    ckl, cvl = local_view(ck), local_view(cv)
+    b0, bl = local_start(ck, 0), ckl.shape[0]
+    s0, wl = local_start(ck, 2), ckl.shape[2]
+    pos = local_view(pos)[b0:b0 + bl]
+    # One slot per row: an in-range row writes its new k/v at pos[b] on
+    # the rank that holds the slot; any other row rewrites a slot with
+    # the value already there.
+    rows = torch.arange(bl, device=ckl.device)
+    loc = pos.clamp(0, w - 1).to(torch.long) - s0
+    keep = (pos < w) & (loc >= 0) & (loc < wl)
+    slots = loc.clamp(0, wl - 1)
+    keep = keep[:, None, None]
+    ckl[rows, :, slots] = torch.where(keep, k[:, :, 0].to(ckl.dtype),
+                                      ckl[rows, :, slots])
+    cvl[rows, :, slots] = torch.where(keep, v[:, :, 0].to(cvl.dtype),
+                                      cvl[rows, :, slots])
+    span = s0 + torch.arange(wl, dtype=pos.dtype, device=ckl.device)
     valid = span[None, :] <= pos[:, None]               # contiguous prefix
     if window is not None:
         valid &= span[None, :] > pos[:, None] - window
-    y = _attend(p, q, ck, cv, valid[:, None, None, :], cfg, x.dtype)
+    y = _attend(p, q, ckl, cvl, valid[:, None, None, :], cfg, x.dtype,
+                dims, mesh)
     return y, {"k": ck, "v": cv, "slot_pos": cache["slot_pos"]}

@@ -12,17 +12,21 @@ query, W_uv applied after attention), so the cache is ~1/``n_heads`` the
 size of a GQA cache.  It is plain tensor code, as in the reference.
 
 Cache writes are in place, as in :mod:`repro_torch.models.attention`: the
-returned cache holds the tensors passed in.
+returned cache holds the tensors passed in; under a mesh each rank writes
+and attends on its own shard of it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import compat
-from repro_torch.distributed.sharding import constrain, replicate
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              from_local, local_shard,
+                                              local_start, local_view,
+                                              shard_dims, spec_of_dims)
 from repro_torch.kernels.attention.ref import NEG_INF
-from repro_torch.models.attention import (attention_inputs,
-                                          sharded_attention)
+from repro_torch.models.attention import (_put, sharded_attention,
+                                          softmax_weighted)
 from repro_torch.models.common import (KernelOptions, apply_rope, dense_init,
                                        rms_norm, rope)
 from repro_torch.models.config import ModelConfig
@@ -134,20 +138,41 @@ def mla_cache_axes(cfg: ModelConfig) -> dict:
 
 
 def _absorbed(p: dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
-              cckv: torch.Tensor, ckr: torch.Tensor, valid: torch.Tensor,
-              cfg: ModelConfig, cdt: torch.dtype) -> torch.Tensor:
-    """Attention of the absorbed query over the latent cache, masked by
-    ``valid`` (broadcastable to (B,H,w)); returns (B,1,d)."""
-    f32 = torch.float32
-    q_nope, q_rope = attention_inputs(q_nope, q_rope)
+              ckv: torch.Tensor, k_rope: torch.Tensor, cache: dict,
+              cfg: ModelConfig, cdt: torch.dtype):
+    """The absorbed query (``W_uk`` folded in) and the new token's latent
+    and rotary key as this rank's plain shards: the batch rows it holds
+    of the latent cache, every head.  Returns ``(dims, mesh, q_eff (b,H,r),
+    q_rope (b,H,1,rd), ckv (b,1,r), k_rope (b,1,1,rd))``; without a mesh
+    the tensors pass as they are."""
     q_eff = torch.einsum("bhsk,rhk->bhr", q_nope, p["w_uk"].to(cdt))
+    dims = shard_dims(cache["ckv"])
+    mesh = current_mesh()
+    ts = (q_eff, q_rope, ckv, k_rope)
+    if mesh is not None:
+        spec = spec_of_dims(dims[:1])
+        ts = tuple(local_shard(t, mesh, spec) for t in ts)
+    return (dims, mesh) + ts
+
+
+def _attend_latent(p: dict, q_eff: torch.Tensor, q_rope: torch.Tensor,
+                   cckv: torch.Tensor, ckr: torch.Tensor, valid: torch.Tensor,
+                   cfg: ModelConfig, cdt: torch.dtype, dims: tuple,
+                   mesh) -> torch.Tensor:
+    """Attention of this rank's absorbed query over its shard of the
+    latent cache, masked by ``valid`` (broadcastable to (b,H,w)); the
+    latent output is combined over the slot shards (the split softmax of
+    :func:`repro_torch.models.attention.softmax_weighted`) before
+    ``W_uv`` and ``wo``.  Returns (B,1,d) (a DTensor under a mesh)."""
+    f32 = torch.float32
     scores = (torch.einsum("bhr,bwr->bhw", q_eff.to(f32), cckv.to(f32))
               + torch.einsum("bhsk,bwk->bhw", q_rope.to(f32), ckr.to(f32))
               ) * ((cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5)
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    o_latent = torch.einsum("bhw,bwr->bhr", probs, cckv.to(f32))
-    out = torch.einsum("bhr,rhk->bhk", o_latent.to(cdt), p["w_uv"].to(cdt))
+    o_latent = softmax_weighted(scores, cckv.to(f32), "bhw,bwr->bhr",
+                                dims[1], mesh)
+    o_latent = from_local(o_latent.to(cdt), mesh, spec_of_dims(dims[:1]))
+    out = torch.einsum("bhr,rhk->bhk", o_latent, p["w_uv"].to(cdt))
     return torch.einsum("bhk,hkd->bd", out, p["wo"].to(cdt))[:, None]
 
 
@@ -161,24 +186,33 @@ def decode_mla(p: dict, cache: dict, x: torch.Tensor, pos: torch.Tensor,
     contiguous slots for paged per-request caches, as
     :func:`repro_torch.models.attention.decode_gqa`; a row whose position
     is out of range writes nothing.  The cache is updated in place and
-    returned.
+    returned; under a mesh each rank writes and attends on its own shard
+    of the latent cache, as in
+    :func:`repro_torch.models.attention.decode_gqa`.
     """
     if pos.ndim == 1:
         return _decode_mla_rows(p, cache, x, pos, cfg, opts, window=window)
     q_nope, q_rope, ckv, k_rope = _latents(p, x, cfg, opts, pos[None])
+    dims, mesh, q_eff, q_rope, ckv, k_rope = _absorbed(
+        p, q_nope, q_rope, ckv, k_rope, cache, cfg, x.dtype)
     cckv, ckr, spos = cache["ckv"], cache["k_rope"], cache["slot_pos"]
+    ckvl, ckrl, sposl = local_view(cckv), local_view(ckr), local_view(spos)
     w = cckv.shape[1]
+    s0, wl = local_start(cckv, 1), ckvl.shape[1]
+    pos = local_view(pos)
     slot = torch.remainder(pos, w).to(torch.long).reshape(1)
-    # the cache writes take replicated values under a mesh (no DTensor
-    # strategy for the index writes; the step's cache is replicated)
-    ckv, k_rope = replicate(ckv), replicate(k_rope)
-    cckv.index_copy_(1, slot, ckv.to(cckv.dtype))
-    ckr.index_copy_(1, slot, k_rope[:, 0].to(ckr.dtype))
-    spos.index_copy_(0, slot, pos.to(spos.dtype).reshape(1))
-    valid = (spos >= 0) & (spos <= pos)
+    loc = slot - s0
+    own = ((loc >= 0) & (loc < wl)) if dims[1] else None
+    idx = loc.clamp(0, wl - 1)
+    _put(ckvl, 1, idx, ckv.to(ckvl.dtype), own)
+    _put(ckrl, 1, idx, k_rope[:, 0].to(ckrl.dtype), own)
+    sposl.index_copy_(0, slot, pos.to(sposl.dtype).reshape(1))
+    span = sposl[s0:s0 + wl]
+    valid = (span >= 0) & (span <= pos)
     if window is not None:
-        valid &= spos > pos - window
-    y = _absorbed(p, q_nope, q_rope, cckv, ckr, valid, cfg, x.dtype)
+        valid &= span > pos - window
+    y = _attend_latent(p, q_eff, q_rope, ckvl, ckrl, valid, cfg, x.dtype,
+                       dims, mesh)
     return y, {"ckv": cckv, "k_rope": ckr, "slot_pos": spos}
 
 
@@ -187,25 +221,31 @@ def _decode_mla_rows(p: dict, cache: dict, x: torch.Tensor,
                      opts: KernelOptions, *,
                      window: int | None = None) -> tuple[torch.Tensor, dict]:
     """Vector-pos absorbed decode: row b at position pos[b]."""
-    b = x.shape[0]
     q_nope, q_rope, ckv, k_rope = _latents(p, x, cfg, opts,
                                            pos[:, None, None])
+    dims, mesh, q_eff, q_rope, ckv, k_rope = _absorbed(
+        p, q_nope, q_rope, ckv, k_rope, cache, cfg, x.dtype)
     cckv, ckr = cache["ckv"], cache["k_rope"]
+    ckvl, ckrl = local_view(cckv), local_view(ckr)
     w = cckv.shape[1]
-    # One slot per row: an in-range row writes its latent at pos[b]; an
-    # out-of-range row rewrites a slot with the value already there.
-    rows = torch.arange(b, device=x.device)
-    slots = pos.clamp(0, w - 1).to(torch.long)
-    keep = ((pos >= 0) & (pos < w))[:, None]
-    ckv, k_rope = replicate(ckv), replicate(k_rope)   # as in decode_mla
-    cckv[rows, slots] = torch.where(keep, ckv[:, 0].to(cckv.dtype),
-                                    cckv[rows, slots])
-    ckr[rows, slots] = torch.where(keep, k_rope[:, 0, 0].to(ckr.dtype),
-                                   ckr[rows, slots])
-    span = torch.arange(w, dtype=pos.dtype, device=x.device)
+    b0, bl = local_start(cckv, 0), ckvl.shape[0]
+    s0, wl = local_start(cckv, 1), ckvl.shape[1]
+    pos = local_view(pos)[b0:b0 + bl]
+    # One slot per row: an in-range row writes its latent at pos[b] on the
+    # rank that holds the slot; any other row rewrites a slot with the
+    # value already there.
+    rows = torch.arange(bl, device=ckvl.device)
+    loc = pos.clamp(0, w - 1).to(torch.long) - s0
+    keep = ((pos >= 0) & (pos < w) & (loc >= 0) & (loc < wl))[:, None]
+    slots = loc.clamp(0, wl - 1)
+    ckvl[rows, slots] = torch.where(keep, ckv[:, 0].to(ckvl.dtype),
+                                    ckvl[rows, slots])
+    ckrl[rows, slots] = torch.where(keep, k_rope[:, 0, 0].to(ckrl.dtype),
+                                    ckrl[rows, slots])
+    span = s0 + torch.arange(wl, dtype=pos.dtype, device=ckvl.device)
     valid = span[None, :] <= pos[:, None]               # contiguous prefix
     if window is not None:
         valid &= span[None, :] > pos[:, None] - window
-    y = _absorbed(p, q_nope, q_rope, cckv, ckr, valid[:, None, :], cfg,
-                  x.dtype)
+    y = _attend_latent(p, q_eff, q_rope, ckvl, ckrl, valid[:, None, :], cfg,
+                       x.dtype, dims, mesh)
     return y, {"ckv": cckv, "k_rope": ckr, "slot_pos": cache["slot_pos"]}

@@ -21,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import compat
-from repro_torch.distributed.sharding import constrain, replicate
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              from_local, local_shard,
+                                              logical_to_spec, write_local)
 from repro_torch.kernels.linear_attention import linear_attention
 from repro_torch.models.chunk_scan import step_linear_attention
 from repro_torch.models.common import KernelOptions, dense_init, rms_norm
@@ -130,19 +132,28 @@ def apply_rwkv6(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     h, hs = cfg.rwkv_heads, cfg.rwkv_head_size
     r, k, v, g, lw = _time_mix_inputs(p, x, _shift(x))
-
-    def bh(t):                                        # (B,S,d) -> (B*H,S,hs)
-        return _heads(t, h, hs).transpose(1, 2).reshape(b * h, s, hs)
-
-    rh = constrain(_heads(r, h, hs).transpose(1, 2),
-                   ("batch", "heads", "seq", None))
-    u_b = p["u"].to(torch.float32)[None].expand(b, h, hs)
+    # (B,S,d) -> (B,H,S,hs); under a mesh the scan runs on each rank's
+    # batch rows and heads (DTensor cannot fold sharded (B, H) into rows)
+    rh, kh, vh, wh = (constrain(_heads(t, h, hs).transpose(1, 2),
+                                ("batch", "heads", "seq", None))
+                      for t in (r, k, v, lw))
+    u = p["u"].to(torch.float32)
+    mesh = current_mesh()
+    spec = logical_to_spec(("batch", "heads"), (b, h)) if mesh else ()
+    if mesh is not None:
+        batch = spec[0] if spec else None
+        batch = (batch,) if isinstance(batch, str) else (batch or ())
+        rh, kh, vh, wh = (local_shard(t, mesh, spec)
+                          for t in (rh, kh, vh, wh))
+        u = local_shard(u, mesh, spec[1:], {n: "partial" for n in batch})
+    bl, hl = rh.shape[:2]
     o = linear_attention(
-        rh.reshape(b * h, s, hs), bh(k), bh(v), bh(lw),
-        bonus=u_b.reshape(b * h, hs),
+        *(t.reshape(bl * hl, s, hs) for t in (rh, kh, vh, wh)),
+        bonus=u[None].expand(bl, hl, hs).reshape(bl * hl, hs),
         inclusive=False, chunk=min(opts.chunk_len, s),
         impl=opts.impl_for("linear_attention"))
-    o = o.reshape(b, h, s, hs).transpose(1, 2)        # (B,S,H,hs)
+    o = from_local(o.reshape(bl, hl, s, hs), mesh, spec)
+    o = o.transpose(1, 2)                             # (B,S,H,hs)
     o = _head_norm(o, cfg, opts)
     o = o.reshape(b, s, d) * p["ln_x"].to(x.dtype) * g
     return constrain(o @ p["wo"].to(x.dtype), ("batch", "seq", None))
@@ -204,6 +215,7 @@ def decode_rwkv6(p: dict, cache: dict, x: torch.Tensor, pos,
     o = _head_norm(o, cfg, opts)
     o = o.reshape(b, d) * p["ln_x"].to(x.dtype) * g
     y = (o @ p["wo"].to(x.dtype))[:, None]
-    cache["state"].copy_(replicate(new_state))   # replicated under a mesh
-    cache["x_tm"].copy_(replicate(xt))
+    # under a mesh each rank writes its own rows and heads of the state
+    write_local(cache["state"], new_state)
+    write_local(cache["x_tm"], xt)
     return y, cache

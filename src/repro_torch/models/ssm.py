@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import compat
-from repro_torch.distributed.sharding import constrain, replicate
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              from_local, local_shard,
+                                              logical_to_spec, write_local)
 from repro_torch.kernels.linear_attention import linear_attention
 from repro_torch.models.chunk_scan import step_linear_attention
 from repro_torch.models.common import KernelOptions, dense_init
@@ -97,6 +99,15 @@ def _gates(p: dict, x: torch.Tensor):
     return bmat, cmat, dt, log_a
 
 
+def _split_heads(x: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """``x (..., h * dh) -> (..., h, dh)``.  Under a mesh whose dims the
+    head count does not divide (25 heads on a 16-way model dim), the last
+    dim is gathered first: DTensor cannot unflatten a shard of it."""
+    if current_mesh() is not None and not logical_to_spec(("heads",), (h,)):
+        x = constrain(x, ("batch",) + (None,) * (x.ndim - 1))
+    return x.reshape(*x.shape[:-1], h, dh)
+
+
 def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig,
               opts: KernelOptions) -> torch.Tensor:
     """x (B,S,d) -> (B,S,d)."""
@@ -105,17 +116,26 @@ def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig,
     cdt = x.dtype
     xi = F.silu(_conv_causal(x @ p["w_in"].to(cdt), p["conv"]))
     bmat, cmat, dt, log_a = _gates(p, x)
-    xh = xi.reshape(b, s, h, dh)
+    xh = _split_heads(xi, h, dh)
     v = xh * dt.to(cdt)[..., None]                    # dt-scaled input
+    # under a mesh the scan runs on each rank's batch rows (rows are
+    # independent; DTensor cannot fold the sharded batch into (B*H) rows)
+    mesh = current_mesh()
+    spec = logical_to_spec(("batch",), (b,)) if mesh is not None else ()
+    if mesh is not None:
+        cmat, bmat, v, log_a = (local_shard(t, mesh, spec)
+                                for t in (cmat, bmat, v, log_a))
+    bl = v.shape[0]
     # per (batch, head): q = C (S,N), k = B (S,N), v (S,dh), decay (S,1)
-    qb = cmat[:, None].expand(b, h, s, n).reshape(b * h, s, n)
-    kb = bmat[:, None].expand(b, h, s, n).reshape(b * h, s, n)
-    vb = v.transpose(1, 2).reshape(b * h, s, dh)
-    wb = log_a.transpose(1, 2).reshape(b * h, s, 1)
+    qb = cmat[:, None].expand(bl, h, s, n).reshape(bl * h, s, n)
+    kb = bmat[:, None].expand(bl, h, s, n).reshape(bl * h, s, n)
+    vb = v.transpose(1, 2).reshape(bl * h, s, dh)
+    wb = log_a.transpose(1, 2).reshape(bl * h, s, 1)
     o = linear_attention(qb, kb, vb, wb, inclusive=True,
                          chunk=min(opts.chunk_len, s),
                          impl=opts.impl_for("linear_attention"))
-    o = o.reshape(b, h, s, dh).transpose(1, 2)        # (B,S,H,dh)
+    o = o.reshape(bl, h, s, dh).transpose(1, 2)       # (B,S,H,dh)
+    o = from_local(o, mesh, spec)
     o = o + xh * p["skip_d"].to(cdt)[None, None, :, None]
     return constrain(o.reshape(b, s, h * dh) @ p["w_out"].to(cdt),
                      ("batch", "seq", None))
@@ -160,13 +180,14 @@ def decode_ssm(p: dict, cache: dict, x: torch.Tensor, pos,
     xi = F.silu(_conv_causal(xin, p["conv"], conv))[:, 0]
     new_conv = torch.cat([conv[:, 1:], xin.to(conv.dtype)], dim=1)
     bmat, cmat, dt, log_a = (t[:, 0] for t in _gates(p, x))
-    xh = xi.reshape(b, h, dh)
+    xh = _split_heads(xi, h, dh)
     v = xh * dt.to(cdt)[..., None]
     o, new_state = step_linear_attention(
         cmat[:, None].expand(b, h, n), bmat[:, None].expand(b, h, n), v,
         log_a[..., None], cache["state"], inclusive=True)
     o = o + xh * p["skip_d"].to(cdt)[None, :, None]
     y = (o.reshape(b, h * dh) @ p["w_out"].to(cdt))[:, None]
-    cache["state"].copy_(replicate(new_state))   # replicated under a mesh
-    conv.copy_(replicate(new_conv))
+    # under a mesh each rank writes its own rows and heads of the state
+    write_local(cache["state"], new_state)
+    write_local(conv, new_conv)
     return y, cache

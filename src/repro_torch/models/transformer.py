@@ -38,7 +38,11 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch import compat
-from repro_torch.distributed.sharding import constrain, replicate
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              local_shard, local_start,
+                                              local_view, mesh_shape,
+                                              shard_dims, spec_of_dims,
+                                              write_local)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -369,7 +373,7 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
     if embeds is None:
         if tokens is None:
             raise ValueError("apply needs tokens or embeds")
-        x = params["embed"][tokens.long()].to(cdt)
+        x = _embed(params, tokens).to(cdt)
     else:
         x = embeds.to(cdt)
     x = constrain(x, ("batch", "seq", None))
@@ -384,6 +388,32 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
     logits = constrain(x @ lm_head_weight(params, cfg),
                        ("batch", "seq", "vocab"))
     return logits.to(_dtype(opts.logits_dtype)), aux
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  Under a mesh each rank looks its
+    token rows up in its own shard of the vocab-sharded table (a row it
+    does not hold is 0), and the parts are a ``Partial`` sum over the
+    vocab's mesh dims: the whole table is never gathered (indexing a
+    DTensor table gathers it, 622 MB a rank at qwen3-0.6b)."""
+    emb = params["embed"]
+    if not is_dtensor(emb):
+        return emb[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = emb.device_mesh
+    vdims, ddims = shard_dims(emb)
+    tdims = shard_dims(tokens)[0] if is_dtensor(tokens) else ()
+    # a rank's table shard; its gradient is a partial sum over the dims
+    # that split the tokens (each rank sees only its rows)
+    table = local_shard(emb, mesh, spec_of_dims((vdims, ddims)),
+                        {n: "partial" for n in tdims})
+    ids = local_view(tokens).long() - local_start(emb, 0)
+    own = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)] * own[..., None]
+    place = [Shard(0) if n in tdims else Partial() if n in vdims
+             else Shard(rows.ndim - 1) if n in ddims else Replicate()
+             for n in mesh_shape(mesh)]
+    return DTensor.from_local(rows, mesh, place, run_check=False)
 
 
 def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -469,7 +499,7 @@ def _layer_decode(lp: dict, lc: dict, x: torch.Tensor, pos: torch.Tensor,
         x_prev = lc["x_cm"][:, None].to(xin2.dtype)
         f = rwkv_mod.apply_rwkv6_channel_mix(lp["mixer"], xin2, cfg,
                                              x_prev=x_prev)
-        lc["x_cm"].copy_(replicate(xin2[:, 0]))   # replicated under a mesh
+        write_local(lc["x_cm"], xin2[:, 0])     # its own rows under a mesh
     elif moe:
         f, _ = moe_mod.apply_moe(lp["moe"], xin2, cfg, opts.moe)
     else:
@@ -494,7 +524,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     the rest with ``moe_layers``."""
     check_supported(cfg)
     cdt = _dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cdt)[:, None]     # (B,1,d)
+    x = _embed(params, tokens).to(cdt)[:, None]              # (B,1,d)
     x = constrain(x, ("batch", None, None))
     n_dense = cfg.n_layers - cfg.n_moe_layers
     for i in range(cfg.n_layers):
@@ -525,20 +555,27 @@ def _cache_leaves(cfg: ModelConfig, cache: dict):
 
 def _save_rows(rows: list, idle: list[int]) -> list:
     """The ``idle`` rows of each in-place row-state leaf, before a
-    chunked-prefill step (nothing when every row is active)."""
+    chunked-prefill step (nothing when every row is active): under a mesh
+    the rows of each rank's own shard of the leaf."""
+    saved = []
     if not idle:
-        return []
-    idx = torch.tensor(idle, device=rows[0][0].device)
-    return [(idx, leaf.index_select(bi, idx)) for leaf, bi in rows]
+        return saved
+    for leaf, bi in rows:
+        loc, b0 = local_view(leaf), local_start(leaf, bi)
+        mine = [i - b0 for i in idle if b0 <= i < b0 + loc.shape[bi]]
+        if mine:
+            idx = torch.tensor(mine, device=loc.device)
+            saved.append((loc, bi, idx, loc.index_select(bi, idx)))
+    return saved
 
 
-def _select_rows(rows: list, saved: list) -> None:
+def _select_rows(saved: list) -> None:
     """The reference's per-row select after a chunked-prefill step, for
     in-place row state: an idle row's leaves get back the values saved
     before the step.  (Paged leaves need no select: an idle row's write is
     sent past the cache, where it stores nothing.)"""
-    for (leaf, bi), (idx, old) in zip(rows, saved):
-        leaf.index_copy_(bi, idx, old)
+    for loc, bi, idx, old in saved:
+        loc.index_copy_(bi, idx, old)
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
@@ -573,6 +610,6 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
         saved = _save_rows(rows, [i for i, n in enumerate(counts) if t >= n])
         lg, cache = decode_step(params, cache, tokens[:, t], step_pos, cfg,
                                 opts)
-        _select_rows(rows, saved)
+        _select_rows(saved)
         logits = torch.where((n_new - 1 == t)[:, None], lg, logits)
     return logits, cache

@@ -256,18 +256,18 @@ def _cached_step(step: Callable, params: dict, cache: dict,
                  cfg: ModelConfig, mesh: Any, *args) -> tuple[Any, dict]:
     """``step(params, cache, *args)`` (a decode step or chunked prefill,
     which write the cache in place).  Under a mesh (already in its
-    context) the parameters and the cache are placed by their axes, and
-    the step writes into a replicated copy of the cache: the in-place
-    index writes have no DTensor sharding strategy.  The logits come back
-    as a plain tensor and the new cache placed by its axes (a new tree:
-    the caller's is not written)."""
+    context) the parameters and the cache are placed by their axes (a
+    leaf already so placed is taken as it is), and the step writes into
+    each cache leaf's local shard, in place: nothing of the cache is
+    gathered.  The logits come back as a plain tensor, the same on every
+    rank, and the cache as the placed tree (the caller's own leaves where
+    they came placed)."""
     if mesh is None:
         return step(params, cache, *args)
     params = _constrain_tree(params, model.param_axes(cfg))
-    axes = model.cache_axes(cfg)
-    work = compat.tree_map(replicate, _constrain_tree(cache, axes))
-    logits, work = step(params, work, *args)
-    return replicate(logits), _constrain_tree(work, axes)
+    logits, cache = step(params,
+                         _constrain_tree(cache, model.cache_axes(cfg)), *args)
+    return replicate(logits), cache
 
 
 def make_prefill_builder(cfg: ModelConfig, mesh: Any = None, *,

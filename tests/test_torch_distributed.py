@@ -71,12 +71,33 @@ TIMEOUT = 300
 B, S = 4, 16
 DECODE_STEPS = 3
 DECODE_CONFIG = {"sharding_profile": "serve_ep", "cache_dtype": "float32"}
+#: the cached steps on the mesh: (name, arch, kind, cache_layout, kv
+#: heads).  Reduced qwen3's 2 kv heads divide over model=2, so both
+#: layouts split the heads; with 1 kv head ``seq`` splits the slots (the
+#: split softmax) and ``batch`` keeps the heads replicated
+CACHED_CASES = [
+    ("qwen3_seq", "qwen3-0.6b", "decode", "seq", None),
+    ("qwen3_batch", "qwen3-0.6b", "decode", "batch", None),
+    ("qwen3_kv1_seq", "qwen3-0.6b", "decode", "seq", 1),
+    ("qwen3_kv1_batch", "qwen3-0.6b", "decode", "batch", 1),
+    ("qwen3_kv1_serve", "qwen3-0.6b", "serve", "seq", 1),
+    ("mla_serve", "deepseek-v2-236b", "serve", "seq", None),
+    ("rwkv6_serve", "rwkv6-1.6b", "serve", "seq", None),
+    ("hymba_serve", "hymba-1.5b", "serve", "seq", 1),
+]
+#: the allocation guard's decode steps: (name, arch, cache_layout, kv heads)
+GUARD_CASES = [
+    ("qwen3_kv1_seq", "qwen3-0.6b", "seq", 1),
+    ("qwen3_batch", "qwen3-0.6b", "batch", None),
+    ("mla_seq", "deepseek-v2-236b", "seq", None),
+]
 
 _RANKS = r'''
 import json, os, pickle, sys, traceback
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.utils._python_dispatch
 
 from repro_torch import compat, configs
 from repro_torch.checkpoint import CheckpointManager
@@ -93,6 +114,10 @@ from repro_torch.training import steps
 
 TRAIN_CASES = json.loads(sys.argv[3])
 MOE_CFG = json.loads(sys.argv[4])
+CACHED_CASES = json.loads(sys.argv[5])
+GUARD_CASES = json.loads(sys.argv[6])
+GUARD_LEN = 4096
+PREFILL_ARCHS = ["rwkv6-1.6b", "hymba-1.5b"]
 B, S, DECODE_STEPS = 4, 16, 3
 DECODE_CONFIG = {"sharding_profile": "serve_ep", "cache_dtype": "float32"}
 
@@ -321,6 +346,144 @@ def check_decode(mesh, workdir, rank):
             "cache_placements": placed}
 
 
+class Biggest(torch.utils._python_dispatch.TorchDispatchMode):
+    """The largest tensor any op makes (a DTensor's local shard; an
+    output that shares an input's storage, a view or an in-place write,
+    makes nothing)."""
+
+    def __init__(self):
+        super().__init__()
+        self.biggest = (0, "", [])
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils._python_dispatch import \
+            is_traceable_wrapper_subclass
+        out = func(*args, **(kwargs or {}))
+
+        def loc(t):
+            # a wrapper (DTensor, a collective's pending result): its data
+            while is_traceable_wrapper_subclass(t):
+                t = getattr(t, t.__tensor_flatten__()[0][0])
+            return t
+
+        tensors = lambda tree: [loc(t) for t in compat.tree_leaves(tree)
+                                if isinstance(t, torch.Tensor)]
+        ins = {t.untyped_storage().data_ptr()
+               for t in tensors((args, kwargs or {}))}
+        for t in tensors(out):
+            if t.untyped_storage().data_ptr() not in ins:
+                self.biggest = max(self.biggest,
+                                   (t.nbytes, str(func), list(t.shape)))
+        return out
+
+
+def cached_cfg(arch, kv_heads):
+    cfg = configs.get_reduced(arch).replace(compute_dtype="float32")
+    return cfg if kv_heads is None else cfg.replace(n_kv_heads=kv_heads)
+
+
+def cached_params(workdir, arch, cfg, kv_heads):
+    if arch == "qwen3-0.6b" and kv_heads is None:
+        # the reference's weights: one case is held to its jitted step
+        return load_state(workdir, arch, "none")["params"]
+    return model.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def check_cached(mesh, workdir, rank, name, arch, kind, layout, kv_heads):
+    """A cached step on the mesh against one process from the same
+    weights and an empty fp32 cache: a scalar-pos decode chain
+    (``kind`` decode), or the serve step's ragged chunked prefill (idle
+    rows included) then vector-pos decode (``kind`` serve); the logits
+    of every step and the last cache, and the cache's placements."""
+    cfg = cached_cfg(arch, kv_heads)
+    params = cached_params(workdir, arch, cfg, kv_heads)
+    config = {"cache_layout": layout, "cache_dtype": "float32"}
+    make = (steps.make_decode_builder if kind == "decode"
+            else steps.make_serve_builder)
+    plain = specialize_builder(make(cfg), config).fn
+    sharded = specialize_builder(make(cfg, mesh), config).fn
+    opts = RunOptions(decode_cache_dtype="float32")
+    max_len = 16 if kind == "serve" else 8
+    c_plain = model.init_cache(cfg, B, max_len, opts, device="cpu")
+    c_mesh = model.init_cache(cfg, B, max_len, opts, device="cpu")
+    rs = np.random.RandomState(9)
+    toks = lambda *s: torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, s).astype(np.int32))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+    if kind == "decode":
+        calls = [(toks(B), i32(t)) for t in range(DECODE_STEPS)]
+    else:
+        # chunks of 4 with ragged counts (row 3 idle in the first), then
+        # vector-pos decode steps from each row's own position
+        n1, n2 = [4, 2, 3, 0], [2, 4, 1, 3]
+        calls = [(toks(B, 4), i32([0] * B), i32(n1)),
+                 (toks(B, 4), i32(n1), i32(n2))]
+        pos = [a + b for a, b in zip(n1, n2)]
+        calls += [(toks(B), i32([p + t for p in pos]), i32([1] * B))
+                  for t in range(2)]
+    logit_err, logits = 0.0, []
+    for args in calls:
+        lg_p, c_plain = plain(params, c_plain, *args)
+        lg_m, c_mesh = sharded(params, c_mesh, *args)
+        logits.append(full(lg_m).numpy())
+        logit_err = max(logit_err, absdiff(lg_m, lg_p))
+    cache_err = max(absdiff(a, b) for a, b in zip(
+        compat.tree_leaves(c_mesh), compat.tree_leaves(c_plain)))
+    np.savez(os.path.join(workdir, f"cached_{name}_{rank}.npz"),
+             logits=np.stack(logits))
+    return {"logit_err": logit_err, "cache_err": cache_err,
+            "logit_type": type(lg_m).__name__,
+            "cache_placements": {
+                "/".join(map(str, path)): repr(tuple(x.placements))
+                for path, x in zip(_paths(c_mesh), compat.tree_leaves(c_mesh))}}
+
+
+def _paths(tree, pre=()):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], pre + (k,))]
+    return [pre]
+
+
+def check_guard(mesh, workdir, name, arch, layout, kv_heads):
+    """The largest tensor any op makes in a placed cached step, on each
+    rank, against the whole of the largest cache leaf: a cache long
+    enough (GUARD_LEN slots) that a whole leaf is at least 8 x any tensor
+    the one-process step makes."""
+    cfg = cached_cfg(arch, kv_heads)
+    params = cached_params(workdir, arch, cfg, kv_heads)
+    config = {"cache_layout": layout, "cache_dtype": "float32"}
+    plain = specialize_builder(steps.make_decode_builder(cfg), config).fn
+    sharded = specialize_builder(steps.make_decode_builder(cfg, mesh),
+                                 config).fn
+    opts = RunOptions(decode_cache_dtype="float32")
+    cache = model.init_cache(cfg, B, GUARD_LEN, opts, device="cpu")
+    leaf = max(t.nbytes for t in compat.tree_leaves(cache))
+    tok = torch.zeros(B, dtype=torch.int32)
+    with Biggest() as one:
+        plain(params, cache, tok, torch.tensor(0, dtype=torch.int32))
+    # the first mesh step places the cache; the guarded one takes it placed
+    _, placed = sharded(params, cache, tok, torch.tensor(0, dtype=torch.int32))
+    with Biggest() as guard:
+        sharded(params, placed, tok, torch.tensor(1, dtype=torch.int32))
+    return {"leaf": leaf, "one_process": list(one.biggest),
+            "biggest": list(guard.biggest)}
+
+
+def check_prefill(mesh, arch):
+    """The prefill step on the mesh against one process: rwkv6's time mix
+    and hymba's SSM scan run on each rank's batch rows (and rwkv6's
+    heads)."""
+    cfg = configs.get_reduced(arch).replace(compute_dtype="float32")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg)
+    plain = specialize_builder(steps.make_prefill_builder(cfg), {}).fn
+    sharded = specialize_builder(steps.make_prefill_builder(cfg, mesh),
+                                 {}).fn
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    batch = {"tokens": toks}
+    return {"rel": rel(sharded(params, batch), plain(params, batch))}
+
+
 def check_restore(mesh, rank, workdir, cfg, state):
     mgr = CheckpointManager(os.path.join(workdir, f"ckpt_{rank}"),
                             async_save=False)
@@ -408,6 +571,12 @@ def main(rank, world, init, workdir):
         except Exception:
             out[name] = {"error": traceback.format_exc()}
     record("decode", check_decode, mesh, workdir, rank)
+    for case in CACHED_CASES:
+        record("cached:" + case[0], check_cached, mesh, workdir, rank, *case)
+    for case in GUARD_CASES:
+        record("guard:" + case[0], check_guard, mesh, workdir, *case)
+    for arch in PREFILL_ARCHS:
+        record("prefill:" + arch, check_prefill, mesh, arch)
     if kept is not None:
         record("restore", check_restore, mesh, rank, workdir, *kept)
     with open(os.path.join(workdir, f"rank_{rank}.json"), "w") as f:
@@ -502,6 +671,26 @@ def _reference_decode(states):
                               for x in jax.tree_util.tree_leaves(cache)]
 
 
+def _reference_qwen3_decode(states):
+    """The reference's jitted decode steps of reduced qwen3 under
+    ``cache_layout=seq`` from an empty fp32 cache, on the tokens the
+    ranks' ``qwen3_seq`` case draws: the logits of each step."""
+    cfg = _ref_cfg("qwen3-0.6b")
+    step = jax.jit(ref_specialize(ref_steps.make_decode_builder(
+        cfg, kernel_impl="xla"), {"cache_layout": "seq",
+                                  "cache_dtype": "float32"}).fn)
+    cache = ref_model.init_cache(cfg, B, 8, ref_model.RunOptions(
+        decode_cache_dtype="float32"))
+    params = states["qwen3-0.6b", "none"]["params"]
+    rs = np.random.RandomState(9)
+    logits = []
+    for t in range(DECODE_STEPS):
+        tok = rs.randint(0, cfg.vocab_size, (B,)).astype(np.int32)
+        lg, cache = step(params, cache, jnp.asarray(tok), jnp.int32(t))
+        logits.append(np.asarray(lg))
+    return np.stack(logits)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The ranks' records, the reference's results (computed here while
@@ -516,12 +705,14 @@ def run(tmp_path_factory):
                OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, str(script), str(work), str(WORLD),
-         json.dumps(TRAIN_CASES), json.dumps(MOE_CFG)],
+         json.dumps(TRAIN_CASES), json.dumps(MOE_CFG),
+         json.dumps(CACHED_CASES), json.dumps(GUARD_CASES)],
         env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
         ref = {"train": _reference_train(states),
-               "decode": _reference_decode(states)}
+               "decode": _reference_decode(states),
+               "qwen3_decode": _reference_qwen3_decode(states)}
         _, err = proc.communicate(timeout=TIMEOUT)
     finally:
         if proc.poll() is None:
@@ -680,6 +871,57 @@ def test_serve_ep_decode_step_matches_one_process(ranks):
         assert any("Shard(dim=2)" in p for p in rec["cache_placements"])
 
 
+@pytest.mark.parametrize("case", CACHED_CASES, ids=lambda c: c[0])
+def test_cached_step_on_local_shards_matches_one_process(ranks, case):
+    """Each rank writes and attends on its own shard of the cache: the
+    logits of every step and the last cache within 1e-5 of one process,
+    the cache still placed by its axes."""
+    name, arch, kind, layout, kv_heads = case
+    for rec in _per_rank(ranks, "cached:" + name):
+        assert rec["logit_type"] == "Tensor"
+        assert rec["logit_err"] < 1e-5 and rec["cache_err"] < 1e-5, rec
+        placed = rec["cache_placements"]
+        if arch == "qwen3-0.6b":
+            # (layers, batch, kv heads, slots, head dim): batch over data;
+            # the kv heads over model where they divide, else the slots
+            # under seq, else nothing
+            want = ("Shard(dim=2)" if kv_heads is None else
+                    "Shard(dim=3)" if layout == "seq" else "Replicate()")
+            for leaf in ("k", "v"):
+                assert placed[leaf] == f"(Shard(dim=1), {want})", placed
+        if arch == "deepseek-v2-236b":
+            assert placed["ckv"] == "(Shard(dim=1), Shard(dim=2))", placed
+        if arch == "rwkv6-1.6b":
+            assert placed["state"] == "(Shard(dim=1), Shard(dim=2))", placed
+
+
+def test_cached_step_on_local_shards_matches_reference(run):
+    """Reduced qwen3's seq-layout decode steps on every rank against the
+    reference's jitted steps on the same weights and tokens."""
+    for r in range(WORLD):
+        with np.load(run["work"] / f"cached_qwen3_seq_{r}.npz") as got:
+            np.testing.assert_allclose(got["logits"],
+                                       run["ref"]["qwen3_decode"],
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", GUARD_CASES, ids=lambda c: c[0])
+def test_cached_step_makes_no_whole_cache_copy(ranks, case):
+    """No op of a placed cached step makes a tensor of half a whole cache
+    leaf or more, on any rank: the cache is long enough that a whole leaf
+    is at least 8 x the largest tensor of the one-process step."""
+    for rec in _per_rank(ranks, "guard:" + case[0]):
+        assert 8 * rec["one_process"][0] <= rec["leaf"], rec
+        assert rec["biggest"][0] < rec["leaf"] / 2, rec
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_prefill_scans_on_local_rows_match_one_process(ranks, arch):
+    """The logits within 1e-5 of the one-process step's largest."""
+    for rec in _per_rank(ranks, "prefill:" + arch):
+        assert rec["rel"] < 1e-5, rec
+
+
 def test_restore_reshards_onto_the_mesh(ranks):
     for rec in _per_rank(ranks, "restore"):
         assert rec["step"] == 1 and rec["placed"]
@@ -687,9 +929,18 @@ def test_restore_reshards_onto_the_mesh(ranks):
 
 
 def test_tuned_table_starts_empty():
-    assert tuned.TUNED == {}
-    spec = tuned.best_spec("deepseek-v2-236b", "train_4k")
-    assert spec == {}
-    spec["moe_impl"] = "shard"                 # a copy, not the table's
-    assert tuned.best_spec("deepseek-v2-236b", "train_4k") == {}
-    assert json.loads(tuned.spec_json("kimi-k2-1t-a32b", "decode_32k")) == {}
+    """The table starts from nothing of the reference's: each entry is the
+    spec of a step of the port's hillclimb chain for its cell, and
+    ``best_spec`` hands out a copy (the generic config for any other
+    key)."""
+    from repro_torch.launch.hillclimb import CHAINS
+    for key, spec in tuned.TUNED.items():
+        assert spec in [s for _, s in CHAINS[key]], key
+    assert tuned.best_spec("qwen3-0.6b", "train_4k") == {}
+    for arch, shape in tuned.TUNED:
+        spec = tuned.best_spec(arch, shape)
+        assert spec == tuned.TUNED[arch, shape]
+        spec["moe_impl"] = "shard"             # a copy, not the table's
+        assert tuned.best_spec(arch, shape) == tuned.TUNED[arch, shape]
+        assert json.loads(tuned.spec_json(arch, shape)) == \
+            tuned.TUNED[arch, shape]

@@ -1,8 +1,12 @@
 """The distributed layer on a Hopper GPU, at reduced size: a one-rank NCCL
 group and a (data=1, model=1) mesh on the card; ``compressed_psum`` within
-int8 error of the plain sum with the int8 payload handed to NCCL, and the
+int8 error of the plain sum with the int8 payload handed to NCCL, the
 ``shard`` MoE (its explicit expert-parallel block, all experts local)
-against ``gather`` at a capacity that drops no token, to 1e-5 relative.
+against ``gather`` at a capacity that drops no token, to 1e-5 relative,
+and the cached steps on the mesh (each rank writing and attending on its
+own cache shard: reduced qwen3 under both cache layouts, reduced
+deepseek-v2's MLA under ``serve_ep``) against the plain step on one
+device, logits within 1e-5 with an fp32 cache.
 
 Needs no JAX, so it runs on the machine with the card:
 
@@ -14,12 +18,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import compat  # noqa: E402
+from repro_torch import compat, configs  # noqa: E402
+from repro_torch.core.specializer import specialize_builder  # noqa: E402
 from repro_torch.distributed import compression  # noqa: E402
 from repro_torch.distributed.sharding import (DEFAULT_RULES,  # noqa: E402
                                               mesh_context, replicate)
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import transformer as model  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.transformer import RunOptions  # noqa: E402
+from repro_torch.training import steps  # noqa: E402
 
 #: a reduced deepseek-v2 MoE layer: 16 experts, top 6, two shared
 MOE_CFG = ModelConfig(name="m", family="moe", n_layers=1, d_model=256,
@@ -84,3 +92,41 @@ def test_shard_moe_matches_gather_on_the_card(mesh):
     rel = (out["shard"] - out["gather"]).abs().max() \
         / out["gather"].abs().max()
     assert float(rel) <= 1e-5
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("arch,config", [
+    ("qwen3-0.6b", {"cache_layout": "seq"}),
+    ("qwen3-0.6b", {"cache_layout": "batch"}),
+    # the gather MoE: the einsum MoE's dispatch view fails DTensor's
+    # sharding propagation under serve_ep on torch 2.11 (ROADMAP Faults)
+    ("deepseek-v2-236b", {"sharding_profile": "serve_ep",
+                          "moe_impl": "gather"}),
+])
+def test_cached_step_on_the_mesh_matches_plain(mesh, arch, config):
+    """Decode steps of the repaired cached step on the card's (1, 1) mesh
+    against the plain step (both on ``torch_ref``), from one fp32 cache
+    each: the logits of every step within 1e-5 of the plain step's
+    largest."""
+    dev = torch.device("cuda")
+    cfg = configs.get_reduced(arch).replace(compute_dtype="float32")
+    config = dict(config, cache_dtype="float32")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    plain = specialize_builder(steps.make_decode_builder(
+        cfg, kernel_impl="torch_ref"), config).fn
+    sharded = specialize_builder(steps.make_decode_builder(
+        cfg, mesh, kernel_impl="torch_ref"), config).fn
+    opts = RunOptions(decode_cache_dtype="float32")
+    c_plain = model.init_cache(cfg, 4, 16, opts, device=dev)
+    c_mesh = model.init_cache(cfg, 4, 16, opts, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for t in range(6):
+        tok = torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos = torch.tensor(t, dtype=torch.int32, device=dev)
+        lg_p, c_plain = plain(params, c_plain, tok, pos)
+        lg_m, c_mesh = sharded(params, c_mesh, tok, pos)
+        assert type(lg_m) is torch.Tensor
+        err = float((lg_m - lg_p).abs().max() / lg_p.abs().max())
+        assert err <= 1e-5, (t, err)

@@ -1,0 +1,367 @@
+"""The port's dry run (``repro_torch.launch.dryrun``), its hillclimb
+(``repro_torch.launch.hillclimb``) and the shape registry, held to the
+reference's.
+
+The port's cells run in this process on the ``fake`` backend (a group
+opened and destroyed around each use).  The reference's dry run compiles
+the same miniature cells in a subprocess with 8 XLA host devices on an
+``AxisType.Auto`` mesh (its own test's ``jax.make_mesh`` makes
+``Explicit`` axes, under which its sharding constraints raise), and runs
+its hillclimb on a stubbed cell; the subprocess runs while the
+port's cells run here.  The reference's modules set ``XLA_FLAGS`` when
+imported; this process imports them with the variable restored after, so
+its own JAX keeps the one host device.
+"""
+import contextlib
+import dataclasses
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as ref_configs  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.training.steps import SHARDING_PROFILES  # noqa: E402
+
+MINI_ARCHS = ["yi-6b", "deepseek-v2-236b", "rwkv6-1.6b", "hymba-1.5b"]
+MINI_SHAPES = [configs.Shape("t", "train", 64, 8),
+               configs.Shape("d", "decode", 64, 8)]
+TIMEOUT = 600
+
+#: a deterministic stand-in for a dry-run cell, the same in both drivers
+_STUB = r'''
+import json as _json
+
+
+def stub_metric(spec):
+    text = _json.dumps(spec, sort_keys=True)
+    return 1.0 + sum(ord(c) * (i + 1) for i, c in enumerate(text)) % 97
+
+
+def stub_run_cell(arch, shape, mesh_name, mesh, spec, opt_cfg,
+                  surrogate=True):
+    return {"roofline": {"compute_s": stub_metric(spec), "memory_s": 0.5,
+                         "collective_s": 0.25, "dominant": "compute",
+                         "useful_flops_ratio": 0.5},
+            "full": {"memory": {"temp_size_in_bytes": 0}}}
+'''
+
+_ORACLE = r'''
+import os
+os.environ["JAX_PLATFORMS"] = "cpu"
+import contextlib, io, json, sys
+from repro.launch import dryrun as dr     # sets XLA_FLAGS (host devices)
+from repro.launch import hillclimb as hc
+import jax
+import numpy as np
+from jax.sharding import AxisType, Mesh
+from repro import configs
+from repro.configs import Shape
+from repro.optim import OptConfig
+
+out = {"args": {}}
+mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2),
+            ("pod", "data", "model"), axis_types=(AxisType.Auto,) * 3)
+for arch in json.loads(sys.argv[1]):
+    cfg = configs.get_reduced(arch)
+    for shape in (Shape("t", "train", 64, 8), Shape("d", "decode", 64, 8)):
+        step, args, kw = dr.build_lowerable(cfg, shape, mesh, {}, OptConfig(),
+                                            scan_layers=True)
+        mem = jax.jit(step, **kw).lower(*args).compile().memory_analysis()
+        out["args"][f"{arch}:{shape.kind}"] = int(mem.argument_size_in_bytes)
+exec(sys.argv[3])
+hc.run_cell = stub_run_cell
+hc.make_production_mesh = lambda multi_pod=False: None
+sys.argv = ["hillclimb", "--out", sys.argv[2]]
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    hc.main()
+out["hillclimb"] = buf.getvalue()
+print(json.dumps(out))
+'''
+
+
+def _ref_module(name):
+    """A reference module that sets ``XLA_FLAGS`` when imported, imported
+    with the variable restored after."""
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+
+
+@contextlib.contextmanager
+def _mesh(shape, names):
+    """A ``DeviceMesh`` of ``shape`` on the ``fake`` backend."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    world = 1
+    for n in shape:
+        world *= n
+    dryrun.open_fake_world(world)
+    try:
+        yield DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                         mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()
+
+
+def _best_tags(text):
+    """``{(arch, shape): tag}`` from a hillclimb's output."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("--- "):
+            cell, rest = line[4:].split(": best step [")
+            arch, shape = cell.split()
+            out[arch, shape] = rest.split("]")[0]
+    return out
+
+
+def _seed_artifact(outdir):
+    """An existing artifact for kimi decode's b2 step, better than any the
+    stub makes: both drivers must read it back and pick it."""
+    os.makedirs(outdir / "single", exist_ok=True)
+    fn = outdir / "single" / "kimi-k2-1t-a32b__decode_32k__b2_moegather.json"
+    fn.write_text(json.dumps({"roofline": {"compute_s": 0.01,
+                                           "memory_s": 0.0,
+                                           "collective_s": 0.0}}))
+
+
+@pytest.fixture(scope="module")
+def mini(tmp_path_factory):
+    """The port's miniature cells (run here) and the reference's oracle
+    (its argument bytes and its hillclimb's choices, from the
+    subprocess)."""
+    work = tmp_path_factory.mktemp("dryrun")
+    _seed_artifact(work / "ref")
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _ORACLE, json.dumps(MINI_ARCHS),
+         str(work / "ref"), _STUB],
+        env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    port = {}
+    try:
+        with _mesh((2, 2, 2), ("pod", "data", "model")) as mesh:
+            for arch in MINI_ARCHS:
+                cfg = configs.get_reduced(arch)
+                for shape in MINI_SHAPES:
+                    port[f"{arch}:{shape.kind}"] = dryrun.run_cell(
+                        arch, shape.name, "mini", mesh, {}, OptConfig(),
+                        surrogate=False, cfg=cfg, shape=shape)
+        out, err = proc.communicate(timeout=TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    return {"port": port, "ref": json.loads(out.splitlines()[-1]),
+            "work": work}
+
+
+def test_shape_registry_matches_reference():
+    assert set(configs.SHAPES) == set(ref_configs.SHAPES)
+    for name, shape in configs.SHAPES.items():
+        assert dataclasses.astuple(shape) == dataclasses.astuple(
+            ref_configs.SHAPES[name])
+    for arch in configs.ARCH_IDS:
+        cfg, ref = configs.get_config(arch), ref_configs.get_config(arch)
+        assert configs.supported_shapes(cfg) == \
+            ref_configs.supported_shapes(ref)
+        for name in configs.SHAPES:
+            got = configs.input_specs(cfg, configs.SHAPES[name])
+            want = ref_configs.input_specs(ref, ref_configs.SHAPES[name])
+            assert list(got) == list(want)
+            for k, t in got.items():
+                assert t.device.type == "meta"
+                assert tuple(t.shape) == tuple(want[k].shape)
+                assert str(t.dtype).removeprefix("torch.") == \
+                    str(want[k].dtype)
+
+
+def test_rules_and_depth_helpers_match_reference():
+    ref = _ref_module("repro.launch.dryrun")
+    for profile in SHARDING_PROFILES:
+        for layout in ("seq", "batch"):
+            for kind in ("train", "prefill", "decode"):
+                spec = {"sharding_profile": profile, "cache_layout": layout}
+                assert dryrun._rules_for(spec, kind).rules == \
+                    ref._rules_for(spec, kind).rules
+    assert dryrun._rules_for({}, "decode").rules == \
+        ref._rules_for({}, "decode").rules
+    for arch in configs.ARCH_IDS:
+        cfg, rcfg = configs.get_config(arch), ref_configs.get_config(arch)
+        assert dryrun._n_varying(cfg) == ref._n_varying(rcfg)
+        for n in (1, 2):
+            assert dataclasses.asdict(dryrun._depth_variant(cfg, n)) == \
+                dataclasses.asdict(ref._depth_variant(rcfg, n))
+
+
+def test_counters_count_local_work():
+    """On a fake (2, 2) mesh: a sharded product counts its local shard, a
+    replicated one counts in full, an all-gather its result bytes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    with _mesh((2, 2), ("data", "model")) as mesh:
+        counter = dryrun._Counter()
+        with counter:
+            dt = lambda shape, pl: DTensor.from_local(
+                torch.empty(shape), mesh, pl, run_check=False)
+            a = dt((8, 16), [Shard(0), Replicate()])      # (16, 16)
+            b = dt((16, 4), [Replicate(), Shard(1)])      # (16, 8)
+            ra = dt((16, 16), [Replicate(), Replicate()])
+            rb = dt((16, 8), [Replicate(), Replicate()])
+            counter.start(())
+            c = a @ b
+            sharded = counter.flops
+            ra @ rb
+            replicated = counter.flops - sharded
+            c.redistribute(mesh, [Replicate(), Replicate()])
+    assert sharded == 2 * 8 * 16 * 4
+    assert replicated == 2 * 16 * 16 * 8
+    coll = dryrun.parse_collectives(counter.collectives)
+    # (8, 4) gathered over data to (16, 4), then over model to (16, 8)
+    assert coll["counts"] == {"all-gather": 2}
+    assert coll["all-gather"] == coll["total"] == (16 * 4 + 16 * 8) * 4
+
+
+def test_miniature_dry_run_completes(mini):
+    for arch in MINI_ARCHS:
+        for shape in MINI_SHAPES:
+            res = mini["port"][f"{arch}:{shape.kind}"]
+            assert res["full"]["flops"] > 0, (arch, shape)
+            assert res["chips"] == 8
+            assert res["roofline"]["compute_s"] > 0
+
+
+def test_miniature_argument_bytes_match_reference(mini):
+    """The local shards of the arguments against XLA's per-device
+    argument size for the same cell (1 %)."""
+    for key, want in mini["ref"]["args"].items():
+        got = mini["port"][key]["full"]["memory"]["argument_size_in_bytes"]
+        assert abs(got - want) <= 0.01 * want, (key, got, want)
+
+
+def test_depth_extrapolation_equals_full_count():
+    """d1/d2 extrapolated to 4 layers against the 4-layer count: the
+    FLOPs and the collective bytes of the loop are affine in the depth.
+    (The bytes moved are not exactly: they hold DTensor's local layout
+    copies, which differ at the first and the last layer.)"""
+    cfg = configs.get_reduced("qwen3-0.6b").replace(n_layers=4)
+    shape = configs.Shape("t", "train", 32, 4)
+    with _mesh((2, 2), ("data", "model")) as mesh:
+        res = dryrun.run_cell("qwen3-0.6b", "t", "mini", mesh, {},
+                              OptConfig(), surrogate=True, cfg=cfg,
+                              shape=shape)
+    ext, full = res["surrogate"]["extrapolated"], res["roofline_input"]
+    for k in ("flops", "collective_bytes"):
+        assert full[k] > 0
+        assert abs(ext[k] - full[k]) <= 1e-9 * full[k], (k, ext[k], full[k])
+
+
+class _StubMesh:
+    def size(self):
+        return 256
+
+
+def test_roofline_uses_the_h100_constants(monkeypatch):
+    flops, nbytes, cbytes, csecs = 3.0e13, 2.0e12, 5.0e9, 0.125
+    monkeypatch.setattr(dryrun, "analyze", lambda *a, **k: {
+        "flops": flops, "bytes": nbytes,
+        "collectives": {"total": cbytes, "seconds": csecs, "counts": {}},
+        "memory": {}})
+    shape = configs.SHAPES["train_4k"]
+    cfg = configs.get_config("qwen3-0.6b")
+    res = dryrun.run_cell("qwen3-0.6b", "train_4k", "single", _StubMesh(),
+                          {}, OptConfig(), surrogate=False)
+    rf = res["roofline"]
+    assert cfg.compute_dtype == "bfloat16"
+    assert rf["compute_s"] == flops / 989e12
+    assert rf["memory_s"] == nbytes / 3.35e12
+    assert rf["collective_s"] == csecs
+    assert rf["dominant"] == "memory"           # 0.597 s against 0.030
+    tokens = shape.global_batch * shape.seq_len
+    assert rf["tokens"] == tokens
+    assert rf["model_flops"] == 6 * cfg.active_param_count() * tokens
+    assert rf["model_flops_per_chip"] == rf["model_flops"] / 256
+    assert rf["useful_flops_ratio"] == rf["model_flops_per_chip"] / flops
+    fp32 = dryrun.roofline(cfg.replace(compute_dtype="float32"), shape,
+                           res["roofline_input"], 256)
+    assert fp32["compute_s"] == flops / 67e12
+    # a collective's seconds are its bytes over the slowest link spanned
+    assert dryrun._link_bw(list(range(8))) == 450e9
+    assert dryrun._link_bw(list(range(16))) == 50e9
+    assert dryrun._link_bw(list(range(0, 256, 16))) == 50e9
+
+
+def test_decode_cell_holds_no_whole_cache_copy():
+    """A decode cell whose slots split over model (1 kv head, seq
+    layout): the cache placed a quarter a rank, and the step's temporary
+    storage under half the whole cache."""
+    cfg = configs.get_reduced("qwen3-0.6b").replace(n_kv_heads=1)
+    shape = configs.Shape("d", "decode", 8192, 8)
+    with _mesh((2, 2), ("data", "model")) as mesh:
+        res = dryrun.run_cell("qwen3-0.6b", "d", "mini", mesh,
+                              {"cache_layout": "seq"}, OptConfig(),
+                              surrogate=False, cfg=cfg, shape=shape)
+    mem = res["full"]["memory"]
+    whole = mem["cache_whole_bytes"]
+    kv = 2 * cfg.n_layers * 8 * 8192 * cfg.d_head * 2     # bf16 k and v
+    slot_pos = cfg.n_layers * 8192 * 4                     # replicated
+    assert whole == kv + slot_pos
+    assert mem["cache_placed_bytes"] == kv / 4 + slot_pos
+    assert mem["alias_size_in_bytes"] == mem["cache_placed_bytes"]
+    assert mem["temp_size_in_bytes"] < whole / 2, mem["peak_tensors"]
+
+
+def test_hillclimb_chains_and_metric_match_reference():
+    ref = _ref_module("repro.launch.hillclimb")
+    assert hillclimb.CHAINS == ref.CHAINS
+    for res in ({"roofline": {"compute_s": 0.5, "memory_s": 0.25,
+                              "collective_s": 0.25}},
+                {"roofline": {"compute_s": 0.0}}, {}):
+        assert hillclimb._metric(res) == ref._metric(res)
+
+
+def test_hillclimb_picks_the_references_best(mini, monkeypatch,
+                                                    capsys):
+    """The port's hillclimb on the stubbed cell chooses the step the
+    reference's hillclimb chooses on the same stub, and reads an existing
+    artifact back instead of running its cell."""
+    scope: dict = {}
+    exec(_STUB, scope)
+    ran = []
+
+    def run_cell(arch, shape, mesh_name, mesh, spec, opt_cfg,
+                 surrogate=True):
+        ran.append((arch, shape, json.dumps(spec, sort_keys=True)))
+        return scope["stub_run_cell"](arch, shape, mesh_name, mesh, spec,
+                                      opt_cfg, surrogate)
+
+    monkeypatch.setattr(dryrun, "run_cell", run_cell)
+    out = mini["work"] / "port"
+    _seed_artifact(out)
+    assert hillclimb.main(["--out", str(out)]) == 0
+    got = _best_tags(capsys.readouterr().out)
+    want = _best_tags(mini["ref"]["hillclimb"])
+    assert got == want and len(got) == len(hillclimb.CHAINS)
+    assert got["kimi-k2-1t-a32b", "decode_32k"] == "b2_moegather"
+    b2 = dict(hillclimb.CHAINS["kimi-k2-1t-a32b", "decode_32k"])[
+        "b2_moegather"]
+    assert ("kimi-k2-1t-a32b", "decode_32k",
+            json.dumps(b2, sort_keys=True)) not in ran
+    assert len(ran) == sum(len(c) for c in hillclimb.CHAINS.values()) - 1
+    # every step it ran left its tagged artifact
+    assert len(list((out / "single").glob("*.json"))) == len(ran) + 1
