@@ -590,15 +590,23 @@ MESH_MOE_RTOL = 1e-5
 MESH_MOE_FACTORS = (1.25, 2.0, 4.0, 8.0)
 MESH_TRAIN_RTOL = 1e-5
 MESH_TIMED_STEPS = 3
+#: phase 23c's logits layouts (the loss on the rank's vocab shard, or the
+#: vocab gathered first) and 23e's MoE train step: reduced kimi-k2, fp32,
+#: (batch, seq), each dispatch with the microbatch split
+MESH_LOGITS_LAYOUTS = ("sharded", "gathered")
+MESH_MOE_TRAIN_BATCH = (8, 64)
+MESH_MOE_TRAIN_SPECS = ({"moe_impl": "gather", "microbatch": 2},
+                        {"moe_impl": "einsum", "microbatch": 2})
 
 #: phase 24: the cached steps on the one-rank mesh (each rank writing and
 #: attending on its own cache shard) against the plain step: qwen3-0.6b
 #: served (batch, tokens) under each cache layout, deepseek-v2-236b at
-#: depth CACHED_MLA_DEPTH under serve_ep with the gather MoE (the einsum
-#: MoE's dispatch view fails DTensor's propagation under serve_ep on the
-#: card's torch 2.11: ROADMAP Faults); fp32 caches of CACHED_MAX_LEN
+#: depth CACHED_MLA_DEPTH under serve_ep with each MoE dispatch of
+#: CACHED_MOE_IMPLS (the einsum one runs on each rank's own tokens); fp32
+#: caches of CACHED_MAX_LEN
 CACHED_SERVE = (8, 32)
 CACHED_MLA = (4, 8)
+CACHED_MOE_IMPLS = ("gather", "einsum")
 CACHED_MLA_DEPTH = 2
 CACHED_MAX_LEN = 64
 CACHED_RTOL = 1e-5
@@ -611,6 +619,13 @@ DRYRUN_PEAK_RTOL = 0.15
 DRYRUN_CLI_SLACK = 1e9
 DRYRUN_CLI = ["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--mesh",
               "single", "--spec", '{"sharding_profile": "serve_ep"}']
+#: the hillclimb's c2_logitsbf16 cell of hymba-1.5b prefill_32k at the
+#: production mesh: its 25 heads split unevenly over model = 16, at most
+#: DRYRUN_HYMBA_TEMP bytes of temp a rank
+DRYRUN_HYMBA = ["--arch", "hymba-1.5b", "--shape", "prefill_32k", "--mesh",
+                "single", "--no-surrogate", "--tag", "c2_logitsbf16",
+                "--spec", '{"swa_impl": "banded", "logits_dtype": "bfloat16"}']
+DRYRUN_HYMBA_TEMP = 16e9
 #: the subprocess of phase 24b: the dry run's count of the phase-23 train
 #: step on a fake world of one rank
 DRYRUN_PROBE = r"""
@@ -4847,9 +4862,10 @@ def _mesh_moe(mesh) -> dict:
 def _mesh_train(cfg, mesh) -> dict:
     """Phase 23c-d: one full-width qwen3-0.6b train step on a
     ``SyntheticLM`` TRAIN_BATCH batch under the ``fsdp`` profile on the
-    mesh (DTensor parameters), from phase 21's initial state (weights from
-    seed 0, the first batch of seed 1), against the plain step: the loss
-    and every parameter within MESH_TRAIN_RTOL relative; each step timed.
+    mesh (DTensor parameters) under each of MESH_LOGITS_LAYOUTS, from
+    phase 21's initial state (weights from seed 0, the first batch of
+    seed 1), against the plain step: the loss and every parameter within
+    MESH_TRAIN_RTOL relative; each step timed.
     Then the mesh step's parameters saved and restored with ``axes=`` onto
     the mesh: every leaf placed by its axes and equal to the saved one."""
     import torch
@@ -4875,9 +4891,11 @@ def _mesh_train(cfg, mesh) -> dict:
                                   device=dev)))
     config = {"sharding_profile": "fsdp"}
     steps = {"plain": specialize_builder(
-        make_train_builder(cfg, opt_cfg), config).fn,
-        "mesh": specialize_builder(
-        make_train_builder(cfg, opt_cfg, mesh), config).fn}
+        make_train_builder(cfg, opt_cfg), config).fn}
+    for layout in MESH_LOGITS_LAYOUTS:
+        steps["mesh" if layout == "sharded" else f"mesh_{layout}"] = \
+            specialize_builder(make_train_builder(cfg, opt_cfg, mesh),
+                               dict(config, logits_layout=layout)).fn
     new, loss, ms = {}, {}, {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -4899,20 +4917,30 @@ def _mesh_train(cfg, mesh) -> dict:
         log(f"mesh train: {name} step {ms[name]:.1f} ms (median of "
             f"{MESH_TIMED_STEPS}, CUDA events; first call {first_s:.1f} s "
             f"wall), loss {loss[name]:.7f}")
-    leaves = compat.tree_leaves(new["mesh"]["params"])
-    if not all(is_dtensor(t) for t in leaves):
-        fail("mesh train: a parameter came back as a plain tensor")
-    loss_rel = abs(loss["mesh"] - loss["plain"]) / abs(loss["plain"])
-    param_rel = max(float((replicate(a) - w).abs().max()
-                          / w.abs().max().clamp_min(1e-30))
-                    for a, w in zip(leaves, compat.tree_leaves(
-                        new["plain"]["params"])))
-    log(f"mesh train: loss {loss_rel:.3e} apart relative, parameters "
-        f"within {param_rel:.3e} of each leaf's max; DTensor's overhead on "
-        f"one card {ms['mesh'] - ms['plain']:.1f} ms a step")
-    if loss_rel > MESH_TRAIN_RTOL or param_rel > MESH_TRAIN_RTOL:
-        fail(f"mesh train: loss {loss_rel:.3e}, parameters {param_rel:.3e} "
-             f"(limit {MESH_TRAIN_RTOL})")
+    layouts = {}
+    for name in steps:
+        if name == "plain":
+            continue
+        leaves = compat.tree_leaves(new[name]["params"])
+        if not all(is_dtensor(t) for t in leaves):
+            fail(f"mesh train: a parameter of the {name} step came back as "
+                 f"a plain tensor")
+        loss_rel = abs(loss[name] - loss["plain"]) / abs(loss["plain"])
+        param_rel = max(float((replicate(a) - w).abs().max()
+                              / w.abs().max().clamp_min(1e-30))
+                        for a, w in zip(leaves, compat.tree_leaves(
+                            new["plain"]["params"])))
+        log(f"mesh train: {name} loss {loss_rel:.3e} apart relative, "
+            f"parameters within {param_rel:.3e} of each leaf's max; "
+            f"DTensor's overhead on one card {ms[name] - ms['plain']:.1f} "
+            f"ms a step")
+        if loss_rel > MESH_TRAIN_RTOL or param_rel > MESH_TRAIN_RTOL:
+            fail(f"mesh train: {name} loss {loss_rel:.3e}, parameters "
+                 f"{param_rel:.3e} (limit {MESH_TRAIN_RTOL})")
+        layouts[name] = {"loss_rel": loss_rel, "param_rel": param_rel,
+                         "ms": ms[name]}
+    loss_rel, param_rel = (layouts["mesh"]["loss_rel"],
+                           layouts["mesh"]["param_rel"])
     del new["plain"]
 
     ckpt = SCRATCH / "mesh_ckpt"
@@ -4941,7 +4969,59 @@ def _mesh_train(cfg, mesh) -> dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     return {"plain_ms": ms["plain"], "mesh_ms": ms["mesh"],
             "loss_rel": loss_rel, "param_rel": param_rel,
-            "loss": loss["mesh"], "save_s": save_s, "restore_s": restore_s}
+            "loss": loss["mesh"], "save_s": save_s, "restore_s": restore_s,
+            "layouts": layouts}
+
+
+def _mesh_moe_train(mesh) -> dict:
+    """Phase 23e: a reduced kimi-k2 train step (fp32, MESH_MOE_TRAIN_BATCH,
+    ``fsdp``) on the mesh with each spec of MESH_MOE_TRAIN_SPECS (the
+    gather and the einsum MoE on each rank's own tokens, the microbatch
+    split) against the plain step from the same state and batch: the
+    loss and every parameter within MESH_TRAIN_RTOL relative."""
+    import torch
+
+    from repro_torch import compat, configs
+    from repro_torch.core.specializer import specialize_builder
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import replicate
+    from repro_torch.models import transformer as model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.training import make_train_builder
+
+    dev = torch.device("cuda")
+    cfg = configs.get_reduced(KIMI_ARCH).replace(compute_dtype="float32")
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    b, s = MESH_MOE_TRAIN_BATCH
+    batch = next(iter(SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
+                                  device=dev)))
+    out = {}
+    for spec in MESH_MOE_TRAIN_SPECS:
+        config = dict(spec, sharding_profile="fsdp")
+        loss, leaves = {}, {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            step = specialize_builder(make_train_builder(cfg, opt_cfg, m),
+                                      config).fn
+            new, met = step(state, batch)
+            loss[name] = float(met["loss"])
+            leaves[name] = [replicate(t)
+                            for t in compat.tree_leaves(new["params"])]
+        loss_rel = abs(loss["mesh"] - loss["plain"]) / abs(loss["plain"])
+        param_rel = max(float((a - w).abs().max()
+                              / w.abs().max().clamp_min(1e-30))
+                        for a, w in zip(leaves["mesh"], leaves["plain"]))
+        log(f"mesh moe train: reduced {KIMI_ARCH}, ({b}, {s}) fp32, {spec}: "
+            f"loss {loss['mesh']:.7f}, {loss_rel:.3e} apart relative; "
+            f"parameters within {param_rel:.3e} of each leaf's max")
+        if loss_rel > MESH_TRAIN_RTOL or param_rel > MESH_TRAIN_RTOL:
+            fail(f"mesh moe train {spec}: loss {loss_rel:.3e}, parameters "
+                 f"{param_rel:.3e} (limit {MESH_TRAIN_RTOL})")
+        out[spec["moe_impl"]] = {"loss_rel": loss_rel,
+                                 "param_rel": param_rel}
+    return out
 
 
 def phase_mesh(cfg) -> dict:
@@ -4949,7 +5029,9 @@ def phase_mesh(cfg) -> dict:
     (``file://`` rendezvous under the script's work directory) and
     ``make_local_mesh(1, 1)`` on ``cuda``; (a) ``compressed_psum``, (b)
     the ``shard`` MoE at deepseek-v2's width, (c) a DTensor train step of
-    qwen3-0.6b at full width, (d) its checkpoint restored onto the mesh.
+    qwen3-0.6b at full width under each logits layout, (d) its checkpoint
+    restored onto the mesh, (e) a reduced kimi-k2 train step with the
+    gather and the einsum MoE and the microbatch split.
     Every step under the mesh pins its implementations to ``torch_ref``:
     no kernel may launch and no fallback may be counted.  The group is
     destroyed at the end, so later work sees a clean process."""
@@ -4973,6 +5055,9 @@ def phase_mesh(cfg) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             out["train"] = _mesh_train(cfg, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["moe_train"] = _mesh_moe_train(mesh)
             out["launches"] = guard.check("mesh")
     finally:
         dist.destroy_process_group()
@@ -5172,14 +5257,51 @@ def _dryrun_cli() -> dict:
             "cache_placed_bytes": mem["cache_placed_bytes"]}
 
 
+def _dryrun_hymba() -> dict:
+    """Phase 24c, second cell: the dry-run CLI on the single-pod production
+    mesh for hymba-1.5b's prefill_32k under the hillclimb's c2_logitsbf16
+    spec (25 heads split unevenly over model = 16): it exits 0, no score
+    tensor among the five largest at the peak holds more than 2 heads, and
+    a rank's temp is at most DRYRUN_HYMBA_TEMP."""
+    out = SCRATCH / "dryrun_hymba"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_HYMBA,
+         "--out", str(out)], capture_output=True, text=True, timeout=900,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    secs = time.perf_counter() - t0
+    art = out / "single" / "hymba-1.5b__prefill_32k__c2_logitsbf16.json"
+    if proc.returncode != 0 or not art.exists():
+        fail(f"dry run CLI (hymba): exit {proc.returncode}, artifact "
+             f"{art.exists()}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    mem = json.loads(art.read_text())["full"]["memory"]
+    temp = mem["temp_size_in_bytes"]
+    # a score tensor: (batch, heads, chunks, rows, keys), banded
+    heads = max((t["shape"][1] for t in mem["peak_tensors"]
+                 if len(t["shape"]) == 5), default=0)
+    log(f"dry run CLI: {' '.join(DRYRUN_HYMBA)} in {secs:.1f} s: a rank "
+        f"holds {mem['argument_size_in_bytes'] / 1e9:.3f} GB of arguments "
+        f"and {temp / 1e9:.3f} GB of temp (bound "
+        f"{DRYRUN_HYMBA_TEMP / 1e9:.0f}); largest at the peak "
+        f"{[(t['shape'], t['dtype']) for t in mem['peak_tensors']]}")
+    if temp > DRYRUN_HYMBA_TEMP or heads > 2:
+        fail(f"dry run CLI (hymba): {temp} bytes of temp a rank, a score "
+             f"tensor of {heads} heads")
+    return {"seconds": secs, "temp_bytes": temp,
+            "argument_bytes": mem["argument_size_in_bytes"]}
+
+
 def phase_cached_mesh(cfg) -> dict:
     """Phase 24: the repaired cached steps, the dry run and its CLI.  A
     one-rank NCCL group and ``make_local_mesh(1, 1)`` as in phase 23; (a)
     the cached decode steps of qwen3-0.6b (both cache layouts) and of
     deepseek-v2-236b at full width and depth CACHED_MLA_DEPTH (serve_ep)
-    against the plain step, no kernel launched and no fallback counted;
-    (b) the dry run held to the card; (c) the dry-run CLI at the
-    production mesh.  The group is destroyed at the end."""
+    against the plain step (deepseek-v2 with each MoE dispatch), no
+    kernel launched and no fallback counted; (b) the dry run held to the
+    card; (c) the dry-run CLI at the production mesh: qwen3-0.6b
+    decode_32k, then hymba-1.5b prefill_32k's uneven heads.  The group is
+    destroyed at the end."""
     import torch
     import torch.distributed as dist
 
@@ -5214,10 +5336,13 @@ def phase_cached_mesh(cfg) -> dict:
             params = model.init_params(
                 torch.Generator(device=dev).manual_seed(0), mcfg)
             b, n = CACHED_MLA
-            out["mla"] = _cached_steps(
-                f"{MOE_ARCH} depth {CACHED_MLA_DEPTH} serve_ep gather", mcfg,
-                params, mesh, {"sharding_profile": "serve_ep",
-                               "moe_impl": "gather"}, b, n)
+            for impl in CACHED_MOE_IMPLS:
+                out["mla" if impl == "gather" else f"mla_{impl}"] = \
+                    _cached_steps(
+                        f"{MOE_ARCH} depth {CACHED_MLA_DEPTH} serve_ep "
+                        f"{impl}", mcfg, params, mesh,
+                        {"sharding_profile": "serve_ep", "moe_impl": impl},
+                        b, n)
             del params
             gc.collect()
             torch.cuda.empty_cache()
@@ -5228,6 +5353,7 @@ def phase_cached_mesh(cfg) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["cli"] = _dryrun_cli()
+    out["hymba"] = _dryrun_hymba()
     shutil.rmtree(work, ignore_errors=True)
     log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
     return out

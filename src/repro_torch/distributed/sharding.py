@@ -41,8 +41,9 @@ __all__ = ["ShardingRules", "DEFAULT_RULES", "PartitionSpec", "mesh_context",
            "current_mesh", "current_rules", "constrain", "logical_to_spec",
            "placements", "named_sharding", "spec_for_axes", "mesh_shape",
            "local_shard", "shard_index", "replicate", "is_dtensor",
-           "shard_dims", "spec_of_dims", "local_view", "local_start",
-           "from_local", "reduce_over", "write_local"]
+           "shard_dims", "spec_of_dims", "entry_dims", "local_view",
+           "local_start",
+           "from_local", "whole_layout", "reduce_over", "write_local"]
 
 
 # Logical axis vocabulary used across the model zoo:
@@ -321,6 +322,12 @@ def shard_dims(x: torch.Tensor) -> tuple[tuple[str, ...], ...]:
     return tuple(dims)
 
 
+def entry_dims(entry: None | str | Sequence[str]) -> tuple[str, ...]:
+    """The mesh dims a :class:`PartitionSpec` entry names (major first)."""
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
 def spec_of_dims(dims: Sequence[tuple[str, ...]]) -> PartitionSpec:
     """The :class:`PartitionSpec` of :func:`shard_dims`' entries."""
     return PartitionSpec(*(None if not d else d[0] if len(d) == 1
@@ -342,15 +349,31 @@ def local_start(x: torch.Tensor, dim: int) -> int:
     return shard_index(x.device_mesh, names) * local_view(x).shape[dim]
 
 
-def from_local(t: torch.Tensor, mesh: Any, spec: Sequence) -> torch.Tensor:
+def from_local(t: torch.Tensor, mesh: Any, spec: Sequence,
+               shape: Sequence[int] | None = None) -> torch.Tensor:
     """Each rank's ``t`` as the shards of a DTensor placed by ``spec`` (the
     mesh dims it does not name: the same value on every rank); ``t``
-    untouched without a mesh."""
+    untouched without a mesh.  ``shape`` is the whole tensor's, where the
+    shards are uneven (``torch.chunk``'s split, the last ranks holding
+    less) or where ``t`` is not every rank's size."""
     if mesh is None:
         return t
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(t, mesh, placements(spec, mesh),
-                              run_check=False)
+                              run_check=False, **whole_layout(shape))
+
+
+def whole_layout(shape: Sequence[int] | None) -> dict:
+    """``DTensor.from_local``'s ``shape`` and ``stride`` keywords for a
+    contiguous tensor of ``shape`` (none for None), computed without
+    allocating one (the dry run's fake-tensor counter would count it)."""
+    if shape is None:
+        return {}
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(n)
+        n *= size
+    return {"shape": torch.Size(shape), "stride": tuple(reversed(stride))}
 
 
 def reduce_over(t: torch.Tensor, op: str, dims: Sequence[str],

@@ -16,13 +16,15 @@ reference's (:func:`decode_gqa`).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import compat
 from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              current_rules, entry_dims,
                                               from_local, local_shard,
                                               local_start, local_view,
-                                              logical_to_spec, placements,
-                                              reduce_over,
+                                              logical_to_spec, mesh_shape,
+                                              placements, reduce_over,
                                               shard_dims, shard_index,
                                               spec_of_dims)
 from repro_torch.kernels.attention import attention as attn_op
@@ -111,35 +113,69 @@ def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     over the data dims and the heads over the model dim (heads are
     independent), the sequence gathered (causal attention needs every
     key).  Each rank computes only its heads, and holds only their
-    scores.  Where the kv heads stay replicated (their count does not
-    divide the dim) a rank takes the kv heads of its own q heads, and its
-    gradient for k and v is a partial sum over the heads' mesh dims.
-    Returns a DTensor placed as q's shards (a plain tensor without a
-    mesh)."""
+    scores.  Heads whose count the model dim does not divide split as
+    GSPMD pads them: in chunks of ``ceil(H / n)`` (``torch.chunk``'s), so
+    that the last ranks hold fewer or none; the outputs are gathered back
+    (padded to even chunks), replicated over the heads' dims as the
+    heads' layout leaves them.  Where the kv heads stay
+    replicated (their count does not divide the dim) a rank takes the kv
+    heads of its own q heads, and its gradient for k and v (and for q,
+    where the q heads split unevenly) is a partial sum over the heads'
+    mesh dims.  Returns a DTensor placed as q's shards (a plain tensor
+    without a mesh)."""
     mesh = current_mesh()
     if mesh is None:
         return attn_op(q, k, v, **kw)
-    from torch.distributed.tensor import DTensor
+    sizes = mesh_shape(mesh)
     q_spec = logical_to_spec(("batch", "heads"), q.shape, mesh)
     kv_spec = logical_to_spec(("batch", kv_axis), k.shape, mesh)
-    heads = q_spec[1] if len(q_spec) > 1 else None
-    heads = (heads,) if isinstance(heads, str) else (heads or ())
+    bdims = entry_dims(q_spec[0] if q_spec else None)
+    heads = entry_dims(q_spec[1] if len(q_spec) > 1 else None)
     kv_split = len(kv_spec) > 1 and kv_spec[1] is not None
-    partial = {n: "partial" for n in heads} if not kv_split else None
-    ql = local_shard(q, mesh, q_spec)
+    # where the heads do not divide: the dims they would split
+    uneven = () if heads else tuple(
+        n for n in current_rules().get("heads") or ()
+        if n in sizes and n not in bdims)
+    hdims = heads or uneven
+    partial = {n: "partial" for n in hdims} if not kv_split else None
+    bspec = spec_of_dims((bdims,))
+    ql = local_shard(q, mesh, bspec if uneven else q_spec, partial
+                     if uneven else None)
     kl, vl = (local_shard(t, mesh, kv_spec, partial) for t in (k, v))
-    if heads and not kv_split:
+    n_h, h = 1, q.shape[1]
+    for n in hdims:
+        n_h *= sizes[n]
+    h_loc_max = -(-h // n_h) if uneven else ql.shape[1]
+    first = min(shard_index(mesh, hdims) * h_loc_max, h) if hdims else 0
+    if uneven:
+        ql = ql[:, first:first + h_loc_max]
+    h_loc = ql.shape[1]
+    if hdims and not kv_split and h_loc:
         # the kv heads of this rank's q heads: one per group of them, or
         # one per q head where the rank's heads split a group
-        h_loc, g = ql.shape[1], q.shape[1] // k.shape[1]
-        first = shard_index(mesh, heads) * h_loc
+        g = h // k.shape[1]
         idx = torch.arange(first, first + h_loc, device=ql.device) // g
-        if h_loc % g == 0:
+        if h_loc % g == 0 and first % g == 0:
             idx = idx[::g]
         kl, vl = kl.index_select(1, idx), vl.index_select(1, idx)
-    out = attn_op(ql, kl, vl, **kw)
-    return DTensor.from_local(out, mesh, placements(q_spec, mesh),
-                              run_check=False)
+    if h_loc:
+        out = attn_op(ql, kl, vl, **kw)
+    else:
+        # a rank with no head: an empty output that still depends on its
+        # inputs, so that its backward runs the collectives the others do
+        out = ((ql.sum() + kl.sum() + vl.sum()) * 0).expand(
+            ql.shape[:3] + vl.shape[3:])
+    shape = list(q.shape[:3] + v.shape[3:])
+    if uneven:
+        # padded to ceil(H / n) heads a rank, gathered over the heads'
+        # dims, the padding cut off: the heads come back replicated (the
+        # placement their count leaves them), the batch still split
+        out = F.pad(out, (0, 0, 0, 0, 0, h_loc_max - h_loc))
+        shape[1] = h_loc_max * n_h
+    out = from_local(out, mesh, spec_of_dims((bdims, hdims)), shape)
+    if uneven:
+        out = out.redistribute(mesh, placements(bspec, mesh))[:, :h]
+    return out
 
 
 def apply_gqa(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -8,11 +8,11 @@ and drops under equal capacity settings):
 * ``"einsum"``  — one-hot dispatch/combine products (the classic MoE of
   Shazeer et al.): the dispatch and combine each cost ``T*E*C*d``
   multiply-adds, typically more than the experts' own at large E.  The
-  generic implementation.  The ``(G, g, E, C)`` dispatch and combine
+  generic implementation.  The ``(T, E*C)`` dispatch and combine
   tensors are built by one scatter each: a token's k slots go to distinct
   experts, so a 1 (or the slot's weight) at ``(t, e, pos)`` of each kept
   slot is exactly the reference's sum over k of one-hot products, without
-  its ``(T, k, E, C)`` intermediates.
+  its ``(T, k, E, C)`` intermediates; the products run per group.
 * ``"gather"``  — the tokens copied into per-expert capacity buffers by
   index and the expert outputs gathered back: no dispatch products.  The
   specialized implementation the Controller should find.
@@ -31,10 +31,18 @@ and drops under equal capacity settings):
 
 The expert products run as one batched product over the experts.
 Routing, ranking and the aux loss are plain tensor code here, as in the
-reference: no kernel of its own.  Under a mesh (not ``shard``) the
-routing and the index writes and reads of the dispatch run on replicated
-tensors (DTensor has no sharding strategy for them), and the expert
-products on the DTensors the reference's ``constrain`` points place.
+reference: no kernel of its own.  Under a mesh ``einsum`` and ``gather``
+run on each rank's own tokens, as GSPMD partitions the reference's
+(:func:`_mesh_moe`): the router product, the routing and the positions
+on the rank's batch rows (a slot keeps the position the whole call gives
+it: the earlier ranks' counts per expert come in one all-gather of E
+integers), each rank writes the slots its block of the capacity buffers
+holds, the blocks are exchanged into the buffers' placement (a
+reduce-scatter over the token dims; DTensor has no sharding strategy for
+the index writes and reads themselves), the experts run on the DTensors
+the reference's ``constrain`` points place, and each rank reads its
+slots back from its block.  Nothing holds the call's tokens, slots or
+buffers whole.
 """
 from __future__ import annotations
 
@@ -46,9 +54,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (PartitionSpec, constrain,
-                                              current_mesh, local_shard,
+                                              current_mesh,
+                                              entry_dims, from_local,
+                                              local_shard, logical_to_spec,
                                               mesh_context, mesh_shape,
-                                              placements, replicate)
+                                              placements, replicate,
+                                              shard_index, spec_of_dims,
+                                              whole_layout)
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
 
@@ -150,6 +162,24 @@ def _aux(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
     return e * torch.sum(probs.mean(0) * ce)
 
 
+def _positions(w: torch.Tensor, idx: torch.Tensor, e: int, capacity: int,
+               group_size: int, ranking: str,
+               offset: torch.Tensor | None = None) -> dict:
+    """Each slot's position within its (group, expert) in token-major
+    order, plus ``offset[expert]`` (the slots of the group's tokens that
+    come before these, on other ranks), and the ``keep`` mask."""
+    t, k = idx.shape
+    g = group_size if group_size > 0 else t
+    if t % g:
+        raise ValueError(f"moe_group {group_size} does not divide the "
+                         f"{t} tokens of the call")
+    flat_e = idx.reshape(t // g, g * k)                   # token-major slots
+    pos = _rank_positions(flat_e, e, ranking).reshape(t, k)
+    if offset is not None:
+        pos = pos + offset[idx]
+    return {"idx": idx, "w": w, "pos": pos, "keep": pos < capacity}
+
+
 def assign_experts(logits: torch.Tensor, top_k: int, n_experts: int,
                    capacity: int, group_size: int = 0,
                    ranking: str = "cumsum") -> dict:
@@ -161,16 +191,10 @@ def assign_experts(logits: torch.Tensor, top_k: int, n_experts: int,
     token-major order within each group of ``group_size`` tokens (0: one
     group); a group that does not divide T raises ``ValueError``.
     """
-    t, e = logits.shape
     probs, w, idx = _route(logits, top_k)
-    g = group_size if group_size > 0 else t
-    if t % g:
-        raise ValueError(f"moe_group {group_size} does not divide the "
-                         f"{t} tokens of the call")
-    flat_e = idx.reshape(t // g, g * top_k)               # token-major slots
-    pos = _rank_positions(flat_e, e, ranking).reshape(t, top_k)
-    return {"idx": idx, "w": w, "pos": pos, "keep": pos < capacity,
-            "aux": _aux(probs, idx, e)}
+    a = _positions(w, idx, n_experts, capacity, group_size, ranking)
+    a["aux"] = _aux(probs, idx, n_experts)
+    return a
 
 
 def _expert_ffn(buf: torch.Tensor, p: dict, cdt: torch.dtype) -> torch.Tensor:
@@ -191,61 +215,189 @@ def _capacity(t: int, top_k: int, e: int, factor: float) -> int:
     return -(-c // mult) * mult
 
 
-def _einsum_moe(a: dict, xf: torch.Tensor, p: dict, e: int, k: int,
-                cap: int, g: int) -> torch.Tensor:
-    t, d = xf.shape
-    cdt = xf.dtype
+def _prod(sizes: dict, names) -> int:
+    n = 1
+    for a in names:
+        n *= sizes[a]
+    return n
+
+
+@dataclasses.dataclass
+class _Block:
+    """The capacity buffers (G groups, E experts, C slots each) as this
+    rank fills and reads them, and the rank's tokens.
+
+    The rank holds groups ``[q0, q0 + ql)``, experts ``[e0, e0 + el)`` and
+    slots ``[c0, c0 + cl)`` of the buffers (a 4-D local block
+    ``(ql, el, cl, d)``), and tokens ``[t0, t0 + t_loc)`` of the call,
+    which make up ``gm`` groups from group ``g0`` on.  Without a mesh the
+    block is the whole of the buffers and every token.
+
+    Under a mesh (:func:`_mesh_block`) the block is the rank's share of
+    the buffers placed as the reference's ``cap_axes`` (seen by the
+    experts as one ``(E, G*C, d)`` DTensor, ``target``), before the
+    exchange between the ranks that hold different tokens (``fill``:
+    ``Partial`` over the token dims, or ``Shard`` where a rank's groups
+    are its own tokens'); ``partial`` are the mesh dims over which a
+    rank's block holds only a part of its tokens' slots.
+    """
+
+    q0: int
+    ql: int
+    e0: int
+    el: int
+    c0: int
+    cl: int
+    t0: int
+    t_loc: int
+    g0: int
+    gm: int
+    mesh: object = None
+    shape: tuple = ()
+    fill: tuple = ()
+    target: tuple = ()
+    tdims: tuple = ()
+    partial: tuple = ()
+
+    def ffn(self, buf: torch.Tensor, p: dict, cdt: torch.dtype
+            ) -> torch.Tensor:
+        """The experts on the block ``(ql, el, cl, d)``; same shape back.
+        Under a mesh the filled blocks are exchanged into the buffers'
+        placement (``fill`` -> ``target``: a reduce-scatter over the token
+        dims), the experts run on the DTensor, and each rank reads back
+        the block it filled (an all-gather over the token dims; its
+        gradient is the rank's own slots', a partial sum over them)."""
+        if self.mesh is None:
+            return _expert_ffn(buf, p, cdt)
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        d = buf.shape[-1]
+        b3 = buf.permute(1, 0, 2, 3).reshape(self.el, self.ql * self.cl, d)
+        e, gc = self.shape
+        dt = DTensor.from_local(b3, self.mesh, self.fill, run_check=False,
+                                **whole_layout((e, gc, d)))
+        h = _expert_ffn(dt.redistribute(self.mesh, self.target), p, cdt)
+        back = tuple(Replicate() if pl.is_partial() else pl
+                     for pl in self.fill)
+        h = h.redistribute(self.mesh, self.target).redistribute(
+            self.mesh, back)
+        hl = h.to_local(grad_placements=tuple(
+            Partial() if f.is_partial() else b
+            for f, b in zip(self.fill, back)))
+        return hl.reshape(self.el, self.ql, self.cl, d).permute(1, 0, 2, 3)
+
+    def output(self, out: torch.Tensor, shape: tuple) -> torch.Tensor:
+        """The rank's part of its tokens' output, ``out`` (its batch rows),
+        as the whole ``shape``: a DTensor split over the token dims and a
+        partial sum over ``partial``."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+        place = tuple(Shard(0) if n in self.tdims else
+                      Partial() if n in self.partial else Replicate()
+                      for n in mesh_shape(self.mesh))
+        return DTensor.from_local(out, self.mesh, place, run_check=False,
+                                  **whole_layout(shape))
+
+
+def _local_block(t: int, g: int, e: int, cap: int) -> _Block:
+    return _Block(q0=0, ql=t // g, e0=0, el=e, c0=0, cl=cap, t0=0,
+                  t_loc=t, g0=0, gm=t // g)
+
+
+def _mesh_block(mesh, b: int, s: int, e: int, cap: int, g: int) -> _Block:
+    """This rank's :class:`_Block` on ``mesh``: its tokens are its batch
+    rows (split over the mesh dims of ``batch``, all ``s`` positions), the
+    buffers placed by the reference's ``cap_axes``: one group (``g`` the
+    call's ``b * s`` tokens) as ``(experts, expert_cap)``, else
+    ``(moe_groups, experts)``."""
+    from torch.distributed.tensor import Partial, Shard
+    sizes = mesh_shape(mesh)
+    names = tuple(sizes)
+    t = b * s
     n_groups = t // g
-    keep = a["keep"].reshape(-1).to(cdt)
-    flat_t = torch.arange(t, device=xf.device).repeat_interleave(k)
-    # (token, expert * cap + pos) of each slot; a dropped slot writes its
-    # 0 at its own expert's last column, which no other slot of the token
-    # touches (its k experts are distinct)
-    col = a["idx"].reshape(-1) * cap + a["pos"].reshape(-1).clamp_max(
-        cap - 1)
-    disp = torch.zeros((t, e * cap), dtype=cdt, device=xf.device)
+    bspec = logical_to_spec(("batch",), (b,), mesh)
+    tdims = entry_dims(bspec[0] if bspec else None)
+    t_loc = t // _prod(sizes, tdims)
+    t0 = shard_index(mesh, tdims) * t_loc
+    if n_groups > 1 and t_loc % g and g % t_loc:
+        raise ValueError(f"moe_group {g} neither divides the {t_loc} tokens "
+                         f"of a rank nor spans whole ranks ({t} tokens over "
+                         f"the mesh dims {tdims})")
+    if n_groups > 1:
+        gs, es = (logical_to_spec(("moe_groups", "experts"), (n_groups, e),
+                                  mesh) + (None, None))[:2]
+    else:
+        es, gs = (logical_to_spec(("experts", "expert_cap"), (e, cap),
+                                  mesh) + (None, None))[:2]
+    target = placements(PartitionSpec(es, gs), mesh)
+    gdims = tuple(n for n, pl in zip(names, target) if pl == Shard(1))
+    own_groups = n_groups > 1 and gdims == tdims
+    fill = tuple((Shard(1) if own_groups else Partial()) if n in tdims
+                 else pl for n, pl in zip(names, target))
+
+    def span(dim: int, extent: int) -> tuple[int, int]:
+        dims = tuple(n for n, pl in zip(names, fill) if pl == Shard(dim))
+        n = extent // _prod(sizes, dims)
+        return shard_index(mesh, dims) * n, n
+
+    e0, el = span(0, e)
+    j0, jl = span(1, n_groups * cap)
+    q0, ql, c0, cl = ((j0 // cap, jl // cap, 0, cap) if n_groups > 1
+                      else (0, 1, j0, jl))
+    return _Block(q0=q0, ql=ql, e0=e0, el=el, c0=c0, cl=cl, t0=t0,
+                  t_loc=t_loc, g0=t0 // g, gm=max(1, t_loc // g), mesh=mesh,
+                  shape=(e, n_groups * cap), fill=fill, target=target,
+                  tdims=tdims, partial=tuple(
+                      n for n, pl in zip(names, fill)
+                      if n not in tdims and pl.is_shard()))
+
+
+def _dispatch(a: dict, xl: torch.Tensor, p: dict, k: int, cap: int, g: int,
+              impl: str, blk: _Block) -> torch.Tensor:
+    """The rank's tokens ``xl (t_loc, d)`` through the experts, routed by
+    ``a`` (global positions): each slot the rank's block holds is written
+    into it (``gather``: an index write; ``einsum``: a one-hot product of
+    the rank's tokens and the block's ``el * cl`` slots of a group), the
+    experts run (:meth:`_Block.ffn`), and each slot reads its row back,
+    weighted.  A dropped slot, or one outside the block, moves nothing.
+    Returns (t_loc, d): under a mesh the rank's part of its tokens'
+    output, which :meth:`_Block.output` places."""
+    t_loc, d = xl.shape
+    cdt = xl.dtype
+    b = blk
+    flat_t = torch.arange(t_loc, device=xl.device).repeat_interleave(k)
+    lq = (b.t0 + flat_t) // g - b.q0
+    le = a["idx"].reshape(-1) - b.e0
+    lc = a["pos"].reshape(-1) - b.c0
+    mine = a["keep"].reshape(-1) & (lq >= 0) & (lq < b.ql) & (le >= 0) \
+        & (le < b.el) & (lc >= 0) & (lc < b.cl)
+    wk = a["w"].reshape(-1).to(cdt) * mine.to(cdt)
+    rows = b.ql * b.el * b.cl
+    if impl == "gather":
+        dest = torch.where(mine, (lq * b.el + le) * b.cl + lc, rows)
+        # a slot the block does not take lands in one extra row, cut off
+        buf = torch.zeros((rows + 1, d), dtype=cdt, device=xl.device)
+        buf.index_copy_(0, dest, xl[flat_t])
+        hbuf = b.ffn(buf[:rows].reshape(b.ql, b.el, b.cl, d), p, cdt)
+        gathered = hbuf.reshape(rows, d).index_select(
+            0, torch.where(mine, dest, 0)) * wk[:, None]
+        return gathered.reshape(t_loc, k, d).sum(1)
+    # (token, expert * cl + slot) of each slot, within its group; a slot
+    # the block does not take adds its 0 at column 0
+    col = torch.where(mine, le * b.cl + lc, 0)
+    disp = torch.zeros((t_loc, b.el * b.cl), dtype=cdt, device=xl.device)
     comb = torch.zeros_like(disp)
-    disp.index_put_((flat_t, col), keep)
-    comb.index_put_((flat_t, col), a["w"].reshape(-1).to(cdt) * keep)
-    disp = disp.reshape(n_groups, g, e, cap)
-    # the combine weights carry the router's gradient: under a mesh they
-    # re-enter as a replicated DTensor (constrain), so it comes back plain
-    comb = constrain(comb.reshape(n_groups, g, e, cap), (None,) * 4)
-    buf = torch.einsum("gtec,gtd->gecd", disp, xf.reshape(n_groups, g, d))
-    # grouped: shard groups over data; one group: shard the capacity
-    cap_axes = (("moe_groups", "experts", None, None) if n_groups > 1
-                else (None, "experts", "expert_cap", None))
-    hbuf = constrain(_expert_ffn(constrain(buf, cap_axes), p, cdt),
-                     cap_axes)
-    return torch.einsum("gtec,gecd->gtd", comb, hbuf).reshape(t, d)
-
-
-def _gather_moe(a: dict, xf: torch.Tensor, p: dict, e: int, k: int,
-                cap: int, g: int) -> torch.Tensor:
-    t, d = xf.shape
-    cdt = xf.dtype
-    rows = (t // g) * e * cap
-    flat_t = torch.arange(t, device=xf.device).repeat_interleave(k)
-    # each slot's row in the buffers: a group's experts after the
-    # previous group's
-    dest = (flat_t // g * e + a["idx"].reshape(-1)) * cap \
-        + a["pos"].reshape(-1)
-    keep = a["keep"].reshape(-1)
-    # a dropped slot lands in one extra row past the buffers, cut off after
-    # (the index write and read take replicated tensors under a mesh)
-    buf = torch.zeros((rows + 1, d), dtype=cdt, device=xf.device)
-    buf.index_copy_(0, torch.where(keep, dest, rows), replicate(xf)[flat_t])
-    # grouped: shard groups over data; one group: (E, C, d), the capacity
-    # sharded, as the reference lays it out
-    shape, cap_axes = (((t // g, e, cap, d), ("moe_groups", "experts",
-                                                None, None)) if g < t
-                       else ((e, cap, d), ("experts", "expert_cap", None)))
-    hbuf = constrain(_expert_ffn(constrain(
-        buf[:rows].reshape(shape), cap_axes), p, cdt), cap_axes)
-    gathered = replicate(hbuf).reshape(rows, d).index_select(
-        0, torch.where(keep, dest, 0))
-    gathered = gathered * (a["w"].reshape(-1).to(cdt) * keep.to(cdt))[:, None]
-    return gathered.reshape(t, k, d).sum(1)
+    disp.index_put_((flat_t, col), mine.to(cdt), accumulate=True)
+    comb.index_put_((flat_t, col), wk, accumulate=True)
+    per = t_loc // b.gm
+    buf = torch.einsum("gtr,gtd->grd", disp.reshape(b.gm, per, -1),
+                       xl.reshape(b.gm, per, d))
+    buf = buf.reshape(b.gm, b.el, b.cl, d)
+    lo = b.g0 - b.q0
+    if b.gm != b.ql:                  # the rank's groups among all of them
+        buf = F.pad(buf, (0, 0, 0, 0, 0, 0, lo, b.ql - lo - b.gm))
+    hbuf = b.ffn(buf, p, cdt)[lo:lo + b.gm]
+    return torch.einsum("gtr,grd->gtd", comb.reshape(b.gm, per, -1),
+                        hbuf.reshape(b.gm, b.el * b.cl, d)).reshape(t_loc, d)
 
 
 def _dense_moe(logits: torch.Tensor, xf: torch.Tensor, p: dict, e: int,
@@ -380,6 +532,58 @@ def _shard_mesh(e: int):
     return mesh
 
 
+def _earlier_counts(idx: torch.Tensor, e: int, g: int,
+                    blk: _Block) -> torch.Tensor:
+    """Per expert, the slots of the tokens of this rank's group (of ``g``
+    tokens, which spans several ranks) on the ranks before this one along
+    the token dims: each rank's counts (E integers) all-gathered, the
+    earlier ranks' of the group summed."""
+    counts = replicate(from_local(F.one_hot(idx.reshape(-1), e).sum(0)[None],
+                                  blk.mesh, spec_of_dims((blk.tdims,))))
+    r = blk.t0 // blk.t_loc
+    return counts[r - r % (g // blk.t_loc):r].sum(0)
+
+
+def _mesh_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, opts: MoEOptions,
+              impl: str, g: int, cap: int, mesh
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gather``/``einsum`` under a mesh, on each rank's own tokens (its
+    batch rows, :func:`_mesh_block`): the router product, the routing and
+    the positions run on the local rows, a slot's position is the one
+    the whole call gives it (where a group spans ranks, as one group
+    does, the local rank plus the group's earlier ranks' counts per
+    expert, :func:`_earlier_counts`), and the slots move to and from the
+    buffers by :func:`_dispatch`.  The aux
+    loss is the whole call's (its means summed over the token dims), its
+    gradient scaled by 1 / the ranks that hold a part of each token's
+    slots (each passes it back).  Returns the output (B, S, d) as a
+    DTensor and the aux loss."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cdt = x.dtype
+    blk = _mesh_block(mesh, b, s, e, cap, g)
+    part = {n: "partial" for n in blk.partial}
+    xl = local_shard(x, mesh, spec_of_dims((blk.tdims,)), part)
+    router = local_shard(p["router"].to(cdt), mesh, PartitionSpec(),
+                         {**{n: "partial" for n in blk.tdims}, **part})
+    xl = xl.reshape(-1, d)
+    probs, w, idx = _route((xl @ router).to(torch.float32), k)
+    spans = g > blk.t_loc                  # the rank's group spans ranks
+    offset = _earlier_counts(idx, e, g, blk) if spans else None
+    a = _positions(w, idx, e, cap, 0 if spans else g, opts.ranking, offset)
+    out = _dispatch(a, xl, p, k, cap, g, impl, blk)
+    me = probs.sum(0)
+    ce = F.one_hot(idx[:, 0], e).to(torch.float32).sum(0)
+    for n in blk.tdims:
+        me = _AllReduceSum.apply(me, mesh.get_group(n))
+        ce = _AllReduceSum.apply(ce, mesh.get_group(n))
+    aux = e * torch.sum((me / (b * s)) * (ce / (b * s)))
+    n_part = _prod(mesh_shape(mesh), blk.partial)
+    if n_part > 1:
+        aux = _ScaleGrad.apply(aux, 1.0 / n_part)
+    return blk.output(out.reshape(-1, s, d), (b, s, d)), aux
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               opts: MoEOptions) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (out (B,S,d), aux loss scalar (fp32) * aux_coef)."""
@@ -387,47 +591,56 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cdt = x.dtype
-    xf = x.reshape(b * s, d)
     t = b * s
     impl = opts.impl
     if impl == "shard":
         mesh = _shard_mesh(e)
         if mesh is not None:
-            out, aux = _shard_moe(p, xf, cfg, opts, mesh)
-            return _with_shared(p, xf, out, cdt).reshape(b, s, d), \
+            out, aux = _shard_moe(p, x.reshape(t, d), cfg, opts, mesh)
+            return _with_shared(p, x, out.reshape(b, s, d), cdt), \
                 aux * opts.aux_coef
         impl = "gather"          # the reference's guarded degrade
         degrades += 1
 
-    # routing on replicated logits under a mesh: no DTensor strategy for
-    # its sort, one-hot ranking and scatters
-    logits = replicate((xf @ p["router"].to(cdt)).to(torch.float32))
+    mesh = current_mesh()
     if impl == "dense":
-        with mesh_context(None):            # the oracle: all replicated
-            out, aux = _dense_moe(logits, replicate(xf), {
+        # the oracle: routing and experts on replicated tensors
+        xf = replicate(x.reshape(t, d))
+        logits = (xf @ replicate(p["router"]).to(cdt)).to(torch.float32)
+        with mesh_context(None):
+            out, aux = _dense_moe(logits, xf, {
                 n: replicate(p[n]) for n in ("wg", "wu", "wd")}, e, k)
+        out = out.reshape(b, s, d)
     elif impl in ("einsum", "gather"):
         g = opts.group_size if opts.group_size > 0 else t
+        if t % g:
+            raise ValueError(f"moe_group {opts.group_size} does not divide "
+                             f"the {t} tokens of the call")
         cap = _capacity(g, k, e, opts.capacity_factor)
-        a = assign_experts(logits, k, e, cap, opts.group_size, opts.ranking)
-        aux = a["aux"]
-        fn = _einsum_moe if impl == "einsum" else _gather_moe
-        out = fn(a, xf, p, e, k, cap, g)
+        if mesh is None:
+            xf = x.reshape(t, d)
+            a = assign_experts((xf @ p["router"].to(cdt)).to(torch.float32),
+                               k, e, cap, opts.group_size, opts.ranking)
+            aux = a["aux"]
+            out = _dispatch(a, xf, p, k, cap, g, impl,
+                            _local_block(t, g, e, cap)).reshape(b, s, d)
+        else:
+            out, aux = _mesh_moe(p, x, cfg, opts, impl, g, cap, mesh)
     else:
         raise ValueError(f"unknown moe impl {opts.impl!r}")
-    # a plain output re-enters the mesh's tensors through constrain (its
-    # gradient then comes back plain)
-    out = constrain(out, ("batch", None))
-    return _with_shared(p, xf, out, cdt).reshape(b, s, d), \
-        constrain(aux, ()) * opts.aux_coef
+    # the output re-enters the mesh's tensors placed as x (a plain one as
+    # replicated, its gradient then coming back plain)
+    out = constrain(out, ("batch", "seq", None))
+    return _with_shared(p, x, out, cdt), constrain(aux, ()) * opts.aux_coef
 
 
-def _with_shared(p: dict, xf: torch.Tensor, out: torch.Tensor,
+def _with_shared(p: dict, x: torch.Tensor, out: torch.Tensor,
                  cdt: torch.dtype) -> torch.Tensor:
-    """``out`` plus the shared experts' swiglu of ``xf``, if any."""
+    """``out`` plus the shared experts' swiglu of ``x``, if any (both
+    (B, S, d))."""
     if "shared" not in p:
         return out
     sh = p["shared"]
-    hs = F.silu(xf @ sh["wg"].to(cdt)) * (xf @ sh["wu"].to(cdt))
-    hs = constrain(hs, ("batch", "ffn"))
+    hs = F.silu(x @ sh["wg"].to(cdt)) * (x @ sh["wu"].to(cdt))
+    hs = constrain(hs, ("batch", "seq", "ffn"))
     return out + hs @ sh["wd"].to(cdt)

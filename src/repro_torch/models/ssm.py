@@ -23,8 +23,10 @@ import torch.nn.functional as F
 
 from repro_torch import compat
 from repro_torch.distributed.sharding import (constrain, current_mesh,
-                                              from_local, local_shard,
-                                              logical_to_spec, write_local)
+                                              from_local, is_dtensor,
+                                              local_shard, logical_to_spec,
+                                              shard_dims, spec_of_dims,
+                                              write_local)
 from repro_torch.kernels.linear_attention import linear_attention
 from repro_torch.models.chunk_scan import step_linear_attention
 from repro_torch.models.common import KernelOptions, dense_init
@@ -86,6 +88,24 @@ def _conv_causal(xi: torch.Tensor, kern: torch.Tensor,
     return out
 
 
+def _conv_placed(xi: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """:func:`_conv_causal` of the full sequence; under a mesh on each
+    rank's own rows and channels (the conv is depthwise: rows and
+    channels are independent; the sequence gathered, as each position
+    needs the ones before it).  DTensor's pad fails to plan its
+    redistribution on some releases (torch 2.11 at hymba's 16-way
+    channel split)."""
+    if not is_dtensor(xi):
+        return _conv_causal(xi, kern)
+    mesh = xi.device_mesh
+    rows, _, chans = shard_dims(xi)
+    spec = spec_of_dims((rows, (), chans))
+    out = _conv_causal(local_shard(xi, mesh, spec),
+                       local_shard(kern, mesh, spec_of_dims(((), chans)),
+                                   {n: "partial" for n in rows}))
+    return from_local(out, mesh, spec)
+
+
 def _gates(p: dict, x: torch.Tensor):
     """x (B,S,d) -> B (B,S,N), C (B,S,N), dt (B,S,H), log_a (B,S,H); dt and
     log_a in fp32 (float64 for a float64 ``x``)."""
@@ -114,7 +134,7 @@ def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     h, dh, n = cfg.ssm_heads, cfg.d_head, cfg.ssm_state
     cdt = x.dtype
-    xi = F.silu(_conv_causal(x @ p["w_in"].to(cdt), p["conv"]))
+    xi = F.silu(_conv_placed(x @ p["w_in"].to(cdt), p["conv"]))
     bmat, cmat, dt, log_a = _gates(p, x)
     xh = _split_heads(xi, h, dh)
     v = xh * dt.to(cdt)[..., None]                    # dt-scaled input

@@ -38,9 +38,12 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch import compat
-from repro_torch.distributed.sharding import (constrain, is_dtensor,
-                                              local_shard, local_start,
-                                              local_view, mesh_shape,
+from repro_torch.distributed.sharding import (PartitionSpec, constrain,
+                                              current_mesh, entry_dims,
+                                              from_local, is_dtensor,
+                                              local_shard,
+                                              local_start, local_view,
+                                              logical_to_spec, mesh_shape,
                                               shard_dims, spec_of_dims,
                                               write_local)
 from repro_torch.models import attention as attn_mod
@@ -55,7 +58,8 @@ from repro_torch.models.moe import MoEOptions
 
 __all__ = ["RunOptions", "check_supported", "init_params", "param_axes",
            "apply", "init_cache",
-           "cache_axes", "decode_step", "prefill_chunk", "lm_head_weight"]
+           "cache_axes", "decode_step", "prefill_chunk", "lm_head_weight",
+           "head_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,9 +389,29 @@ def apply(params: dict, cfg: ModelConfig, opts: RunOptions,
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, opts.kernels)
     if return_hidden:
         return x, aux
-    logits = constrain(x @ lm_head_weight(params, cfg),
-                       ("batch", "seq", "vocab"))
+    logits = head_logits(x, lm_head_weight(params, cfg))
     return logits.to(_dtype(opts.logits_dtype)), aux
+
+
+def head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``x (B, S, d) @ head (d, V)``, placed ``(batch, seq, vocab)``.  Under
+    a mesh on each rank's own rows and vocab shard, as GSPMD partitions
+    it: the head's ``fsdp`` rows gathered, never its vocab, so no rank
+    holds its rows' logits over the whole vocab.  The gradient of ``x``
+    is a partial sum over the vocab's mesh dims, that of ``head`` over
+    the rows'."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x @ head
+    spec = logical_to_spec(("batch", "seq", "vocab"),
+                           tuple(x.shape[:2]) + tuple(head.shape[1:]))
+    spec = tuple(spec) + (None,) * (3 - len(spec))
+    rows = entry_dims(spec[0]) + entry_dims(spec[1])
+    xl = local_shard(x, mesh, PartitionSpec(*spec[:2]),
+                     {n: "partial" for n in entry_dims(spec[2])})
+    hl = local_shard(head, mesh, PartitionSpec(None, spec[2]),
+                     {n: "partial" for n in rows})
+    return from_local(xl @ hl, mesh, PartitionSpec(*spec))
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:

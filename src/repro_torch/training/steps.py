@@ -55,8 +55,11 @@ import torch
 from repro_torch import compat
 from repro_torch.core.specializer import SpecCtx
 from repro_torch.distributed.sharding import (DEFAULT_RULES, ShardingRules,
-                                              constrain, mesh_context,
-                                              replicate)
+                                              constrain, from_local,
+                                              is_dtensor, local_shard,
+                                              local_start, mesh_context,
+                                              reduce_over, replicate,
+                                              shard_dims, spec_of_dims)
 from repro_torch.kernels import registry as kernel_registry
 from repro_torch.kernels.attention.kernel import (BLOCK_KV, BLOCK_Q,
                                                   DEFAULT_BLOCK_KV,
@@ -390,18 +393,67 @@ def make_serve_builder(cfg: ModelConfig, mesh: Any = None, *,
 
 # -- loss --------------------------------------------------------------------------
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """The token NLL of each rank's local logits ``(..., V_loc)``, the
+    vocab split over the mesh dims ``vdims`` and the rows over ``rdims``:
+    the max, the sum of exponentials and the label's logit (0 on a rank
+    whose vocab range does not hold it) all-reduced over ``vdims``, the
+    NLL and the count of valid (label >= 0) rows summed, then all-reduced
+    over ``rdims``.  Returns the two sums, the same on every rank.  The
+    gradient is ``softmax - onehot`` of the valid rows on the local shard;
+    the sums' gradient reaches every rank whole, so nothing of it is
+    reduced backward."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, v0, vdims, rdims, mesh):
+        m = reduce_over(lg.amax(-1), "max", vdims, mesh)
+        z = reduce_over(torch.exp(lg - m[..., None]).sum(-1), "sum", vdims,
+                        mesh)
+        lse = m + torch.log(z)
+        ids = labels.long() - v0
+        own = (ids >= 0) & (ids < lg.shape[-1])
+        ids = ids.clamp(0, lg.shape[-1] - 1)
+        picked = torch.gather(lg, -1, ids[..., None])[..., 0] * own
+        picked = reduce_over(picked, "sum", vdims, mesh)
+        mask = (labels >= 0).to(torch.float32)
+        total = reduce_over(torch.sum((lse - picked) * mask), "sum", rdims,
+                            mesh)
+        count = reduce_over(mask.sum(), "sum", rdims, mesh)
+        ctx.save_for_backward(lg, lse, ids, own, mask)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, g_total, g_count):
+        lg, lse, ids, own, mask = ctx.saved_tensors
+        grad = torch.exp(lg - lse[..., None]) * mask[..., None]
+        grad.scatter_add_(-1, ids[..., None], -(own * mask)[..., None])
+        return grad * g_total, None, None, None, None, None
+
+
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fp32 token NLL summed over valid (label >= 0) positions, and
-    their count."""
-    lg = logits.to(torch.float32)
-    lse = torch.logsumexp(lg, dim=-1)
-    # DTensor's gather along a sharded vocab dim fails (its masked
-    # partial): the picked logits come from vocab-replicated logits
-    ll = torch.gather(constrain(lg, ("batch", "seq", None)), -1,
-                      labels.clamp_min(0)[..., None].long())[..., 0]
-    mask = (labels >= 0).to(torch.float32)
-    return torch.sum((lse - ll) * mask), mask.sum()
+    their count.  Under a mesh (``logits`` a DTensor) each rank works on
+    its own shard of the logits (:class:`_VocabParallelNLL`): no rank
+    holds the whole ``(B, S, V)`` tensor or a vocab-replicated copy of
+    it, and the two sums come back replicated."""
+    if not is_dtensor(logits):
+        lg = logits.to(torch.float32)
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1,
+                          labels.clamp_min(0)[..., None].long())[..., 0]
+        mask = (labels >= 0).to(torch.float32)
+        return torch.sum((lse - ll) * mask), mask.sum()
+    mesh = logits.device_mesh
+    dims = shard_dims(logits)
+    rdims = tuple(n for d in dims[:-1] for n in d)
+    lg = local_shard(logits, mesh, spec_of_dims(dims)).to(torch.float32)
+    lab = local_shard(labels, mesh, spec_of_dims(dims[:-1]))
+    total, count = _VocabParallelNLL.apply(
+        lg, lab, local_start(logits, lg.ndim - 1), dims[-1], rdims, mesh)
+    # the sums re-enter the mesh's tensors as replicated DTensors (their
+    # gradient then comes back plain)
+    return from_local(total, mesh, ()), from_local(count, mesh, ())
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
@@ -417,8 +469,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
         raise ValueError(f"loss_chunk {chunk} does not divide S = {s}")
     total, count = 0.0, 0.0
     for i in range(0, s, chunk):
-        lg = constrain(hidden[:, i:i + chunk] @ head,
-                       ("batch", "seq", "vocab"))
+        lg = model.head_logits(hidden[:, i:i + chunk], head)
         t, c = _token_nll(lg, labels[:, i:i + chunk])
         total, count = total + t, count + c
     return total / torch.clamp(count, min=1.0)
@@ -429,8 +480,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token CE in fp32, mean over valid (label >= 0) positions.
 
     ``gather_logits`` (the ``logits_layout`` point) replicates the logits'
-    vocab dim first; otherwise they stay vocab-sharded through the
-    log-sum-exp under a mesh.
+    vocab dim first; otherwise they stay vocab-sharded through the loss
+    under a mesh (:func:`_token_nll`: the max and log-sum-exp reductions
+    are small all-reduces instead of an all-gather of the whole (B,S,V)
+    tensor).
     """
     if gather_logits:
         logits = constrain(logits, ("batch", "seq", None))
@@ -439,6 +492,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # -- train ------------------------------------------------------------------------
+
+def _microbatch(v: torch.Tensor, i: int, micro: int) -> torch.Tensor:
+    """Rows ``[i * B / micro, (i + 1) * B / micro)`` of a batch leaf (the
+    reference's ``reshape((micro, -1))[i]``).  Under a mesh the leaf is
+    gathered whole first (token ids and labels: a few MB at production
+    sizes) and the slice placed by its batch axes: DTensor cannot split a
+    dim sharded over more ranks than the micro count."""
+    n = v.shape[0] // micro
+    if not is_dtensor(v):
+        return v[i * n:(i + 1) * n]
+    return constrain(replicate(v)[i * n:(i + 1) * n],
+                     ("batch", "seq", None)[:v.ndim])
+
 
 def _value_and_grad(loss_fn: Callable, params: Any, batch: dict
                     ) -> tuple[torch.Tensor, list]:
@@ -526,8 +592,7 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig, mesh: Any = None
             grads, loss_total = None, None
             for i in range(micro):
                 mb = batch if micro == 1 else {
-                    k: v.reshape((micro, -1) + tuple(v.shape[1:]))[i]
-                    for k, v in batch.items()}
+                    k: _microbatch(v, i, micro) for k, v in batch.items()}
                 li, gi = _value_and_grad(loss_fn, params, mb)
                 grads = gi if grads is None else [
                     a + b for a, b in zip(grads, gi)]

@@ -25,8 +25,17 @@ rank records each check; the tests read the records:
   visible update; under ``int8_ef`` the first moment at most one int8
   step away in < 0.1 % of the elements): reduced qwen3 under ``dp``,
   ``fsdp`` and ``seq``, reduced deepseek-v2 under ``fsdp`` and
-  ``fsdp_noexp``, each with ``compress`` none and ``int8_ef``; the
-  attention of each step ran on the rank's own batch rows and heads;
+  ``fsdp_noexp``, each with ``compress`` none and ``int8_ef``, and
+  reduced kimi-k2 under ``fsdp`` with the ``gather`` and ``einsum`` MoE
+  at a binding capacity and with ``microbatch`` 2; the attention of each
+  step ran on the rank's own batch rows and heads;
+* the vocab-parallel token NLL under both ``logits_layout``s (value and
+  gradient, masked labels, labels in each vocab shard) against one
+  process and the reference's ``cross_entropy``;
+* ``apply_moe`` on each rank's own tokens (two groups a data rank, and
+  one group at a binding capacity) against one process, with gradients;
+* a reduced hymba whose 3 heads do not divide ``model``: the prefill
+  against one process, each rank attending with its uneven share;
 * a reduced deepseek-v2 decode step under ``serve_ep`` against the
   reference's jitted step (logits and cache, 1e-5) and the port's one
   process;
@@ -62,10 +71,30 @@ from repro_torch.configs import tuned  # noqa: E402
 MOE_CFG = dict(name="m", family="moe", n_layers=1, d_model=32, n_heads=4,
                n_kv_heads=2, d_ff=64, vocab_size=128, n_experts=8, top_k=2,
                moe_d_ff=48, n_shared_experts=1)
-TRAIN_CASES = [("qwen3-0.6b", p, c) for p in ("dp", "fsdp", "seq")
+#: (arch, sharding profile, compress, the other spec points of the step)
+TRAIN_CASES = [("qwen3-0.6b", p, c, {}) for p in ("dp", "fsdp", "seq")
                for c in ("none", "int8_ef")] + \
-              [("deepseek-v2-236b", p, c) for p in ("fsdp", "fsdp_noexp")
-               for c in ("none", "int8_ef")]
+              [("deepseek-v2-236b", p, c, {}) for p in ("fsdp", "fsdp_noexp")
+               for c in ("none", "int8_ef")] + \
+              [("kimi-k2-1t-a32b", "fsdp", "none", spec) for spec in (
+                  {"moe_impl": "gather", "capacity_factor": 1.0},
+                  {"moe_impl": "einsum", "capacity_factor": 1.0},
+                  {"moe_impl": "gather", "microbatch": 2})]
+
+
+def _train_id(case):
+    arch, profile, compress, spec = case
+    return "-".join([arch, profile, compress]
+                    + [f"{k}={v}" for k, v in spec.items()])
+
+
+TRAIN_IDS = [_train_id(c) for c in TRAIN_CASES]
+#: apply_moe on the mesh: 2 groups a data rank, and one group whose
+#: capacity binds (positions continue across the data ranks)
+MOE_GROUP_CASES = [{"impl": i, "group_size": 16} for i in ("gather", "einsum")] \
+    + [{"impl": i, "capacity_factor": 1.0} for i in ("gather", "einsum")]
+#: the NLL's inputs: (B, S, V) logits, labels in both vocab halves, some -1
+NLL_SHAPE = (4, 8, 64)
 WORLD = 4
 TIMEOUT = 300
 B, S = 4, 16
@@ -116,6 +145,8 @@ TRAIN_CASES = json.loads(sys.argv[3])
 MOE_CFG = json.loads(sys.argv[4])
 CACHED_CASES = json.loads(sys.argv[5])
 GUARD_CASES = json.loads(sys.argv[6])
+TRAIN_IDS = json.loads(sys.argv[7])
+MOE_GROUP_CASES = json.loads(sys.argv[8])
 GUARD_LEN = 4096
 PREFILL_ARCHS = ["rwkv6-1.6b", "hymba-1.5b"]
 B, S, DECODE_STEPS = 4, 16, 3
@@ -242,24 +273,26 @@ def attention_spy(seen):
     return op, spy
 
 
-def check_train(mesh, workdir, rank, arch, profile, compress):
+def check_train(mesh, workdir, rank, case_id, arch, profile, compress, spec):
     cfg, opt, state, batch = train_setup(workdir, arch, compress)
-    config = {"sharding_profile": profile}
+    config = {"sharding_profile": profile, **spec}
     plain = specialize_builder(steps.make_train_builder(cfg, opt),
                                config).fn
     sharded = specialize_builder(steps.make_train_builder(cfg, opt, mesh),
                                  config).fn
     ref_state, ref_m = plain(state, batch)
-    seen = []
+    seen, rows = [], []
     op, attn_mod.attn_op = attention_spy(seen)
+    route = moe._route
+    moe._route = lambda lg, k: (rows.append(lg.shape[0]), route(lg, k))[1]
     try:
         new_state, m = sharded(state, batch)
     finally:
         attn_mod.attn_op = op
+        moe._route = route
     leaves = compat.tree_leaves(new_state["params"])
     moments = compat.tree_leaves(new_state["opt"]["m"])
-    np.savez(os.path.join(workdir, f"train_{arch}_{profile}_{compress}"
-                                   f"_{rank}.npz"),
+    np.savez(os.path.join(workdir, f"train_{case_id}_{rank}.npz"),
              loss=np.float32(m["loss"]),
              **{f"p{i}": full(x).numpy() for i, x in enumerate(leaves)},
              **{f"m{i}": full(x).numpy() for i, x in enumerate(moments)})
@@ -278,7 +311,8 @@ def check_train(mesh, workdir, rank, arch, profile, compress):
             "n_dtensor": len(placed), "n_leaves": len(leaves),
             "sharded_leaves": sum(any("Shard" in p for p in pl)
                                   for pl in placed),
-            "attn_shapes": sorted({json.dumps(x) for x in seen})}, \
+            "attn_shapes": sorted({json.dumps(x) for x in seen}),
+            "route_rows": sorted(set(rows))}, \
         (cfg, new_state)
 
 
@@ -311,6 +345,83 @@ def check_local_attention(mesh):
         out[f"hk{hk}"] = {
             "err": absdiff(y, ref), "placements": placed, "seen": seen,
             "grad_rel": max(rel(g, r) for g, r in zip(grads, ref_grads))}
+    return out
+
+
+def check_nll(mesh, workdir, rank):
+    """cross_entropy on logits placed (batch over data, vocab over model),
+    built from each rank's own shard, under both logits layouts: the loss
+    and the gradient of the rank's shard against one process, and the
+    largest tensor the sharded layout's loss and backward make."""
+    from torch.distributed.tensor import DTensor
+    with np.load(os.path.join(workdir, "nll.npz")) as data:
+        logits, labels = data["logits"], torch.from_numpy(data["labels"])
+    ref = torch.from_numpy(logits).requires_grad_()
+    out = {}
+    for gather in (False, True):
+        one = steps.cross_entropy(ref, labels, gather)
+        g_one, = torch.autograd.grad(one, [ref])
+        with sh.mesh_context(mesh, sh.DEFAULT_RULES):
+            spec = sh.logical_to_spec(("batch", "seq", "vocab"), ref.shape)
+            place = sh.placements(spec, mesh)
+            b0 = mesh.get_local_rank("data") * logits.shape[0] // 2
+            v0 = mesh.get_local_rank("model") * logits.shape[2] // 2
+            local = torch.from_numpy(np.ascontiguousarray(logits[
+                b0:b0 + logits.shape[0] // 2, :,
+                v0:v0 + logits.shape[2] // 2])).requires_grad_()
+            dt = DTensor.from_local(local, mesh, place, run_check=False)
+            with Biggest() as big:
+                loss = steps.cross_entropy(dt, labels, gather)
+                g, = torch.autograd.grad(loss, [local])
+        name = "gathered" if gather else "sharded"
+        loss = full(loss).detach()
+        out[name] = {
+            "loss_err": abs(float(loss) - float(one)),
+            "grad_err": absdiff(g, g_one[b0:b0 + logits.shape[0] // 2, :,
+                                         v0:v0 + logits.shape[2] // 2]),
+            "biggest": list(big.biggest), "local": local.nbytes,
+            "placements": repr(place)}
+        np.savez(os.path.join(workdir, f"nll_{name}_{rank}.npz"),
+                 loss=np.float32(loss), grad=g.numpy(), b0=b0, v0=v0)
+    return out
+
+
+def check_grouped_moe(mesh, data):
+    """apply_moe on each rank's own tokens (x (4, 16, d): 32 tokens a data
+    rank) against one process, output and gradients: the routing ran on
+    the rank's rows."""
+    cfg = ModelConfig(**MOE_CFG)
+    p = {n: torch.from_numpy(data[n]) for n in ["router", "wg", "wu", "wd"]}
+    p["shared"] = {n: torch.from_numpy(data["shared_" + n])
+                   for n in ("wg", "wu", "wd")}
+    _, td = compat.tree_flatten(p)
+    x = torch.from_numpy(data["x"])
+    out = {}
+    for case in MOE_GROUP_CASES:
+        opts = moe.MoEOptions(**case)
+
+        def run(mesh_):
+            lp = [t.detach().requires_grad_() for t in compat.tree_leaves(p)]
+            lx = x.detach().requires_grad_()
+            with sh.mesh_context(mesh_, sh.DEFAULT_RULES):
+                o, aux = moe.apply_moe(compat.tree_unflatten(td, lp), lx, cfg,
+                                       opts)
+                loss = full(torch.sum(o ** 2) + aux)
+                grads = torch.autograd.grad(loss, lp + [lx])
+                return full(o), full(aux), grads
+
+        rows = []
+        route = moe._route
+        moe._route = lambda lg, k: (rows.append(lg.shape[0]), route(lg, k))[1]
+        try:
+            o, aux, grads = run(mesh)
+        finally:
+            moe._route = route
+        o1, aux1, grads1 = run(None)
+        out[json.dumps(case, sort_keys=True)] = {
+            "out_err": absdiff(o, o1), "aux_err": absdiff(aux, aux1),
+            "grad_rel": max(rel(g, r) for g, r in zip(grads, grads1)),
+            "route_rows": rows}
     return out
 
 
@@ -469,11 +580,14 @@ def check_guard(mesh, workdir, name, arch, layout, kv_heads):
             "biggest": list(guard.biggest)}
 
 
-def check_prefill(mesh, arch):
+def check_prefill(mesh, arch, heads=None):
     """The prefill step on the mesh against one process: rwkv6's time mix
     and hymba's SSM scan run on each rank's batch rows (and rwkv6's
-    heads)."""
+    heads); ``heads`` (q, kv) overrides the config's, and the attention's
+    (q, k) shapes on the rank are recorded."""
     cfg = configs.get_reduced(arch).replace(compute_dtype="float32")
+    if heads is not None:
+        cfg = cfg.replace(n_heads=heads[0], n_kv_heads=heads[1])
     params = model.init_params(torch.Generator().manual_seed(0), cfg)
     plain = specialize_builder(steps.make_prefill_builder(cfg), {}).fn
     sharded = specialize_builder(steps.make_prefill_builder(cfg, mesh),
@@ -481,7 +595,14 @@ def check_prefill(mesh, arch):
     toks = torch.from_numpy(np.random.RandomState(3).randint(
         0, cfg.vocab_size, (B, S)).astype(np.int32))
     batch = {"tokens": toks}
-    return {"rel": rel(sharded(params, batch), plain(params, batch))}
+    seen = []
+    op, attn_mod.attn_op = attention_spy(seen)
+    try:
+        got = sharded(params, batch)
+    finally:
+        attn_mod.attn_op = op
+    return {"rel": rel(got, plain(params, batch)), "attn_shapes": seen,
+            "model_rank": mesh.get_local_rank("model")}
 
 
 def check_restore(mesh, rank, workdir, cfg, state):
@@ -560,13 +681,17 @@ def main(rank, world, init, workdir):
     record("attention", check_local_attention, mesh)
     with np.load(os.path.join(workdir, "moe.npz")) as data:
         record("shard_moe", check_shard_moe, mesh, dict(data))
+    record("nll", check_nll, mesh, workdir, rank)
+    with np.load(os.path.join(workdir, "moe.npz")) as data:
+        record("grouped_moe", check_grouped_moe, mesh, dict(data))
     kept = None
-    for arch, profile, compress in TRAIN_CASES:
-        name = f"train:{arch}:{profile}:{compress}"
+    for case_id, (arch, profile, compress, spec) in zip(TRAIN_IDS,
+                                                        TRAIN_CASES):
+        name = f"train:{case_id}"
         try:
-            out[name], res = check_train(mesh, workdir, rank, arch, profile,
-                                         compress)
-            if (arch, profile, compress) == ("qwen3-0.6b", "fsdp", "none"):
+            out[name], res = check_train(mesh, workdir, rank, case_id, arch,
+                                         profile, compress, spec)
+            if case_id == "qwen3-0.6b-fsdp-none":
                 kept = res
         except Exception:
             out[name] = {"error": traceback.format_exc()}
@@ -577,6 +702,7 @@ def main(rank, world, init, workdir):
         record("guard:" + case[0], check_guard, mesh, workdir, *case)
     for arch in PREFILL_ARCHS:
         record("prefill:" + arch, check_prefill, mesh, arch)
+    record("prefill:hymba_uneven", check_prefill, mesh, "hymba-1.5b", (3, 1))
     if kept is not None:
         record("restore", check_restore, mesh, rank, workdir, *kept)
     with open(os.path.join(workdir, f"rank_{rank}.json"), "w") as f:
@@ -614,6 +740,23 @@ def _moe_inputs(path):
     np.savez(path, **data)
 
 
+def _nll_inputs(path):
+    """Logits and labels for the NLL case (labels in both vocab halves of
+    every row of the batch, some masked), and the reference's
+    ``cross_entropy`` and its gradient on them."""
+    rs = np.random.RandomState(13)
+    logits = (rs.randn(*NLL_SHAPE) * 3).astype(np.float32)
+    labels = rs.randint(0, NLL_SHAPE[2], NLL_SHAPE[:2]).astype(np.int32)
+    labels[:, 0] = 5                                  # the first vocab half
+    labels[:, 1] = NLL_SHAPE[2] - 3                   # the second
+    labels[0, 2:5] = -1
+    labels[3, -1] = -1
+    np.savez(path, logits=logits, labels=labels)
+    loss, grad = jax.value_and_grad(ref_steps.cross_entropy)(
+        jnp.asarray(logits), jnp.asarray(labels))
+    return float(loss), np.asarray(grad)
+
+
 def _ref_cfg(arch):
     return ref_configs.get_reduced(arch).replace(compute_dtype="float32")
 
@@ -622,7 +765,7 @@ def _reference_states(work):
     """The reference's initial train state of each (arch, compress) of
     TRAIN_CASES, as numpy, pickled for the ranks."""
     states = {}
-    for arch, compress in sorted({(a, c) for a, _, c in TRAIN_CASES}):
+    for arch, compress in sorted({(a, c) for a, _, c, _ in TRAIN_CASES}):
         opt = ref_optim.OptConfig(compress=compress)
         params = ref_model.init_params(jax.random.PRNGKey(0), _ref_cfg(arch))
         states[arch, compress] = jax.tree_util.tree_map(np.asarray, {
@@ -633,21 +776,27 @@ def _reference_states(work):
 
 
 def _reference_train(states):
-    """The reference's jitted one-process train step from each state on
-    the ranks' batch: (loss, new params, new first moment), leaves."""
-    out = {}
-    for (arch, compress), state in states.items():
+    """The reference's jitted one-process train step of each case's state
+    and spec points (the sharding profile aside) on the ranks' batch:
+    (loss, new params, new first moment), leaves, by case id."""
+    out, done = {}, {}
+    for case_id, (arch, _, compress, spec) in zip(TRAIN_IDS, TRAIN_CASES):
+        key = (arch, compress, json.dumps(spec, sort_keys=True))
+        if key in done:
+            out[case_id] = done[key]
+            continue
+        state = states[arch, compress]
         cfg = _ref_cfg(arch)
         step = jax.jit(ref_specialize(ref_steps.make_train_builder(
             cfg, ref_optim.OptConfig(compress=compress), kernel_impl="xla"),
-            {}).fn)
+            spec).fn)
         toks = np.random.RandomState(7).randint(
             0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
         new, m = step(state, {"tokens": toks[:, :-1],
                               "labels": toks[:, 1:]})
         leaves = lambda t: [np.asarray(x) for x in jax.tree_util.tree_leaves(t)]
-        out[arch, compress] = (float(m["loss"]), leaves(new["params"]),
-                               leaves(new["opt"]["m"]))
+        out[case_id] = done[key] = (float(m["loss"]), leaves(new["params"]),
+                                    leaves(new["opt"]["m"]))
     return out
 
 
@@ -697,6 +846,7 @@ def run(tmp_path_factory):
     the ranks run) and the directory of the ranks' outputs."""
     work = tmp_path_factory.mktemp("gloo")
     _moe_inputs(work / "moe.npz")
+    nll = _nll_inputs(work / "nll.npz")
     states = _reference_states(work)
     script = work / "ranks.py"
     script.write_text(_RANKS)
@@ -706,13 +856,14 @@ def run(tmp_path_factory):
     proc = subprocess.Popen(
         [sys.executable, str(script), str(work), str(WORLD),
          json.dumps(TRAIN_CASES), json.dumps(MOE_CFG),
-         json.dumps(CACHED_CASES), json.dumps(GUARD_CASES)],
+         json.dumps(CACHED_CASES), json.dumps(GUARD_CASES),
+         json.dumps(TRAIN_IDS), json.dumps(MOE_GROUP_CASES)],
         env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
         ref = {"train": _reference_train(states),
                "decode": _reference_decode(states),
-               "qwen3_decode": _reference_qwen3_decode(states)}
+               "qwen3_decode": _reference_qwen3_decode(states), "nll": nll}
         _, err = proc.communicate(timeout=TIMEOUT)
     finally:
         if proc.poll() is None:
@@ -764,10 +915,13 @@ def test_shard_moe_gradients_match_single_process_gather(ranks):
         assert rec["grad_rel"] < 1e-5
 
 
-@pytest.mark.parametrize("arch,profile,compress", TRAIN_CASES)
+@pytest.mark.parametrize("arch,profile,compress,spec", TRAIN_CASES,
+                         ids=TRAIN_IDS)
 def test_sharded_train_step_matches_one_process(ranks, arch, profile,
-                                                compress):
-    for rec in _per_rank(ranks, f"train:{arch}:{profile}:{compress}"):
+                                                compress, spec):
+    micro = spec.get("microbatch", 1)
+    for rec in _per_rank(ranks, "train:" + _train_id(
+            (arch, profile, compress, spec))):
         assert rec["loss_type"] == "Tensor"
         assert rec["loss_err"] < 1e-5
         assert rec["param_rel"] < 1e-5
@@ -784,13 +938,17 @@ def test_sharded_train_step_matches_one_process(ranks, arch, profile,
         # (under dp too: heads, ffn and vocab over model)
         assert rec["n_dtensor"] == rec["n_leaves"]
         assert rec["sharded_leaves"] > 0
-        # the attention ran on the rank's 2 of 4 batch rows and its half
-        # of the heads, the whole sequence
+        # the attention ran on the rank's half of the (micro)batch rows
+        # and its half of the heads, the whole sequence
         heads = configs.get_reduced(arch).n_heads
         assert rec["attn_shapes"]
         for shapes in rec["attn_shapes"]:
             q, _ = json.loads(shapes)
-            assert q[:3] == [B // 2, heads // 2, S], q
+            assert q[:3] == [B // micro // 2, heads // 2, S], q
+        # an MoE layer routed the rank's own tokens: its half of the
+        # (micro)batch rows
+        if configs.get_reduced(arch).is_moe:
+            assert rec["route_rows"] == [B // micro // 2 * S], rec
 
 
 def _rel(got, want):
@@ -807,14 +965,16 @@ def _quanta(got, want):
     return float(d.max()) / (big / 127), float((d > 1e-5 * big).mean())
 
 
-@pytest.mark.parametrize("arch,profile,compress", TRAIN_CASES)
-def test_sharded_train_step_matches_reference(run, arch, profile, compress):
+@pytest.mark.parametrize("arch,profile,compress,spec", TRAIN_CASES,
+                         ids=TRAIN_IDS)
+def test_sharded_train_step_matches_reference(run, arch, profile, compress,
+                                              spec):
     """Every rank's sharded step against the reference's jitted
     one-process step from the same state and batch."""
-    loss, params, moments = run["ref"]["train"][arch, compress]
+    case_id = _train_id((arch, profile, compress, spec))
+    loss, params, moments = run["ref"]["train"][case_id]
     for r in range(WORLD):
-        with np.load(run["work"] / f"train_{arch}_{profile}_{compress}"
-                                   f"_{r}.npz") as got:
+        with np.load(run["work"] / f"train_{case_id}_{r}.npz") as got:
             assert abs(float(got["loss"]) - loss) < 1e-5
             assert len(got.files) == 1 + len(params) + len(moments)
             p_err = max(_rel(got[f"p{i}"], w) for i, w in enumerate(params))
@@ -920,6 +1080,60 @@ def test_prefill_scans_on_local_rows_match_one_process(ranks, arch):
     """The logits within 1e-5 of the one-process step's largest."""
     for rec in _per_rank(ranks, "prefill:" + arch):
         assert rec["rel"] < 1e-5, rec
+
+
+def test_prefill_splits_uneven_heads(ranks):
+    """Reduced hymba with 3 heads and 1 kv head on model = 2: the logits
+    within 1e-5 of one process, and each rank attends with its share of
+    the heads as GSPMD pads them (chunks of 2: model rank 0 holds heads
+    0-1, rank 1 head 2) on its 2 batch rows, with the kv head of each
+    (the rank's heads split the group of 3: one kv head a q head)."""
+    for rec in _per_rank(ranks, "prefill:hymba_uneven"):
+        assert rec["rel"] < 1e-5, rec
+        share = 2 if rec["model_rank"] == 0 else 1
+        assert rec["attn_shapes"], rec
+        for q, k in rec["attn_shapes"]:
+            assert q[:3] == [B // 2, share, S] and k[:2] == [B // 2, share], \
+                rec
+
+
+@pytest.mark.parametrize("layout", ["sharded", "gathered"])
+def test_vocab_parallel_nll_matches_one_process_and_reference(run, ranks,
+                                                              layout):
+    """The token NLL of logits placed (batch over data, vocab over model),
+    masked labels among them: the loss and each rank's gradient shard
+    within 1e-6 of one process and of the reference's cross_entropy and
+    its gradient; under ``sharded`` no op makes a tensor as large as the
+    rank's rows over the whole vocab."""
+    loss, grad = run["ref"]["nll"]
+    for r, rec in enumerate(_per_rank(ranks, "nll")):
+        got = rec[layout]
+        assert got["loss_err"] < 1e-6 and got["grad_err"] < 1e-6, got
+        assert got["placements"] == "(Shard(dim=0), Shard(dim=2))"
+        with np.load(run["work"] / f"nll_{layout}_{r}.npz") as out:
+            assert abs(float(out["loss"]) - loss) < 1e-6
+            b0, v0 = int(out["b0"]), int(out["v0"])
+            want = grad[b0:b0 + NLL_SHAPE[0] // 2, :,
+                        v0:v0 + NLL_SHAPE[2] // 2]
+            np.testing.assert_allclose(out["grad"], want, rtol=0,
+                                       atol=1e-6)
+        if layout == "sharded":
+            assert got["biggest"][0] < 2 * got["local"], got
+
+
+@pytest.mark.parametrize("case", MOE_GROUP_CASES,
+                         ids=lambda c: "-".join(f"{k}={v}"
+                                                for k, v in c.items()))
+def test_moe_on_local_tokens_matches_one_process(ranks, case):
+    """apply_moe under the mesh routes each rank's 32 of the 64 tokens
+    (two groups of 16 a data rank, or one group whose binding capacity
+    continues the positions across the ranks): output, aux loss and
+    every gradient within 1e-5 of one process."""
+    for rec in _per_rank(ranks, "grouped_moe"):
+        got = rec[json.dumps(case, sort_keys=True)]
+        assert got["out_err"] < 1e-5 and got["aux_err"] < 1e-6, got
+        assert got["grad_rel"] < 1e-5, got
+        assert got["route_rows"] == [32], got
 
 
 def test_restore_reshards_onto_the_mesh(ranks):

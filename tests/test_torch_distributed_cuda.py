@@ -5,7 +5,8 @@ int8 error of the plain sum with the int8 payload handed to NCCL, the
 against ``gather`` at a capacity that drops no token, to 1e-5 relative,
 and the cached steps on the mesh (each rank writing and attending on its
 own cache shard: reduced qwen3 under both cache layouts, reduced
-deepseek-v2's MLA under ``serve_ep``) against the plain step on one
+deepseek-v2's MLA under ``serve_ep`` with the gather and the einsum
+MoE) against the plain step on one
 device, logits within 1e-5 with an fp32 cache.
 
 Needs no JAX, so it runs on the machine with the card:
@@ -98,10 +99,12 @@ def test_shard_moe_matches_gather_on_the_card(mesh):
 @pytest.mark.parametrize("arch,config", [
     ("qwen3-0.6b", {"cache_layout": "seq"}),
     ("qwen3-0.6b", {"cache_layout": "batch"}),
-    # the gather MoE: the einsum MoE's dispatch view fails DTensor's
-    # sharding propagation under serve_ep on torch 2.11 (ROADMAP Faults)
     ("deepseek-v2-236b", {"sharding_profile": "serve_ep",
                           "moe_impl": "gather"}),
+    # the einsum MoE on each rank's own tokens: its replicated dispatch
+    # failed DTensor's view rule under serve_ep on torch 2.11
+    ("deepseek-v2-236b", {"sharding_profile": "serve_ep",
+                          "moe_impl": "einsum"}),
 ])
 def test_cached_step_on_the_mesh_matches_plain(mesh, arch, config):
     """Decode steps of the repaired cached step on the card's (1, 1) mesh

@@ -19,6 +19,7 @@ import json
 import os
 import subprocess
 import sys
+import traceback
 
 import pytest
 
@@ -33,6 +34,23 @@ from repro_torch.training.steps import SHARDING_PROFILES  # noqa: E402
 MINI_ARCHS = ["yi-6b", "deepseek-v2-236b", "rwkv6-1.6b", "hymba-1.5b"]
 MINI_SHAPES = [configs.Shape("t", "train", 64, 8),
                configs.Shape("d", "decode", 64, 8)]
+#: the per-rank temp table: reduced configs, train (B 16, S 64), on the
+#: (pod, data, model) meshes below, each against XLA's compiled temp.
+#: The port's cells run on the (data, model) mesh of the same ranks: a
+#: pod dim of size 1 shards nothing, and DTensor's strategy search on a
+#: 3-D mesh takes three times as long
+TABLE = [("kimi-k2-1t-a32b", {"moe_impl": "gather"}),
+         ("kimi-k2-1t-a32b", {"moe_impl": "einsum"}),
+         ("qwen3-0.6b", {}),
+         ("hymba-1.5b", {"swa_impl": "banded"})]
+TABLE_MESHES = [(1, 2, 2), (1, 8, 2)]
+TABLE_SHAPE = (64, 16)
+#: the hillclimb's a5_micro and a6_group steps in miniature, on (2, 2, 2):
+#: (tag, spec, (seq, batch)); a6's groups of 1024 span two ranks' 512
+#: tokens
+CHAIN_CELLS = [("a5_micro", {"moe_impl": "gather", "microbatch": 4}, (64, 8)),
+               ("a6_group", {"moe_impl": "gather", "moe_group": 1024},
+                (256, 8))]
 TIMEOUT = 600
 
 #: a deterministic stand-in for a dry-run cell, the same in both drivers
@@ -66,16 +84,33 @@ from repro import configs
 from repro.configs import Shape
 from repro.optim import OptConfig
 
-out = {"args": {}}
-mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2),
-            ("pod", "data", "model"), axis_types=(AxisType.Auto,) * 3)
+def compiled(cfg, shape, mesh_shape, spec):
+    n = int(np.prod(mesh_shape))
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(mesh_shape),
+                ("pod", "data", "model"), axis_types=(AxisType.Auto,) * 3)
+    step, args, kw = dr.build_lowerable(cfg, shape, mesh, spec, OptConfig(),
+                                        scan_layers=True)
+    return jax.jit(step, **kw).lower(*args).compile().memory_analysis()
+
+
+out = {"args": {}, "temp": {}, "chain_args": {}}
 for arch in json.loads(sys.argv[1]):
     cfg = configs.get_reduced(arch)
     for shape in (Shape("t", "train", 64, 8), Shape("d", "decode", 64, 8)):
-        step, args, kw = dr.build_lowerable(cfg, shape, mesh, {}, OptConfig(),
-                                            scan_layers=True)
-        mem = jax.jit(step, **kw).lower(*args).compile().memory_analysis()
+        mem = compiled(cfg, shape, (2, 2, 2), {})
         out["args"][f"{arch}:{shape.kind}"] = int(mem.argument_size_in_bytes)
+table = json.loads(sys.argv[4])
+for mesh_shape in table["meshes"]:
+    for arch, spec in table["cells"]:
+        mem = compiled(configs.get_reduced(arch),
+                       Shape("t", "train", *table["shape"]), tuple(mesh_shape),
+                       spec)
+        out["temp"][f"{arch}:{json.dumps(spec)}:{mesh_shape}"] = [
+            int(mem.argument_size_in_bytes), int(mem.temp_size_in_bytes)]
+for tag, spec, shape in table["chain"]:
+    mem = compiled(configs.get_reduced("kimi-k2-1t-a32b"),
+                   Shape("t", "train", *shape), (2, 2, 2), spec)
+    out["chain_args"][tag] = int(mem.argument_size_in_bytes)
 exec(sys.argv[3])
 hc.run_cell = stub_run_cell
 hc.make_production_mesh = lambda multi_pod=False: None
@@ -138,6 +173,22 @@ def _seed_artifact(outdir):
                                            "collective_s": 0.0}}))
 
 
+def _cell(arch, mesh, spec, cfg, shape):
+    """A miniature cell's result, or ``{"error": traceback}``: a cell that
+    fails fails only the tests that read it."""
+    try:
+        return dryrun.run_cell(arch, shape.name, "mini", mesh, spec,
+                               OptConfig(), surrogate=False, cfg=cfg,
+                               shape=shape)
+    except Exception:
+        return {"error": traceback.format_exc()}
+
+
+def _ok(res):
+    assert "error" not in res, res["error"]
+    return res
+
+
 @pytest.fixture(scope="module")
 def mini(tmp_path_factory):
     """The port's miniature cells (run here) and the reference's oracle
@@ -148,12 +199,15 @@ def mini(tmp_path_factory):
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     env.pop("XLA_FLAGS", None)
+    table = {"meshes": TABLE_MESHES, "cells": TABLE, "shape": TABLE_SHAPE,
+             "chain": CHAIN_CELLS}
     proc = subprocess.Popen(
         [sys.executable, "-c", _ORACLE, json.dumps(MINI_ARCHS),
-         str(work / "ref"), _STUB],
+         str(work / "ref"), _STUB, json.dumps(table)],
         env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-    port = {}
+    port, temp, chain = {}, {}, {}
+    kimi = configs.get_reduced("kimi-k2-1t-a32b")
     try:
         with _mesh((2, 2, 2), ("pod", "data", "model")) as mesh:
             for arch in MINI_ARCHS:
@@ -162,6 +216,17 @@ def mini(tmp_path_factory):
                     port[f"{arch}:{shape.kind}"] = dryrun.run_cell(
                         arch, shape.name, "mini", mesh, {}, OptConfig(),
                         surrogate=False, cfg=cfg, shape=shape)
+            for tag, spec, (s, b) in CHAIN_CELLS:
+                chain[tag] = _cell(
+                    "kimi-k2-1t-a32b", mesh, spec, kimi,
+                    configs.Shape("t", "train", s, b))
+        for mesh_shape in TABLE_MESHES:
+            assert mesh_shape[0] == 1
+            with _mesh(mesh_shape[1:], ("data", "model")) as mesh:
+                for arch, spec in TABLE:
+                    temp[f"{arch}:{json.dumps(spec)}:{list(mesh_shape)}"] = \
+                        _cell(arch, mesh, spec, configs.get_reduced(arch),
+                              configs.Shape("t", "train", *TABLE_SHAPE))
         out, err = proc.communicate(timeout=TIMEOUT)
     finally:
         if proc.poll() is None:
@@ -169,7 +234,7 @@ def mini(tmp_path_factory):
             proc.communicate()
     assert proc.returncode == 0, err[-4000:]
     return {"port": port, "ref": json.loads(out.splitlines()[-1]),
-            "work": work}
+            "work": work, "temp": temp, "chain": chain}
 
 
 def test_shape_registry_matches_reference():
@@ -252,6 +317,57 @@ def test_miniature_argument_bytes_match_reference(mini):
     for key, want in mini["ref"]["args"].items():
         got = mini["port"][key]["full"]["memory"]["argument_size_in_bytes"]
         assert abs(got - want) <= 0.01 * want, (key, got, want)
+
+
+def test_miniature_temp_within_reference(mini):
+    """Per rank, the port's peak temporary bytes at most 1.25 x XLA's
+    compiled temp for the same cell, and its argument bytes within 1 %:
+    no rank holds a whole copy of what the reference's layout shards (the
+    copies grow with the data dim: (1, 8, 2) shows them where (1, 2, 2)
+    may not)."""
+    assert len(mini["temp"]) == len(TABLE) * len(TABLE_MESHES)
+    over = []
+    for key, (args, want) in mini["ref"]["temp"].items():
+        mem = _ok(mini["temp"][key])["full"]["memory"]
+        got = mem["temp_size_in_bytes"]
+        # the table PERF.md quotes (pytest -s shows it)
+        print(f"temp {key}: port {got} XLA {want} ratio {got / want:.3f}")
+        if got > 1.25 * want:
+            over.append((key, got, want, mem["peak_tensors"]))
+        got = mem["argument_size_in_bytes"]
+        assert abs(got - args) <= 0.01 * args, (key, got, args)
+    assert not over, over
+
+
+@pytest.mark.parametrize("arch,spec", TABLE,
+                         ids=lambda v: v if isinstance(v, str) else
+                         "-".join(f"{k}={x}" for k, x in v.items()) or "default")
+def test_peak_holds_no_global_batch_or_token_dim(mini, arch, spec):
+    """On the fake (1, 8, 2) mesh no storage among a train cell's five
+    largest at the peak has the global batch as its leading dim, or the
+    global token or slot count as any dim: the loss, the routing and the
+    dispatch run on each rank's own rows."""
+    s, b = TABLE_SHAPE
+    cfg = configs.get_reduced(arch)
+    tokens = {b * s, b * s * cfg.top_k} if cfg.is_moe else {b * s}
+    res = _ok(mini["temp"][f"{arch}:{json.dumps(spec)}:{[1, 8, 2]}"])
+    top = res["full"]["memory"]["peak_tensors"]
+    assert len(top) == 5
+    for t in top:
+        assert t["shape"][0] != b and not tokens & set(t["shape"]), top
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in CHAIN_CELLS])
+def test_chain_steps_a5_a6_complete_in_miniature(mini, tag):
+    """The hillclimb's a5_micro (microbatch 4 with the gather MoE: a
+    microbatch's 2 rows do not divide the 4 batch shards) and a6_group
+    (moe_group 1024 over ranks of 512 tokens) run on (2, 2, 2), with the
+    reference's argument bytes (1 %)."""
+    res = _ok(mini["chain"][tag])
+    assert res["full"]["flops"] > 0
+    want = mini["ref"]["chain_args"][tag]
+    got = res["full"]["memory"]["argument_size_in_bytes"]
+    assert abs(got - want) <= 0.01 * want, (tag, got, want)
 
 
 def test_depth_extrapolation_equals_full_count():
