@@ -220,7 +220,8 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 
 21. Training at full width: (a) qwen3-0.6b (28 layers, d=1024, 596 M
    parameters; random weights from seed 0) in fp32 through
-   ``make_train_builder`` on an ``IridescentRuntime``, ``SyntheticLM``
+   ``make_train_builder`` on an ``IridescentRuntime``, registered with
+   ``donate_argnums=0`` as the training CLI registers it, ``SyntheticLM``
    batches of (8, 512) on the card, a Controller whose CoordinateDescent
    sweeps the CLI's labels (``remat``, ``microbatch``, ``logits_dtype``,
    ``rmsnorm_impl``) at dwell 3 until it settles (30-60 steps): step ms
@@ -235,7 +236,12 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    step k, 2 steps, restore, replay, the losses within 1e-5; then
    ``python -m repro_torch.launch.train --size 100m --explore --dwell 3
    --ckpt-every 40 --ckpt DIR`` for 80 steps and again for 100, which must resume at step
-   80 with a restored tuned config.
+   80 with a restored tuned config; (e) the donated step (pinned to
+   ``remat`` full) against the undonated one from a clone of the same
+   state: every leaf of the donated state keeps its storage, the loss and
+   every parameter within 1e-6 relative, and the optimizer's allocator
+   peak (above what was allocated before the update) at most 3 x the
+   largest leaf donated, printed beside the undonated one's.
 22. MoE dispatch exploration: ``examples/moe_exploration_torch.py`` on the
    card (reduced kimi-k2, 16 experts, top 4; an ExhaustiveSweep over
    ``moe_impl`` x ``moe_ranking``), the selected dispatch.
@@ -268,7 +274,9 @@ counts are zeroed and must stay 0: a train step declares the
 gradient-safe entries, no kernel has a backward, and a step under a mesh
 pins every implementation to its plain version.  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+kernel, and the line before it gives each phase's wall seconds; the last
+line is ``{"ok": true, "device": {...}}``.  Phase 24b's card step is
+donated, as the dry run now counts the train step.
 """
 from __future__ import annotations
 
@@ -577,6 +585,14 @@ TRAIN_CLI_ARGS = ["--size", "100m", "--explore", "--dwell", "3",
                   "--ckpt-every", "40"]
 TRAIN_CLI_STEPS = (80, 100)
 TRAIN_CLI_TIMEOUT_S = 300
+#: phase 21e: the donated step against the undonated one from a clone of
+#: the same state, both under DONATE_CONFIG: loss and parameters within
+#: DONATE_RTOL relative; the donated optimizer's allocator peak at most
+#: DONATE_PEAK_LEAVES x the largest leaf's bytes (qwen3-0.6b's tied
+#: embedding, 622.3 MB in fp32)
+DONATE_CONFIG = {"remat": "full"}
+DONATE_RTOL = 1e-6
+DONATE_PEAK_LEAVES = 3
 
 # phase 23: the distributed layer on a one-rank NCCL group, a (1, 1) mesh
 MESH_PSUM = (4096, 4096)
@@ -4412,6 +4428,33 @@ def _train_profile(prof, wall: float) -> dict:
             "attention_backward_nodes": len(att_seq)}
 
 
+#: the train step's optimizer calls: the functional update of an
+#: undonated step and the in-place one of a donated step
+OPTIMIZER_ENTRIES = ("apply_updates", "update_in_place")
+
+
+class _WrappedOptimizer:
+    """The train step's optimizer calls (OPTIMIZER_ENTRIES) replaced by
+    ``wrap(name, fn)`` for the length of the block."""
+
+    def __init__(self, wrap):
+        self.wrap = wrap
+
+    def __enter__(self):
+        from repro_torch.training import steps as steps_mod
+
+        self.mod = steps_mod
+        self.entries = {n: getattr(steps_mod, n) for n in OPTIMIZER_ENTRIES}
+        for n, fn in self.entries.items():
+            setattr(steps_mod, n, self.wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.entries.items():
+            setattr(self.mod, n, fn)
+        return False
+
+
 def _profiled_train_step(handler, state, batch):
     """One train step under the profiler (CPU ops and CUDA kernels), the
     optimizer inside a named range (the attention opens its own); returns
@@ -4419,18 +4462,13 @@ def _profiled_train_step(handler, state, batch):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.training import steps as steps_mod
-
-    apply_updates = steps_mod.apply_updates
-
-    def ranged(name, fn):
+    def ranged(_, fn):
         def call(*args, **kwargs):
-            with record_function(name):
+            with record_function("smoke::optimizer"):
                 return fn(*args, **kwargs)
         return call
 
-    steps_mod.apply_updates = ranged("smoke::optimizer", apply_updates)
-    try:
+    with _WrappedOptimizer(ranged):
         for _ in range(3):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -4443,8 +4481,6 @@ def _profiled_train_step(handler, state, batch):
             if any(e.device_type == torch.autograd.DeviceType.CUDA
                    for e in prof.key_averages()):
                 return state, _train_profile(prof, wall)
-    finally:
-        steps_mod.apply_updates = apply_updates
     fail("the profiler saw no device activity in 3 train steps")
 
 
@@ -4491,7 +4527,8 @@ def phase_train(cfg) -> dict:
     log(f"train: qwen3-0.6b at full width, {cfg.param_count() / 1e6:.1f} M "
         f"params; params, m and v hold {held:.2f} GB; batch ({b}, {s})")
     rt = IridescentRuntime(max_compile_workers=1)
-    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg))
+    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg),
+                          donate_argnums=0)
     space = handler.spec_space()
     controller = Controller(
         handler, lambda: CoordinateDescent(space, labels=EXPLORE_LABELS,
@@ -4650,7 +4687,7 @@ def phase_train_restart(cfg, train: dict) -> dict:
     b, s = TRAIN_BATCH
     rt = IridescentRuntime(max_compile_workers=1)
     handler = rt.register("train_step", make_train_builder(
-        cfg, OptConfig(**TRAIN_OPT)))
+        cfg, OptConfig(**TRAIN_OPT)), donate_argnums=0)
     _pin(handler, train["handler_config"])
     ds = SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
                      device="cuda")
@@ -4725,6 +4762,120 @@ def phase_moe_train() -> dict:
     log(f"moe exploration: selected {out['selected']}; loss "
         f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")
     return out
+
+
+def _peak_recorder(peaks: list):
+    """A wrap for :class:`_WrappedOptimizer` that appends ``(name, the
+    call's allocator peak above what was allocated before it)`` to
+    ``peaks``: the device is synchronized and the peak reset before the
+    call, and read after it (the gradients and the state were allocated
+    before)."""
+    import torch
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            peaks.append((name, torch.cuda.max_memory_allocated() - base))
+            return out
+        return call
+    return wrap
+
+
+def phase_train_donation(cfg) -> dict:
+    """Phase 21e: the donated train step at full width.  qwen3-0.6b's
+    initial state (seed 0) and one SyntheticLM TRAIN_BATCH batch; a
+    handler registered with ``donate_argnums=0`` and an undonated one,
+    both pinned to DONATE_CONFIG.  The undonated step runs on a clone of
+    the state, the donated one on the state: the donated step returns the
+    dict it was given with every leaf on its own storage, the clone is
+    left unchanged (its step count still 0), the loss and every parameter
+    agree within DONATE_RTOL relative, and the donated optimizer's
+    allocator peak is at most DONATE_PEAK_LEAVES x the largest leaf (the
+    undonated one's, a second copy of params, m and v, printed beside
+    it).  No kernel may launch."""
+    import torch
+
+    from repro_torch import compat
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.training import make_train_builder
+
+    dev = torch.device("cuda")
+    b, s = TRAIN_BATCH
+    opt_cfg = OptConfig(**TRAIN_OPT)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    del params
+    batch = next(iter(SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
+                                  device=dev)))
+    rt = IridescentRuntime(max_compile_workers=1)
+    plain = rt.register("train_undonated", make_train_builder(cfg, opt_cfg))
+    donated = rt.register("train_donated", make_train_builder(cfg, opt_cfg),
+                          donate_argnums=0)
+    for h in (plain, donated):
+        _pin(h, DONATE_CONFIG)
+    leaves = compat.tree_leaves(state)
+    largest = max(t.numel() * t.element_size() for t in leaves)
+    ptrs = [t.untyped_storage().data_ptr() for t in leaves]
+    held = sum(t.numel() * t.element_size() for t in leaves)
+    clone = compat.tree_map(torch.clone, state)
+    peaks = []
+    with _NoKernelUnderTraining() as guard, \
+            _WrappedOptimizer(_peak_recorder(peaks)):
+        ref, ref_m = plain(clone, batch)
+        ref_loss = float(ref_m["loss"])
+        new, m = donated(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        guard.check("donated train step")
+    if [n for n, _ in peaks] != ["apply_updates", "update_in_place"]:
+        fail(f"donated train step: the optimizer calls were {peaks}, not "
+             f"one functional and one in-place update")
+    (_, plain_peak), (_, peak) = peaks
+    kept = new is state and [t.untyped_storage().data_ptr()
+                             for t in compat.tree_leaves(new)] == ptrs
+    untouched = int(clone["opt"]["count"]) == 0 and int(
+        new["opt"]["count"]) == 1
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    param_rel = max(float((a - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+                    for a, w in zip(compat.tree_leaves(new["params"]),
+                                    compat.tree_leaves(ref["params"])))
+    limit = DONATE_PEAK_LEAVES * largest
+    log(f"donated train step: qwen3-0.6b at full width, {DONATE_CONFIG}, "
+        f"state {held / 1e9:.3f} GB, largest leaf {largest / 1e9:.4f} GB; "
+        f"every leaf kept its storage: {kept}; the undonated step's input "
+        f"unchanged: {untouched}; loss {loss:.7f} vs {ref_loss:.7f} "
+        f"undonated ({loss_rel:.3e} relative), parameters within "
+        f"{param_rel:.3e} of each leaf's max; the optimizer's allocator "
+        f"peak above what was allocated before it: donated "
+        f"{peak / 1e9:.4f} GB (limit {limit / 1e9:.4f}), undonated "
+        f"{plain_peak / 1e9:.4f} GB")
+    if not kept:
+        fail("donated train step: a leaf of the donated state moved to "
+             "other storage")
+    if not untouched:
+        fail("donated train step: the undonated step's input state changed "
+             "or the donated count is not 1")
+    if loss_rel > DONATE_RTOL or param_rel > DONATE_RTOL:
+        fail(f"donated train step: loss {loss_rel:.3e}, parameters "
+             f"{param_rel:.3e} from the undonated step (limit "
+             f"{DONATE_RTOL})")
+    if peak > limit:
+        fail(f"donated train step: the optimizer's peak {peak} bytes is "
+             f"over {DONATE_PEAK_LEAVES} x the largest leaf ({limit})")
+    del state, new, clone, ref
+    rt.shutdown()
+    return {"state_bytes": held, "largest_leaf_bytes": largest,
+            "donated_peak_bytes": peak, "undonated_peak_bytes": plain_peak,
+            "loss_rel": loss_rel, "param_rel": param_rel}
 
 
 def _mesh_psum(mesh) -> dict:
@@ -5125,12 +5276,16 @@ def _cached_steps(name: str, cfg, params, mesh, config: dict, batch: int,
 
 def _dryrun_held_to_card(cfg, mesh) -> dict:
     """Phase 24b: the dry run's count of phase 23's train step (fsdp,
-    TRAIN_BATCH, fp32) on a fake world of one rank (a subprocess), then
-    the same step on the card under the mesh: its FLOPs by
-    ``FlopCounterMode`` (exact at one rank) equal to the count, its peak
-    (``max_memory_allocated`` above what was allocated before the state
-    was made) within DRYRUN_PEAK_RTOL of the predicted argument + temp;
-    its ms by CUDA events beside the roofline's terms."""
+    TRAIN_BATCH, fp32, the state donated) on a fake world of one rank (a
+    subprocess), then the same donated step on the card under the mesh:
+    its FLOPs by ``FlopCounterMode`` (exact at one rank) equal to the
+    count, its peak (``max_memory_allocated`` above what was allocated
+    before the state was made) within DRYRUN_PEAK_RTOL of the predicted
+    argument + temp; its ms by CUDA events beside the roofline's terms.
+    The dry run's arguments are placed on the mesh already; on the card
+    the first donated step places the state's plain tensors (the step
+    puts each placed DTensor in the state), so the count is held to the
+    second step, which updates that state in place."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -5166,12 +5321,19 @@ def _dryrun_held_to_card(cfg, mesh) -> dict:
     batch = next(iter(SyntheticLM(cfg.vocab_size, b, s, seed=1, prefetch=0,
                                   device=dev)))
     step = specialize_builder(make_train_builder(cfg, opt_cfg, mesh),
-                              {"sharding_profile": "fsdp"}).fn
+                              {"sharding_profile": "fsdp"},
+                              donate_argnums=(0,)).fn
+    state, m = step(state, batch)
+    float(m["loss"])
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with FlopCounterMode(display=False) as fc:
         out = step(state, batch)
         float(out[1]["loss"])
+    if out[0] is not state:
+        fail("dry run held to the card: the donated step did not return "
+             "the state it was given")
     del out
     peak = torch.cuda.max_memory_allocated() - base
     flops = float(fc.get_total_flops())
@@ -5192,7 +5354,7 @@ def _dryrun_held_to_card(cfg, mesh) -> dict:
     peak_rel = abs(predicted - peak) / peak
     rf = pred["roofline"]
     log(f"dry run held to the card: phase 23's train step (fsdp, "
-        f"{TRAIN_BATCH}, fp32) counted on a fake world of one rank in "
+        f"{TRAIN_BATCH}, fp32, donated) counted on a fake world of one rank in "
         f"{probe_s:.1f} s: {pred['flops']:.6e} FLOPs against "
         f"FlopCounterMode's {flops:.6e} on the card ({flops_rel:.2e} "
         f"apart, limit {DRYRUN_FLOPS_RTOL}); argument "
@@ -5378,70 +5540,84 @@ def main(argv: list[str]) -> None:
     from repro_torch import compat, configs
 
     t_start = time.perf_counter()
+    seconds: dict[str, float] = {}
+
+    def timed(fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its wall seconds added to its phase's
+        (the function's name) in ``seconds``."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[fn.__name__] = round(
+            seconds.get(fn.__name__, 0.0) + time.perf_counter() - t0, 1)
+        return out
+
     compat.resolve_device("cuda")
-    device = phase_device()
-    phase_build()
+    device = timed(phase_device)
+    timed(phase_build)
     cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float32")
-    rms = phase_rmsnorm(cfg)
-    attn = phase_attention()
-    linatt = phase_linear_attention()
-    mm = phase_matmul()
-    fpk = phase_fastpath()
-    main_path = phase_main_path(cfg)
+    rms = timed(phase_rmsnorm, cfg)
+    attn = timed(phase_attention)
+    linatt = timed(phase_linear_attention)
+    mm = timed(phase_matmul)
+    fpk = timed(phase_fastpath)
+    main_path = timed(phase_main_path, cfg)
     params = main_path.pop("built").params
-    serve = phase_parity(cfg, params)
-    prefill = phase_prefill(cfg, params)
-    phase_prefill_parity(cfg, params, serve)
+    serve = timed(phase_parity, cfg, params)
+    prefill = timed(phase_prefill, cfg, params)
+    timed(phase_prefill_parity, cfg, params, serve)
     del params, serve
     torch.cuda.empty_cache()
     rcfg = configs.get_config("rwkv6-1.6b").replace(compute_dtype="float32")
-    rprefill = phase_rwkv_prefill(rcfg)
+    rprefill = timed(phase_rwkv_prefill, rcfg)
     rparams = rprefill.pop("params")
-    rserve = phase_rwkv_serve(rcfg, rparams)
-    phase_rwkv_parity(rcfg, rparams)
+    rserve = timed(phase_rwkv_serve, rcfg, rparams)
+    timed(phase_rwkv_parity, rcfg, rparams)
     del rparams
     torch.cuda.empty_cache()
-    table1 = phase_table1()
-    router = phase_router()
+    table1 = timed(phase_table1)
+    router = timed(phase_router)
     SCRATCH.mkdir(parents=True, exist_ok=True)
-    restart = phase_restart()
-    tenant = phase_tenants()
-    fleet = phase_fleet()
-    family_k = phase_family_kernels()
+    restart = timed(phase_restart)
+    tenant = timed(phase_tenants)
+    fleet = timed(phase_fleet)
+    family_k = timed(phase_family_kernels)
     serve_archs = dict(FAMILY_SERVE)
-    family = {a: phase_family_prefill(a, keep=a in serve_archs)
+    family = {a: timed(phase_family_prefill, a, keep=a in serve_archs)
               for a in FAMILY_ARCHS}
-    family_serve = {a: phase_family_serve(a, max_len,
-                                          family[a].pop("params"))
+    family_serve = {a: timed(phase_family_serve, a, max_len,
+                             family[a].pop("params"))
                     for a, max_len in FAMILY_SERVE}
     # phase 18's engines hold its weights in reference cycles: collect them
     # before 53 GB of deepseek-v2 weights need the card
     gc.collect()
     torch.cuda.empty_cache()
-    moe_k = phase_moe_kernels()
-    moe = phase_moe_prefill()
-    moe_serve = phase_moe_serve(moe.pop("cfg"), moe.pop("params"))
+    moe_k = timed(phase_moe_kernels)
+    moe = timed(phase_moe_prefill)
+    moe_serve = timed(phase_moe_serve, moe.pop("cfg"), moe.pop("params"))
     gc.collect()
     torch.cuda.empty_cache()
     kcfg = configs.get_reduced(KIMI_ARCH).replace(compute_dtype="float32")
-    kimi = phase_family_prefill(KIMI_ARCH, keep=True, cfg=kcfg,
-                                shape=KIMI_PREFILL)
-    kimi_serve = phase_family_serve(KIMI_ARCH, MOE_SERVE_MAX_LEN,
-                                    kimi.pop("params"), cfg=kcfg)
+    kimi = timed(phase_family_prefill, KIMI_ARCH, keep=True, cfg=kcfg,
+                 shape=KIMI_PREFILL)
+    kimi_serve = timed(phase_family_serve, KIMI_ARCH, MOE_SERVE_MAX_LEN,
+                       kimi.pop("params"), cfg=kcfg)
     gc.collect()
     torch.cuda.empty_cache()
-    train = phase_train(cfg)
-    train["parity"] = _reduced_step_parity()
-    train["restart"] = phase_train_restart(cfg, train)
+    train = timed(phase_train, cfg)
+    train["parity"] = timed(_reduced_step_parity)
+    train["restart"] = timed(phase_train_restart, cfg, train)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_moe_train()
+    train["donation"] = timed(phase_train_donation, cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh = phase_mesh(cfg)
+    timed(phase_moe_train)
     gc.collect()
     torch.cuda.empty_cache()
-    cached = phase_cached_mesh(cfg)
+    mesh = timed(phase_mesh, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cached = timed(phase_cached_mesh, cfg)
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # K2 per (1, 4096) prefill call: 28 launches at the full-width shape,
@@ -5665,6 +5841,7 @@ def main(argv: list[str]) -> None:
                f"all-hit call of the specialized function",
         "shapes": fpk["per_shape"],
     }]
+    log("phase wall seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],

@@ -44,7 +44,8 @@ def main(argv: list[str] | None = None) -> dict:
         compute_dtype="float32", n_experts=16, top_k=4)
     opt_cfg = OptConfig(lr=1e-3, total_steps=1000)
     rt = IridescentRuntime()
-    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg))
+    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg),
+                          donate_argnums=0)
 
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)

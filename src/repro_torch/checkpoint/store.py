@@ -406,12 +406,16 @@ def _leaves_with_paths(tree: Any, path: tuple = ()):
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    """The leaf's value as an array of its own: a host tensor is copied, so
+    an asynchronous save writes the bytes of the step it was given even
+    if a donated step then updates the tensor in place."""
     if isinstance(leaf, torch.Tensor):
         t = replicate(leaf.detach())      # a DTensor's whole value
         if t.dtype is torch.bfloat16:
             t = t.float()                 # numpy has no bfloat16
-        return t.cpu().numpy()
-    return np.asarray(leaf)
+        a = t.cpu().numpy()
+        return a.copy() if t.device.type == "cpu" else a
+    return np.array(leaf)
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:

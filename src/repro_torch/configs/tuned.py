@@ -24,18 +24,18 @@ __all__ = ["TUNED", "best_spec", "spec_json"]
 
 #: (arch, shape name) -> spec-point overrides, from the port's chains
 TUNED: dict[tuple[str, str], dict] = {
-    # a9_noremat, 1/roofline_s 0.0128 (every step of the chain runs since
-    # the dispatch and the loss work on local shards); torch 2.13.0+cpu;
-    # H100 SXM5 roofline, 700 W
+    # a9_noremat, 1/roofline_s 0.0157 (every step of the chain runs since
+    # the dispatch and the loss work on local shards; the state donated);
+    # torch 2.13.0+cpu; H100 SXM5 roofline, 700 W
     ("kimi-k2-1t-a32b", "train_4k"): {
         "moe_impl": "shard", "logits_dtype": "bfloat16",
         "sharding_profile": "fsdp_noexp"},
-    # b2_moegather, 1/roofline_s 5.167; torch 2.13.0+cpu; H100 SXM5
+    # b2_moegather, 1/roofline_s 6.581; torch 2.13.0+cpu; H100 SXM5
     # roofline, 700 W
     ("kimi-k2-1t-a32b", "decode_32k"): {
         "sharding_profile": "serve_ep", "moe_impl": "gather",
         "moe_ranking": "sort"},
-    # c2_logitsbf16, 1/roofline_s 0.1714; torch 2.13.0+cpu; H100 SXM5
+    # c2_logitsbf16, 1/roofline_s 0.2759; torch 2.13.0+cpu; H100 SXM5
     # roofline, 700 W
     ("hymba-1.5b", "prefill_32k"): {
         "swa_impl": "banded", "logits_dtype": "bfloat16"},

@@ -392,6 +392,11 @@ class Handler:
     context holds its own variants, active config, argument specs, and
     stats.  Without one, all calls hit the single default context and the
     dispatch fast path is unchanged from the context-less design.
+
+    ``jit_kwargs`` are the registration's keywords that the reference hands
+    to ``jax.jit``.  The port takes ``donate_argnums`` alone: every variant
+    is built knowing which arguments its caller gives up, and may update
+    them in place (:meth:`SpecCtx.donated`).
     """
 
     def __init__(
@@ -400,10 +405,22 @@ class Handler:
         builder: Callable,
         runtime: "IridescentRuntime",
         context_fn: Callable[[tuple, dict], Any] | None = None,
+        jit_kwargs: Mapping[str, Any] | None = None,
     ):
         self.name = name
         self.builder = builder
         self.runtime = runtime
+        self.jit_kwargs = dict(jit_kwargs or {})
+        unknown = sorted(set(self.jit_kwargs) - {"donate_argnums"})
+        if unknown:
+            raise TypeError(
+                f"handler {name!r}: unsupported jit keyword(s) {unknown}; "
+                f"the port has no jax.jit to pass them to and takes "
+                f"donate_argnums alone")
+        donate = self.jit_kwargs.get("donate_argnums", ())
+        #: positions of the donated arguments (the reference's jit keyword)
+        self.donate_argnums: tuple[int, ...] = (
+            (donate,) if isinstance(donate, int) else tuple(donate))
         self._context_fn = context_fn
         self._lock = threading.Lock()
         self._create_lock = threading.Lock()   # context materialization only
@@ -518,6 +535,7 @@ class Handler:
             custom_generators=self.runtime.custom_generators,
             instrument=instrument,
             guards_enabled=self.runtime.guards_enabled,
+            donate_argnums=self.donate_argnums,
         )
         self.space = spec.space if len(spec.space) >= len(self.space) else self.space
         variant = Variant(specialized=spec)
@@ -1151,18 +1169,24 @@ class IridescentRuntime:
 
     # -- registration ----------------------------------------------------------
     def register(self, name: str, builder: Callable,
-                 context_fn: Callable[[tuple, dict], Any] | None = None
-                 ) -> Handler:
+                 context_fn: Callable[[tuple, dict], Any] | None = None,
+                 **jit_kwargs: Any) -> Handler:
         """Register handler code; analogous to loading ``handler_code.ll``.
 
         ``context_fn(args, kwargs) -> hashable`` classifies each call into a
         workload context; each context keeps its own active specialization
         (one dispatch snapshot per batch-shape class).  ``None`` = one
         global context (the default).
+
+        ``jit_kwargs``: ``donate_argnums`` (an int or a tuple of ints), as
+        the reference's ``jax.jit``: the caller gives those arguments up
+        and every variant may update them in place.  Any other key raises
+        a ``TypeError`` naming it.
         """
         if name in self.handlers:
             raise ValueError(f"handler {name!r} already registered")
-        h = Handler(name, builder, self, context_fn=context_fn)
+        h = Handler(name, builder, self, context_fn=context_fn,
+                    jit_kwargs=jit_kwargs)
         self.handlers[name] = h
         return h
 

@@ -94,6 +94,11 @@ class SpecCtx:
     One instance per (builder, config) pair.  Each ``spec_*`` call both
     *registers* the point into the space and *resolves* it against the active
     configuration, returning the concrete value the builder should close over.
+
+    ``donate_argnums`` are the positions of the step's arguments that the
+    handler was registered to donate (``register(..., donate_argnums=...)``,
+    ``jax.jit``'s keyword in the reference): the builder may update them in
+    place (:meth:`donated`).
     """
 
     def __init__(
@@ -103,8 +108,10 @@ class SpecCtx:
         custom_generators: Mapping[str, Callable] | None = None,
         instrument: bool = False,
         guards_enabled: bool = True,
+        donate_argnums: Sequence[int] = (),
     ):
         self.space = space if space is not None else SpecSpace()
+        self.donate_argnums = tuple(donate_argnums)
         self.config: dict[str, Any] = dict(config or {})
         self.guards: list[_BoundGuard] = []
         self.enabled: list[str] = []
@@ -114,6 +121,11 @@ class SpecCtx:
         #: in-graph instrumentation taps declared by the builder (label ->
         #: collector spec); see instrumentation.py.
         self.taps: dict[str, Any] = {}
+
+    def donated(self, argnum: int) -> bool:
+        """Whether the step's positional argument ``argnum`` is donated:
+        its caller gives it up, so the step may write into it."""
+        return argnum in self.donate_argnums
 
     # -- internal ------------------------------------------------------------
     def _resolve(self, point: SpecPoint) -> Any:
@@ -206,10 +218,13 @@ def specialize_builder(
     custom_generators: Mapping[str, Callable] | None = None,
     instrument: bool = False,
     guards_enabled: bool = True,
+    donate_argnums: Sequence[int] = (),
 ) -> Specialized:
-    """Run the builder under ``config`` and package the specialized handler."""
+    """Run the builder under ``config`` and package the specialized handler
+    (``donate_argnums``: see :class:`SpecCtx`)."""
     ctx = SpecCtx(config=config, custom_generators=custom_generators,
-                  instrument=instrument, guards_enabled=guards_enabled)
+                  instrument=instrument, guards_enabled=guards_enabled,
+                  donate_argnums=donate_argnums)
     fn = builder(ctx)
     ctx.space.validate(config)
     return Specialized(

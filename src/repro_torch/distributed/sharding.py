@@ -42,7 +42,7 @@ __all__ = ["ShardingRules", "DEFAULT_RULES", "PartitionSpec", "mesh_context",
            "placements", "named_sharding", "spec_for_axes", "mesh_shape",
            "local_shard", "shard_index", "replicate", "is_dtensor",
            "shard_dims", "spec_of_dims", "entry_dims", "local_view",
-           "local_start",
+           "local_start", "local_like",
            "from_local", "whole_layout", "reduce_over", "write_local"]
 
 
@@ -388,14 +388,22 @@ def reduce_over(t: torch.Tensor, op: str, dims: Sequence[str],
     return t
 
 
+def local_like(src: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``src`` placed as ``like`` is (a plain ``src``
+    is taken as replicated; redistributed only where the placements
+    differ), as a plain tensor; ``src``'s whole value when ``like`` is
+    plain."""
+    if is_dtensor(like):
+        return _to_dtensor(src, like.device_mesh,
+                           tuple(like.placements)).to_local()
+    return replicate(src)
+
+
 def write_local(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)`` where ``dst`` may be a DTensor: on each rank into
     its own shard, ``src`` placed as ``dst`` is (a plain ``src`` is taken as
     replicated); nothing is gathered to the whole of ``dst``."""
-    if is_dtensor(dst):
-        src = _to_dtensor(src, dst.device_mesh,
-                          tuple(dst.placements)).to_local()
-    local_view(dst).copy_(src)
+    local_view(dst).copy_(local_like(src, dst) if is_dtensor(dst) else src)
 
 
 def spec_for_axes(axes_tree: Any, shapes_tree: Any = None,

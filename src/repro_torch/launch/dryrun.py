@@ -21,7 +21,9 @@ optimizer state, batch and cache are DTensors placed by their logical
 axes under the cell's rules (:func:`_rules_for`), whose local shards are
 fake tensors (shapes and dtypes, no memory); the step is
 ``specialize_builder(builder, spec_cfg).fn`` of the mesh-aware builders
-and runs under :class:`_Counter`, a ``FakeTensorMode`` that sees every op
+(the train step with its state donated, ``donate_argnums=(0,)``, as the
+reference lowers it: the state it returns aliases its arguments) and
+runs under :class:`_Counter`, a ``FakeTensorMode`` that sees every op
 DTensor runs on the local shards.  Every ``*_impl`` point is pinned to
 ``torch_ref`` under a mesh (the CUDA wrappers take no DTensor), as the
 reference's dry run lowers ``xla``.
@@ -228,7 +230,9 @@ class _Counter(FakeTensorMode):
             fn = self.flop_registry.get(func._overloadpacket)
             if fn is not None:
                 self.flops += fn(*args, **kwargs, out_val=out)
-            if not func.is_view:
+            # a view moves nothing, nor does a metadata query (``prim``:
+            # the ``device`` that indexing a fake tensor asks for)
+            if not func.is_view and func.namespace != "prim":
                 self.bytes += self._moved(name, args, kwargs, out)
         for t in _tensors(out):
             self._track(t, str(func._overloadpacket))
@@ -380,8 +384,9 @@ def build_lowerable(cfg: ModelConfig, shape: Shape, mesh, spec_cfg: dict,
         return out
 
     if kind == "train":
+        # the state is donated, as the reference lowers the train step
         step = specialize_builder(make_train_builder(cfg, opt_cfg, mesh),
-                                  spec_cfg).fn
+                                  spec_cfg, donate_argnums=(0,)).fn
         opt = _attach(init_opt_state(params, opt_cfg),
                       opt_state_axes(model.param_axes(cfg), opt_cfg), mesh,
                       rules)

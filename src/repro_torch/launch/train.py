@@ -104,7 +104,10 @@ def main(argv: list[str] | None = None) -> None:
     rt = IridescentRuntime(async_compile=True,
                            max_compile_workers=args.compile_workers,
                            variant_cache=mgr.variant_cache() if mgr else None)
-    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg))
+    # the state is donated, as the reference's CLI donates it: the step
+    # updates params and optimizer state in place
+    handler = rt.register("train_step", make_train_builder(cfg, opt_cfg),
+                          donate_argnums=0)
 
     params = model.init_params(
         torch.Generator(device=device).manual_seed(0), cfg)

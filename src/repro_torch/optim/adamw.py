@@ -8,13 +8,29 @@ parameter's device, so the reference's state converts leaf for leaf
 (:func:`repro_torch.models.convert.train_state_from_numpy`) and a
 checkpoint written by either package restores into the other.
 
-:func:`apply_updates` is functional, like the reference's: it returns new
-parameter and state trees and leaves its inputs unchanged.  The
-reference's CLI donates the input state to the jitted step; the port keeps
-both copies for the length of the update instead (a second copy of params,
-m and v: 7.2 GB at qwen3-0.6b in fp32), so a caller may keep the old state
-(the checkpoint store's async writer, a test's before/after comparison)
-without cloning it.
+Two entry points share one piece of arithmetic, the reference's:
+
+* :func:`update_in_place` writes the new parameters, ``m``, ``v``,
+  ``count`` (and ``ef``) into the tensors it is given, as XLA does with
+  the state the reference's train step donates (``donate_argnums=0``).
+  It walks each leaf in slices of its leading (layer) dim of at most
+  :data:`SLICE_BYTES` of fp32, so no temporary is larger than one slice:
+  at qwen3-0.6b in fp32 the update holds no second copy of params, m and
+  v (7.2 GB) and no whole-leaf temporary.  The step builders call it for
+  a handler registered with ``donate_argnums=0``.
+* :func:`apply_updates` is functional, like the reference's: it clones
+  the state (and, under ``int8_ef``, the gradients), runs
+  :func:`update_in_place` on the clones and returns them, leaving its
+  inputs unchanged (bit-equal to the in-place update by construction).
+  An undonated step calls it, so a caller may keep the old state (a
+  test's before/after comparison, a step replayed from one state).
+
+Under a mesh each leaf is updated on this rank's shard (``to_local()``):
+the gradient is placed as its parameter first, the state must be placed
+as its parameter (:func:`opt_state_axes`), and the global norm and the
+int8 scale are all-reduced over the mesh dims that split each leaf.  No
+DTensor op strategy runs, so the update does not depend on a release's
+op coverage.
 """
 from __future__ import annotations
 
@@ -25,9 +41,16 @@ from typing import Any
 import torch
 
 from repro_torch import compat
+from repro_torch.distributed.sharding import (is_dtensor, local_like,
+                                              local_view, reduce_over,
+                                              shard_dims)
 
 __all__ = ["OptConfig", "init_opt_state", "opt_state_axes", "apply_updates",
-           "cosine_lr"]
+           "update_in_place", "cosine_lr", "SLICE_BYTES"]
+
+#: the most fp32 bytes of a leaf that one slice of the in-place update
+#: spans (its leading rows, at least one): each temporary is at most this
+SLICE_BYTES = 64 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,59 +97,133 @@ def opt_state_axes(param_axes: Any, cfg: OptConfig) -> dict:
     return ax
 
 
-def _global_norm(tree: Any) -> torch.Tensor:
-    """The l2 norm over every leaf, in fp32."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in compat.tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
-
-
 def _quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8: ``round(x / scale)`` (a true division,
     rounded half to even as the reference's ``jnp.round``), clipped to
     +-127."""
     scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return _codes(x, scale), scale
 
 
-def _compress_ef(grads: Any, ef: Any) -> tuple[Any, Any]:
-    """int8 quantization with error feedback: g' = deq(quant(g + ef)),
-    ef' = (g + ef) - g'.  Unbiased-in-the-limit; the wire format (int8 +
-    fp32 scale) is what a compressed all-reduce would ship."""
-    g_leaves, treedef = compat.tree_flatten(grads)
-    deq, new_ef = [], []
-    for g, e in zip(g_leaves, compat.tree_leaves(ef)):
-        gf = g.to(torch.float32) + e
-        q, scale = _quantize_int8(gf)
-        d = q.to(torch.float32) * scale
-        deq.append(d)
-        new_ef.append(gf - d)
-    return (compat.tree_unflatten(treedef, deq),
-            compat.tree_unflatten(treedef, new_ef))
+def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def _rows(t: torch.Tensor):
+    """Index slices of ``t``'s leading dim, each at most SLICE_BYTES of
+    fp32 (at least one row); one ``...`` for a 0-d leaf."""
+    if t.ndim == 0:
+        yield ...
+        return
+    rows = max(1, SLICE_BYTES // max(4 * (t.numel() // max(t.shape[0], 1)),
+                                     1))
+    for i in range(0, t.shape[0], rows):
+        yield slice(i, i + rows)
+
+
+def _split_by(x: torch.Tensor) -> tuple[str, ...]:
+    """The mesh dims that split ``x`` (none for a plain tensor)."""
+    return tuple(n for d in shard_dims(x) for n in d)
+
+
+def _reduce_leaves(values: list, like: list, op: str) -> list:
+    """Each 0-d ``values[i]`` (a partial over this rank's shard of
+    ``like[i]``) all-reduced with ``op`` over the mesh dims that split
+    ``like[i]``: one collective per distinct set of dims."""
+    groups: dict[tuple, list[int]] = {}
+    for i, x in enumerate(like):
+        dims = _split_by(x)
+        if dims:
+            groups.setdefault(dims, []).append(i)
+    out = list(values)
+    for dims, idx in groups.items():
+        red = reduce_over(torch.stack([values[i] for i in idx]), op, dims,
+                          like[idx[0]].device_mesh)
+        for j, i in enumerate(idx):
+            out[i] = red[j]
+    return out
+
+
+def _state_local(x: torch.Tensor, p: torch.Tensor, what: str
+                 ) -> torch.Tensor:
+    """This rank's shard of the state leaf ``x``, which must be placed as
+    its parameter ``p`` is."""
+    if is_dtensor(x) != is_dtensor(p) or (
+            is_dtensor(p) and tuple(x.placements) != tuple(p.placements)):
+        place = lambda t: tuple(t.placements) if is_dtensor(t) else "plain"
+        raise ValueError(
+            f"optimizer state {what!r} is placed as {place(x)}, its "
+            f"parameter as {place(p)}: place the state by opt_state_axes")
+    return local_view(x)
+
+
+def _owned_fp32(g: torch.Tensor) -> torch.Tensor:
+    """``g`` where it is a dense fp32 tensor the update may overwrite,
+    else a dense fp32 copy."""
+    if g.dtype == torch.float32 and g.is_contiguous():
+        return g
+    return g.to(torch.float32).contiguous()
 
 
 @torch.no_grad()
-def apply_updates(params: Any, grads: Any, state: dict,
-                  cfg: OptConfig) -> tuple[Any, dict]:
-    """One AdamW step: ``(new params, new state)``, out of place (the
-    inputs are left unchanged; see the module docstring).
+def update_in_place(params: Any, grads: Any, state: dict,
+                    cfg: OptConfig) -> tuple[Any, dict]:
+    """One AdamW step written into ``params`` and ``state`` (``m``, ``v``,
+    ``count``, and ``ef`` under ``int8_ef``); returns them, each leaf on
+    its own storage.  Under ``int8_ef`` the gradients are consumed: each
+    fp32 leaf is overwritten by its dequantized value.
 
-    The gradients are compressed first under ``int8_ef``, then clipped by
-    their global norm (fp32, over every leaf); the bias corrections are
-    ``1 - b ** count`` in fp32 with ``count`` the int32 step after this
-    one.  Weight decay applies to leaves of two or more dims only, as in
-    the reference: the stacked per-layer norm weights ``(L, d)`` are
-    decayed, ``final_norm`` ``(d,)`` is not.
+    The reference's arithmetic: the gradients are compressed first under
+    ``int8_ef`` (per-tensor scale), then clipped by their global norm
+    (fp32, over every leaf); the bias corrections are ``1 - b ** count``
+    in fp32 with ``count`` the int32 step after this one.  Weight decay
+    applies to leaves of two or more dims only, as in the reference: the
+    stacked per-layer norm weights ``(L, d)`` are decayed, ``final_norm``
+    ``(d,)`` is not.  Every leaf is walked in slices of at most
+    SLICE_BYTES (see the module docstring).
     """
-    count = state["count"] + 1
-    new_state = dict(state, count=count)
+    p_leaves = compat.tree_leaves(params)
+    ps = [local_view(p) for p in p_leaves]
+    gs = [local_like(g, p) for g, p in zip(compat.tree_leaves(grads),
+                                           p_leaves)]
+    ms = [_state_local(m, p, "m")
+          for m, p in zip(compat.tree_leaves(state["m"]), p_leaves)]
+    vs = [_state_local(v, p, "v")
+          for v, p in zip(compat.tree_leaves(state["v"]), p_leaves)]
+    count = local_view(state["count"])
+    count.add_(1)
+    zero = torch.zeros((), dtype=torch.float32, device=count.device)
 
     if cfg.compress == "int8_ef":
-        grads, new_ef = _compress_ef(grads, state["ef"])
-        new_state["ef"] = new_ef
+        # g' = deq(quant(g + ef)), ef' = (g + ef) - g', with the scale of
+        # the whole leaf (its max over every rank's shard)
+        es = [_state_local(e, p, "ef")
+              for e, p in zip(compat.tree_leaves(state["ef"]), p_leaves)]
+        gs = [_owned_fp32(g) for g in gs]
+        amax = []
+        for g, e in zip(gs, es):
+            a = zero
+            for sl in _rows(g):
+                if g[sl].numel():
+                    a = torch.maximum(a, torch.max(torch.abs(g[sl] + e[sl])))
+            amax.append(a)
+        amax = _reduce_leaves(amax, p_leaves, "max")
+        for g, e, a in zip(gs, es, amax):
+            scale = torch.clamp(a, min=1e-12) / 127.0
+            for sl in _rows(g):
+                gf = g[sl] + e[sl]
+                d = _codes(gf, scale).to(torch.float32) * scale
+                e[sl].copy_(gf - d)
+                g[sl].copy_(d)
 
-    gnorm = _global_norm(grads)
+    sq = []
+    for g in gs:
+        s = zero
+        for sl in _rows(g):
+            s = s + torch.sum(torch.square(g[sl].to(torch.float32)))
+        sq.append(s)
+    gnorm = torch.sqrt(torch.sum(torch.stack(
+        _reduce_leaves(sq, p_leaves, "sum"))))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
 
@@ -134,22 +231,40 @@ def apply_updates(params: Any, grads: Any, state: dict,
     lr = cosine_lr(cfg, cf)
     b1c = 1 - cfg.b1 ** cf
     b2c = 1 - cfg.b2 ** cf
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        for sl in _rows(p):
+            gi = g[sl].to(torch.float32) * scale
+            mi = cfg.b1 * m[sl] + (1 - cfg.b1) * gi
+            vi = cfg.b2 * v[sl] + (1 - cfg.b2) * torch.square(gi)
+            step = (mi / b1c) / (torch.sqrt(vi / b2c) + cfg.eps)
+            pf = p[sl].to(torch.float32)
+            if p.ndim >= 2:
+                step = step + cfg.weight_decay * pf
+            p[sl].copy_(pf - lr * step)
+            m[sl].copy_(mi)
+            v[sl].copy_(vi)
+    return params, state
 
-    p_leaves, treedef = compat.tree_flatten(params)
-    new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(p_leaves, compat.tree_leaves(grads),
-                          compat.tree_leaves(state["m"]),
-                          compat.tree_leaves(state["v"])):
-        g = g.to(torch.float32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        pf = p.to(torch.float32)
-        if p.ndim >= 2:
-            step = step + cfg.weight_decay * pf
-        new_p.append((pf - lr * step).to(p.dtype))
-        new_m.append(m)
-        new_v.append(v)
-    new_state["m"] = compat.tree_unflatten(treedef, new_m)
-    new_state["v"] = compat.tree_unflatten(treedef, new_v)
-    return compat.tree_unflatten(treedef, new_p), new_state
+
+def _clone(x: Any) -> Any:
+    """A copy of a tensor leaf on storage of its own (a DTensor's shard
+    cloned and placed as before)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    if not is_dtensor(x):
+        return x.clone()
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local().clone(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+@torch.no_grad()
+def apply_updates(params: Any, grads: Any, state: dict,
+                  cfg: OptConfig) -> tuple[Any, dict]:
+    """One AdamW step: ``(new params, new state)``, out of place (the
+    inputs are left unchanged): :func:`update_in_place` on clones."""
+    params, state = compat.tree_map(_clone, (params, state))
+    if cfg.compress == "int8_ef":
+        grads = compat.tree_map(_clone, grads)
+    return update_in_place(params, grads, state, cfg)

@@ -82,7 +82,9 @@ class ShadowEvaluator:
     ``shared_args`` names positional arguments the handler only reads
     (the serve step's weights): samples hold them by reference instead of
     cloning them, which at full model width saves a copy of the weights
-    per sample.
+    per sample.  An argument the handler donates
+    (``register(..., donate_argnums=...)``) is always cloned: a variant
+    writes into it.
     """
 
     def __init__(self, handler, *, sample_frac: float = 0.25, k: int = 3,
@@ -100,7 +102,8 @@ class ShadowEvaluator:
         self.max_samples = max(1, int(max_samples))
         self.max_attempts = max(self.k, int(max_attempts))
         self.clock = clock
-        self.shared_args = frozenset(shared_args)
+        self.shared_args = frozenset(shared_args) - frozenset(
+            getattr(handler, "donate_argnums", ()))
         self._ctx: dict[Any, _ShadowCtx] = {}
         self.calls = 0                    # shadow executions (pairs are 2)
         self.dropped_samples = 0

@@ -71,7 +71,8 @@ from repro_torch.models.common import KernelOptions
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoEOptions
 from repro_torch.models.transformer import RunOptions
-from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.optim import (OptConfig, apply_updates, opt_state_axes,
+                               update_in_place)
 
 __all__ = ["SHARDING_PROFILES", "make_train_builder", "make_prefill_builder",
            "make_decode_builder", "make_serve_builder", "phase_context_fn",
@@ -528,11 +529,27 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig, mesh: Any = None
     ``state = {"params": ..., "opt": ...}`` (the optimizer state of
     :func:`repro_torch.optim.init_opt_state`); ``batch`` holds ``labels``
     and ``tokens`` (or ``embeds``), each with the batch on its leading
-    axis.  Returns ``(new state, {"loss": fp32 0-d tensor})``; the step is
-    functional (the input state is left unchanged, see
-    :mod:`repro_torch.optim.adamw`), so a guard miss may re-dispatch the
-    same inputs.  The loss stays on the device: reading it is the
-    caller's synchronisation.
+    axis.  Returns ``(new state, {"loss": fp32 0-d tensor})``.  The loss
+    stays on the device: reading it is the caller's synchronisation.
+
+    Which state comes back depends on the registration, as in the
+    reference (``jax.jit(..., donate_argnums=0)``):
+
+    * undonated (the default): the step is functional.  The input state
+      is left unchanged and new trees come back
+      (:func:`repro_torch.optim.apply_updates`), so a caller may call it
+      twice on one state and compare.
+    * donated (``register(..., donate_argnums=0)``, ``spec.donated(0)``):
+      the AdamW update writes params, ``m``, ``v``, ``count`` (and ``ef``)
+      into the state's own tensors
+      (:func:`repro_torch.optim.update_in_place`) and the step returns the
+      dict it was given.  The state is written only after the loss and
+      the gradients exist, so an exception before then leaves it whole;
+      the runtime's guards run before the variant, so a guard miss hands
+      the generic variant an untouched state.  Under a mesh a leaf not
+      yet placed by its axes (a plain tensor on the first step) is
+      replaced in the dict by its placed DTensor, which later steps then
+      update in place.
 
     The reference's points, labels, candidates and defaults (all internal
     tuning parameters, so none carries a guard): those of
@@ -547,13 +564,16 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig, mesh: Any = None
     ``sharding_profile``.
 
     Under ``mesh`` the step runs in the profile's rules and places the
-    parameters, the gradients and the new parameters by their logical
-    axes (DTensors, as the reference's ``_constrain_tree``); the new
-    optimizer state follows the gradients' placement, and the loss comes
-    back as a plain tensor, the same on every rank.
+    parameters, the gradients and the optimizer state
+    (:func:`~repro_torch.optim.opt_state_axes`: ``m``, ``v`` and ``ef`` by
+    the parameters' axes) by their logical axes (DTensors, as the
+    reference's ``_constrain_tree``); the update runs on each rank's
+    shards, and the loss comes back as a plain tensor, the same on every
+    rank.
     """
 
     def builder(spec: SpecCtx) -> Callable:
+        donate = spec.donated(0)
         opts = run_options_from_spec(spec, cfg, differentiable=True)
         micro = spec.enum("microbatch", 1, (1, 2, 4), guarded=False)
         gather_logits = spec.enum("logits_layout", "sharded",
@@ -589,6 +609,7 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig, mesh: Any = None
         def _train_step(state, batch):
             ax = model.param_axes(cfg)
             params = _constrain_tree(state["params"], ax)
+            opt = _constrain_tree(state["opt"], opt_state_axes(ax, opt_cfg))
             grads, loss_total = None, None
             for i in range(micro):
                 mb = batch if micro == 1 else {
@@ -602,11 +623,15 @@ def make_train_builder(cfg: ModelConfig, opt_cfg: OptConfig, mesh: Any = None
             _, treedef = compat.tree_flatten(params)
             grads = _constrain_tree(compat.tree_unflatten(treedef, grads),
                                     ax)
-            new_params, new_opt = apply_updates(params, grads, state["opt"],
-                                                opt_cfg)
-            new_params = _constrain_tree(new_params, ax)
-            return ({"params": new_params, "opt": new_opt},
-                    {"loss": replicate(loss_total / micro)})
+            metrics = {"loss": replicate(loss_total / micro)}
+            if not donate:
+                new_params, new_opt = apply_updates(params, grads, opt,
+                                                    opt_cfg)
+                return {"params": new_params, "opt": new_opt}, metrics
+            update_in_place(params, grads, opt, opt_cfg)
+            state["params"] = params
+            state["opt"] = opt
+            return state, metrics
 
         return train_step
 

@@ -79,7 +79,13 @@ TRAIN_CASES = [("qwen3-0.6b", p, c, {}) for p in ("dp", "fsdp", "seq")
               [("kimi-k2-1t-a32b", "fsdp", "none", spec) for spec in (
                   {"moe_impl": "gather", "capacity_factor": 1.0},
                   {"moe_impl": "einsum", "capacity_factor": 1.0},
-                  {"moe_impl": "gather", "microbatch": 2})]
+                  {"moe_impl": "gather", "microbatch": 2})] + \
+              [("qwen3-0.6b", "fsdp", "int8_ef", {"donate": 0}),
+               ("deepseek-v2-236b", "fsdp_noexp", "none", {"donate": 0})]
+#: a case's spec entry ``donate`` is no spec point: the sharded step is
+#: built with ``donate_argnums=(donate,)`` (the one-process step and the
+#: reference's are not) and runs on a clone of the state
+DONATE = "donate"
 
 
 def _train_id(case):
@@ -273,20 +279,29 @@ def attention_spy(seen):
     return op, spy
 
 
+def local_storages(tree):
+    return [sh.local_view(t).untyped_storage().data_ptr()
+            for t in compat.tree_leaves(tree)]
+
+
 def check_train(mesh, workdir, rank, case_id, arch, profile, compress, spec):
     cfg, opt, state, batch = train_setup(workdir, arch, compress)
+    spec = dict(spec)
+    donate = spec.pop("donate", None)
     config = {"sharding_profile": profile, **spec}
     plain = specialize_builder(steps.make_train_builder(cfg, opt),
                                config).fn
-    sharded = specialize_builder(steps.make_train_builder(cfg, opt, mesh),
-                                 config).fn
+    sharded = specialize_builder(
+        steps.make_train_builder(cfg, opt, mesh), config,
+        donate_argnums=() if donate is None else (donate,)).fn
+    given = compat.tree_map(torch.clone, state)
     ref_state, ref_m = plain(state, batch)
     seen, rows = [], []
     op, attn_mod.attn_op = attention_spy(seen)
     route = moe._route
     moe._route = lambda lg, k: (rows.append(lg.shape[0]), route(lg, k))[1]
     try:
-        new_state, m = sharded(state, batch)
+        new_state, m = sharded(given, batch)
     finally:
         attn_mod.attn_op = op
         moe._route = route
@@ -298,21 +313,37 @@ def check_train(mesh, workdir, rank, case_id, arch, profile, compress, spec):
              **{f"m{i}": full(x).numpy() for i, x in enumerate(moments)})
     placed = [tuple(repr(p) for p in x.placements) for x in leaves
               if sh.is_dtensor(x)]
-    return {"loss_err": abs(float(m["loss"]) - float(ref_m["loss"])),
-            "loss_type": type(m["loss"]).__name__,
-            "param_rel": max(rel(a, b) for a, b in zip(
-                leaves, compat.tree_leaves(ref_state["params"]))),
-            "opt_rel": max(rel(a, b) for a, b in zip(
-                compat.tree_leaves(new_state["opt"]["m"]),
-                compat.tree_leaves(ref_state["opt"]["m"]))),
-            "opt_quanta": max(quanta(a, b) for a, b in zip(
-                compat.tree_leaves(new_state["opt"]["m"]),
-                compat.tree_leaves(ref_state["opt"]["m"]))),
-            "n_dtensor": len(placed), "n_leaves": len(leaves),
-            "sharded_leaves": sum(any("Shard" in p for p in pl)
-                                  for pl in placed),
-            "attn_shapes": sorted({json.dumps(x) for x in seen}),
-            "route_rows": sorted(set(rows))}, \
+    rec = {"loss_err": abs(float(m["loss"]) - float(ref_m["loss"])),
+           "loss_type": type(m["loss"]).__name__,
+           "param_rel": max(rel(a, b) for a, b in zip(
+               leaves, compat.tree_leaves(ref_state["params"]))),
+           "opt_rel": max(rel(a, b) for a, b in zip(
+               compat.tree_leaves(new_state["opt"]["m"]),
+               compat.tree_leaves(ref_state["opt"]["m"]))),
+           "opt_quanta": max(quanta(a, b) for a, b in zip(
+               compat.tree_leaves(new_state["opt"]["m"]),
+               compat.tree_leaves(ref_state["opt"]["m"]))),
+           "n_dtensor": len(placed), "n_leaves": len(leaves),
+           "sharded_leaves": sum(any("Shard" in p for p in pl)
+                                 for pl in placed),
+           "attn_shapes": sorted({json.dumps(x) for x in seen}),
+           "route_rows": sorted(set(rows)), "donated": {}}
+    if donate is not None:
+        # the state comes back as the dict it was given; a second step
+        # writes every leaf's local shard in place, placements unchanged
+        ptrs = local_storages(new_state)
+        place = [tuple(x.placements) if sh.is_dtensor(x) else None
+                 for x in compat.tree_leaves(new_state)]
+        again, m2 = sharded(new_state, batch)
+        rec["donated"] = {
+            "returns_its_state": new_state is given and again is given,
+            "keeps_storage": local_storages(again) == ptrs,
+            "keeps_placement": place == [
+                tuple(x.placements) if sh.is_dtensor(x) else None
+                for x in compat.tree_leaves(again)],
+            "count": int(full(again["opt"]["count"])),
+            "second_loss_finite": bool(torch.isfinite(full(m2["loss"])))}
+    return rec, \
         (cfg, new_state)
 
 
@@ -781,6 +812,7 @@ def _reference_train(states):
     (loss, new params, new first moment), leaves, by case id."""
     out, done = {}, {}
     for case_id, (arch, _, compress, spec) in zip(TRAIN_IDS, TRAIN_CASES):
+        spec = {k: v for k, v in spec.items() if k != DONATE}
         key = (arch, compress, json.dumps(spec, sort_keys=True))
         if key in done:
             out[case_id] = done[key]
@@ -949,6 +981,13 @@ def test_sharded_train_step_matches_one_process(ranks, arch, profile,
         # (micro)batch rows
         if configs.get_reduced(arch).is_moe:
             assert rec["route_rows"] == [B // micro // 2 * S], rec
+        if DONATE in spec:
+            assert rec["donated"] == {
+                "returns_its_state": True, "keeps_storage": True,
+                "keeps_placement": True, "count": 2,
+                "second_loss_finite": True}
+        else:
+            assert rec["donated"] == {}
 
 
 def _rel(got, want):

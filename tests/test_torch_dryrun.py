@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 import traceback
+from unittest import mock
 
 import pytest
 
@@ -28,7 +29,7 @@ torch = pytest.importorskip("torch")
 from repro import configs as ref_configs  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import dryrun, hillclimb  # noqa: E402
-from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.optim import OptConfig, adamw  # noqa: E402
 from repro_torch.training.steps import SHARDING_PROFILES  # noqa: E402
 
 MINI_ARCHS = ["yi-6b", "deepseek-v2-236b", "rwkv6-1.6b", "hymba-1.5b"]
@@ -51,6 +52,17 @@ TABLE_SHAPE = (64, 16)
 CHAIN_CELLS = [("a5_micro", {"moe_impl": "gather", "microbatch": 4}, (64, 8)),
                ("a6_group", {"moe_impl": "gather", "moe_group": 1024},
                 (256, 8))]
+#: the production train cells' fsdp_noexp profile in miniature: (arch,
+#: spec, mesh, (seq, batch)).  A batch this small leaves the optimizer's
+#: working set beside the activations, where the optimizer's stacks led
+#: the peak of a4/a5/a8/a9 before the donated step
+NOEXP_CELL = ("kimi-k2-1t-a32b",
+              {"moe_impl": "gather", "sharding_profile": "fsdp_noexp"},
+              (1, 2, 2), (16, 4))
+#: the ops of the AdamW update's arithmetic
+OPT_OPS = {"aten.sub", "aten.add", "aten.mul", "aten.div", "aten.sqrt",
+           "aten.square", "aten.pow", "aten.clone", "aten._to_copy",
+           "aten.round", "aten.clamp", "aten.abs"}
 TIMEOUT = 600
 
 #: a deterministic stand-in for a dry-run cell, the same in both drivers
@@ -107,6 +119,10 @@ for mesh_shape in table["meshes"]:
                        spec)
         out["temp"][f"{arch}:{json.dumps(spec)}:{mesh_shape}"] = [
             int(mem.argument_size_in_bytes), int(mem.temp_size_in_bytes)]
+arch, spec, mesh_shape, shape = table["noexp"]
+mem = compiled(configs.get_reduced(arch), Shape("t", "train", *shape),
+               tuple(mesh_shape), spec)
+out["noexp"] = [int(mem.argument_size_in_bytes), int(mem.temp_size_in_bytes)]
 for tag, spec, shape in table["chain"]:
     mem = compiled(configs.get_reduced("kimi-k2-1t-a32b"),
                    Shape("t", "train", *shape), (2, 2, 2), spec)
@@ -200,13 +216,13 @@ def mini(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     env.pop("XLA_FLAGS", None)
     table = {"meshes": TABLE_MESHES, "cells": TABLE, "shape": TABLE_SHAPE,
-             "chain": CHAIN_CELLS}
+             "chain": CHAIN_CELLS, "noexp": NOEXP_CELL}
     proc = subprocess.Popen(
         [sys.executable, "-c", _ORACLE, json.dumps(MINI_ARCHS),
          str(work / "ref"), _STUB, json.dumps(table)],
         env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-    port, temp, chain = {}, {}, {}
+    port, temp, chain, noexp = {}, {}, {}, None
     kimi = configs.get_reduced("kimi-k2-1t-a32b")
     try:
         with _mesh((2, 2, 2), ("pod", "data", "model")) as mesh:
@@ -227,6 +243,14 @@ def mini(tmp_path_factory):
                     temp[f"{arch}:{json.dumps(spec)}:{list(mesh_shape)}"] = \
                         _cell(arch, mesh, spec, configs.get_reduced(arch),
                               configs.Shape("t", "train", *TABLE_SHAPE))
+        arch, spec, mesh_shape, shape = NOEXP_CELL
+        # one layer a slice of the in-place update, as the production
+        # cells' layers (1.41 GB of an expert stack) are each larger than
+        # the bound; the miniature's leaves are all smaller
+        with _mesh(mesh_shape[1:], ("data", "model")) as mesh, \
+                mock.patch.object(adamw, "SLICE_BYTES", 0):
+            noexp = _cell(arch, mesh, spec, configs.get_reduced(arch),
+                          configs.Shape("t", "train", *shape))
         out, err = proc.communicate(timeout=TIMEOUT)
     finally:
         if proc.poll() is None:
@@ -234,7 +258,7 @@ def mini(tmp_path_factory):
             proc.communicate()
     assert proc.returncode == 0, err[-4000:]
     return {"port": port, "ref": json.loads(out.splitlines()[-1]),
-            "work": work, "temp": temp, "chain": chain}
+            "work": work, "temp": temp, "chain": chain, "noexp": noexp}
 
 
 def test_shape_registry_matches_reference():
@@ -302,6 +326,19 @@ def test_counters_count_local_work():
     assert coll["all-gather"] == coll["total"] == (16 * 4 + 16 * 8) * 4
 
 
+def test_slices_of_a_leaf_count_their_own_bytes():
+    """Indexing a tensor in slices (the in-place optimizer walks each leaf
+    so) counts each slice's elementwise op, not the whole tensor a slice:
+    the ``device`` query that indexing dispatches moves no bytes."""
+    counter = dryrun._Counter()
+    with counter:
+        x = torch.empty(60, 1000)
+        counter.start(())
+        for i in range(60):
+            x[i:i + 1] * 2.0
+    assert counter.bytes == 60 * 2 * 1000 * 4
+
+
 def test_miniature_dry_run_completes(mini):
     for arch in MINI_ARCHS:
         for shape in MINI_SHAPES:
@@ -355,6 +392,31 @@ def test_peak_holds_no_global_batch_or_token_dim(mini, arch, spec):
     assert len(top) == 5
     for t in top:
         assert t["shape"][0] != b and not tokens & set(t["shape"]), top
+
+
+def test_donated_noexp_cell_holds_no_optimizer_stack(mini):
+    """The train cell of the production profile ``fsdp_noexp`` in
+    miniature (reduced kimi-k2, the gather MoE): the step is donated, so
+    the new state aliases the arguments; its temp is at most 1.25 x XLA's
+    for the reference's donated step, its arguments within 1 %, and no
+    tensor among the five largest at the peak is a whole stacked leaf
+    made by the update's arithmetic (the gradients' stacks may lead)."""
+    arch, spec, mesh_shape, (s, b) = NOEXP_CELL
+    mem = _ok(mini["noexp"])["full"]["memory"]
+    args, want = mini["ref"]["noexp"]
+    got = mem["temp_size_in_bytes"]
+    print(f"temp noexp {spec} {list(mesh_shape)}: port {got} XLA {want} "
+          f"ratio {got / want:.3f}")
+    assert got <= 1.25 * want, (got, want, mem["peak_tensors"])
+    assert abs(mem["argument_size_in_bytes"] - args) <= 0.01 * args
+    assert mem["alias_size_in_bytes"] >= 0.99 * mem["argument_size_in_bytes"]
+    cfg = configs.get_reduced(arch)
+    layers = {cfg.n_layers, cfg.n_moe_layers, cfg.n_dense_layers} - {1}
+    top = mem["peak_tensors"]
+    assert len(top) == 5
+    for t in top:
+        assert not (t["op"] in OPT_OPS and len(t["shape"]) >= 2
+                    and t["shape"][0] in layers), top
 
 
 @pytest.mark.parametrize("tag", [c[0] for c in CHAIN_CELLS])
