@@ -77,10 +77,25 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    wrapper per ``block_b`` and the plain version (no single PyTorch call
    computes this function), and logs where the hashed body overtakes the
    dense one.
+4e. Guards: for each kernel, one call it takes goes through its registry
+   entry to ``cuda`` (one launch, no fallback, within the kernel's
+   tolerance of its plain version; K3 on random fp32 within phase 4c's
+   scaled limit), one call that misses the reference's precondition (host
+   tensors; float queries for K5) returns the plain version's answer with
+   exactly one fallback counted and no launch, and one call of each domain
+   gap, an input the reference's kernel takes and the port's does not
+   (fp16 and fp64 rows for K1; fp16, d 200, dv 160 and an uninstantiated
+   tile for K2; fp16 and an uninstantiated tile triple for K3; fp16, a
+   head dim of 136, chunk 48 and a bonus on the inclusive recurrence for
+   K4; float keys, fp16 values and keys 33 wide for K5), raises the
+   kernel's error with no launch and no fallback; then a stale
+   ``spec_state`` restored into a handler on the card leaves it serving
+   its generic variant.  Each check fails with its own message.
 5. Serve path: ``repro_torch.launch.serve.build_engine`` serves qwen3-0.6b
    at full width (28 layers, d=1024, vocab 151936; random weights from
    seed 0) in fp32, through the default safety controller that explores
-   ``cache_dtype`` x ``rmsnorm_impl``.
+   ``cache_dtype`` x ``rmsnorm_impl``; prints the host ms a decode step
+   beside PR 15's 115.2 (a record, not a gate).
 6. Serve parity at full width: the serve handler pinned to the plain
    RMSNorm and then to the CUDA kernel, on the same inputs (one 16-token
    prefill chunk and 8 teacher-forced decode steps), must agree within a
@@ -642,6 +657,18 @@ DRYRUN_HYMBA = ["--arch", "hymba-1.5b", "--shape", "prefill_32k", "--mesh",
                 "single", "--no-surrogate", "--tag", "c2_logitsbf16",
                 "--spec", '{"swa_impl": "banded", "logits_dtype": "bfloat16"}']
 DRYRUN_HYMBA_TEMP = 16e9
+#: phase 4e: each kernel's tolerance against its plain version (atol =
+#: rtol; the reference's tests/test_kernels.py and
+#: tests/test_linear_attention_kernel.py): fp32, and the low-precision one
+#: (K3's calls are held to phase 4c's scaled limit instead)
+GUARD_TOL = {"rmsnorm": (1e-5, 3e-2), "attention": (2e-4, 3e-2),
+             "matmul": (1e-5, 3e-2), "linear_attention": (5e-4, 3e-2),
+             "fastpath": (1e-6, 1e-6)}
+#: phase 4e: calls of each K1 guard timed on the host
+GUARD_TIMING_CALLS = 20000
+#: phase 5's host ms a decode step in PR 15 (PERF.md section 5), printed
+#: beside this run's as a record, not a gate
+PR15_DECODE_HOST_MS = 115.2
 #: the subprocess of phase 24b: the dry run's count of the phase-23 train
 #: step on a fake world of one rank
 DRYRUN_PROBE = r"""
@@ -996,6 +1023,9 @@ def phase_rmsnorm(cfg) -> dict:
         f"{totals['bound_ms']:.6f} ms")
     return {"max_abs_err": max_err, "per_shape": per_shape,
             "decode_launches": n_decode, "decode_library_calls": n_library,
+            "decode_by_kind": {k: sum(n for (kind, *_), n in decode.items()
+                                      if kind == k)
+                               for k in ("single", "pair")},
             "bound_by": "bytes" if bound_kinds == {"bytes"}
             else "operations", **totals}
 
@@ -1806,6 +1836,269 @@ def engine_args(extra: list[str]) -> argparse.Namespace:
     return ap.parse_args(extra)
 
 
+def phase_guards(decode_by_kind: dict) -> dict:
+    """Phase 4e: each kernel's guard (``ops._guard``: the card and the
+    reference's precondition).  For each of K1 to K5, one call the kernel
+    takes goes to ``cuda``: one launch, no fallback, its answer within
+    GUARD_TOL of ``torch_ref`` on the same inputs (K3 within phase 4c's
+    scaled limit at its k).  One call that misses the reference's
+    precondition (host tensors; float queries to K5) returns
+    ``torch_ref``'s answer with exactly one fallback counted and no launch.
+    One call of each domain gap (an input the reference's kernel takes and
+    the port's does not: ROADMAP "Kernel work") raises the wrapper's or the
+    entry's error, with no launch and no fallback: it never runs the plain
+    version on the card.  Then a stale ``spec_state`` (a point the handler
+    does not declare) restored into a handler on the card leaves it
+    serving its generic variant.  Last, the host's cost of K1's guards on
+    a decode step: each guard's microseconds a call (GUARD_TIMING_CALLS
+    calls at the decode shapes) times its launches a step
+    (``decode_by_kind``, from phase 3)."""
+    import torch
+
+    from repro_torch.checkpoint import restore_spec_state
+    from repro_torch.core import DEFAULT_CONTEXT, IridescentRuntime
+    from repro_torch.core.runtime import encode_context_key
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.attention import attention
+    from repro_torch.kernels.attention import kernel as attn_k
+    from repro_torch.kernels.fastpath import kernel as fp_k
+    from repro_torch.kernels.fastpath import lookup
+    from repro_torch.kernels.linear_attention import kernel as la_k
+    from repro_torch.kernels.linear_attention import linear_attention
+    from repro_torch.kernels.matmul import kernel as mm_k
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    gen = torch.Generator().manual_seed(0)
+    f16, f32, f64 = torch.float16, torch.float32, torch.float64
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    def host(args):
+        return tuple(a.cpu() for a in args)
+
+    counts = registry.default_registry.fallback_counts
+    checks = []
+
+    def counted(family, kmod, fn):
+        """``fn()``'s result (or error), and the launches and fallbacks of
+        ``family`` it made."""
+        key = (family, "cuda")
+        fb0, l0 = counts.get(key, 0), kmod.launches
+        try:
+            out, err = fn(), None
+        except Exception as e:             # noqa: BLE001 (checked below)
+            out, err = None, e
+        torch.cuda.synchronize()
+        return out, err, kmod.launches - l0, counts.get(key, 0) - fb0
+
+    def check(family, kmod, label, fn, want_kernel, limit=None):
+        """``fn(impl)`` through the registry with ``impl="cuda"``: one
+        launch and no fallback (``want_kernel``) or the reverse, and its
+        answer against ``fn("torch_ref")`` within GUARD_TOL (or within the
+        per-element ``limit(ref)``)."""
+        name = f"guards: {family} {label}"
+        out, err, launched, fb = counted(family, kmod, lambda: fn("cuda"))
+        if err is not None:
+            fail(f"{name}: raised {type(err).__name__}: {err}")
+        ref = fn("torch_ref")
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err, excess = 0.0, 0.0
+        for o, r in zip(outs, refs):
+            if o.shape != r.shape or o.dtype != r.dtype:
+                fail(f"{name}: output {tuple(o.shape)} {o.dtype}, torch_ref "
+                     f"{tuple(r.shape)} {r.dtype}")
+            tol = GUARD_TOL[family][o.dtype in (f16, torch.bfloat16)]
+            bound = (limit(r).double() if limit is not None
+                     else tol + tol * r.double().abs())
+            o, r = o.double(), r.double()
+            if not torch.isfinite(o).all():
+                fail(f"{name}: output not finite")
+            diff = (o - r).abs()
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            excess = max(excess, float((diff - bound).max())
+                         if diff.numel() else 0.0)
+        log(f"{name}: {launched} launch(es), {fb} fallback(s), max |out - "
+            f"torch_ref| {err:.3e}")
+        if want_kernel and (launched != 1 or fb != 0):
+            fail(f"{name}: {launched} launches and {fb} fallbacks; wanted "
+                 f"one launch and no fallback")
+        if not want_kernel and (launched != 0 or fb != 1):
+            fail(f"{name}: {launched} launches and {fb} fallbacks; wanted "
+                 f"no launch and one fallback")
+        if excess > 0:
+            fail(f"{name}: max |out - torch_ref| {err:.3e} over the "
+                 f"tolerance by {excess:.3e}")
+        checks.append({"kernel": family, "case": label, "launches": launched,
+                       "fallbacks": fb, "max_abs_err": err, "raised": None})
+
+    def gap(family, kmod, label, fn, error):
+        """A domain gap: ``fn()`` on the card raises ``error`` (the
+        wrapper's or the entry's) with no launch and no fallback."""
+        name = f"guards: {family} gap {label}"
+        _, err, launched, fb = counted(family, kmod, fn)
+        log(f"{name}: {launched} launch(es), {fb} fallback(s), raised "
+            f"{type(err).__name__}: {err}")
+        if not isinstance(err, error):
+            fail(f"{name}: raised {type(err).__name__} ({err}); wanted the "
+                 f"kernel's {error.__name__}")
+        if launched or fb:
+            fail(f"{name}: {launched} launches and {fb} fallbacks; wanted "
+                 f"none: a domain gap raises")
+        checks.append({"kernel": family, "case": f"gap {label}",
+                       "launches": launched, "fallbacks": fb,
+                       "max_abs_err": None, "raised": type(err).__name__})
+
+    # K1: rows of qwen3-0.6b's width; host rows; fp16 and fp64 rows raise
+    x, w = rand(8, 1024), rand(1024)
+    check("rmsnorm", rms_k, "fp32 rows", lambda i: rmsnorm(x, w, impl=i),
+          True)
+    check("rmsnorm", rms_k, "host rows",
+          lambda i: rmsnorm(*host((x, w)), impl=i), False)
+    for dt in (f16, f64):
+        gap("rmsnorm", rms_k, f"{dt} rows",
+            lambda xd=x.to(dt): rmsnorm(xd, w, impl="cuda"), TypeError)
+    # K2: (1, 4/2 heads, 128, 64) causal GQA; host tensors; fp16, d 200,
+    # dv 160 and block_q 256 raise
+    q, k, v = rand(1, 4, 128, 64), rand(1, 2, 128, 64), rand(1, 2, 128, 64)
+    check("attention", attn_k, "fp32 GQA",
+          lambda i: attention(q, k, v, impl=i), True)
+    check("attention", attn_k, "host tensors",
+          lambda i: attention(*host((q, k, v)), impl=i), False)
+    cases = {"fp16": ((q.half(), k.half(), v.half()), {}, TypeError),
+             "d 200": ((rand(1, 4, 128, 200), rand(1, 2, 128, 200),
+                        rand(1, 2, 128, 64)), {}, ValueError),
+             "dv 160": ((q, k, rand(1, 2, 128, 160)), {}, ValueError),
+             "block_q 256": ((q, k, v), {"block_q": 256}, ValueError)}
+    for label, (args, kw, error) in cases.items():
+        gap("attention", attn_k, label,
+            lambda a=args, kw=kw: attention(*a, impl="cuda", **kw), error)
+    # K3: (256, 256) x (256, 256) of random fp32, within phase 4c's scaled
+    # limit at k 256; host operands; fp16 and a tile triple not
+    # instantiated raise
+    a, b = rand(256, 256), rand(256, 256)
+    check("matmul", mm_k, "fp32", lambda i: matmul(a, b, impl=i), True,
+          limit=lambda ref: _matmul_limit(a, b, ref))
+    check("matmul", mm_k, "host operands",
+          lambda i: matmul(*host((a, b)), impl=i), False,
+          limit=lambda ref: _matmul_limit(a.cpu(), b.cpu(), ref))
+    gap("matmul", mm_k, "fp16",
+        lambda: matmul(a.half(), b.half(), impl="cuda"), TypeError)
+    gap("matmul", mm_k, "tiles (256, 256, 128)",
+        lambda: matmul(a, b, bm=256, bn=256, bk=128, impl="cuda"),
+        ValueError)
+    # K4: rwkv6's heads of 64 at T 256, exclusive with the bonus; host
+    # tensors; fp16, head dim 136, chunk 48 and a bonus on the inclusive
+    # recurrence raise
+    lq, lk, lv = rand(8, 256, 64), rand(8, 256, 64), rand(8, 256, 64)
+    lw = -torch.rand(8, 256, 64, generator=gen).to("cuda") - 0.01
+    u = rand(8, 64)
+    check("linear_attention", la_k, "fp32 exclusive + bonus",
+          lambda i: linear_attention(lq, lk, lv, lw, bonus=u, impl=i), True)
+    check("linear_attention", la_k, "host tensors",
+          lambda i: linear_attention(*host((lq, lk, lv, lw)),
+                                     bonus=u.cpu(), impl=i), False)
+    wide = rand(8, 64, 136)
+    wide_w = -torch.rand(8, 64, 136, generator=gen).to("cuda") - 0.01
+    cases = {"fp16": ((lq.half(), lk.half(), lv.half(), lw), {}, TypeError),
+             "head dim 136": ((wide, wide, wide, wide_w), {}, ValueError),
+             "chunk 48": ((lq, lk, lv, lw), {"chunk": 48}, ValueError),
+             "inclusive + bonus": ((lq, lk, lv, lw),
+                                   {"bonus": u, "inclusive": True},
+                                   ValueError)}
+    for label, (args, kw, error) in cases.items():
+        gap("linear_attention", la_k, label,
+            lambda a=args, kw=kw: linear_attention(*a, impl="cuda", **kw),
+            error)
+    # K5: 4096 int32 queries against 64 keys, fp32 values; host tensors
+    # and float queries (the reference's guard refuses them too); float
+    # keys, fp16 values and keys 33 wide raise
+    keys = torch.randint(0, 1000, (64, 1), generator=gen).to("cuda",
+                                                             torch.int32)
+    hot = torch.randint(0, 64, (4096,), generator=gen).to("cuda")
+    xq = torch.where((hot % 2 == 0)[:, None], keys[hot], -keys[hot] - 1)
+    vals = rand(64, 4)
+    check("fastpath", fp_k, "int32 keys",
+          lambda i: lookup(xq, keys, vals, impl=i), True)
+    check("fastpath", fp_k, "host tensors",
+          lambda i: lookup(*host((xq, keys, vals)), impl=i), False)
+    check("fastpath", fp_k, "float queries",
+          lambda i: lookup(xq.float(), keys.float(), vals, impl=i), False)
+    wk = torch.randint(0, 3, (64, 33), generator=gen).to("cuda", torch.int32)
+    wx = wk[torch.randint(0, 64, (512,), generator=gen).to("cuda")]
+    cases = {"float keys": ((xq, keys.float(), vals), TypeError),
+             "fp16 values": ((xq, keys, vals.half()), TypeError),
+             "key width 33": ((wx, wk, vals), ValueError)}
+    for label, (args, error) in cases.items():
+        gap("fastpath", fp_k, label,
+            lambda a=args: lookup(*a, impl="cuda"), error)
+
+    # A stale spec_state restored into a handler on the card: the handler
+    # keeps serving its generic variant (K1 through the default impl).
+    def builder(spec):
+        impl = registry.impl_point(spec, "rmsnorm")
+
+        def step(x, w):
+            return rmsnorm(x, w, impl=impl)
+        return step
+
+    path = SCRATCH / "guards_spec_state.json"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({"version": 2, "handlers": {"norm": {
+        "contexts": {encode_context_key(DEFAULT_CONTEXT):
+                     {"no_such_point": 1}}}}}))
+    rt = IridescentRuntime(max_compile_workers=1)
+    try:
+        h = rt.register("norm", builder)
+        applied = restore_spec_state(str(path), rt, wait=True)
+        l0 = rms_k.launches
+        out = h(x, w)
+        torch.cuda.synchronize()
+        stale = h.stats()["stale_configs"]
+        active = h.active_config()
+        launched = rms_k.launches - l0
+    finally:
+        rt.shutdown()
+    err = float((out - rmsnorm(x, w, impl="torch_ref")).abs().max())
+    log(f"guards: stale spec_state restored (applied {applied}): active "
+        f"config {active}, stale configs counted {stale}, the generic "
+        f"variant's call made {launched} K1 launch(es), max |out - "
+        f"torch_ref| {err:.3e}")
+    if applied or active != {} or stale != 1:
+        fail(f"guards: stale spec_state: applied {applied}, active config "
+             f"{active}, {stale} stale configs counted; wanted False, {{}}, "
+             f"1")
+    if launched != 1 or not err <= GUARD_TOL["rmsnorm"][0] * (
+            1 + float(out.abs().max())):
+        fail(f"guards: stale spec_state: the generic variant made "
+             f"{launched} K1 launches, max |out - torch_ref| {err:.3e}")
+
+    # K1's guards at qwen3's decode shapes (batch 8: the residual rows,
+    # and the q/k pair of 16 and 8 heads of 128), timed on the host.
+    qn, kn, hw = rand(8, 16, 1, 128), rand(8, 8, 1, 128), rand(128)
+    us = {}
+    for kind, fn in (("single", lambda: rms_ops._guard(x, w)),
+                     ("pair", lambda: rms_ops._pair_guard(qn, hw, kn, hw))):
+        if not fn():
+            fail(f"guards: K1's {kind} guard misses a decode-shape call")
+        t0 = time.perf_counter()
+        for _ in range(GUARD_TIMING_CALLS):
+            fn()
+        us[kind] = 1e6 * (time.perf_counter() - t0) / GUARD_TIMING_CALLS
+    step_ms = sum(us[k] * decode_by_kind[k] for k in us) / 1e3
+    log(f"guards: K1's guard {us['single']:.2f} us a call, the pair's "
+        f"{us['pair']:.2f} us; on a decode step ({decode_by_kind['single']} "
+        f"single, {decode_by_kind['pair']} pair launches) "
+        f"{step_ms:.3f} host ms")
+    return {"checks": checks, "stale": {"active": active,
+                                         "stale_configs": stale},
+            "k1_guard_us": us, "k1_guard_ms_a_decode_step": step_ms}
+
+
 def phase_main_path(cfg) -> dict:
     import torch
 
@@ -1893,6 +2186,10 @@ def phase_main_path(cfg) -> dict:
         f"{k} {v:.2f}s ({1e3 * v / max(per.get(k, n_steps), 1):.1f} "
         f"ms/{'step' if k in per else 'call'})"
         for k, v in spent.items()) + f"; wall {wall:.2f}s")
+    decode_host_ms = 1e3 * spent.get("decode steps", 0.0) / max(
+        per["decode steps"], 1)
+    log(f"main path: host ms a decode step {decode_host_ms:.1f} (PR 15: "
+        f"{PR15_DECODE_HOST_MS}; a record, not a gate)")
     log(f"main path: per-context configs {json.dumps(configs)}")
     generic = f"{registry.resolve('rmsnorm', None).name} (generic)"
     active = {str(k): built.handler.active_config(context=k).get(
@@ -1923,7 +2220,8 @@ def phase_main_path(cfg) -> dict:
     if any(k.startswith("rmsnorm/") for k in fallbacks):
         fail(f"rmsnorm fell back on the serve path: {fallbacks}")
     return {"launches": launches, "built": built, "spent": spent,
-            "wall": wall, "steps": stats["phase_steps"]}
+            "wall": wall, "steps": stats["phase_steps"],
+            "decode_host_ms": decode_host_ms}
 
 
 def phase_parity(cfg, params) -> dict:
@@ -5379,6 +5677,16 @@ def _dryrun_held_to_card(cfg, mesh) -> dict:
             "memory_ms": rf["memory_s"] * 1e3, "probe_s": probe_s}
 
 
+def _dryrun_errors(out: Path, what: str) -> None:
+    """Fail, naming each cell, if the dry run left a ``<cell>.error.txt``
+    under ``out`` (it exits 0 when a cell fails, as the reference's)."""
+    errors = sorted(out.rglob("*.error.txt"))
+    if errors:
+        fail(f"{what}: failed cells " + "; ".join(
+            f"{e.relative_to(out).with_suffix('').with_suffix('')}: "
+            f"{e.read_text().strip().splitlines()[-1]}" for e in errors))
+
+
 def _dryrun_cli() -> dict:
     """Phase 24c: the dry-run CLI on the single-pod production mesh (256
     ranks of the fake backend) for qwen3-0.6b's decode_32k under
@@ -5394,6 +5702,7 @@ def _dryrun_cli() -> dict:
          "--out", str(out)], capture_output=True, text=True, timeout=900,
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     secs = time.perf_counter() - t0
+    _dryrun_errors(out, "dry run CLI")
     art = out / "single" / "qwen3-0.6b__decode_32k.json"
     if proc.returncode != 0 or not art.exists():
         fail(f"dry run CLI: exit {proc.returncode}, artifact "
@@ -5433,6 +5742,7 @@ def _dryrun_hymba() -> dict:
          "--out", str(out)], capture_output=True, text=True, timeout=900,
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     secs = time.perf_counter() - t0
+    _dryrun_errors(out, "dry run CLI (hymba)")
     art = out / "single" / "hymba-1.5b__prefill_32k__c2_logitsbf16.json"
     if proc.returncode != 0 or not art.exists():
         fail(f"dry run CLI (hymba): exit {proc.returncode}, artifact "
@@ -5560,6 +5870,7 @@ def main(argv: list[str]) -> None:
     linatt = timed(phase_linear_attention)
     mm = timed(phase_matmul)
     fpk = timed(phase_fastpath)
+    guards = timed(phase_guards, rms["decode_by_kind"])
     main_path = timed(phase_main_path, cfg)
     params = main_path.pop("built").params
     serve = timed(phase_parity, cfg, params)
@@ -5841,6 +6152,14 @@ def main(argv: list[str]) -> None:
                f"all-hit call of the specialized function",
         "shapes": fpk["per_shape"],
     }]
+    for entry in kernels:
+        entry["guards"] = [{"case": c["case"], "launches": c["launches"],
+                            "fallbacks": c["fallbacks"],
+                            "raised": c["raised"]}
+                           for c in guards["checks"]
+                           if c["kernel"] == entry["name"]]
+    kernels[0]["serve_decode_host_ms"] = main_path["decode_host_ms"]
+    kernels[0]["guard_ms_a_decode_step"] = guards["k1_guard_ms_a_decode_step"]
     log("phase wall seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

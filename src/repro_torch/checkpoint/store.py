@@ -260,6 +260,8 @@ def restore_spec_state(path: str, runtime: Any, wait: bool = False) -> bool:
                             "quarantined with no last-known-good; "
                             "keeping generic", name, enc_key)
                         continue
+                if handler.stale(decoded, decode_context_key(enc_key)):
+                    continue                   # logged and counted there
                 if enc_key == default_enc:
                     handler.specialize(decoded, wait=wait)
                 else:

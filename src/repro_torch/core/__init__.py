@@ -25,7 +25,7 @@ persistent variant cache of built kernel libraries (``VariantCache``).
 from repro_torch.core.points import (DISABLED, AssumePoint, Config,
                                      CustomPoint, EnumPoint, GenericPoint,
                                      RangePoint, SpecPoint, SpecSpace,
-                                     cartesian, config_key)
+                                     StaleConfigError, cartesian, config_key)
 from repro_torch.core.specializer import (SpecCtx, Specialized,
                                           discover_space, specialize_builder)
 from repro_torch.core.variant_cache import VariantCache
@@ -50,7 +50,8 @@ from repro_torch.core.telemetry import EventBus, export_chrome_trace
 
 __all__ = [
     "DISABLED", "AssumePoint", "Config", "CustomPoint", "EnumPoint",
-    "GenericPoint", "RangePoint", "SpecPoint", "SpecSpace", "cartesian",
+    "GenericPoint", "RangePoint", "SpecPoint", "SpecSpace",
+    "StaleConfigError", "cartesian",
     "config_key", "SpecCtx", "Specialized", "discover_space",
     "specialize_builder", "CompileService", "PRIORITY_ACTIVATE",
     "PRIORITY_SPECULATIVE", "VariantCache", "ContextView", "DEFAULT_CONTEXT",

@@ -221,6 +221,10 @@ class Controller:
                 lambda cfg, _k=key: self.quarantine.blocked(name, _k, cfg))
         self._ctls[key] = ctl
         init = self._initial_config_for(key)
+        if init is not None and self.handler.stale(init, key):
+            # Points renamed or choices changed since it was saved: the
+            # handler's space rejects it, so the context explores afresh.
+            init = None
         if init is not None and self._quarantined(ctl, init):
             logger.warning("controller[%s/%r]: restored config %s is "
                            "quarantined; exploring fresh", self.handler.name,

@@ -34,6 +34,7 @@ __all__ = [
     "AssumePoint",
     "CustomPoint",
     "SpecSpace",
+    "StaleConfigError",
     "Config",
     "config_key",
     "cartesian",
@@ -195,6 +196,18 @@ class CustomPoint(SpecPoint):
     generator: str = ""
 
 
+class StaleConfigError(KeyError, ValueError):
+    """A configuration the space rejects: an unknown point, a value outside
+    a point's choices, or no mapping at all (say, one restored from a run
+    whose builder declared other points).  It is a ``KeyError`` and a
+    ``ValueError``, the two errors the reference's ``validate`` raises.
+    The runtime never builds such a configuration: the context keeps its
+    current variant, unlike a valid configuration whose build fails."""
+
+    def __str__(self) -> str:
+        return str(self.args[0]) if self.args else ""
+
+
 class SpecSpace:
     """The specialization space: the set of points a handler declared.
 
@@ -252,12 +265,18 @@ class SpecSpace:
         return {label: DISABLED for label in self._points}
 
     def validate(self, config: Config) -> None:
+        """Raise :class:`StaleConfigError` unless ``config`` is a mapping of
+        this space's labels to values their points accept."""
+        if not isinstance(config, Mapping):
+            raise StaleConfigError(f"a configuration is a mapping of point "
+                                   f"labels, got {type(config).__name__}")
         for label, value in config.items():
             if label not in self._points:
-                raise KeyError(f"unknown specialization point {label!r}; "
-                               f"space has {sorted(self._points)}")
+                raise StaleConfigError(
+                    f"unknown specialization point {label!r}; "
+                    f"space has {sorted(self._points)}")
             if not self._points[label].validate(value):
-                raise ValueError(
+                raise StaleConfigError(
                     f"value {value!r} invalid for point {self._points[label]}")
 
     def configs(

@@ -62,7 +62,8 @@ from repro_torch.core.compile_service import (CompileService,
                                               PRIORITY_SPECULATIVE)
 from repro_torch.core.metrics import (AtomicCounter, ThroughputCounter,
                                       ThroughputWindow)
-from repro_torch.core.points import DISABLED, Config, SpecSpace, config_key
+from repro_torch.core.points import (DISABLED, Config, SpecSpace,
+                                     StaleConfigError, config_key)
 from repro_torch.core.specializer import Specialized, specialize_builder
 from repro_torch.core.variant_cache import VariantCache
 
@@ -433,6 +434,8 @@ class Handler:
         self.recorders = instr_mod.RecorderSet()
         self._instr_rate = 0.0
         self._guard_miss_counter = AtomicCounter()
+        #: configurations the space rejected (:meth:`_refuse_stale`)
+        self._stale_counter = AtomicCounter()
         #: shadow-evaluation tap: fn(ctx_key, args, kwargs), called on the
         #: slow path so an evaluator can mirror live arguments off-path
         self._shadow_tap: Callable[[Any, tuple, dict], None] | None = None
@@ -641,9 +644,44 @@ class Handler:
             return ctx.epoch
 
     # -- install / compile pipeline ---------------------------------------------
+    def stale(self, config: Any, context: Any = None) -> bool:
+        """Whether the handler's space rejects ``config`` (an unknown
+        point, a value outside a point's choices, no mapping): counted and
+        logged as :meth:`specialize` would.  Restore paths skip such a
+        configuration instead of submitting it."""
+        try:
+            self.space.validate(config)
+        except StaleConfigError as err:
+            self._refuse_stale(context, config, err)
+            return True
+        return False
+
+    def _refuse_stale(self, context: Any, config: Any,
+                      err: StaleConfigError) -> None:
+        """Count and log a configuration the space rejected.  It is never
+        built: the context keeps serving its current variant (the generic
+        one after a restore) and nothing is parked on it, as in the
+        reference, where only a ``wait=True`` caller sees the error."""
+        self._stale_counter.bump()
+        logger.warning("handler %s context %r: stale configuration %r (%s); "
+                       "keeping the current variant", self.name,
+                       DEFAULT_CONTEXT if context is None else context,
+                       config, err)
+
     def _install(self, ctx: _Context, config: Config, wait: bool,
                  activate: bool, instrument: bool = False,
                  speculative: bool = False) -> concurrent.futures.Future:
+        # A configuration the space rejects is stale, not a failed build:
+        # refuse it before anything is cancelled, superseded or submitted.
+        try:
+            self.space.validate(config)
+        except StaleConfigError as err:
+            self._refuse_stale(ctx.key, config, err)
+            if wait:
+                raise
+            fut: concurrent.futures.Future = concurrent.futures.Future()
+            fut.set_exception(err)
+            return fut
         key = (ctx.key, config_key(config), bool(instrument))
         epoch = self._next_epoch(ctx) if activate else None
         with self._lock:
@@ -1042,6 +1080,7 @@ class Handler:
             "variants": len(vs),
             "contexts": per_context,
             "guard_misses": self.guard_misses,
+            "stale_configs": self._stale_counter.value(),
             "active": dict(active.config) if active is not None else None,
             "compiled": sum(1 for _, v in vs if v.compiled),
             "from_cache": sum(1 for _, v in vs if v.from_cache),

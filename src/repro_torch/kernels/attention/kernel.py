@@ -36,7 +36,7 @@ from repro_torch.kernels.common import refuse_autograd
 __all__ = ["BLOCK_Q", "BLOCK_KV", "BODIES", "DEFAULT_BLOCK_Q",
            "DEFAULT_BLOCK_KV", "MAX_HEAD_DIM", "MAX_VALUE_HEAD_DIM", "SOURCE",
            "body", "flash_attention_cuda", "launches", "load_library",
-           "reset_launches"]
+           "reset_launches", "unsupported"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -108,6 +108,50 @@ def body(dtype: torch.dtype, d: int, dv: int, *,
             "stages": stages.value}
 
 
+def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                window: int | None = None, block_q: int = DEFAULT_BLOCK_Q,
+                block_kv: int = DEFAULT_BLOCK_KV) -> Exception | None:
+    """The error :func:`flash_attention_cuda` raises on ``q``, ``k``,
+    ``v`` for what the library does not instantiate (a dtype other than
+    fp32 or bf16, head dims over :data:`MAX_HEAD_DIM` /
+    :data:`MAX_VALUE_HEAD_DIM`, a tile pair outside :data:`BLOCK_Q` x
+    :data:`BLOCK_KV`, grids and indices past their limits) or for shapes
+    that disagree; None where it takes them.  Reads dtypes and shapes only,
+    so it runs on the CPU; devices and layout are the wrapper's to check."""
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            return TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.ndim != 3:
+            return ValueError(f"{name} must be 3-D (heads, seq, dim), got "
+                              f"{tuple(t.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        return TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    bh, sq, d = q.shape
+    bhk, skv, dk = k.shape
+    dv = v.shape[2]
+    if dk != d or v.shape[:2] != (bhk, skv):
+        return ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                          f"{tuple(v.shape)} do not agree")
+    if bhk == 0 or bh % bhk:
+        return ValueError(f"{bh} query heads do not group over {bhk} kv "
+                          f"heads")
+    if d > MAX_HEAD_DIM or dv > MAX_VALUE_HEAD_DIM:
+        return ValueError(f"head dims ({d}, {dv}) exceed the kernel's "
+                          f"({MAX_HEAD_DIM}, {MAX_VALUE_HEAD_DIM})")
+    if block_q not in BLOCK_Q or block_kv not in BLOCK_KV:
+        return ValueError(f"(block_q, block_kv) must be in {BLOCK_Q} x "
+                          f"{BLOCK_KV}, got ({block_q}, {block_kv})")
+    if (bh > _MAX_GRID_Y or bh * -(-sq // block_q) > _MAX_BLOCKS
+            or max(q.numel(), k.numel(), v.numel(), bh * sq * dv) >= 2 ** 31):
+        return ValueError(f"shapes {tuple(q.shape)}, {tuple(v.shape)} "
+                          f"exceed the kernel's grid or 32-bit index range")
+    if window is not None and window <= 0:
+        return ValueError(f"window must be positive, got {window}")
+    return None
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          scale: float | None = None,
@@ -127,37 +171,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{name} is on {t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.ndim != 3:
-            raise ValueError(f"{name} must be 3-D (heads, seq, dim), got "
-                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_cuda needs contiguous "
                              f"tensors; {name} is not")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+    err = unsupported(q, k, v, window=window, block_q=block_q,
+                      block_kv=block_kv)
+    if err is not None:
+        raise err
     bh, sq, d = q.shape
-    bhk, skv, dk = k.shape
+    bhk, skv, _ = k.shape
     dv = v.shape[2]
-    if dk != d or v.shape[:2] != (bhk, skv):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} do not agree")
-    if bhk == 0 or bh % bhk:
-        raise ValueError(f"{bh} query heads do not group over {bhk} kv heads")
-    if d > MAX_HEAD_DIM or dv > MAX_VALUE_HEAD_DIM:
-        raise ValueError(f"head dims ({d}, {dv}) exceed the kernel's "
-                         f"({MAX_HEAD_DIM}, {MAX_VALUE_HEAD_DIM})")
-    if block_q not in BLOCK_Q or block_kv not in BLOCK_KV:
-        raise ValueError(f"(block_q, block_kv) must be in {BLOCK_Q} x "
-                         f"{BLOCK_KV}, got ({block_q}, {block_kv})")
-    if (bh > _MAX_GRID_Y or bh * -(-sq // block_q) > _MAX_BLOCKS
-            or max(q.numel(), k.numel(), v.numel(), bh * sq * dv) >= 2 ** 31):
-        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(v.shape)} exceed "
-                         f"the kernel's grid or 32-bit index range")
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
     scale = scale if scale is not None else d ** -0.5
     q_offset = q_offset if q_offset is not None else skv - sq
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)

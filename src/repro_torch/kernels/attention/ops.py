@@ -4,12 +4,18 @@ Input layout is ``(B, H, S, D)``, as in the reference.  Two entries:
 ``torch_ref`` (the plain version, :mod:`.ref`, with the banded
 sliding-window variant) and ``cuda`` (the hand-written flash attention,
 :mod:`.kernel`), which flattens (B, H) into the kernel's head dimension
-and reads kv head ``h // group`` in the kernel.  A tensor on the CPU that
-asks for ``cuda`` misses the guard and runs ``torch_ref``, counted in the
-registry's ``fallback_counts``; a CUDA tensor that reaches ``cuda``
-launches the kernel or raises.  The reference's guard also sends sequence
-lengths that are not a multiple of the tiles to its plain version; the
-CUDA kernel masks the ragged edge tiles instead, so it takes every length.
+and reads kv head ``h // group`` in the kernel.  The ``cuda`` guard is
+the card and the reference's own precondition
+(``src/repro/kernels/attention/ops.py::_guard``: 4-D float tensors, kv
+heads that group the query heads): any other call (a host tensor, integer
+inputs, heads that do not group) misses it and runs ``torch_ref``,
+counted in the registry's ``fallback_counts``.  A call that passes it
+launches the kernel or raises: what the kernel lacks (fp16, d over 192 or
+dv over 128, an uninstantiated tile) raises in the wrapper
+(``kernel.unsupported``) and never runs the plain version.  The
+reference's guard also sends sequence lengths that are not a multiple of
+the tiles to its plain version; the CUDA kernel masks the ragged edge
+tiles instead, so it takes every length and gives the same result.
 """
 from __future__ import annotations
 
@@ -30,11 +36,14 @@ PROFILE_RANGE = "repro_torch::attention"
 
 
 def _guard(q, k, v, **_kw):
-    # Decides by device only: a CUDA tensor the kernel cannot take (a
-    # dtype other than fp32/bf16, d over 192 or dv over 128, an
-    # uninstantiated tile) reaches the wrapper and raises there, never the
-    # plain version.
-    return q.device.type == "cuda"
+    # The card and the reference's precondition without its tile
+    # divisibility (the kernel masks the edge tiles), by attribute reads
+    # only.  A CUDA call the kernel cannot take passes and raises in the
+    # wrapper.
+    return (q.device.type == "cuda" and q.ndim == 4 and k.ndim == 4
+            and v.ndim == 4 and q.shape[1] % k.shape[1] == 0
+            and q.dtype.is_floating_point and k.dtype.is_floating_point
+            and v.dtype.is_floating_point)
 
 
 @registry.register("attention", "torch_ref", priority=0,

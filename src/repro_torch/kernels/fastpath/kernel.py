@@ -38,7 +38,8 @@ the common case runs one combined check, packs its arguments into one
 bytes object (the table's half packed once, in the :class:`PreparedTable`)
 and reads the current stream through PyTorch's raw-stream call; a call
 that fails the check goes through a ``_diagnose`` function, which raises
-the precise error.
+the precise error (of a dtype, shape or size the library lacks:
+:func:`unsupported`).
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ __all__ = ["BLOCK_B", "BODIES", "DEFAULT_BLOCK_B", "MAX_KEY_WIDTH",
            "MissReadback", "PreparedTable", "SOURCE", "body",
            "build_hashed", "fastpath_cuda", "fastpath_cuda_prepared",
            "hash_keys", "hash_min_keys", "launches", "load_library",
-           "prepare_table", "reset_launches"]
+           "prepare_table", "reset_launches", "unsupported"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fastpath.cu"
 
@@ -369,6 +370,40 @@ def _ok(t: torch.Tensor, dev: int) -> bool:
     return t.get_device() == dev and t.dim() == 2 and t.is_contiguous()
 
 
+def unsupported(x: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+                *, block_b: int = DEFAULT_BLOCK_B) -> Exception | None:
+    """The error :func:`fastpath_cuda` raises on these arguments for what
+    the library does not instantiate (queries and keys of one dtype other
+    than int32 or int64, a value dtype other than fp32, bf16, int32 or
+    int64, keys wider than :data:`MAX_KEY_WIDTH`, a ``block_b`` outside
+    :data:`BLOCK_B`, sizes past 32-bit indices) or for shapes that
+    disagree; None where it takes them.  Reads dtypes and shapes only, so
+    it runs on the CPU; devices and layout are the wrapper's to check."""
+    for what, t in (("x", x), ("keys", keys), ("values", values)):
+        if t.ndim != 2:
+            return ValueError(f"{what} must be 2-D, got {tuple(t.shape)}")
+    if x.dtype not in _KEY_CODES or keys.dtype != x.dtype:
+        return TypeError(f"queries and keys must share one dtype of int32 "
+                         f"or int64, got {x.dtype} and {keys.dtype}")
+    if values.dtype not in _VALUE_CODES:
+        return TypeError(f"values must be float32, bfloat16, int32 or "
+                         f"int64, got {values.dtype}")
+    b, kw = x.shape
+    n, v = values.shape
+    if keys.shape != (n, kw):
+        return ValueError(f"keys must be ({n}, {kw}), got "
+                          f"{tuple(keys.shape)}")
+    if not 1 <= kw <= MAX_KEY_WIDTH:
+        return ValueError(f"key width {kw} outside the kernel's 1..."
+                          f"{MAX_KEY_WIDTH}")
+    if block_b not in BLOCK_B:
+        return ValueError(f"block_b must be one of {BLOCK_B}, got "
+                          f"{block_b}")
+    if max(b * kw, n * kw, n * v, b * v, b + 32) >= _LIMIT:
+        return ValueError("sizes exceed the kernel's 32-bit indices")
+    return None
+
+
 def _diagnose(name: str, tensors: dict, block_b: int) -> None:
     """Raise the error a call that failed the combined check deserves."""
     x = tensors["x"]
@@ -381,26 +416,9 @@ def _diagnose(name: str, tensors: dict, block_b: int) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors; {what} is "
                              f"not")
-        if t.ndim != 2:
-            raise ValueError(f"{what} must be 2-D, got {tuple(t.shape)}")
-    keys = tensors.get("keys")
-    if x.dtype not in _KEY_CODES or keys.dtype != x.dtype:
-        raise TypeError(f"queries and keys must share one dtype of int32 "
-                        f"or int64, got {x.dtype} and {keys.dtype}")
-    values = tensors["values"]
-    if values.dtype not in _VALUE_CODES:
-        raise TypeError(f"values must be float32, bfloat16, int32 or int64, "
-                        f"got {values.dtype}")
-    b, kw = x.shape
-    n, v = values.shape
-    if keys.shape != (n, kw):
-        raise ValueError(f"keys must be ({n}, {kw}), got "
-                         f"{tuple(keys.shape)}")
-    if not 1 <= kw <= MAX_KEY_WIDTH:
-        raise ValueError(f"key width {kw} outside the kernel's 1..."
-                         f"{MAX_KEY_WIDTH}")
-    if block_b not in BLOCK_B:
-        raise ValueError(f"block_b must be one of {BLOCK_B}, got {block_b}")
+    err = unsupported(x, tensors["keys"], tensors["values"], block_b=block_b)
+    if err is not None:
+        raise err
     raise ValueError("sizes exceed the kernel's 32-bit indices")
 
 

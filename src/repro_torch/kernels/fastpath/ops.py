@@ -1,15 +1,16 @@
 """Public fast-path lookup op, registry-dispatched.
 
 Two entries: ``torch_ref`` (the plain version, :mod:`.ref`) and ``cuda``
-(the hand-written kernel, :mod:`.kernel`).  The ``cuda`` guard decides by
-device only: a host tensor misses it and runs ``torch_ref``, counted in
-the registry's ``fallback_counts``.  The reference's ``_guard``
-(``src/repro/kernels/fastpath/ops.py:28-32``) also sends float queries to
-its plain version; here a CUDA call the kernel cannot take (float
-queries, a value dtype, a key width or a ``block_b`` it lacks, shapes
-that disagree, a prepared table of another device or key dtype) raises in
-the wrapper.  Where the reference pads the batch to ``block_b``, the
-kernel masks the ragged tail.
+(the hand-written kernel, :mod:`.kernel`).  The ``cuda`` guard is the
+card and the reference's own precondition
+(``src/repro/kernels/fastpath/ops.py:29-33``: 2-D tensors, one key width,
+a value row a key, integer queries): any other call (a host tensor, float
+queries) misses it and runs ``torch_ref``, counted in the registry's
+``fallback_counts``.  A CUDA call that passes it and that the kernel
+cannot take (float keys, a value dtype, a key width or a ``block_b`` it
+lacks, a prepared table of another device or key dtype) raises in the
+entry or the wrapper (``kernel.unsupported``).  Where the reference pads
+the batch to ``block_b``, the kernel masks the ragged tail.
 
 A table that stays fixed across calls (a specialized handler's) is
 prepared once (:func:`prepare`) and passed as ``prepared=``: the ``cuda``
@@ -32,7 +33,12 @@ _INTEGER = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
 
 
 def _guard(x, keys, values, **_kw):
-    return x.device.type == "cuda"
+    # The card and the reference's precondition, by attribute reads only
+    # (it runs before every router launch).
+    return (x.device.type == "cuda" and x.ndim == 2 and keys.ndim == 2
+            and values.ndim == 2 and x.shape[1] == keys.shape[1]
+            and keys.shape[0] == values.shape[0]
+            and x.dtype in _INTEGER)
 
 
 @registry.register("fastpath", "torch_ref", priority=0,

@@ -33,7 +33,7 @@ from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["CHUNKS", "MAX_HEAD_DIM", "SOURCE", "launches",
            "load_library", "linear_attention_cuda", "reset_launches",
-           "workspace_floats"]
+           "unsupported", "workspace_floats"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "linear_attention.cu"
 
@@ -80,6 +80,56 @@ def workspace_floats(bh: int, t_len: int, dk: int, dv: int,
     return bh * -(-t_len // chunk) * dk * (dv + 1)
 
 
+def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_w: torch.Tensor, bonus: torch.Tensor | None = None, *,
+                inclusive: bool = False, chunk: int = 64) -> Exception | None:
+    """The error :func:`linear_attention_cuda` raises on these arguments
+    for what the library does not instantiate (a dtype other than fp32 or
+    bf16, with fp32 ``log_w`` and ``bonus``; head dims over
+    :data:`MAX_HEAD_DIM`; a chunk outside :data:`CHUNKS`; a bonus on the
+    inclusive recurrence; grids and indices past their limits) or for
+    shapes that disagree; None where it takes them.  Reads dtypes and
+    shapes only, so it runs on the CPU; devices and layout are the
+    wrapper's to check."""
+    if q.dtype not in _DTYPE_CODES:
+        return TypeError(f"linear_attention_cuda takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    for name, t, want in (("k", k, q.dtype), ("v", v, q.dtype),
+                          ("log_w", log_w, torch.float32),
+                          ("bonus", bonus, torch.float32)):
+        if t is not None and t.dtype != want:
+            return TypeError(f"{name} is {t.dtype}, wanted {want}")
+    if q.ndim != 3 or v.ndim != 3:
+        return ValueError(f"q and v must be 3-D (heads, seq, dim), got "
+                          f"{tuple(q.shape)}, {tuple(v.shape)}")
+    bh, t_len, dk = q.shape
+    dv = v.shape[2]
+    if (k.shape != q.shape or log_w.shape != q.shape
+            or v.shape[:2] != (bh, t_len)):
+        return ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                          f"{tuple(v.shape)} and log_w {tuple(log_w.shape)} "
+                          f"do not agree")
+    if bonus is not None:
+        if bonus.shape != (bh, dk):
+            return ValueError(f"bonus must be ({bh}, {dk}), got "
+                              f"{tuple(bonus.shape)}")
+        if inclusive:
+            return ValueError("a bonus is defined for the exclusive "
+                              "recurrence only (the reference's oracle "
+                              "ignores it when inclusive)")
+    if max(dk, dv) > MAX_HEAD_DIM:
+        return ValueError(f"head dims ({dk}, {dv}) exceed the kernel's "
+                          f"{MAX_HEAD_DIM}")
+    if chunk not in CHUNKS:
+        return ValueError(f"chunk must be in {CHUNKS}, got {chunk}")
+    if bh * -(-t_len // chunk) >= 2 ** 31 or max(
+            q.numel(), v.numel(), workspace_floats(bh, t_len, dk, dv,
+                                                   chunk)) >= 2 ** 31:
+        return ValueError(f"(bh, T) = ({bh}, {t_len}) exceed the kernel's "
+                          f"grid or 32-bit index range")
+    return None
+
+
 def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           log_w: torch.Tensor,
                           bonus: torch.Tensor | None = None, *,
@@ -104,42 +154,12 @@ def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"linear_attention_cuda needs contiguous "
                              f"tensors; {name} is not")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"linear_attention_cuda takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    for name, t, want in (("k", k, q.dtype), ("v", v, q.dtype),
-                          ("log_w", log_w, torch.float32),
-                          ("bonus", bonus, torch.float32)):
-        if t is not None and t.dtype != want:
-            raise TypeError(f"{name} is {t.dtype}, wanted {want}")
-    if q.ndim != 3 or v.ndim != 3:
-        raise ValueError(f"q and v must be 3-D (heads, seq, dim), got "
-                         f"{tuple(q.shape)}, {tuple(v.shape)}")
+    err = unsupported(q, k, v, log_w, bonus, inclusive=inclusive,
+                      chunk=chunk)
+    if err is not None:
+        raise err
     bh, t_len, dk = q.shape
     dv = v.shape[2]
-    if (k.shape != q.shape or log_w.shape != q.shape
-            or v.shape[:2] != (bh, t_len)):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)} and log_w {tuple(log_w.shape)} "
-                         f"do not agree")
-    if bonus is not None:
-        if bonus.shape != (bh, dk):
-            raise ValueError(f"bonus must be ({bh}, {dk}), got "
-                             f"{tuple(bonus.shape)}")
-        if inclusive:
-            raise ValueError("a bonus is defined for the exclusive "
-                             "recurrence only (the reference's oracle "
-                             "ignores it when inclusive)")
-    if max(dk, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"head dims ({dk}, {dv}) exceed the kernel's "
-                         f"{MAX_HEAD_DIM}")
-    if chunk not in CHUNKS:
-        raise ValueError(f"chunk must be in {CHUNKS}, got {chunk}")
-    if bh * -(-t_len // chunk) >= 2 ** 31 or max(
-            q.numel(), v.numel(), workspace_floats(bh, t_len, dk, dv,
-                                                   chunk)) >= 2 ** 31:
-        raise ValueError(f"(bh, T) = ({bh}, {t_len}) exceed the kernel's "
-                         f"grid or 32-bit index range")
     out = torch.empty((bh, t_len, dv), dtype=v.dtype, device=v.device)
     if bh == 0 or t_len == 0:
         return out

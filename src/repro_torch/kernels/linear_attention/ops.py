@@ -2,12 +2,16 @@
 
 Layout ``(BH, T, ·)``, as in the reference.  Two entries: ``torch_ref``
 (the plain version, :mod:`.ref`) and ``cuda`` (the hand-written kernel,
-:mod:`.kernel`).  A tensor on the CPU that asks for ``cuda`` misses the
-guard and runs ``torch_ref``, counted in the registry's
-``fallback_counts``; a CUDA tensor that reaches ``cuda`` launches the
-kernel or raises.  The reference's guard also sends a length that is not a
-multiple of the chunk to its plain version; the CUDA kernel masks the
-ragged tail instead, so it takes every length.
+:mod:`.kernel`).  The ``cuda`` guard is the card and the reference's own
+precondition (``src/repro/kernels/linear_attention/ops.py::_guard``: 3-D
+float inputs): any other call (a host tensor, integer inputs) misses it
+and runs ``torch_ref``, counted in the registry's ``fallback_counts``.  A
+call that passes it launches the kernel or raises: what the kernel lacks
+(fp16, a head dim over 128, a chunk the library lacks) raises in the
+wrapper (``kernel.unsupported``) and never runs the plain version.  The
+reference's guard also sends a length that is not a multiple of the chunk
+to its plain version; the CUDA kernel masks the ragged tail instead, so
+it takes every length and gives the same result.
 """
 from __future__ import annotations
 
@@ -23,10 +27,11 @@ __all__ = ["linear_attention"]
 
 
 def _guard(q, k, v, log_w, **_kw):
-    # Decides by device only: a CUDA tensor the kernel cannot take (a
-    # dtype other than fp32/bf16, a head dim over 128, a chunk the library
-    # lacks) reaches the wrapper and raises there, never the plain version.
-    return q.device.type == "cuda"
+    # The card and the reference's precondition without its chunk
+    # divisibility (the kernel masks the tail), by attribute reads only.
+    # A CUDA call the kernel cannot take passes and raises in the wrapper.
+    return (q.device.type == "cuda" and q.ndim == 3 and k.ndim == 3
+            and v.ndim == 3 and q.dtype.is_floating_point)
 
 
 @registry.register("linear_attention", "torch_ref", priority=0,

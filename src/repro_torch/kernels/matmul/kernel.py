@@ -46,7 +46,7 @@ from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["BODIES", "CARD_TILES", "DEFAULT_TILES", "SOURCE", "TEST_TILES",
            "TILES", "body", "launches", "load_library", "matmul_cuda",
-           "reset_launches"]
+           "reset_launches", "unsupported"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 
@@ -100,6 +100,42 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def unsupported(x: torch.Tensor, y: torch.Tensor, *,
+                bm: int = DEFAULT_TILES[0], bn: int = DEFAULT_TILES[1],
+                bk: int = DEFAULT_TILES[2],
+                out_dtype: torch.dtype | None = None,
+                assume_divisible: bool = False) -> Exception | None:
+    """The error :func:`matmul_cuda` raises on ``x`` and ``y`` for what the
+    library does not instantiate (a dtype pair, a tile triple outside
+    :data:`TILES`, the grid's and 32-bit limits), for shapes that disagree
+    or, under ``assume_divisible``, that the tiles do not divide; None
+    where it takes them.  Reads dtypes and shapes only, so it runs on the
+    CPU; devices and layout are the wrapper's to check."""
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
+        return ValueError(f"need x (m, k) and y (k, n), got "
+                          f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if x.dtype != y.dtype:
+        return TypeError(f"x is {x.dtype}, y is {y.dtype}: one dtype")
+    out_dtype = out_dtype or x.dtype
+    if (x.dtype, out_dtype) not in _PAIRS:
+        return TypeError(f"matmul_cuda takes float32 -> float32 and "
+                         f"bfloat16 -> bfloat16 or float32, got {x.dtype} "
+                         f"-> {out_dtype}")
+    tiles = (int(bm), int(bn), int(bk))
+    if tiles not in TILES:
+        return ValueError(f"tiles {tiles} are not instantiated; the library "
+                          f"has {TILES}")
+    m, k = x.shape
+    n = y.shape[1]
+    if assume_divisible and (m % bm or n % bn or k % bk):
+        return ValueError(f"assume_divisible: shape ({m},{k})x({k},{n}) is "
+                          f"not a multiple of the tiles {tiles}")
+    if max(m, n, k) >= 2 ** 31 or -(-m // bm) > 65535:
+        return ValueError(f"shape ({m},{k})x({k},{n}) exceeds the kernel's "
+                          f"grid or 32-bit sizes")
+    return None
+
+
 def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
                 bm: int = DEFAULT_TILES[0], bn: int = DEFAULT_TILES[1],
                 bk: int = DEFAULT_TILES[2],
@@ -122,28 +158,14 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
                              f"is not")
     if y.device != x.device:
         raise ValueError(f"y on {y.device}, x on {x.device}")
-    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
-        raise ValueError(f"need x (m, k) and y (k, n), got {tuple(x.shape)} "
-                         f"and {tuple(y.shape)}")
-    if x.dtype != y.dtype:
-        raise TypeError(f"x is {x.dtype}, y is {y.dtype}: one dtype")
+    err = unsupported(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                      assume_divisible=assume_divisible)
+    if err is not None:
+        raise err
     out_dtype = out_dtype or x.dtype
-    if (x.dtype, out_dtype) not in _PAIRS:
-        raise TypeError(f"matmul_cuda takes float32 -> float32 and bfloat16 "
-                        f"-> bfloat16 or float32, got {x.dtype} -> "
-                        f"{out_dtype}")
     tiles = (int(bm), int(bn), int(bk))
-    if tiles not in TILES:
-        raise ValueError(f"tiles {tiles} are not instantiated; the library "
-                         f"has {TILES}")
     m, k = x.shape
     n = y.shape[1]
-    if assume_divisible and (m % bm or n % bn or k % bk):
-        raise ValueError(f"assume_divisible: shape ({m},{k})x({k},{n}) is "
-                         f"not a multiple of the tiles {tiles}")
-    if max(m, n, k) >= 2 ** 31 or -(-m // bm) > 65535:
-        raise ValueError(f"shape ({m},{k})x({k},{n}) exceeds the kernel's "
-                         f"grid or 32-bit sizes")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out

@@ -6,16 +6,19 @@ its edge masking; the host guard at the handler level ensures the
 assumption actually holds.
 
 Two entries: ``torch_ref`` (the plain version, :mod:`.ref`) and ``cuda``
-(the hand-written kernel, :mod:`.kernel`).  The ``cuda`` guard decides by
-device only: a call on the card goes to the kernel, a host tensor misses
-it and runs ``torch_ref``, counted in the registry's ``fallback_counts``.
-The reference's guard (``src/repro/kernels/matmul/ops.py:37-52``) also
-sends a call with ``assume_divisible=True`` whose shape is not a multiple
-of the tiles to its plain version; here that call runs the kernel's
-edge-masked instantiation instead, which takes any shape.  A CUDA call
-the kernel cannot take (a dtype or a tile triple it lacks) raises in the
-wrapper; it never silently runs the plain version.  Where the reference
-pads a ragged shape up to the tiles, the kernel masks the edge.
+(the hand-written kernel, :mod:`.kernel`).  The ``cuda`` guard is the
+card and the reference's own precondition
+(``src/repro/kernels/matmul/ops.py:37-52``: 2-D float operands of one
+inner dim): any other call (a host tensor, integer operands) misses it
+and runs ``torch_ref``, counted in the registry's ``fallback_counts``.
+The reference's guard also sends a call with ``assume_divisible=True``
+whose shape is not a multiple of the tiles to its plain version; here
+that call runs the kernel's edge-masked instantiation instead, which
+takes any shape and gives the same product.  A CUDA call the kernel
+cannot take (a dtype or a tile triple it lacks) raises in the wrapper
+(``kernel.unsupported``); it never silently runs the plain version.
+Where the reference pads a ragged shape up to the tiles, the kernel masks
+the edge.
 """
 from __future__ import annotations
 
@@ -32,7 +35,12 @@ _BM, _BN, _BK = DEFAULT_TILES
 
 
 def _guard(x, y, **_kw):
-    return x.device.type == "cuda"
+    # The card and the reference's precondition without its divisibility
+    # under assume_divisible (the entry runs the masked instantiation), by
+    # attribute reads only.
+    return (x.device.type == "cuda" and x.ndim == 2 and y.ndim == 2
+            and x.shape[1] == y.shape[0] and x.dtype.is_floating_point
+            and y.dtype.is_floating_point)
 
 
 @registry.register("matmul", "torch_ref", priority=0,

@@ -19,7 +19,8 @@ A launch is on the decode step's critical path, where the host's part of
 it costs more than the device's, so the common case runs one combined
 check and reads the current stream through PyTorch's raw-stream call; a
 call that fails the check goes through :func:`_diagnose`, which raises the
-precise error.
+precise error (of a dtype, shape or size the library lacks:
+:func:`unsupported`).
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from repro_torch.kernels.common import refuse_autograd
 
 __all__ = ["BLOCK_ROWS", "DEFAULT_BLOCK_ROWS", "SOURCE", "launches",
            "load_library", "reset_launches", "rmsnorm_cuda",
-           "rmsnorm_pair_cuda", "row_dense", "uses_registers"]
+           "rmsnorm_pair_cuda", "row_dense", "unsupported",
+           "uses_registers"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
@@ -118,6 +120,32 @@ def _ok(x: torch.Tensor, weight: torch.Tensor, dev: int, d: int) -> bool:
             and (x.numel() <= _MAX_ROWS or x.numel() // d <= _MAX_ROWS))
 
 
+def unsupported(x: torch.Tensor, weight: torch.Tensor, *,
+                block_rows: int = DEFAULT_BLOCK_ROWS) -> Exception | None:
+    """The error :func:`rmsnorm_cuda` raises on ``x`` and ``weight`` for
+    what the library does not instantiate (a dtype other than fp32 or bf16
+    rows and an fp32 weight, a block size, more rows than 32-bit indices
+    reach) or for shapes that disagree; None where it takes them.  Reads
+    dtypes and shapes only, so it runs on the CPU; devices and layout are
+    the wrapper's to check."""
+    if x.dtype not in _DTYPE_CODES:
+        return TypeError(f"rmsnorm_cuda takes float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if weight.dtype != torch.float32:
+        return TypeError(f"weight must be float32, got {weight.dtype}")
+    if x.ndim < 1 or weight.shape != x.shape[-1:]:
+        return ValueError(f"need x (..., d) and weight (d,), got "
+                          f"{tuple(x.shape)} and {tuple(weight.shape)}")
+    if block_rows not in BLOCK_ROWS:
+        return ValueError(f"block_rows must be one of {BLOCK_ROWS}, got "
+                          f"{block_rows}")
+    n = x.numel()
+    if n > _MAX_ROWS and n // x.size(-1) > _MAX_ROWS:
+        return ValueError(f"shape {tuple(x.shape)} exceeds the kernel's "
+                          f"32-bit row indices")
+    return None
+
+
 def _diagnose(name: str, x: torch.Tensor, weight: torch.Tensor, dev: int,
               block_rows: int) -> None:
     """Raise the error a call that failed :func:`_ok` on device ``dev``
@@ -129,22 +157,12 @@ def _diagnose(name: str, x: torch.Tensor, weight: torch.Tensor, dev: int,
                          f"cuda:{dev} and {x.device}")
     if weight.device != x.device:
         raise ValueError(f"weight on {weight.device}, x on {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
-    if weight.dtype != torch.float32:
-        raise TypeError(f"weight must be float32, got {weight.dtype}")
-    if x.ndim < 1 or weight.shape != x.shape[-1:]:
-        raise ValueError(f"need x (..., d) and weight (d,), got "
-                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
-    if not (row_dense(x) and weight.is_contiguous()):
-        raise ValueError(f"{name} needs a contiguous weight and an x whose "
-                         f"last dimension is contiguous and whose elements "
-                         f"are dense; got strides {x.stride()}")
-    if block_rows not in BLOCK_ROWS:
-        raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, "
-                         f"got {block_rows}")
-    raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's 32-bit "
-                     f"row indices")
+    err = unsupported(x, weight, block_rows=block_rows)
+    if err is not None:
+        raise err
+    raise ValueError(f"{name} needs a contiguous weight and an x whose last "
+                     f"dimension is contiguous and whose elements are "
+                     f"dense; got strides {x.stride()}")
 
 
 def _launch_failed(err: int) -> None:

@@ -6,9 +6,13 @@ both).  Each has two entries: ``torch_ref`` (the plain version, :mod:`.ref`;
 for the pair, two plain calls) and ``cuda`` (the hand-written kernel,
 :mod:`.kernel`).  Both ops take their implementation from one choice (the
 models pass ``rmsnorm_impl`` to each), so exploring that spec point covers
-every norm.  A tensor on the CPU that asks for ``cuda`` misses the guard
-and runs ``torch_ref``, counted in the registry's ``fallback_counts``; a
-CUDA tensor that reaches ``cuda`` launches the kernel or raises.
+every norm.  The ``cuda`` guard is the card and the reference's own
+precondition (``src/repro/kernels/rmsnorm/ops.py::_guard``: float rows of
+the weight's width): any other call (a host tensor, integer rows, a
+weight of another width) misses it and runs ``torch_ref``, counted in the
+registry's ``fallback_counts``.  A call that passes it launches the kernel
+or raises: a dtype the kernel lacks, such as fp16 or fp64 rows, raises in
+the wrapper (``kernel.unsupported``) and never runs the plain version.
 """
 from __future__ import annotations
 
@@ -22,11 +26,17 @@ from repro_torch.kernels.rmsnorm.kernel import DEFAULT_BLOCK_ROWS
 __all__ = ["rmsnorm", "rmsnorm_pair"]
 
 
-def _guard(x, weight, *_a, **_kw):
-    # Decides by device only: a CUDA tensor the kernel cannot take (a
-    # dtype other than fp32/bf16, a mismatched weight) reaches the wrapper
-    # and raises there, never the plain version.
-    return x.device.type == "cuda"
+def _guard(x, weight, **_kw):
+    # The card and the reference's precondition, by attribute reads only
+    # (it runs before every launch).  A CUDA call the kernel cannot take
+    # (fp16 or fp64 rows) passes and raises in the wrapper.
+    return (x.device.type == "cuda" and x.dtype.is_floating_point
+            and weight.ndim == 1 and x.ndim >= 1
+            and x.shape[-1] == weight.shape[0])
+
+
+def _pair_guard(x0, w0, x1, w1, **_kw):
+    return _guard(x0, w0) and _guard(x1, w1)
 
 
 def _kernel_args(x, weight):
@@ -66,7 +76,7 @@ def _rmsnorm_pair_torch_ref(x0, w0, x1, w1, *, eps=1e-6,
 
 
 @registry.register("rmsnorm_pair", "cuda", priority=20,
-                   supports_grad=False, guard=_guard,
+                   supports_grad=False, guard=_pair_guard,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
                    description="two rmsnorms in one CUDA launch for sm_90a")

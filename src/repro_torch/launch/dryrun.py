@@ -48,8 +48,8 @@ equal the full count, a test of the counters rather than a correction.
 first and the last layer, so they are not exactly affine.)
 
 Results land in ``artifacts/dryrun/<mesh>/<arch>__<shape>[__tag].json``
-(a failed cell: ``<cell>.error.txt``); unlike the reference, :func:`main`
-exits 1 when any cell failed and lists the failed cells last.
+(a failed cell: ``<cell>.error.txt``); as the reference's, :func:`main`
+exits 0 when a cell failed, and lists the failed cells last.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
         --shape decode_32k --mesh single --spec '{"sharding_profile": "serve_ep"}'
@@ -611,9 +611,11 @@ def main(argv: list[str] | None = None) -> int:
                             f.write(traceback.format_exc())
         finally:
             dist.destroy_process_group()
+    # As the reference's: a failed cell leaves its .error.txt beside the
+    # artifacts and the run still exits 0; the failed cells are listed.
     for cell in failed:
         print(f"FAILED cell: {cell}", flush=True)
-    return 1 if failed else 0
+    return 0
 
 
 if __name__ == "__main__":

@@ -138,25 +138,59 @@ def test_cuda_on_cpu_tensor_degrades_like_reference():
 
 
 def test_guard_sends_every_cuda_tensor_to_the_kernel():
-    """The guard decides by device alone: a CUDA tensor the kernel cannot
-    take reaches the kernel entry, whose error propagates, and no fallback
-    is counted."""
+    """The guard is the card and the reference's precondition without its
+    tile divisibility: every CUDA call of 4-D float tensors whose kv heads
+    group the query heads reaches the kernel entry (ragged lengths
+    included).  One the kernel cannot take (fp16, a head dim over 192,
+    both of which the reference's kernel takes) raises there, and no
+    fallback is counted.  Heads that do not group and integer inputs miss
+    the guard, as they miss the reference's."""
+    from test_torch_matmul import _OnCard
+
     reg = registry.KernelRegistry()
     reg.register("fam", "torch_ref")(ops._attention_torch_ref)
+    launched = []
 
-    def refuse(q, k, v, **_kw):
-        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    def entry(q, k, v, *, block_q, block_kv, **_kw):
+        err = kernel.unsupported(*(t.flatten(0, 1) for t in (q, k, v)),
+                                 block_q=block_q, block_kv=block_kv)
+        if err is not None:
+            raise err
+        launched.append(q)
 
     reg.register("fam", "cuda", guard=ops._guard, available=lambda: True,
-                 supports_grad=False)(refuse)
-    on_card = type("OnCard", (), {"device": torch.device("cuda", 0),
-                                  "dtype": torch.float16})()
-    assert ops._guard(on_card, on_card, on_card)
-    with pytest.raises(TypeError, match="float16"):
-        reg.dispatch("fam", "cuda", on_card, on_card, on_card, causal=True,
-                     window=None, scale=None, q_offset=None, block_q=64,
-                     block_kv=64, swa_impl="full")
-    assert reg.fallback_counts == {}
+                 supports_grad=False)(entry)
+    kw = dict(causal=True, window=None, scale=None, q_offset=None,
+              block_q=64, block_kv=64, swa_impl="full")
+
+    def on_card(shapes, dtype=torch.float32):
+        return [_OnCard(torch.from_numpy(a).to(dtype))
+                for a in _inputs(shapes)]
+
+    reg.dispatch("fam", "cuda", *on_card(((1, 4, 40, 16), (1, 2, 40, 16),
+                                          (1, 2, 40, 16))), **kw)
+    reg.dispatch("fam", "cuda", *on_card(((2, 2, 32, 16),) * 3,
+                                         torch.bfloat16), **kw)
+    assert len(launched) == 2 and reg.fallback_counts == {}
+    for shapes, dtype, err in ((((1, 2, 32, 16),) * 3, torch.float16,
+                                TypeError),
+                               (((1, 2, 8, 200),) * 3, torch.float32,
+                                ValueError)):
+        jdt = jnp.float16 if dtype is torch.float16 else jnp.float32
+        assert ref_attention.ops._guard(
+            *(jnp.asarray(a, jdt) for a in _inputs(shapes)), block_q=64,
+            block_kv=64)
+        with pytest.raises(err):
+            reg.dispatch("fam", "cuda", *on_card(shapes, dtype), **kw)
+    assert len(launched) == 2 and reg.fallback_counts == {}
+    ungrouped = ((1, 3, 32, 16), (1, 2, 32, 16), (1, 2, 32, 16))
+    assert not ops._guard(*on_card(ungrouped))
+    assert not ref_attention.ops._guard(
+        *(jnp.asarray(a) for a in _inputs(ungrouped)))
+    assert not ops._guard(*on_card(((1, 2, 32, 16),) * 3, torch.int32))
+    assert not ref_attention.ops._guard(
+        *(jnp.zeros((1, 2, 32, 16), jnp.int32),) * 3)
+    assert not ops._guard(*(torch.zeros(1, 2, 32, 16),) * 3)  # host
 
 
 def test_kernel_wrapper_refuses_host_tensors():

@@ -1181,7 +1181,7 @@ def test_restore_reshards_onto_the_mesh(ranks):
         assert rec["err"] == 0.0
 
 
-def test_tuned_table_starts_empty():
+def test_tuned_table_holds_a_chain_step_per_cell():
     """The table starts from nothing of the reference's: each entry is the
     spec of a step of the port's hillclimb chain for its cell, and
     ``best_spec`` hands out a copy (the generic config for any other

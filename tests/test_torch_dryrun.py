@@ -543,3 +543,22 @@ def test_hillclimb_picks_the_references_best(mini, monkeypatch,
     assert len(ran) == sum(len(c) for c in hillclimb.CHAINS.values()) - 1
     # every step it ran left its tagged artifact
     assert len(list((out / "single").glob("*.json"))) == len(ran) + 1
+
+
+def test_failed_cell_leaves_its_error_and_exits_zero(tmp_path, capsys):
+    """As the reference's CLI: a cell that raises leaves
+    ``<cell>.error.txt`` and no artifact, the run lists it last and exits
+    0 (the caller reads the error files)."""
+    def broken(*_a, **_kw):
+        raise RuntimeError("no such cell here")
+
+    with mock.patch.object(dryrun, "run_cell", broken):
+        code = dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
+                            "--mesh", "single", "--out", str(tmp_path)])
+    assert code == 0
+    err = tmp_path / "single" / "qwen3-0.6b__decode_32k.error.txt"
+    assert "no such cell here" in err.read_text()
+    assert not (tmp_path / "single" / "qwen3-0.6b__decode_32k.json").exists()
+    out = capsys.readouterr().out
+    assert out.rstrip().splitlines()[-1] == \
+        "FAILED cell: single qwen3-0.6b decode_32k"

@@ -134,24 +134,34 @@ def test_empty_table_misses_every_row():
     assert out.shape == (2, 3) and not out.any() and not hit.any()
 
 
-class _OnCard:
-    def __init__(self, t):
-        self.device = torch.device("cuda", 0)
-        self.dtype = t.dtype
-
-
 def test_guard_decides_by_device_and_integer_queries():
-    """The port's guard decides by device only; the reference's also
-    refuses float queries, which the port's ``cuda`` entry refuses by
-    raising (below) instead of running the plain version on the card."""
+    """The guard is the card and the reference's precondition: 2-D
+    tensors of one key width, a value row a key, integer queries.  Float
+    queries miss it, as they miss the reference's guard, and so does a
+    host tensor; a miss runs ``torch_ref``.  A CUDA call the kernel cannot
+    take (float keys, which the reference's guard takes, a value dtype or a
+    ``block_b`` the kernel lacks) passes and raises in the entry or the
+    wrapper (below)."""
+    from test_torch_matmul import _OnCard
+
     xi, xf = torch.zeros(4, 1, dtype=torch.int32), torch.zeros(4, 1)
     k, v = torch.zeros(2, 1, dtype=torch.int32), torch.zeros(2, 3)
-    assert ops._guard(_OnCard(xi), k, v)
-    assert ops._guard(_OnCard(xi.long()), k, v)
-    assert ops._guard(_OnCard(xf), k, v)                 # float queries
-    assert not ops._guard(xi, k, v)                      # a host tensor
+    card = lambda *ts: tuple(map(_OnCard, ts))            # noqa: E731
+    assert ops._guard(*card(xi, k, v))
+    assert ops._guard(*card(xi.long(), k, v))
+    assert ops._guard(*card(xi, k.float(), v))            # float keys
+    assert ops._guard(*card(xi, k, v.half()), block_b=64)
+    assert not ops._guard(*card(xf, k, v))                # float queries
+    assert not ops._guard(*card(xi, torch.zeros(2, 2, dtype=torch.int32),
+                                v))
+    assert not ops._guard(xi, k, v)                       # a host tensor
     assert not ref_lookup_op.ops._guard(jnp.zeros((4, 1)), jnp.zeros((2, 1)),
                                         jnp.zeros((2, 3)))
+    assert ref_lookup_op.ops._guard(jnp.zeros((4, 1), jnp.int32),
+                                    jnp.zeros((2, 1)), jnp.zeros((2, 3)))
+    assert isinstance(kernel.unsupported(xi, k, v.half()), TypeError)
+    assert isinstance(kernel.unsupported(xi, k, v, block_b=64), ValueError)
+    assert kernel.unsupported(xi, k, v) is None
 
 
 def test_cuda_entry_raises_on_float_queries(monkeypatch):

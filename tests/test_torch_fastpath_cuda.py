@@ -120,9 +120,17 @@ def test_cuda_calls_the_kernel_lacks_raise(hopper):
     with pytest.raises(ValueError, match="key width"):
         lookup(wide, wide, torch.zeros((8, 2), device=hopper), impl="cuda")
     with pytest.raises(TypeError, match="integer"):
-        lookup(x.float(), x.float(), torch.ones((8, 2), device=hopper),
-               impl="cuda")
+        lookup(x, x.float(), torch.ones((8, 2), device=hopper), impl="cuda")
     assert dict(counts) == before
+    # float queries miss the guard, as they miss the reference's: the plain
+    # version answers, one fallback counted
+    vals = torch.ones((8, 2), device=hopper)
+    out, hit = lookup(x.float(), x.float(), vals, impl="cuda")
+    ref_out, ref_hit = lookup(x.float(), x.float(), vals, impl="torch_ref")
+    torch.testing.assert_close(out, ref_out)
+    assert torch.equal(hit, ref_hit)
+    key = ("fastpath", "cuda")
+    assert counts[key] == before.get(key, 0) + 1
 
 
 @pytest.mark.requires_h100

@@ -143,19 +143,31 @@ def test_common_tiling_helpers():
 
 
 class _OnCard:
-    """Stands in for a CUDA tensor of the given shape (the guard reads the
-    device and the shape only)."""
+    """Stands in for a CUDA tensor: the host tensor's attributes (shape,
+    dtype, strides, ...) with a CUDA device.  The guards read attributes
+    only, so they see a call on the card."""
+
+    device = torch.device("cuda", 0)
+    is_cuda = True
 
     def __init__(self, t):
-        self.device = torch.device("cuda", 0)
-        self.shape = t.shape
-        self.dtype = t.dtype
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+    def get_device(self):
+        return 0
 
 
 def test_guard_sends_cuda_calls_to_the_kernel_unless_divisibility_fails():
-    """The guard decides by device only: every CUDA call reaches the
-    kernel's entry (a non-divisible shape under ``assume_divisible`` runs
-    the edge-masked instantiation there), a host tensor misses it."""
+    """The guard is the card and the reference's precondition (2-D float
+    operands of one inner dim) without its divisibility: every such CUDA
+    call reaches the kernel's entry, divisible or not (a non-divisible
+    shape under ``assume_divisible`` runs the edge-masked instantiation
+    there), and one the kernel cannot take (fp16, a tile triple it lacks)
+    raises there.  A host tensor misses the guard, and so do integer
+    operands, which the reference's guard refuses too."""
     x, y = torch.zeros(50, 30), torch.zeros(30, 70)
     tiles = dict(bm=16, bn=16, bk=16)
     assert ops._guard(_OnCard(x), _OnCard(y), **tiles)
@@ -163,11 +175,21 @@ def test_guard_sends_cuda_calls_to_the_kernel_unless_divisibility_fails():
     x, y = torch.zeros(64, 32), torch.zeros(32, 48)
     assert ops._guard(_OnCard(x), _OnCard(y), assume_divisible=True, **tiles)
     assert not ops._guard(x, y, **tiles)                 # a host tensor
-    # a CUDA call the kernel lacks reaches the wrapper (which raises there)
-    assert ops._guard(_OnCard(x.int()), _OnCard(y.int()), **tiles)
+    # CUDA calls the kernel lacks reach the wrapper, which raises there
+    assert ops._guard(_OnCard(x.half()), _OnCard(y.half()), **tiles)
+    assert isinstance(kernel.unsupported(x.half(), y.half(), **tiles),
+                      TypeError)
+    assert ops._guard(_OnCard(x), _OnCard(y), bm=256, bn=256, bk=128)
+    assert isinstance(kernel.unsupported(x, y, bm=256, bn=256, bk=128),
+                      ValueError)
+    assert kernel.unsupported(x, y, assume_divisible=True, **tiles) is None
+    assert not ops._guard(_OnCard(x.int()), _OnCard(y.int()), **tiles)
+    assert not ref_matmul.ops._guard(jnp.zeros((64, 32), jnp.int32),
+                                     jnp.zeros((32, 48), jnp.int32))
+    assert not ops._guard(_OnCard(x), _OnCard(y.t()), **tiles)
 
 
-def test_assume_divisible_miss_counts_one_fallback_like_reference(
+def test_assume_divisible_miss_runs_the_masked_kernel(
         monkeypatch):
     """A non-divisible shape asked to assume divisibility: the reference's
     guard sends it to its plain version and counts one fallback; the

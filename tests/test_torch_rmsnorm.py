@@ -119,24 +119,46 @@ def test_guard_miss_routes_to_torch_ref():
 
 
 def test_guard_sends_every_cuda_tensor_to_the_kernel():
-    """The guard decides by device alone: a CUDA tensor the kernel cannot
-    take (here fp16) reaches the kernel entry, whose error propagates, and
-    no fallback is counted."""
+    """The guard is the card and the reference's precondition: every CUDA
+    float tensor of the weight's width reaches the kernel entry, in any
+    dtype or layout.  One the kernel cannot take (here fp16, which the
+    reference's kernel takes) raises there, and no fallback is counted.
+    Integer rows miss the guard, as they miss the reference's, and run
+    ``torch_ref`` with one fallback counted."""
+    from test_torch_matmul import _OnCard
+
     reg = registry.KernelRegistry()
     reg.register("fam", "torch_ref")(
-        lambda x, w, **kw: ops._rmsnorm_torch_ref(x, w, **kw))
+        lambda x, w, **kw: ops._rmsnorm_torch_ref(x._t, w, **kw))
+    launched = []
 
-    def refuse(x, w, **_kw):
-        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    def entry(x, w, **_kw):
+        err = kernel.unsupported(x, w)
+        if err is not None:
+            raise err
+        launched.append(x)
 
     reg.register("fam", "cuda", guard=ops._guard, available=lambda: True,
-                 supports_grad=False)(refuse)
-    on_card = type("OnCard", (), {"device": torch.device("cuda", 0),
-                                  "dtype": torch.float16})()
-    assert ops._guard(on_card, torch.ones(32))
+                 supports_grad=False)(entry)
+    w = torch.ones(32)
+    for x in (torch.ones(4, 32), torch.ones(4, 32).bfloat16(),
+              torch.ones(32, 4).t(), torch.ones(4, 32).half()):
+        assert ops._guard(_OnCard(x), w)
+    for x in (torch.ones(4, 32), torch.ones(4, 32).bfloat16()):
+        reg.dispatch("fam", "cuda", _OnCard(x), w, eps=1e-6)
+    assert len(launched) == 2 and reg.fallback_counts == {}
+    assert ref_rmsnorm.ops._guard(jnp.ones((4, 32), jnp.float16),
+                                  jnp.ones(32))
     with pytest.raises(TypeError, match="float16"):
-        reg.dispatch("fam", "cuda", on_card, torch.ones(32), eps=1e-6)
-    assert reg.fallback_counts == {}
+        reg.dispatch("fam", "cuda", _OnCard(torch.ones(4, 32).half()), w,
+                     eps=1e-6)
+    assert len(launched) == 2 and reg.fallback_counts == {}
+    xi = torch.from_numpy((10 * _inputs((4, 32))[0]).astype(np.int32))
+    assert not ref_rmsnorm.ops._guard(jnp.asarray(xi.numpy()), jnp.ones(32))
+    out = reg.dispatch("fam", "cuda", _OnCard(xi), w, eps=1e-6)
+    torch.testing.assert_close(out, ops._rmsnorm_torch_ref(xi, w))
+    assert len(launched) == 2 and reg.fallback_counts == {("fam", "cuda"): 1}
+    assert not ops._guard(torch.ones(4, 32), w)          # a host tensor
 
 
 def test_kernel_wrapper_refuses_host_tensors():

@@ -77,19 +77,28 @@ def test_cuda_kernel_on_a_misaligned_view(hopper, dtype):
 
 @pytest.mark.requires_h100
 def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
-    """A CUDA tensor that asks for ``cuda`` launches the kernel or raises;
-    it never runs the plain version."""
+    """A CUDA tensor that meets the reference's precondition launches the
+    kernel or raises; it never runs the plain version.  Integer rows miss
+    the guard, as they miss the reference's, and run the plain version
+    with one fallback counted."""
     x = torch.randn(4, 64, device=hopper)
     w = torch.ones(64, device=hopper)
     counts = dict(registry.default_registry.fallback_counts)
     before = kernel.launches
     with pytest.raises(TypeError):
         rmsnorm(x.half(), w, impl="cuda")
-    with pytest.raises(ValueError):
-        rmsnorm(x, torch.ones(32, device=hopper), impl="cuda")
+    with pytest.raises(TypeError):
+        rmsnorm(x.double(), w, impl="cuda")
     with pytest.raises(ValueError):
         rmsnorm(x, w.cpu(), impl="cuda")
     assert registry.default_registry.fallback_counts == counts
+    assert kernel.launches == before
+    xi = (10 * x).int()
+    out = rmsnorm(xi, w, impl="cuda")
+    torch.testing.assert_close(out, rmsnorm(xi, w, impl="torch_ref"))
+    key = ("rmsnorm", "cuda")
+    assert registry.default_registry.fallback_counts[key] == \
+        counts.get(key, 0) + 1
     assert kernel.launches == before
 
 
