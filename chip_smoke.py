@@ -17,22 +17,24 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 3. RMSNorm vs plain: the kernel against its plain PyTorch version on the
    card, at every shape the served batch buckets and a (1, 4096) prefill
    of qwen3 and of rwkv6 give it, the reference's test shapes, widths and
-   a misaligned view that take its general body, in fp32 (tolerance 1e-5)
-   and bf16 (3e-2); the q/k pair launch against two plain calls at the
-   decode and the (permuted) prefill layouts.  Then it reads K1's
+   a misaligned view that take its general body, in fp32 (tolerance 1e-5),
+   bf16 and fp16 (3e-2); the q/k pair launch against two plain calls at
+   the decode and the (permuted) prefill layouts.  Then it reads K1's
    launches on one full-width decode step at batch 8 from the model (kind
    and shapes, by wrapping the kernel's entry points) and times each kind
    of launch, the prefill shapes and the prefill pair: the kernel, the
    plain version and ``F.rms_norm`` (two calls for a pair), eager (the
    median of five rounds in alternating order) and in a CUDA graph, with
    CUDA events, over a ring of inputs larger than the L2 cache where the
-   shape allows, and the host's microseconds a launch (eager minus graph).
+   shape allows, and the host's microseconds a launch (eager minus graph);
+   the (4096, 1024) prefill launch also in bf16 and fp16.
 4. Attention vs plain: the flash attention kernel against its plain
    version at every tile pair, at the reference's test cases, the
    full-width prefill shapes (16 query / 8 kv heads, head dim 128, S =
    512, 1000, 2048, 4096) and MLA's head dims (q/k 192, v 128; causal, and
-   GQA with a window), in fp32 (2e-4) and bf16 (3e-2), each also held to a
-   limit scaled to every element's size; at the long call's lengths (S =
+   GQA with a window), in fp32 (2e-4), bf16 and fp16 (3e-2), each also
+   held to a limit scaled to every element's size (in fp16 plus the most
+   that rounding P to fp16 moves it); at the long call's lengths (S =
    8192, 16384) the kernel runs whole and slices of its rows are held to
    the plain version; times the kernel (per tile pair, with the body it
    reports, its shared memory and ring stages, the instantiation and CUDA
@@ -40,17 +42,19 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    of the bound and, in the log, its previous design's time), the plain
    version and
    ``scaled_dot_product_attention``,
-   also at MLA's dims.
+   also at MLA's dims, and at the prefill's S = 4096 in bf16 and fp16.
 4b. Linear attention vs plain: the chunked linear attention kernel against
    its plain version at every chunk (16, 32, 64), at the reference's test
    cases, rwkv6-1.6b's 32 heads of 64 at T = 1000 (ragged), 4096 (the
    prefill path's) and 16384 (the long call's, compared whole) and a
-   hymba-like inclusive scalar-decay head, in fp32 (5e-4) and bf16 (3e-2),
-   each also held to a limit scaled to every element; times the kernel
+   hymba-like inclusive scalar-decay head, in fp32 (5e-4), bf16 and fp16
+   (3e-2), each also held to a limit scaled to every element; times the
+   kernel
    (at the prefill shape also its CUDA launches a call and each launch's
    device time, by the profiler; its share of the bound and, in the log,
    its previous design's time)
-   and the plain version (no single PyTorch call computes this function).
+   and the plain version (no single PyTorch call computes this function),
+   at the prefill shape also in bf16 and fp16.
 4c. Matmul vs plain: the blocked matmul kernel against its plain version
    at every instantiated tile triple (both ``assume_divisible`` settings
    where the shape divides), at the reference's test shapes (ragged ones
@@ -82,10 +86,12 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    tolerance of its plain version; K3 on random fp32 within phase 4c's
    scaled limit), one call that misses the reference's precondition (host
    tensors; float queries for K5) returns the plain version's answer with
-   exactly one fallback counted and no launch, and one call of each domain
-   gap, an input the reference's kernel takes and the port's does not
-   (fp16 and fp64 rows for K1; fp16, d 200, dv 160 and an uninstantiated
-   tile for K2; fp16 and an uninstantiated tile triple for K3; fp16, a
+   exactly one fallback counted and no launch (K1, K2 and K4 also take
+   an fp16 call so: one launch, within the low-precision tolerance), and
+   one call of each domain gap, an input the reference's kernel takes and
+   the port's does not (fp64 rows for K1; q of another dtype than k and v,
+   d 200, dv 160 and an uninstantiated tile for K2; fp16 and an
+   uninstantiated tile triple for K3; an fp32 k beside fp16 q and v, a
    head dim of 136, chunk 48 and a bonus on the inclusive recurrence for
    K4; float keys, fp16 values and keys 33 wide for K5), raises the
    kernel's error with no launch and no fallback; then a stale
@@ -203,6 +209,23 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    every context pinned to the kernels (fp32 cache), then the same engine
    pinned to the plain versions: the greedy tokens must be equal; served
    tok/s, p50/p95 latency and the handler's host ms a step.
+18b. Half precision at full width and depth: qwen3-0.6b (K1, K2 causal),
+   rwkv6-1.6b (K1, K4 exclusive with the bonus) and hymba-1.5b (K1, K2
+   with its window of 1024, K4 inclusive), weights from seed 0, each with
+   ``compute_dtype`` float16 and then bfloat16: phase 17b's (1, 4096)
+   prefill (launches a call from the wrappers' counts, 0 fallbacks, finite
+   logits, host and device ms beside the model's fp32 time), its logits
+   held to the plain fp32 path's on the same input: max |kernels - plain
+   fp32| <= 1.5 x max |plain half - plain fp32| (the plain half path is
+   the same call pinned to ``torch_ref``; where it is not finite the
+   criterion is skipped and said); qwen3's prefill then sweeps
+   ``rmsnorm_impl`` x ``attention_impl`` x tiles under a Controller, every
+   candidate run.  Then qwen3-0.6b served in fp16 through
+   ``make_serve_builder`` (one prefill chunk and 8 greedy decode steps at
+   batch 8) under each ``cache_dtype`` candidate (bf16, fp32), pinned to
+   the kernel then to the plain version: 85 K1 launches a decode step, 0
+   fallbacks, finite logits, the greedy tokens compared (the top-2 logit
+   gap where they first differ).
 
 19. MoE + MLA prefill: (a) K1 at deepseek-v2-236b's widths 5120, 1536 and
    512 (its pre-norms, MLA's ``q_norm`` and ``kv_norm``) and K2 at MLA's
@@ -279,15 +302,14 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    restored with ``axes=`` onto the mesh: placed by their axes and equal.
    The group is destroyed at the end of the phase.
 
-In phases 5, 7, 9, 10, 12, 13, 15, 17, 18, 19 and 20 (the main paths)
-the launch
-counters and the registry's fallback counts are zeroed just before and
-read just after; every kernel of the path must have launched and none
-may have fallen back (phases 14 and 16 count K1's launches in their own
-processes).  In phases 21 and 22 (training) and 23 (the mesh) the same
-counts are zeroed and must stay 0: a train step declares the
-gradient-safe entries, no kernel has a backward, and a step under a mesh
-pins every implementation to its plain version.  The line
+In phases 5, 7, 9, 10, 12, 13, 15, 17, 18, 18b, 19 and 20 (the main
+paths) the launch counters and the registry's fallback counts are zeroed
+just before and read just after; every kernel of the path must have
+launched and none may have fallen back (phases 14 and 16 count K1's
+launches in their own processes).  In phases 21 and 22 (training) and 23
+(the mesh) the same counts are zeroed and must stay 0: a train step
+declares the gradient-safe entries, no kernel has a backward, and a step
+under a mesh pins every implementation to its plain version.  The line
 before the last is a JSON object ``{"kernels": [...]}`` with one entry per
 kernel, and the line before it gives each phase's wall seconds; the last
 line is ``{"ok": true, "device": {...}}``.  Phase 24b's card step is
@@ -345,14 +367,22 @@ RWKV_PREFILL_SHAPES = {(4096, 2048): 2 * 24 + 1, (131072, 64): 24}
 #: 16-byte vectors but not of bf16 ones, d = 65 of neither
 TEST_SHAPES = [(32, 128), (100, 64), (256, 256), (2, 17, 64), (5, 1020),
                (3, 65)]
-TOL = {"float32": 1e-5, "bfloat16": 3e-2}
-#: attention tolerances, the reference's (tests/test_kernels.py)
-ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+TOL = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 3e-2}
+#: the dtypes the kernels take (K1, K2 and K4), checked in phases 3-4b
+KERNEL_DTYPES = ("float32", "bfloat16", "float16")
+#: attention tolerances, the reference's (tests/test_kernels.py; its
+#: low-precision one for fp16 too)
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 3e-2}
 #: a second limit scaled to each element, |out - ref| <= atol + rtol |ref|
 #: as (rtol, atol): the kernel and the plain version both compute in fp32
 #: and round once to the output's dtype, so in bf16 they differ by at most
-#: one bf16 ulp (2^-7 of the value) and in fp32 by the summation order
-ATTN_SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+#: one bf16 ulp (2^-7 of the value) and in fp32 by the summation order; in
+#: fp16 the kernel also rounds each probability to fp16 before the P.V
+#: product (as the reference's Pallas kernel does), which moves an output
+#: by at most 2^-11 of sum_c p_c |v_c| / l, the plain attention over |v|:
+#: fp16 adds rtol times that to the limit
+ATTN_SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5),
+                   "float16": (2 ** -10, 1e-5)}
 #: attention cases (q, k, v shapes, causal, window): the reference's test
 #: cases (tests/test_kernels.py:60-108), then full-width prefill shapes
 ATTN_TEST_CASES = [
@@ -403,8 +433,8 @@ PARITY_TOL = 1e-3
 #: linear attention tolerances: the reference's 5e-4 for fp32
 #: (tests/test_linear_attention_kernel.py: the kernel and the plain version
 #: sum the chunk products and fold the chunk states in different orders),
-#: 3e-2 for bf16 as the other kernels
-LINATT_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+#: 3e-2 for bf16 and fp16 as the other kernels
+LINATT_TOL = {"float32": 5e-4, "bfloat16": 3e-2, "float16": 3e-2}
 #: a second limit scaled to each element, (rtol, atol): la = cumsum(log w)
 #: reaches 64 in magnitude at chunk 64, so its rounding (64 x 2^-24, ~4e-6)
 #: enters every e^{+-la} factor as a relative error of that size; an output
@@ -412,8 +442,9 @@ LINATT_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
 #: sums 64 products of unit normals), so an output that nearly cancels
 #: still carries ~sqrt(128) x 8 x 2e-6 ~ 2e-4 of absolute error; in bf16
 #: both round the same fp32 value once (one bf16 ulp, 2^-7 of the value,
-#: beyond that)
-LINATT_SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4)}
+#: beyond that; in fp16 one fp16 ulp, 2^-10, beyond the fp32 limit)
+LINATT_SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4),
+                     "float16": (2 ** -10 + 5e-5, 2e-4)}
 #: linear attention cases (bh, T, dk, dv, inclusive, bonus, scalar decay):
 #: the reference's test cases (tests/test_linear_attention_kernel.py:28-55)
 LINATT_TEST_CASES = [
@@ -552,6 +583,21 @@ FAMILY_SERVE_ARGS = ["--device", "cuda", "--batch", "4", "--prefill-chunk",
 FAMILY_SERVE_REQUESTS = 4
 FAMILY_SERVE_PROMPT = 64
 FAMILY_SERVE_NEW = 16
+#: phase 18b: the models run in half precision at full width and depth,
+#: each in every half dtype, a (1, 4096) prefill (FAMILY_PREFILL) each
+HALF_ARCHS = ("qwen3-0.6b", "rwkv6-1.6b", "hymba-1.5b")
+HALF_DTYPES = ("float16", "bfloat16")
+#: the kernels' half-precision logits may lie this many times the plain
+#: half-precision path's distance from the plain fp32 path's logits
+#: (tests/test_torch_half.py holds the same rule against the reference)
+HALF_SPREAD = 1.5
+#: qwen3-0.6b's half-precision prefill sweeps these points
+HALF_SWEEP_LABELS = ["rmsnorm_impl", "attention_impl", "block_q",
+                     "block_kv"]
+#: qwen3-0.6b served in fp16: batch, prompt tokens (one prefill chunk) and
+#: greedy decode steps, in a cache of HALF_SERVE_MAX_LEN
+HALF_SERVE = (8, 16, 8)
+HALF_SERVE_MAX_LEN = 64
 #: phases 19-20: deepseek-v2-236b at full width, its depth cut to
 #: MOE_DEPTH layers (the dense first layer and three MoE layers: 53.2 GB
 #: of fp32 weights; its 60 layers are 943 GB, 5 would be 69.1 GB beside
@@ -869,7 +915,7 @@ def phase_rmsnorm(cfg) -> dict:
     # 16-byte aligned, so the kernel takes its scalar path.
     cases.append(((8, 1024), True))
     for shape, offset in cases:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             n = 1
             for s in shape:
                 n *= s
@@ -893,7 +939,8 @@ def phase_rmsnorm(cfg) -> dict:
                 max_err = max(max_err, err)
                 checked += 1
     log(f"rmsnorm: cuda == torch_ref at {checked} shape/dtype/block cases "
-        f"(bucket shapes {BUCKET_SHAPES}, prefill shapes "
+        f"({', '.join(KERNEL_DTYPES)}; bucket shapes {BUCKET_SHAPES}, "
+        f"prefill shapes "
         f"{list(PREFILL_SHAPES) + list(PREFILL_PAIR)} and rwkv6 "
         f"{list(RWKV_PREFILL_SHAPES)}, test "
         f"shapes {TEST_SHAPES}, one misaligned view), "
@@ -903,8 +950,7 @@ def phase_rmsnorm(cfg) -> dict:
     # step's (B, H, 1, dh) and the prefill's permuted einsum outputs,
     # which the kernel takes in storage order (no copy; same strides out).
     for (hq, hk, s_len, b), dtype in itertools.product(
-            ((16, 8, 1, DECODE_BATCH), (16, 8, 4096, 1)),
-            ("float32", "bfloat16")):
+            ((16, 8, 1, DECODE_BATCH), (16, 8, 4096, 1)), KERNEL_DTYPES):
         tdt = getattr(torch, dtype)
         q = torch.randn((b, s_len, hq, 128), generator=gen,
                         device=dev).to(tdt).transpose(1, 2)
@@ -929,7 +975,8 @@ def phase_rmsnorm(cfg) -> dict:
                           (out.float() - ref.float()).abs().max().item())
             checked += 1
     log(f"rmsnorm: the q/k pair launch == two torch_ref calls at the decode "
-        f"and prefill layouts, fp32 and bf16; max_abs_err={max_err:.3e}")
+        f"and prefill layouts, fp32, bf16 and fp16; max_abs_err="
+        f"{max_err:.3e}")
 
     decode = _k1_decode_launches(cfg)
     log("rmsnorm: one full-width decode step at batch " f"{DECODE_BATCH} "
@@ -942,32 +989,40 @@ def phase_rmsnorm(cfg) -> dict:
     bound_kinds = set()
     eps = 1e-6
     l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
-    launches = ([(kind_shapes, n, "decode step")
+    launches = ([(kind_shapes, n, "decode step", "float32")
                  for kind_shapes, n in decode.items()]
-                + [(("single", s), n, "(1, 4096) prefill")
-                   for s, n in PREFILL_SHAPES.items()]
-                + [(("pair",) + PREFILL_PAIR, N_LAYERS, "(1, 4096) prefill")]
+                + [(("single", s), n, "(1, 4096) prefill", dtype)
+                   for s, n in PREFILL_SHAPES.items()
+                   for dtype in KERNEL_DTYPES]
+                + [(("pair",) + PREFILL_PAIR, N_LAYERS, "(1, 4096) prefill",
+                    "float32")]
                 + [(("single", s), 0, "(1, 4096) prefill, a segment of its "
-                    "pair alone") for s in PREFILL_PAIR]
-                + [(("single", s), n, "(1, 4096) rwkv6 prefill")
+                    "pair alone", "float32") for s in PREFILL_PAIR]
+                + [(("single", s), n, "(1, 4096) rwkv6 prefill", "float32")
                    for s, n in RWKV_PREFILL_SHAPES.items()])
-    for (kind, *shapes), n, per in launches:
+    for (kind, *shapes), n, per, dtype in launches:
         # Successive calls read successive inputs of a ring three times the
         # L2 cache, so an input is evicted before it is read again and a
         # timing reads from HBM; a decode shape's ring (at most 64 inputs)
         # stays in L2, as its activations do on the serve path.
-        x_bytes = sum(math.prod(sh) for sh in shapes) * 4
+        tdt = getattr(torch, dtype)
+        itemsize = torch.empty(0, dtype=tdt).element_size()
+        x_bytes = sum(math.prod(sh) for sh in shapes) * itemsize
         n_ring = min(64, -(-3 * l2_bytes // x_bytes))
         l2_resident = n_ring * x_bytes < 3 * l2_bytes
         ring = itertools.cycle([
-            [(torch.randn(sh, generator=gen, device=dev),
+            [(torch.randn(sh, generator=gen, device=dev).to(tdt),
               torch.ones(sh[-1], device=dev)) for sh in shapes]
             for _ in range(n_ring)])
         if kind == "single":
+            # F.rms_norm takes its weight in the rows' dtype (every weight
+            # of the ring is ones, so one such weight stands for them)
+            lib_w = torch.ones(shapes[0][-1], device=dev, dtype=tdt)
             fns = {"ms": lambda: kernel.rmsnorm_cuda(*next(ring)[0],
                                                      eps=eps),
                    "plain_ms": lambda: ops.ref.rmsnorm(*next(ring)[0], eps),
-                   "library_ms": lambda: _f_rms_norm(F, next(ring)[0], eps)}
+                   "library_ms": lambda: _f_rms_norm(
+                       F, (next(ring)[0][0], lib_w), eps)}
         else:
             def pair_kernel():
                 (x0, w0), (x1, w1) = next(ring)
@@ -989,16 +1044,16 @@ def phase_rmsnorm(cfg) -> dict:
         device = {k: graph_time_ms(f) for k, f in fns.items()}
         host_us = {k: 1e3 * (eager[k] - device[k]) for k in ("ms",
                                                               "library_ms")}
-        bound, bkind = _rmsnorm_cost_of(shapes, 4)
+        bound, bkind = _rmsnorm_cost_of(shapes, itemsize)
         per_shape.append({"kind": kind, "shapes": [list(sh) for sh in shapes],
-                          "dtype": "float32", "per": per,
+                          "dtype": dtype, "per": per,
                           "launches_per_call": n, **eager,
                           "eager_rounds": rounds,
                           "bound_ms": bound, "bound_by": bkind,
                           "device_only": device, "host_us": host_us,
                           "ring": n_ring, "l2_resident": l2_resident})
         log(f"rmsnorm {kind} {' + '.join(str(tuple(sh)) for sh in shapes)} "
-            f"fp32 x{n}/{per}, ring of {n_ring} inputs "
+            f"{dtype} x{n}/{per}, ring of {n_ring} inputs "
             f"({'in L2' if l2_resident else 'from HBM'}), eager: kernel "
             f"{eager['ms']:.5f} ms plain {eager['plain_ms']:.5f} ms "
             f"F.rms_norm {eager['library_ms']:.5f} ms; in a CUDA graph: "
@@ -1091,8 +1146,8 @@ def _attention_cost(b: int, h: int, hk: int, sq: int, skv: int, d: int,
     """Least time (ms) on the card: q, k, v read once and out written
     once, against 2 (d + dv) flops per valid (row, column) pair per head
     (QK^T and PV) at the fp32 FMA peak for fp32 inputs (the reference
-    computes in fp32: TF32 stays off), the dense bf16 tensor-core peak
-    for bf16 ones."""
+    computes in fp32: TF32 stays off), the dense bf16/fp16 tensor-core
+    peak for bf16 and fp16 ones."""
     nbytes = itemsize * (b * h * sq * d + b * hk * skv * (d + dv)
                          + b * h * sq * dv)
     flops = 2 * (d + dv) * b * h * _attention_pairs(sq, skv, causal, window,
@@ -1116,40 +1171,51 @@ def phase_attention() -> dict:
     cases = ATTN_TEST_CASES + [((b, h, s, dh), (b, hk, s, dh),
                                 (b, hk, s, dh), True, None)
                                for s in ATTN_LENGTHS] + ATTN_MLA_CASES
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES}
     checked = 0
 
-    def check(out, ref, what: str) -> None:
+    def check(out, ref, what: str, spread=None) -> None:
         """Hold ``out`` to ``ref`` at the reference's tolerance and at the
-        scaled one; fold its largest difference into ``max_err``."""
+        scaled one (plus rtol times ``spread``, the plain attention over
+        |v|, in fp16); fold its largest difference into ``max_err``."""
         nonlocal checked
         dtype = str(ref.dtype).removeprefix("torch.")
         if out.shape != ref.shape or out.dtype != ref.dtype:
             fail(f"attention {what}: got {tuple(out.shape)} {out.dtype}, "
                  f"wanted {tuple(ref.shape)} {ref.dtype}")
         tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(
+            out.float(), ref.float(), rtol=tol, atol=tol,
+            msg=lambda m: f"attention {what} (rtol {tol}, atol {tol}): {m}")
         rtol, atol = ATTN_SCALED_TOL[dtype]
-        for rt, at in ((tol, tol), (rtol, atol)):
-            torch.testing.assert_close(
-                out.float(), ref.float(), rtol=rt, atol=at,
-                msg=lambda m: f"attention {what} (rtol {rt}, atol {at}): {m}")
-        err = (out.float() - ref.float()).abs().max().item()
-        max_err[dtype] = max(max_err[dtype], err)
+        diff = (out.float() - ref.float()).abs()
+        limit = atol + rtol * ref.float().abs()
+        if spread is not None:
+            limit += rtol * spread
+        if not bool((diff <= limit).all()):
+            fail(f"attention {what}: |out - ref| over the scaled limit "
+                 f"(rtol {rtol}, atol {atol}) by "
+                 f"{(diff - limit).max().item():.3e}")
+        max_err[dtype] = max(max_err[dtype], diff.max().item())
         checked += 1
 
     for q_s, k_s, v_s, causal, window in cases:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(
                 getattr(torch, dtype)) for s in (q_s, k_s, v_s))
             ref = ops.attention(q, k, v, causal=causal, window=window,
                                 impl="torch_ref")
+            spread = (ops.attention(q.float(), k.float(), v.float().abs(),
+                                    causal=causal, window=window,
+                                    impl="torch_ref")
+                      if dtype == "float16" else None)
             for bq, bkv in tiles:
                 out = ops.attention(q, k, v, causal=causal, window=window,
                                     impl="cuda", block_q=bq, block_kv=bkv)
                 torch.cuda.synchronize()
                 check(out, ref, f"{q_s} {dtype} causal={causal} "
-                      f"window={window} tiles {bq}x{bkv}")
-            del ref, out
+                      f"window={window} tiles {bq}x{bkv}", spread)
+            del ref, out, spread
     n_short = checked
     # The long call's lengths: the kernel runs on the whole sequence, and
     # slices of its rows are held to the plain version of those rows over
@@ -1182,12 +1248,14 @@ def phase_attention() -> dict:
         f"end of S = {ATTN_LONG_LENGTHS}, fp32), within the reference's "
         f"tolerances {ATTN_TOL} and the scaled ones (rtol, atol) "
         f"{ATTN_SCALED_TOL}; max_abs_err fp32 {max_err['float32']:.3e}, "
-        f"bf16 {max_err['bfloat16']:.3e}")
+        f"bf16 {max_err['bfloat16']:.3e}, fp16 {max_err['float16']:.3e}")
 
     per_shape = []
     mla = ATTN_MLA_CASES[0]
     timed = [(s, "float32", hk, dh, dh) for s in ATTN_LENGTHS
              + ATTN_LONG_LENGTHS] + [(2048, "bfloat16", hk, dh, dh)] + [
+        (PREFILL_SWEEP[1], dtype, hk, dh, dh)
+        for dtype in ("bfloat16", "float16")] + [
         (ATTN_MLA_TIMED, "float32", mla[1][1], mla[0][3], mla[2][3])]
     for s, dtype, hkv, d, dv in timed:
         tdt = getattr(torch, dtype)
@@ -1210,8 +1278,9 @@ def phase_attention() -> dict:
             x["kernels_us"], x["cuda_launches_per_call"] = device_launches(
                 lambda bq=bq, bkv=bkv: kernel.flash_attention_cuda(
                     q, k, v, block_q=bq, block_kv=bkv))
+            ctype = "__half" if dtype == "float16" else "__nv_bfloat16"
             want = (f"ring_kernel<{bq},{bkv}," if x["body"] == "ring"
-                    else f"simple_kernel<__nv_bfloat16,{bq},{bkv}>")
+                    else f"simple_kernel<{ctype},{bq},{bkv}>")
             if not any(want in n.replace(" ", "") for n in x["kernels_us"]):
                 fail(f"attention {s} {dtype} tiles {bq}x{bkv}: reported "
                      f"the {x['body']} body, launched {x['kernels_us']}")
@@ -1271,9 +1340,10 @@ def _linatt_cost(bh: int, t: int, dk: int, dv: int, chunk: int,
     under the mask (n(n-1)/2 strict, plus the diagonal when inclusive or
     with the bonus; the masked-out half of the c x c tiles is not counted),
     and per token the inter (q S) and state (k^T v) products of dk x dv;
-    2 flops a multiply-add, at the fp32 FMA peak: the function computes in
-    fp32 whatever its inputs' dtype (the reference upcasts before every
-    product)."""
+    2 flops a multiply-add, at the fp32 FMA peak for fp32 inputs (the
+    reference computes in fp32: TF32 stays off) and at the dense bf16/fp16
+    tensor-core peak for half-precision ones, the least time the card
+    could take for them."""
     nbytes = (itemsize * bh * t * (2 * dk + 2 * dv) + 4 * bh * t * dk
               + (4 * bh * dk if bonus else 0))
     diag = inclusive or bonus
@@ -1283,7 +1353,8 @@ def _linatt_cost(bh: int, t: int, dk: int, dv: int, chunk: int,
 
     n_pairs = (t // chunk) * pairs(chunk) + pairs(t % chunk)
     flops = 2 * bh * (n_pairs * (dk + dv) + 2 * t * dk * dv)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1296,7 +1367,7 @@ def phase_linear_attention() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES}
     checked = 0
 
     def inputs(bh, t, dk, dv, bonus, scalar, dtype):
@@ -1329,7 +1400,7 @@ def phase_linear_attention() -> dict:
 
     for bh, t, dk, dv, inclusive, bonus, scalar in (LINATT_TEST_CASES
                                                     + LINATT_WIDE_CASES):
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
             for chunk in kernel.CHUNKS:
                 kw = dict(bonus=u, inclusive=inclusive, chunk=chunk)
@@ -1349,11 +1420,12 @@ def phase_linear_attention() -> dict:
         f"chunks {kernel.CHUNKS}), within the reference's tolerances "
         f"{LINATT_TOL} "
         f"and the scaled ones (rtol, atol) {LINATT_SCALED_TOL}; max_abs_err "
-        f"fp32 {max_err['float32']:.3e}, bf16 {max_err['bfloat16']:.3e}")
+        f"fp32 {max_err['float32']:.3e}, bf16 {max_err['bfloat16']:.3e}, "
+        f"fp16 {max_err['float16']:.3e}")
 
     per_shape = []
     timed_cases = [(c, "float32") for c in LINATT_WIDE_CASES] + [
-        (LINATT_WIDE_CASES[1], "bfloat16")]
+        (LINATT_WIDE_CASES[1], dtype) for dtype in ("bfloat16", "float16")]
     prefill_case = (RWKV_HEADS, RWKV_SWEEP[1], RWKV_HEAD, RWKV_HEAD)
     for (bh, t, dk, dv, inclusive, bonus, scalar), dtype in timed_cases:
         q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
@@ -1839,11 +1911,12 @@ def engine_args(extra: list[str]) -> argparse.Namespace:
 def phase_guards(decode_by_kind: dict) -> dict:
     """Phase 4e: each kernel's guard (``ops._guard``: the card and the
     reference's precondition).  For each of K1 to K5, one call the kernel
-    takes goes to ``cuda``: one launch, no fallback, its answer within
-    GUARD_TOL of ``torch_ref`` on the same inputs (K3 within phase 4c's
-    scaled limit at its k).  One call that misses the reference's
-    precondition (host tensors; float queries to K5) returns
-    ``torch_ref``'s answer with exactly one fallback counted and no launch.
+    takes goes to ``cuda`` (K1, K2 and K4 also an fp16 one): one launch,
+    no fallback, its answer within GUARD_TOL of ``torch_ref`` on the same
+    inputs (K3 within phase 4c's scaled limit at its k).  One call that
+    misses the reference's precondition (host tensors; float queries to
+    K5) returns ``torch_ref``'s answer with exactly one fallback counted
+    and no launch.
     One call of each domain gap (an input the reference's kernel takes and
     the port's does not: ROADMAP "Kernel work") raises the wrapper's or the
     entry's error, with no launch and no fallback: it never runs the plain
@@ -1953,23 +2026,27 @@ def phase_guards(decode_by_kind: dict) -> dict:
                        "launches": launched, "fallbacks": fb,
                        "max_abs_err": None, "raised": type(err).__name__})
 
-    # K1: rows of qwen3-0.6b's width; host rows; fp16 and fp64 rows raise
+    # K1: rows of qwen3-0.6b's width, fp32 and fp16; host rows; fp64 rows
+    # raise
     x, w = rand(8, 1024), rand(1024)
     check("rmsnorm", rms_k, "fp32 rows", lambda i: rmsnorm(x, w, impl=i),
           True)
+    check("rmsnorm", rms_k, "fp16 rows",
+          lambda i: rmsnorm(x.half(), w, impl=i), True)
     check("rmsnorm", rms_k, "host rows",
           lambda i: rmsnorm(*host((x, w)), impl=i), False)
-    for dt in (f16, f64):
-        gap("rmsnorm", rms_k, f"{dt} rows",
-            lambda xd=x.to(dt): rmsnorm(xd, w, impl="cuda"), TypeError)
-    # K2: (1, 4/2 heads, 128, 64) causal GQA; host tensors; fp16, d 200,
-    # dv 160 and block_q 256 raise
+    gap("rmsnorm", rms_k, f"{f64} rows",
+        lambda: rmsnorm(x.to(f64), w, impl="cuda"), TypeError)
+    # K2: (1, 4/2 heads, 128, 64) causal GQA, fp32 and fp16; host tensors;
+    # q of another dtype than k and v, d 200, dv 160 and block_q 256 raise
     q, k, v = rand(1, 4, 128, 64), rand(1, 2, 128, 64), rand(1, 2, 128, 64)
     check("attention", attn_k, "fp32 GQA",
           lambda i: attention(q, k, v, impl=i), True)
+    check("attention", attn_k, "fp16 GQA",
+          lambda i: attention(q.half(), k.half(), v.half(), impl=i), True)
     check("attention", attn_k, "host tensors",
           lambda i: attention(*host((q, k, v)), impl=i), False)
-    cases = {"fp16": ((q.half(), k.half(), v.half()), {}, TypeError),
+    cases = {"fp16 q, fp32 k and v": ((q.half(), k, v), {}, TypeError),
              "d 200": ((rand(1, 4, 128, 200), rand(1, 2, 128, 200),
                         rand(1, 2, 128, 64)), {}, ValueError),
              "dv 160": ((q, k, rand(1, 2, 128, 160)), {}, ValueError),
@@ -1991,20 +2068,25 @@ def phase_guards(decode_by_kind: dict) -> dict:
     gap("matmul", mm_k, "tiles (256, 256, 128)",
         lambda: matmul(a, b, bm=256, bn=256, bk=128, impl="cuda"),
         ValueError)
-    # K4: rwkv6's heads of 64 at T 256, exclusive with the bonus; host
-    # tensors; fp16, head dim 136, chunk 48 and a bonus on the inclusive
-    # recurrence raise
+    # K4: rwkv6's heads of 64 at T 256, exclusive with the bonus, fp32 and
+    # fp16 (log_w and the bonus fp32, as the models give them); host
+    # tensors; fp16 q and v with an fp32 k, head dim 136, chunk 48 and a
+    # bonus on the inclusive recurrence raise
     lq, lk, lv = rand(8, 256, 64), rand(8, 256, 64), rand(8, 256, 64)
     lw = -torch.rand(8, 256, 64, generator=gen).to("cuda") - 0.01
     u = rand(8, 64)
     check("linear_attention", la_k, "fp32 exclusive + bonus",
           lambda i: linear_attention(lq, lk, lv, lw, bonus=u, impl=i), True)
+    check("linear_attention", la_k, "fp16 exclusive + bonus",
+          lambda i: linear_attention(lq.half(), lk.half(), lv.half(), lw,
+                                     bonus=u, impl=i), True)
     check("linear_attention", la_k, "host tensors",
           lambda i: linear_attention(*host((lq, lk, lv, lw)),
                                      bonus=u.cpu(), impl=i), False)
     wide = rand(8, 64, 136)
     wide_w = -torch.rand(8, 64, 136, generator=gen).to("cuda") - 0.01
-    cases = {"fp16": ((lq.half(), lk.half(), lv.half(), lw), {}, TypeError),
+    cases = {"fp16 q and v, fp32 k": ((lq.half(), lk, lv.half(), lw), {},
+                                      TypeError),
              "head dim 136": ((wide, wide, wide, wide_w), {}, ValueError),
              "chunk 48": ((lq, lk, lv, lw), {"chunk": 48}, ValueError),
              "inclusive + bonus": ((lq, lk, lv, lw),
@@ -3931,7 +4013,7 @@ def _kernel_class(name: str, moe: bool = False) -> str:
     classes = ((r"rmsnorm_(regs|general)", "K1 rmsnorm"),
                (r"\b(ring|simple)_kernel", "K2 attention"),
                (r"\b(summary|fold|output)_kernel", "K4 linear attention"),
-               (r"gemm|xmma|cutlass|cublas", "GEMM"))
+               (r"gemm|xmma|cutlass|cublas|nvjet", "GEMM"))
     for pattern, label in classes + (MOE_KERNEL_CLASSES if moe else ()):
         if re.search(pattern, name, re.IGNORECASE):
             return label
@@ -4004,18 +4086,75 @@ def _prefill_sweep(what: str, cfg, params, batch, labels: list) -> dict:
     rt.shutdown()
     return {"calls": calls, "chosen": json.loads(_config_str(chosen)),
             "candidates": rates,
+            "axes": {label: list(space[label].candidates())
+                     for label in labels},
             "settled_tok_s": controller.best(DEFAULT_CONTEXT)[1] * tokens}
 
 
+def _family_batch(cfg, shape: tuple) -> dict:
+    """Phase 17b's input of ``shape``, from seed 17: tokens, or embeds for
+    the stub frontends."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    if cfg.frontend:
+        return {"embeds": torch.randn((*shape, cfg.d_model), generator=gen,
+                                      device="cuda")}
+    return {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                    device="cuda", dtype=torch.int32)}
+
+
+def _plain_logits(cfg, params, batch):
+    """The prefill handler's logits on ``batch`` pinned to every plain
+    version, and the call's wall seconds."""
+    import torch
+
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.training import make_prefill_builder
+
+    rt = IridescentRuntime(max_compile_workers=1)
+    handler = rt.register("prefill_step", make_prefill_builder(cfg))
+    labels = handler.spec_space().labels()
+    _pin(handler, {label: "torch_ref" for label in (
+        "rmsnorm_impl", "attention_impl", "linear_attention_impl")
+        if label in labels})
+    t = time.perf_counter()
+    logits = handler(params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    rt.shutdown()
+    return logits, seconds
+
+
+def _k_per_call(cfg) -> dict:
+    """K1, K2 and K4 launches of one full-sequence forward of ``cfg``: a
+    pre-norm pair and the final norm, the q/k pair (``qk_norm``), hymba's
+    two mixer norms, rwkv6's per-head output norm; an attention a layer but
+    in rwkv6; a linear attention a layer in rwkv6 and hymba."""
+    layers, hymba = cfg.n_layers, cfg.mixer == "hymba"
+    rwkv = cfg.mixer == "rwkv6"
+    return {"rmsnorm": 2 * layers + 1 + (2 * layers if hymba else 0)
+            + (layers if rwkv or cfg.qk_norm else 0),
+            "attention": 0 if rwkv else layers,
+            "linear_attention": layers if hymba or rwkv else 0}
+
+
 def phase_family_prefill(arch: str, keep: bool, cfg=None,
-                         shape: tuple = FAMILY_PREFILL) -> dict:
+                         shape: tuple = FAMILY_PREFILL, *, params=None,
+                         plain32=None, sweep_labels=None) -> dict:
     """Phase 17b for one family at full width and full depth (or at
-    ``cfg``: phase 20's reduced kimi-k2): one ``shape`` prefill through
-    ``make_prefill_builder``'s generic variant, timed, then profiled, then
-    the same call pinned to the plain versions; their logits within
-    PARITY_TOL; each call's K1, K2 (and hymba's K4) launches from the
-    wrappers' counts.  hymba then runs its Controller sweep.  The weights
-    are freed unless ``keep``."""
+    ``cfg``: phase 20's reduced kimi-k2, phase 18b's half precision): one
+    ``shape`` prefill through ``make_prefill_builder``'s generic variant,
+    timed, then profiled, then the same call pinned to the plain versions;
+    each call's K1, K2 and K4 launches from the wrappers' counts
+    (:func:`_k_per_call`).  In fp32 the two logits agree within
+    PARITY_TOL; given ``plain32``, the plain fp32 path's logits on the same
+    weights and input (phase 18b), the kernels' half-precision logits lie
+    within HALF_SPREAD times the plain half-precision path's own distance
+    from them (skipped, and said, where the plain path is not finite).
+    Then, given ``sweep_labels``, the handler runs a Controller sweep over
+    them.  The weights (drawn from seed 0 unless ``params`` are given) are
+    returned if ``keep``."""
     import torch
 
     from repro_torch import compat, configs
@@ -4030,36 +4169,31 @@ def phase_family_prefill(arch: str, keep: bool, cfg=None,
     dev = torch.device("cuda")
     cfg = cfg or configs.get_config(arch).replace(compute_dtype="float32")
     hymba = cfg.mixer == "hymba"
+    what = (arch if cfg.compute_dtype == "float32"
+            else f"{arch} {cfg.compute_dtype}")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
-                               cfg)
-    torch.cuda.synchronize()
+    if params is None:
+        t0 = time.perf_counter()
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in compat.tree_leaves(params))
+        log(f"family prefill: {arch} ({cfg.n_layers} layers, d="
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.d_head}"
+            f"{f', window {cfg.window}, {cfg.ssm_heads} SSM heads of state {cfg.ssm_state}' if hymba else ''}"
+            f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+            f"{f', {cfg.frontend} frontend (embeds)' if cfg.frontend else ''}) "
+            f"params {n_params / 1e6:.1f}M ({4 * n_params / 1e9:.2f} GB "
+            f"fp32), drawn in {time.perf_counter() - t0:.1f}s")
     n_params = sum(p.numel() for p in compat.tree_leaves(params))
-    log(f"family prefill: {arch} ({cfg.n_layers} layers, d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}"
-        f"{f', window {cfg.window}, {cfg.ssm_heads} SSM heads of state {cfg.ssm_state}' if hymba else ''}"
-        f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
-        f"{f', {cfg.frontend} frontend (embeds)' if cfg.frontend else ''}) "
-        f"params {n_params / 1e6:.1f}M ({4 * n_params / 1e9:.2f} GB fp32), "
-        f"drawn in {time.perf_counter() - t0:.1f}s")
-    gen = torch.Generator(device=dev).manual_seed(17)
     b, s = shape
-    if cfg.frontend:
-        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
-                                       device=dev)}
-    else:
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
-                                         generator=gen, device=dev,
-                                         dtype=torch.int32)}
+    batch = _family_batch(cfg, shape)
     rt = IridescentRuntime(max_compile_workers=1)
     handler = rt.register("prefill_step", make_prefill_builder(cfg))
     counters = {"rmsnorm": rms_kernel, "attention": attn_kernel,
                 "linear_attention": la_kernel}
-    per_call = {"rmsnorm": 2 * cfg.n_layers + 1 + (2 * cfg.n_layers
-                                                   if hymba else 0),
-                "attention": cfg.n_layers,
-                "linear_attention": cfg.n_layers if hymba else 0}
+    per_call = _k_per_call(cfg)
 
     # the main path: the generic variant, twice (the second timed)
     for k in counters.values():
@@ -4075,54 +4209,79 @@ def phase_family_prefill(arch: str, keep: bool, cfg=None,
     fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
                  registry.default_registry.fallback_counts.items()}
     if fallbacks:
-        fail(f"{arch} prefill fell back: {fallbacks}")
+        fail(f"{what} prefill fell back: {fallbacks}")
     for n, want in per_call.items():
         if launches[n] != 2 * want:
-            fail(f"{arch} prefill: {n} launched {launches[n]} times over 2 "
+            fail(f"{what} prefill: {n} launched {launches[n]} times over 2 "
                  f"calls; wanted {want} a call")
-    if logits.shape != (b, s, cfg.padded_vocab_size) \
-            or not torch.isfinite(logits).all():
-        fail(f"{arch} prefill logits {tuple(logits.shape)} or non-finite")
+    finite = bool(torch.isfinite(logits).all())
+    if logits.shape != (b, s, cfg.padded_vocab_size) or not (
+            finite or plain32 is not None):
+        fail(f"{what} prefill logits {tuple(logits.shape)} or non-finite")
     tok_s = b * s / seconds[1]
     prof, wall, _ = profiled(lambda: handler(params, batch), 1)
-    profile = _profile_by_kernel(prof, wall, f"{arch} full-width ({b}, {s}) "
+    profile = _profile_by_kernel(prof, wall, f"{what} full-width ({b}, {s}) "
                                  f"prefill call (generic variant, profiler "
                                  f"on)")
     del prof
 
-    plain_cfg = {"rmsnorm_impl": "torch_ref", "attention_impl": "torch_ref"}
-    if hymba:
-        plain_cfg["linear_attention_impl"] = "torch_ref"
-    _pin(handler, plain_cfg)
-    t = time.perf_counter()
-    plain = handler(params, batch)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t
     rt.shutdown()
+    plain, plain_s = _plain_logits(cfg, params, batch)
     v = cfg.vocab_size
     rel = ((logits[..., :v] - plain[..., :v]).abs().max()
            / plain[..., :v].abs().max().clamp_min(1e-30)).item()
     agree = int((logits[..., :v].argmax(-1) == plain[..., :v].argmax(-1))
                 .sum())
+    half = None
+    if plain32 is not None:
+        half = {"kernel_err": (logits[..., :v] - plain32[..., :v]).abs()
+                .max().item(),
+                "plain_err": (plain[..., :v] - plain32[..., :v]).abs()
+                .max().item(),
+                "plain_finite": bool(torch.isfinite(plain).all()),
+                "kernel_finite": finite,
+                "max_abs_logit": plain32[..., :v].abs().max().item()}
     del logits, plain
-    log(f"family prefill: {arch} ({b}, {s}) {'embeds' if cfg.frontend else 'tokens'}: "
+    log(f"family prefill: {what} ({b}, {s}) {'embeds' if cfg.frontend else 'tokens'}: "
         f"generic variant {1e3 * seconds[1]:.1f} ms ({tok_s:.1f} tok/s; "
         f"first call {1e3 * seconds[0]:.1f} ms), plain {1e3 * plain_s:.1f} "
         f"ms; launches a call {per_call}; max relative logits diff "
-        f"generic vs plain {rel:.3e} (tol {PARITY_TOL:g}); argmax agrees "
+        f"generic vs plain {rel:.3e}"
+        f"{f' (tol {PARITY_TOL:g})' if half is None else ''}; argmax agrees "
         f"on {agree}/{b * s}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if rel > PARITY_TOL:
-        fail(f"{arch} prefill parity: relative diff {rel:.3e} > "
+    if half is None and rel > PARITY_TOL:
+        fail(f"{what} prefill parity: relative diff {rel:.3e} > "
              f"{PARITY_TOL}")
-    sweep = (_prefill_sweep("hymba", cfg, params, batch, HYMBA_SWEEP_LABELS)
-             if hymba else None)
+    if half is not None:
+        limit = HALF_SPREAD * half["plain_err"]
+        log(f"family prefill: {what}: max |kernels - plain fp32| "
+            f"{half['kernel_err']:.4e}, max |plain {cfg.compute_dtype} - "
+            f"plain fp32| {half['plain_err']:.4e} (limit {HALF_SPREAD:g} x "
+            f"that, {limit:.4e}); max |plain fp32 logit| "
+            f"{half['max_abs_logit']:.3f}")
+        if not half["plain_finite"]:
+            log(f"family prefill: {what}: the plain {cfg.compute_dtype} "
+                f"path is not finite at full width with these random "
+                f"weights (the kernels' logits: "
+                f"{'finite' if finite else 'not finite'}): the "
+                f"configuration's range, not the kernels'; criterion "
+                f"skipped")
+        elif not finite:
+            fail(f"{what} prefill: the kernels' logits are not finite where "
+                 f"the plain {cfg.compute_dtype} path's are")
+        elif not half["kernel_err"] <= limit:
+            fail(f"{what} prefill: max |kernels - plain fp32| "
+                 f"{half['kernel_err']:.4e} over {HALF_SPREAD:g} x the plain "
+                 f"{cfg.compute_dtype} path's {half['plain_err']:.4e}")
+    sweep = (_prefill_sweep(what, cfg, params, batch, sweep_labels)
+             if sweep_labels else None)
     out = {"arch": arch, "n_params": n_params, "call_ms": 1e3 * seconds[1],
            "first_ms": 1e3 * seconds[0], "tok_s": tok_s,
            "plain_ms": 1e3 * plain_s, "max_rel": rel,
            "argmax_agree": agree, "launches": launches,
            "per_call": per_call, "profile": profile, "sweep": sweep,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "half": half, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     if keep:
         out["params"] = params
     del params, batch
@@ -4230,6 +4389,179 @@ def phase_family_serve(arch: str, max_len: int, params, cfg=None) -> dict:
              f"{out['cuda']['tokens']} and the plain versions "
              f"{out['torch_ref']['tokens']}")
     return out
+
+def phase_half(fp32_ms: dict) -> dict:
+    """Phase 18b: half precision on the card.  Each of HALF_ARCHS at full
+    width and depth (weights from seed 0, fp32 as every configuration
+    keeps them; the model casts them to ``compute_dtype``) runs phase 17b's
+    (1, 4096) prefill (:func:`phase_family_prefill`) in fp16 and in bf16,
+    held to the plain fp32 path's logits on the same input (HALF_SPREAD);
+    qwen3-0.6b's then sweeps HALF_SWEEP_LABELS under a Controller, every
+    candidate of each run in both dtypes.  ``fp32_ms`` is each model's
+    fp32 time a call from phases 7, 9 and 17, printed beside.  Then
+    qwen3-0.6b is served in fp16 (:func:`_half_serve`)."""
+    import torch
+
+    from repro_torch import compat, configs
+    from repro_torch.models import transformer as model
+
+    dev = torch.device("cuda")
+    out = {"prefill": {}, "launches": collections.Counter()}
+    for arch in HALF_ARCHS:
+        cfg = configs.get_config(arch).replace(compute_dtype="float32")
+        t0 = time.perf_counter()
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        drawn_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in compat.tree_leaves(params))
+        batch = _family_batch(cfg, FAMILY_PREFILL)
+        plain32, plain_s = _plain_logits(cfg, params, batch)
+        if not torch.isfinite(plain32).all():
+            fail(f"half: the plain fp32 {arch} prefill is not finite")
+        log(f"half: {arch} ({cfg.n_layers} layers, d={cfg.d_model}, "
+            f"{n_params / 1e6:.1f}M fp32 parameters drawn in "
+            f"{drawn_s:.1f}s); the plain fp32 {FAMILY_PREFILL} prefill "
+            f"{1e3 * plain_s:.1f} ms")
+        del batch
+        for dtype in HALF_DTYPES:
+            hcfg = cfg.replace(compute_dtype=dtype)
+            run = phase_family_prefill(
+                arch, False, hcfg, params=params, plain32=plain32,
+                sweep_labels=(HALF_SWEEP_LABELS if arch == "qwen3-0.6b"
+                              else None))
+            if run["sweep"] is not None:
+                seen = {label: {_setting(c["config"], label)
+                                for c in run["sweep"]["candidates"]}
+                        for label in HALF_SWEEP_LABELS}
+                missed = {label: [c for c in axis if c not in seen[label]]
+                          for label, axis in run["sweep"]["axes"].items()}
+                if any(missed.values()):
+                    fail(f"half: {arch} {dtype} sweep never ran "
+                         f"{missed}")
+            out["launches"].update(run["launches"])
+            out["prefill"][f"{arch} {dtype}"] = run
+            log(f"half: {arch} {dtype} {FAMILY_PREFILL} prefill, generic "
+                f"variant: "
+                f"host {run['call_ms']:.1f} ms a call, device "
+                f"{run['profile']['busy_ms']:.1f} ms "
+                f"({100 * run['profile']['busy_share']:.1f}% busy); fp32 "
+                f"{fp32_ms[arch]['ms']:.1f} ms ({fp32_ms[arch]['what']})")
+        del params, plain32
+        torch.cuda.empty_cache()
+    out["serve"] = _half_serve()
+    out["launches"]["rmsnorm"] += out["serve"]["launches"]
+    return out
+
+
+def _half_serve() -> dict:
+    """qwen3-0.6b at full width served in fp16 through
+    ``make_serve_builder``: one prefill chunk then HALF_SERVE's greedy
+    decode steps at batch 8, under each of the builder's ``cache_dtype``
+    candidates, pinned to the kernels and then to the plain versions.
+    Every kernel step launches K1 85 times (57 single, 28 pairs) and
+    nothing falls back; the logits are finite; the greedy tokens are
+    compared with the plain path's, and where they first differ the top-2
+    logit gap of both is printed."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import IridescentRuntime
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import transformer as model
+    from repro_torch.training import make_serve_builder, phase_context_fn
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config("qwen3-0.6b").replace(compute_dtype="float16")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    b, chunk, steps = HALF_SERVE
+    per_step = _k_per_call(cfg)["rmsnorm"]          # as a forward's
+    prompt = torch.randint(0, cfg.vocab_size, (b, chunk),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev, dtype=torch.int32)
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    out = {"launches": 0, "by_cache": {}}
+    for cache_dtype in ("bfloat16", "float32"):
+        runs = {}
+        for impl in ("cuda", "torch_ref"):
+            rt = IridescentRuntime(max_compile_workers=1)
+            handler = rt.register("serve_step", make_serve_builder(cfg),
+                                  context_fn=phase_context_fn)
+            pinned = {"cache_dtype": cache_dtype, "rmsnorm_impl": impl}
+            for key in (("prefill", b), ("decode", b)):
+                handler.specialize(pinned, wait=True, context=key)
+            cache = model.init_cache(
+                cfg, b, HALF_SERVE_MAX_LEN,
+                model.RunOptions(decode_cache_dtype=cache_dtype), device=dev)
+            rms_kernel.reset_launches()
+            registry.default_registry.fallback_counts.clear()
+            logits, cache = handler(params, cache, prompt, zeros,
+                                    torch.full_like(zeros, chunk))
+            seen = [logits]
+            tokens = [logits.argmax(-1)]
+            launched, host_s = [], 0.0
+            for t in range(steps):
+                l0 = rms_kernel.launches
+                t0 = time.perf_counter()
+                logits, cache = handler(params, cache, tokens[-1].int(),
+                                        torch.full_like(zeros, chunk + t),
+                                        torch.ones_like(zeros))
+                torch.cuda.synchronize()
+                host_s += time.perf_counter() - t0
+                launched.append(rms_kernel.launches - l0)
+                seen.append(logits)
+                tokens.append(logits.argmax(-1))
+            fallbacks = {f"{k[0]}/{k[1]}": v for k, v in
+                         registry.default_registry.fallback_counts.items()}
+            rt.shutdown()
+            want = per_step if impl == "cuda" else 0
+            if fallbacks:
+                fail(f"half serve ({cache_dtype} cache, {impl}) fell back: "
+                     f"{fallbacks}")
+            if any(n != want for n in launched):
+                fail(f"half serve ({cache_dtype} cache, {impl}): K1 "
+                     f"launches a decode step {launched}; wanted {want}")
+            if any(lg.shape != (b, cfg.vocab_size)
+                   or not torch.isfinite(lg).all() for lg in seen):
+                fail(f"half serve ({cache_dtype} cache, {impl}): logits "
+                     f"not finite or not ({b}, {cfg.vocab_size})")
+            out["launches"] += rms_kernel.launches if impl == "cuda" else 0
+            runs[impl] = {"tokens": torch.stack(tokens, 1).tolist(),
+                          "logits": seen,
+                          "host_ms_a_step": 1e3 * host_s / steps,
+                          "launches_a_step": launched[0]}
+        kern, plain = runs["cuda"], runs["torch_ref"]
+        first = next(((t, r) for t in range(steps + 1) for r in range(b)
+                      if kern["tokens"][r][t] != plain["tokens"][r][t]),
+                     None)
+        if first is None:
+            agree = "equal"
+        else:
+            t, r = first
+            gaps = {impl: float((lambda top: top[0] - top[1])(
+                runs[impl]["logits"][t][r].float().topk(2).values))
+                for impl in runs}
+            agree = (f"first differ at step {t}, row {r}: top-2 logit gap "
+                     f"kernels {gaps['cuda']:.4e}, plain "
+                     f"{gaps['torch_ref']:.4e}")
+        log(f"half serve: qwen3-0.6b fp16, {cache_dtype} cache, batch {b}: "
+            f"1 prefill chunk of {chunk} + {steps} greedy decode steps; K1 "
+            f"{kern['launches_a_step']} launches a decode step, 0 "
+            f"fallbacks; host ms a decode step kernels "
+            f"{kern['host_ms_a_step']:.1f}, plain "
+            f"{plain['host_ms_a_step']:.1f}; greedy tokens kernels vs "
+            f"plain: {agree}")
+        out["by_cache"][cache_dtype] = {
+            "tokens_agree": first is None, "first_difference": agree,
+            **{f"{impl}_host_ms_a_step": runs[impl]["host_ms_a_step"]
+               for impl in runs}}
+        del runs, kern, plain
+    del params
+    torch.cuda.empty_cache()
+    return out
+
 
 # -- phases 19-20: MoE and MLA ----------------------------------------------------
 
@@ -5687,27 +6019,52 @@ def _dryrun_errors(out: Path, what: str) -> None:
             f"{e.read_text().strip().splitlines()[-1]}" for e in errors))
 
 
-def _dryrun_cli() -> dict:
+def _start_dryrun(args: list, out: Path) -> dict:
+    """Start the dry-run CLI with ``args`` writing into ``out`` (emptied
+    first), its output to ``out``.log: it runs on the host, beside the
+    card's work (phase 24 starts both cells first and reads them last)."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    log_path = out.with_suffix(".log")
+    with open(log_path, "w") as sink:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(out)], stdout=sink, stderr=subprocess.STDOUT,
+            text=True, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    return {"proc": proc, "t0": time.perf_counter(), "out": out,
+            "log": log_path}
+
+
+def _finish_dryrun(run: dict, what: str, artifact: str) -> tuple:
+    """Wait for a run of :func:`_start_dryrun` (at most 900 s from its
+    start; killed past that) and fail unless it exited 0 and wrote
+    ``artifact`` under its ``out``; its seconds and the artifact's
+    contents."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(1.0, 900 - (time.perf_counter() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    secs = time.perf_counter() - run["t0"]
+    _dryrun_errors(run["out"], what)
+    art = run["out"] / "single" / artifact
+    if proc.returncode != 0 or not art.exists():
+        fail(f"{what}: exit {proc.returncode}, artifact {art.exists()}: "
+             f"{run['log'].read_text()[-5000:]}")
+    return secs, json.loads(art.read_text())
+
+
+def _dryrun_cli(run: dict) -> dict:
     """Phase 24c: the dry-run CLI on the single-pod production mesh (256
     ranks of the fake backend) for qwen3-0.6b's decode_32k under
-    serve_ep: it exits 0 and writes its artifact, whose per-rank argument
-    + temp is at most the placed cache plus the parameters' local shards
-    plus DRYRUN_CLI_SLACK (a working copy of the whole cache would be
-    481 GB)."""
-    out = SCRATCH / "dryrun"
-    shutil.rmtree(out, ignore_errors=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
-         "--out", str(out)], capture_output=True, text=True, timeout=900,
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    secs = time.perf_counter() - t0
-    _dryrun_errors(out, "dry run CLI")
-    art = out / "single" / "qwen3-0.6b__decode_32k.json"
-    if proc.returncode != 0 or not art.exists():
-        fail(f"dry run CLI: exit {proc.returncode}, artifact "
-             f"{art.exists()}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
-    res = json.loads(art.read_text())
+    serve_ep (started by :func:`_start_dryrun`): it exits 0 and writes its
+    artifact, whose per-rank argument + temp is at most the placed cache
+    plus the parameters' local shards plus DRYRUN_CLI_SLACK (a working
+    copy of the whole cache would be 481 GB)."""
+    secs, res = _finish_dryrun(run, "dry run CLI",
+                               "qwen3-0.6b__decode_32k.json")
     mem = res["full"]["memory"]
     held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     bound = (mem["cache_placed_bytes"] + mem["params_size_in_bytes"]
@@ -5728,26 +6085,16 @@ def _dryrun_cli() -> dict:
             "cache_placed_bytes": mem["cache_placed_bytes"]}
 
 
-def _dryrun_hymba() -> dict:
+def _dryrun_hymba(run: dict) -> dict:
     """Phase 24c, second cell: the dry-run CLI on the single-pod production
     mesh for hymba-1.5b's prefill_32k under the hillclimb's c2_logitsbf16
-    spec (25 heads split unevenly over model = 16): it exits 0, no score
-    tensor among the five largest at the peak holds more than 2 heads, and
-    a rank's temp is at most DRYRUN_HYMBA_TEMP."""
-    out = SCRATCH / "dryrun_hymba"
-    shutil.rmtree(out, ignore_errors=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_HYMBA,
-         "--out", str(out)], capture_output=True, text=True, timeout=900,
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    secs = time.perf_counter() - t0
-    _dryrun_errors(out, "dry run CLI (hymba)")
-    art = out / "single" / "hymba-1.5b__prefill_32k__c2_logitsbf16.json"
-    if proc.returncode != 0 or not art.exists():
-        fail(f"dry run CLI (hymba): exit {proc.returncode}, artifact "
-             f"{art.exists()}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
-    mem = json.loads(art.read_text())["full"]["memory"]
+    spec (25 heads split unevenly over model = 16; started by
+    :func:`_start_dryrun`): it exits 0, no score tensor among the five
+    largest at the peak holds more than 2 heads, and a rank's temp is at
+    most DRYRUN_HYMBA_TEMP."""
+    secs, res = _finish_dryrun(run, "dry run CLI (hymba)",
+                               "hymba-1.5b__prefill_32k__c2_logitsbf16.json")
+    mem = res["full"]["memory"]
     temp = mem["temp_size_in_bytes"]
     # a score tensor: (batch, heads, chunks, rows, keys), banded
     heads = max((t["shape"][1] for t in mem["peak_tensors"]
@@ -5772,8 +6119,9 @@ def phase_cached_mesh(cfg) -> dict:
     against the plain step (deepseek-v2 with each MoE dispatch), no
     kernel launched and no fallback counted; (b) the dry run held to the
     card; (c) the dry-run CLI at the production mesh: qwen3-0.6b
-    decode_32k, then hymba-1.5b prefill_32k's uneven heads.  The group is
-    destroyed at the end."""
+    decode_32k and hymba-1.5b prefill_32k's uneven heads, two processes
+    on the host started first and read last.  The group is destroyed at
+    the end."""
     import torch
     import torch.distributed as dist
 
@@ -5785,6 +6133,10 @@ def phase_cached_mesh(cfg) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
+    # (c)'s cells need only the host: they run while (a) and (b) use the
+    # card
+    cells = [_start_dryrun(DRYRUN_CLI, SCRATCH / "dryrun"),
+             _start_dryrun(DRYRUN_HYMBA, SCRATCH / "dryrun_hymba")]
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous",
@@ -5820,12 +6172,16 @@ def phase_cached_mesh(cfg) -> dict:
             torch.cuda.empty_cache()
             out["launches"] = guard.check("mesh cached")
         out["dryrun"] = _dryrun_held_to_card(cfg, mesh)
+        out["cli"] = _dryrun_cli(cells[0])
+        out["hymba"] = _dryrun_hymba(cells[1])
     finally:
         dist.destroy_process_group()
+        for cell in cells:                     # stopped on any failure
+            if cell["proc"].poll() is None:
+                cell["proc"].kill()
+                cell["proc"].wait()
     gc.collect()
     torch.cuda.empty_cache()
-    out["cli"] = _dryrun_cli()
-    out["hymba"] = _dryrun_hymba()
     shutil.rmtree(work, ignore_errors=True)
     log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
     return out
@@ -5893,11 +6249,23 @@ def main(argv: list[str]) -> None:
     fleet = timed(phase_fleet)
     family_k = timed(phase_family_kernels)
     serve_archs = dict(FAMILY_SERVE)
-    family = {a: timed(phase_family_prefill, a, keep=a in serve_archs)
+    family = {a: timed(phase_family_prefill, a, keep=a in serve_archs,
+                       sweep_labels=(HYMBA_SWEEP_LABELS
+                                     if a == "hymba-1.5b" else None))
               for a in FAMILY_ARCHS}
     family_serve = {a: timed(phase_family_serve, a, max_len,
                              family[a].pop("params"))
                     for a, max_len in FAMILY_SERVE}
+    # phase 18's engines hold its weights in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    half = timed(phase_half, {
+        "qwen3-0.6b": {"ms": prefill["sweep_ms"],
+                       "what": "fp32, phase 7's settled config"},
+        "rwkv6-1.6b": {"ms": rprefill["sweep_ms"],
+                       "what": "fp32, phase 9's settled config"},
+        "hymba-1.5b": {"ms": family["hymba-1.5b"]["call_ms"],
+                       "what": "fp32, phase 17's generic variant"}})
     # phase 18's engines hold its weights in reference cycles: collect them
     # before 53 GB of deepseek-v2 weights need the card
     gc.collect()
@@ -5981,7 +6349,8 @@ def main(argv: list[str]) -> None:
             f["launches"]["rmsnorm"] for f in family.values()) + sum(
             f["cuda"]["launches"] for f in family_serve.values())
         + moe["launches"]["rmsnorm"] + moe_serve["serve"]["cuda"]["launches"]
-        + kimi["launches"]["rmsnorm"] + kimi_serve["cuda"]["launches"],
+        + kimi["launches"]["rmsnorm"] + kimi_serve["cuda"]["launches"]
+        + half["launches"]["rmsnorm"],
         "serve_launches": main_path["launches"],
         "max_abs_err": rms["max_abs_err"],
         "ms": rms["ms"],
@@ -6008,6 +6377,18 @@ def main(argv: list[str]) -> None:
         "moe_serve_launches": moe_serve["serve"]["cuda"]["launches"],
         "kimi_prefill_launches": kimi["launches"]["rmsnorm"],
         "kimi_serve_launches": kimi_serve["cuda"]["launches"],
+        "half_launches": half["launches"]["rmsnorm"],
+        "half_serve_launches": half["serve"]["launches"],
+        "half": {r["dtype"]: {
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "graph_ms": r["device_only"]["ms"],
+            "per": f"one launch at {tuple(r['shapes'][0])} "
+                   f"(x{r['launches_per_call']} a qwen3 (1, 4096) prefill)"}
+            for r in rms["per_shape"] if r["kind"] == "single"
+            and r["shapes"] == [list(next(iter(PREFILL_SHAPES)))]
+            and r["dtype"] != "float32"},
         "moe_max_abs_err": moe_k["max_abs_err"]["rmsnorm"],
         "moe_widths": moe_k["widths"],
         "shapes": rms["per_shape"],
@@ -6021,7 +6402,22 @@ def main(argv: list[str]) -> None:
         "replaces": "src/repro/kernels/attention/kernel.py:106",
         "launches": prefill["attention_launches"] + sum(
             f["launches"]["attention"] for f in family.values())
-        + moe["launches"]["attention"] + kimi["launches"]["attention"],
+        + moe["launches"]["attention"] + kimi["launches"]["attention"]
+        + half["launches"]["attention"],
+        "half_launches": half["launches"]["attention"],
+        "half": {r["dtype"]: {
+            "tiles": min(r["kernel_ms_by_tiles"],
+                         key=r["kernel_ms_by_tiles"].get),
+            "ms": n * min(r["kernel_ms_by_tiles"].values()),
+            "plain_ms": n * r["plain_ms"] if r["plain_ms"] else None,
+            "bound_ms": n * r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": (n * r["library_ms"] if r["library_ms"] is not None
+                           else None),
+            "per": f"one (1, {PREFILL_SWEEP[1]}) qwen3 prefill call ({n} "
+                   f"launches, the best tiles)"}
+            for r in attn["per_shape"]
+            if r["shape"] == [b, h, hk, PREFILL_SWEEP[1], dh, dh]
+            and r["dtype"] != "float32"},
         "prefill_launches": prefill["attention_launches"],
         "max_abs_err": attn["max_abs_err"],
         "max_abs_err_by_dtype": attn["max_abs_err_by_dtype"],
@@ -6064,7 +6460,19 @@ def main(argv: list[str]) -> None:
                   "linear_attention.cu",
         "replaces": "src/repro/kernels/linear_attention/kernel.py:76",
         "launches": rprefill["la_launches"] + sum(
-            f["launches"]["linear_attention"] for f in family.values()),
+            f["launches"]["linear_attention"] for f in family.values())
+        + half["launches"]["linear_attention"],
+        "half_launches": half["launches"]["linear_attention"],
+        "half": {r["dtype"]: {
+            "ms": rn * r["kernel_ms_by_chunk"][c],
+            "plain_ms": rn * r["plain_ms_by_chunk"][c],
+            "bound_ms": rn * r["bound_ms_by_chunk"][c],
+            "bound_by": r["bound_by_chunk"][c], "library_ms": None,
+            "per": f"one rwkv6 (1, {RWKV_SWEEP[1]}) prefill call ({rn} "
+                   f"calls, chunk {c})"}
+            for r in linatt["per_shape"]
+            if r["shape"] == [RWKV_HEADS, RWKV_SWEEP[1], RWKV_HEAD, RWKV_HEAD]
+            and r["dtype"] != "float32"},
         "rwkv6_prefill_launches": rprefill["la_launches"],
         "max_abs_err": linatt["max_abs_err"],
         "max_abs_err_by_dtype": linatt["max_abs_err_by_dtype"],

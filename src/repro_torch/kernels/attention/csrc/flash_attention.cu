@@ -14,6 +14,7 @@
 // the fp32 FMA units (TF32 tensor cores would change the numerics).  Each
 // FMA is an issue slot, so the design keeps every other instruction
 // (shared loads, copies, masks, barriers) a small share of the stream.
+// For bf16 and fp16 inputs the bound is the tensor cores' 989 TFLOP/s.
 //
 // Two bodies under one entry point, picked by dtype:
 //
@@ -49,9 +50,16 @@
 //     whose 16 rows see none of a tile's columns skips its products.  The
 //     scale times log2(e) is folded into q once it has landed, so scores
 //     are in the log2 domain and the exponentials are exp2f.
-// * bf16 (simple_kernel): the kernel's first body, kept for bf16 inputs
-//   (fp32 inside, no main path runs it): q, one K and one V tile and P
-//   staged synchronously through registers as fp32.
+// * bf16 and fp16 (simple_kernel): the kernel's first body, for half-
+//   precision inputs (fp32 inside): q, one K and one V tile and P staged
+//   synchronously through registers as fp32.  It runs on the prefill of
+//   every attention model whose compute_dtype is bfloat16 or float16 (each
+//   configuration's default is bfloat16).  In fp16, P is rounded to fp16
+//   before the P.V product, as the Pallas kernel rounds it to v's dtype
+//   (p.astype(v.dtype)); the bf16 instantiation keeps its fp32 P, within
+//   one bf16 ulp of the plain version, which rounding P to bf16 (2^-8 of
+//   each probability) would exceed.  Its FMAs are fp32, so it is far from
+//   the tensor-core bound that half-precision inputs allow.
 //
 // BQ and BKV (the block_q / block_kv spec points) are template arguments:
 // each tile pair is its own compiled kernel; the fp32 body also has one
@@ -59,6 +67,7 @@
 // (d = 192 with dv = 128 is MLA's nope + rope over v).  Every instantiation
 // fits the 227 KB of shared memory a block may use (static_asserts).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +83,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -81,6 +91,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // cp.async helpers: a copy of 16 or 4 bytes into shared memory that fills
@@ -492,7 +505,7 @@ __host__ __device__ __forceinline__ int tile_stride(int w) {
 }
 
 // Four consecutive values of T as fp32, from one 16-byte (fp32) or
-// 8-byte (bf16) load.
+// 8-byte (bf16, fp16) load.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -503,6 +516,22 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// A probability as the P.V product of the simple body takes it: fp16
+// rounds it to fp16, as the Pallas kernel rounds P to v's dtype; bf16
+// keeps it in fp32 (see the note at the top).
+template <typename T> __device__ __forceinline__ float pv_operand(float p) {
+  return p;
+}
+template <> __device__ __forceinline__ float pv_operand<__half>(float p) {
+  return __half2float(__float2half_rn(p));
 }
 
 // Stage rows [0, rows) of a (n_valid, width) row-major slab into shared
@@ -654,7 +683,7 @@ __global__ void __launch_bounds__(2 * BQ)
       for (int j = 0; j < kTn; ++j) {
         const float p = s[i][j] == kNegInf ? 0.0f : exp2f(s[i][j] - m_new);
         rsum += p;
-        ps[(r0 + i) * p_stride + cg + kLanesPerRow * j] = p;
+        ps[(r0 + i) * p_stride + cg + kLanesPerRow * j] = pv_operand<T>(p);
       }
 #pragma unroll
       for (int off = 1; off < kLanesPerRow; off <<= 1)
@@ -795,14 +824,21 @@ Body select_body(int dtype, int block_q, int block_kv, int d, int dv) {
 #undef FA_RING
     return {};
   }
-  if (dtype == 1) {
-#define FA_SIMPLE(BQ_, BKV_)                                               \
+#define FA_SIMPLE(T_, BQ_, BKV_)                                           \
   if (block_q == BQ_ && block_kv == BKV_)                                  \
-    return {launch_simple<__nv_bfloat16, BQ_, BKV_>, 1,                    \
+    return {launch_simple<T_, BQ_, BKV_>, 1,                               \
             static_cast<int>(simple_smem_bytes<BQ_, BKV_>(d, dv)), 0};
-    FA_TILES(FA_SIMPLE)
-#undef FA_SIMPLE
+  if (dtype == 1) {
+#define FA_SIMPLE_BF16(BQ_, BKV_) FA_SIMPLE(__nv_bfloat16, BQ_, BKV_)
+    FA_TILES(FA_SIMPLE_BF16)
+#undef FA_SIMPLE_BF16
   }
+  if (dtype == 2) {
+#define FA_SIMPLE_F16(BQ_, BKV_) FA_SIMPLE(__half, BQ_, BKV_)
+    FA_TILES(FA_SIMPLE_F16)
+#undef FA_SIMPLE_F16
+  }
+#undef FA_SIMPLE
   return {};
 }
 
@@ -811,7 +847,8 @@ Body select_body(int dtype, int block_q, int block_kv, int d, int dv) {
 extern "C" {
 
 // q (bh, sq, d), k (bh / group, skv, d), v (bh / group, skv, dv), out
-// (bh, sq, dv), all row-major and of one dtype (0 = float32, 1 = bfloat16).
+// (bh, sq, dv), all row-major and of one dtype (0 = float32, 1 = bfloat16,
+// 2 = float16).
 // window <= 0 means no sliding window.  Returns the cudaError_t of the
 // launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,

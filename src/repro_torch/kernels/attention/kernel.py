@@ -12,7 +12,9 @@ process.
 Two bodies (:func:`body` says which a call runs): fp32 inputs take the
 ring body, which streams each kv tile through a ``cp.async`` ring of
 shared-memory chunks while register-tiled FMA products run on the oldest;
-bf16 inputs take the simple body (staged through registers, fp32 inside).
+bf16 and fp16 inputs take the simple body (staged through registers, fp32
+inside; in fp16 the probabilities are rounded to fp16 before the P.V
+product, as the reference's Pallas kernel rounds them to v's dtype).
 
 Tile sizes.  ``block_q`` x ``block_kv`` are template arguments of the
 kernel, and the library instantiates ``BLOCK_Q`` x ``BLOCK_KV``, each at
@@ -55,7 +57,7 @@ MAX_VALUE_HEAD_DIM = 128
 #: the bodies :func:`body` names, by the library's code
 BODIES = ("ring", "simple")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535
 _MAX_BLOCKS = 2 ** 31 - 1
 
@@ -113,7 +115,7 @@ def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 block_kv: int = DEFAULT_BLOCK_KV) -> Exception | None:
     """The error :func:`flash_attention_cuda` raises on ``q``, ``k``,
     ``v`` for what the library does not instantiate (a dtype other than
-    fp32 or bf16, head dims over :data:`MAX_HEAD_DIM` /
+    fp32, bf16 or fp16, head dims over :data:`MAX_HEAD_DIM` /
     :data:`MAX_VALUE_HEAD_DIM`, a tile pair outside :data:`BLOCK_Q` x
     :data:`BLOCK_KV`, grids and indices past their limits) or for shapes
     that disagree; None where it takes them.  Reads dtypes and shapes only,
@@ -126,8 +128,8 @@ def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return ValueError(f"{name} must be 3-D (heads, seq, dim), got "
                               f"{tuple(t.shape)}")
     if q.dtype not in _DTYPE_CODES:
-        return TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+        return TypeError(f"flash_attention_cuda takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     bh, sq, d = q.shape
     bhk, skv, dk = k.shape
     dv = v.shape[2]
@@ -159,10 +161,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          block_q: int = DEFAULT_BLOCK_Q,
                          block_kv: int = DEFAULT_BLOCK_KV) -> torch.Tensor:
     """Attention of ``q (BH, Sq, D)`` over ``k (BHk, Skv, D)`` and
-    ``v (BHk, Skv, Dv)`` (one dtype, fp32 or bf16, contiguous, on one CUDA
-    device); q head ``bh`` reads kv head ``bh // (BH // BHk)``.  Returns a
-    new ``(BH, Sq, Dv)`` tensor of ``q.dtype``.  Ragged lengths need no
-    padding: the kernel masks the edge tiles."""
+    ``v (BHk, Skv, Dv)`` (one dtype, fp32, bf16 or fp16, contiguous, on one
+    CUDA device); q head ``bh`` reads kv head ``bh // (BH // BHk)``.
+    Returns a new ``(BH, Sq, Dv)`` tensor of ``q.dtype``.  Ragged lengths
+    need no padding: the kernel masks the edge tiles."""
     global launches
     refuse_autograd("flash_attention_cuda", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -18,7 +18,9 @@
 // What bounds it: at the rwkv6-1.6b prefill shape (bh 32, T 4096, dk = dv
 // = 64, C = 64) the scores, intra, inter and state products are ~3.2
 // GFLOP of fp32 FMA under the mask (48 us at 67 TFLOP/s) against 168 MB of
-// q, k, v, log_w and out (50 us at 3.35 TB/s).  The recurrence over the
+// q, k, v, log_w and out (50 us at 3.35 TB/s; bf16 and fp16 q, k, v and
+// out halve their bytes, log_w stays fp32, and every product and the
+// workspace stay fp32).  The recurrence over the
 // chunks is the one sequential part, and it is cheap once each chunk's
 // summary is known, so the work is split the way the port's plain version
 // (chunk_math.py) orders it, into three launches behind one call:
@@ -52,6 +54,7 @@
 // the states exact.  C (the chunk_len spec point: 16, 32, 64) is a template
 // argument; dk and dv are runtime values up to kMaxHead.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,6 +69,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -73,6 +77,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Row stride (floats) of a staged tile of width w: w rounded up to whole
@@ -86,7 +93,7 @@ __host__ __device__ __forceinline__ int pass_width(int w) {
 }
 
 // Four consecutive values of T as fp32, from one 16-byte (fp32) or
-// 8-byte (bf16) load.
+// 8-byte (bf16, fp16) load.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -96,6 +103,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 hi =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
@@ -193,11 +206,16 @@ __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
               ok ? 4 : 0);
   }
 }
-// bf16 slabs are widened to fp32 on the way, through registers.
+// bf16 and fp16 slabs are widened to fp32 on the way, through registers.
 __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
                                             const __nv_bfloat16* src,
                                             int n_valid, int rows, int width,
                                             bool vec) {
+  stage(dst, stride, pad, src, n_valid, rows, width, vec);
+}
+__device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
+                                            const __half* src, int n_valid,
+                                            int rows, int width, bool vec) {
   stage(dst, stride, pad, src, n_valid, rows, width, vec);
 }
 
@@ -678,8 +696,8 @@ cudaError_t dispatch_chunk(const void* q, const void* k, const void* v,
 extern "C" {
 
 // q, k (bh, t, dk) and v, out (bh, t, dv) row-major, of one dtype (0 =
-// float32, 1 = bfloat16); log_w (bh, t, dk) and bonus (bh, dk) float32,
-// bonus may be null; work: bh x n_chunks x (dk x dv + dk) floats (the
+// float32, 1 = bfloat16, 2 = float16); log_w (bh, t, dk) and bonus (bh, dk)
+// float32, bonus may be null; work: bh x n_chunks x (dk x dv + dk) floats (the
 // state entering each chunk, then each chunk's la_tot), 16-byte aligned.
 // Makes three launches on `stream`.  Returns the cudaError_t of the first
 // that failed (0 = success).
@@ -701,6 +719,9 @@ int linear_attention_fwd(const void* q, const void* k, const void* v,
   else if (dtype == 1)
     err = dispatch_chunk<__nv_bfloat16>(q, k, v, w, u, out, ws, bh, t_len,
                                         dk, dv, chunk, inclusive, s);
+  else if (dtype == 2)
+    err = dispatch_chunk<__half>(q, k, v, w, u, out, ws, bh, t_len, dk, dv,
+                                 chunk, inclusive, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

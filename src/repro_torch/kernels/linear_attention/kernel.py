@@ -42,7 +42,7 @@ CHUNKS = (16, 32, 64)
 #: largest head dim (dk and dv) the kernel takes
 MAX_HEAD_DIM = 128
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches in this process (see :func:`reset_launches`)
 launches = 0
@@ -84,16 +84,16 @@ def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_w: torch.Tensor, bonus: torch.Tensor | None = None, *,
                 inclusive: bool = False, chunk: int = 64) -> Exception | None:
     """The error :func:`linear_attention_cuda` raises on these arguments
-    for what the library does not instantiate (a dtype other than fp32 or
-    bf16, with fp32 ``log_w`` and ``bonus``; head dims over
+    for what the library does not instantiate (a dtype other than fp32,
+    bf16 or fp16, with fp32 ``log_w`` and ``bonus``; head dims over
     :data:`MAX_HEAD_DIM`; a chunk outside :data:`CHUNKS`; a bonus on the
     inclusive recurrence; grids and indices past their limits) or for
     shapes that disagree; None where it takes them.  Reads dtypes and
     shapes only, so it runs on the CPU; devices and layout are the
     wrapper's to check."""
     if q.dtype not in _DTYPE_CODES:
-        return TypeError(f"linear_attention_cuda takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+        return TypeError(f"linear_attention_cuda takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     for name, t, want in (("k", k, q.dtype), ("v", v, q.dtype),
                           ("log_w", log_w, torch.float32),
                           ("bonus", bonus, torch.float32)):
@@ -136,9 +136,9 @@ def linear_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           inclusive: bool = False,
                           chunk: int = 64) -> torch.Tensor:
     """Chunked gated linear attention of ``q, k (BH, T, dk)`` and
-    ``v (BH, T, dv)`` (one dtype, fp32 or bf16) with the per-step log decay
-    ``log_w (BH, T, dk)`` and the RWKV bonus ``bonus (BH, dk)`` or None
-    (both fp32), all contiguous on one CUDA device.  Returns a new
+    ``v (BH, T, dv)`` (one dtype, fp32, bf16 or fp16) with the per-step log
+    decay ``log_w (BH, T, dk)`` and the RWKV bonus ``bonus (BH, dk)`` or
+    None (both fp32), all contiguous on one CUDA device.  Returns a new
     ``(BH, T, dv)`` tensor of ``v.dtype``."""
     global launches
     refuse_autograd("linear_attention_cuda", q, k, v, log_w, bonus)

@@ -3,7 +3,7 @@
 // Replaces: src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas (body
 // _rmsnorm_kernel), the reference's Pallas TPU kernel.  Same function:
 // per row, fp32 mean(x^2), then x * rsqrt(var + eps) * w, cast back to
-// x's type.
+// x's type (fp32, bf16 or fp16 rows: the fp32 weight, fp32 math inside).
 //
 // What bounds it: bytes.  It must read rows*d*sizeof(x), write the same,
 // and read d*4 bytes of weight; it does ~4 flops per element.  At the
@@ -36,6 +36,7 @@
 // Block size is ROWS warps (the norm_block_rows spec point, 4 on every
 // path of the port).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -48,6 +49,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -56,9 +58,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
 
-// One 16-byte vector of T (4 floats or 8 bf16 values), loaded and stored
-// with a single 128-bit access.
+// One 16-byte vector of T (4 floats or 8 bf16 or fp16 values), loaded and
+// stored with a single 128-bit access.
 template <typename T> struct alignas(16) Vec {
   static constexpr int N = 16 / sizeof(T);
   T v[N];
@@ -206,7 +211,8 @@ template <typename T> bool seg_aligned(const Seg<T>& s) {
 // has no register instantiation for it: a thread holds at most 4 vectors
 // (few registers, so an SM keeps its 64 warps resident), and NV = d / (G *
 // N) follows.  Wide rows span several warps (fp32 d = 1024: 2, d = 2048:
-// 4), narrow ones share a warp (d = 64: 2 rows a warp in fp32, 4 in bf16).
+// 4), narrow ones share a warp (d = 64: 2 rows a warp in fp32, 4 in bf16
+// and fp16).
 template <typename T> constexpr int regs_group(int d) {
   if (d != 64 && d != 128 && d != 1024 && d != 2048) return 0;
   const int vecs = d / Vec<T>::N;
@@ -303,6 +309,9 @@ cudaError_t pair_fwd(const PairArgs& a) {
   if (a.dtype == 1)
     return dispatch_rows<__nv_bfloat16>(x0, w0, out0, rows0, x1, w1, out1,
                                         rows1, d, eps, block_rows, s);
+  if (a.dtype == 2)
+    return dispatch_rows<__half>(x0, w0, out0, rows0, x1, w1, out1, rows1, d,
+                                 eps, block_rows, s);
   return cudaErrorInvalidValue;
 }
 
@@ -312,8 +321,9 @@ extern "C" {
 
 // Normalise up to two segments in one launch.  `packed` points to a
 // PairArgs: each x and out holds rows of d elements back to back, each w
-// is (d,) float32, dtype 0 = float32 and 1 = bfloat16; rows1 may be 0 (one
-// segment).  Returns the cudaError_t of the launch (0 = success).
+// is (d,) float32, dtype 0 = float32, 1 = bfloat16 and 2 = float16; rows1
+// may be 0 (one segment).  Returns the cudaError_t of the launch (0 =
+// success).
 int rmsnorm_fwd_packed(const void* packed) {
   PairArgs a;
   memcpy(&a, packed, sizeof a);
@@ -328,6 +338,7 @@ int rmsnorm_uses_registers(const void* x, const void* w, const void* out,
   if (dtype == 0) return aligned && d % 4 == 0 && regs_group<float>(d) != 0;
   if (dtype == 1)
     return aligned && d % 8 == 0 && regs_group<__nv_bfloat16>(d) != 0;
+  if (dtype == 2) return aligned && d % 8 == 0 && regs_group<__half>(d) != 0;
   return 0;
 }
 

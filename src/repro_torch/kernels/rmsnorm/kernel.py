@@ -47,7 +47,7 @@ BLOCK_ROWS = (4,)
 #: warps per thread block when the caller does not choose
 DEFAULT_BLOCK_ROWS = 4
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ROWS = 2 ** 31 - 1
 
 #: kernel launches in this process (see :func:`reset_launches`)
@@ -123,14 +123,14 @@ def _ok(x: torch.Tensor, weight: torch.Tensor, dev: int, d: int) -> bool:
 def unsupported(x: torch.Tensor, weight: torch.Tensor, *,
                 block_rows: int = DEFAULT_BLOCK_ROWS) -> Exception | None:
     """The error :func:`rmsnorm_cuda` raises on ``x`` and ``weight`` for
-    what the library does not instantiate (a dtype other than fp32 or bf16
-    rows and an fp32 weight, a block size, more rows than 32-bit indices
-    reach) or for shapes that disagree; None where it takes them.  Reads
-    dtypes and shapes only, so it runs on the CPU; devices and layout are
-    the wrapper's to check."""
+    what the library does not instantiate (a dtype other than fp32, bf16
+    or fp16 rows and an fp32 weight, a block size, more rows than 32-bit
+    indices reach) or for shapes that disagree; None where it takes them.
+    Reads dtypes and shapes only, so it runs on the CPU; devices and layout
+    are the wrapper's to check."""
     if x.dtype not in _DTYPE_CODES:
-        return TypeError(f"rmsnorm_cuda takes float32 or bfloat16, got "
-                         f"{x.dtype}")
+        return TypeError(f"rmsnorm_cuda takes float32, bfloat16 or float16, "
+                         f"got {x.dtype}")
     if weight.dtype != torch.float32:
         return TypeError(f"weight must be float32, got {weight.dtype}")
     if x.ndim < 1 or weight.shape != x.shape[-1:]:
@@ -173,9 +173,9 @@ def _launch_failed(err: int) -> None:
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor, *,
                  eps: float = 1e-6,
                  block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
-    """RMSNorm over the last dimension of ``x (..., d)`` (fp32 or bf16, on
-    a CUDA device, rows dense: :func:`row_dense`) scaled by ``weight
-    (d,)`` (fp32, contiguous, same device).  Returns a new tensor of
+    """RMSNorm over the last dimension of ``x (..., d)`` (fp32, bf16 or
+    fp16, on a CUDA device, rows dense: :func:`row_dense`) scaled by
+    ``weight (d,)`` (fp32, contiguous, same device).  Returns a new tensor of
     ``x``'s shape, dtype and layout.  Launches on the current stream of
     ``x``'s device (the launch fails and raises if the runtime's current
     device is another)."""

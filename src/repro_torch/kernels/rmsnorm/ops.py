@@ -11,8 +11,8 @@ precondition (``src/repro/kernels/rmsnorm/ops.py::_guard``: float rows of
 the weight's width): any other call (a host tensor, integer rows, a
 weight of another width) misses it and runs ``torch_ref``, counted in the
 registry's ``fallback_counts``.  A call that passes it launches the kernel
-or raises: a dtype the kernel lacks, such as fp16 or fp64 rows, raises in
-the wrapper (``kernel.unsupported``) and never runs the plain version.
+or raises: a dtype the kernel lacks, such as fp64 rows, raises in the
+wrapper (``kernel.unsupported``) and never runs the plain version.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ __all__ = ["rmsnorm", "rmsnorm_pair"]
 def _guard(x, weight, **_kw):
     # The card and the reference's precondition, by attribute reads only
     # (it runs before every launch).  A CUDA call the kernel cannot take
-    # (fp16 or fp64 rows) passes and raises in the wrapper.
+    # (fp64 rows) passes and raises in the wrapper.
     return (x.device.type == "cuda" and x.dtype.is_floating_point
             and weight.ndim == 1 and x.ndim >= 1
             and x.shape[-1] == weight.shape[0])

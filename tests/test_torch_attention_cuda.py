@@ -6,10 +6,15 @@ Needs no JAX, so it runs on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m requires_h100 tests/test_torch_attention_cuda.py
 
 Elsewhere every case skips.  Tolerances are the reference's, fp32 2e-4
-and bf16 3e-2, and a second limit scaled to each element (``SCALED_TOL``):
-the kernel and the plain version both compute in fp32 and round once to
-the output's dtype, so in bf16 they differ by at most one bf16 ulp (2^-7
-of the value) and in fp32 by the summation order.
+and bf16 and fp16 3e-2, and a second limit scaled to each element
+(``SCALED_TOL``, :func:`_scaled`): the kernel and the plain version both
+compute in fp32 and round once to the output's dtype, so in bf16 they
+differ by at most one bf16 ulp (2^-7 of the value) and in fp32 by the
+summation order.  In fp16 the kernel also rounds each probability to fp16
+before the P.V product, as the reference's Pallas kernel does (the plain
+version keeps it in fp32): that moves an output by at most 2^-11 of
+sum_c p_c |v_c| / l, the plain attention over |v|, so fp16 is held to
+2^-10 of |ref| plus that attention (one fp16 ulp each).
 """
 import pytest
 
@@ -21,9 +26,12 @@ from repro_torch import compat  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.attention import attention, kernel  # noqa: E402
 
-TOL = {"float32": 2e-4, "bfloat16": 3e-2}
-#: (rtol, atol) of |out - ref| <= atol + rtol |ref|
-SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 3e-2}
+#: (rtol, atol) of |out - ref| <= atol + rtol |ref| (fp16: + rtol times
+#: the plain attention over |v|, see :func:`_scaled`)
+SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5),
+              "float16": (2 ** -10, 1e-5)}
+DTYPES = list(TOL)
 TILES = [(bq, bkv) for bq in kernel.BLOCK_Q for bkv in kernel.BLOCK_KV]
 
 #: (q shape, k shape, v shape, causal, window): the reference's test cases
@@ -84,9 +92,22 @@ def _inputs(shapes, dtype, device, seed=0, misaligned=False):
     return out
 
 
+def _scaled(out, ref, q, k, v, **kw):
+    """Hold ``out`` to ``ref`` within ``SCALED_TOL`` of each element; in
+    fp16 the limit also takes rtol times the plain attention over |v|
+    (the most that rounding P to fp16 moves an output)."""
+    rtol, atol = SCALED_TOL[str(ref.dtype).removeprefix("torch.")]
+    limit = atol + rtol * ref.float().abs()
+    if ref.dtype == torch.float16:
+        limit += rtol * attention(q.float(), k.float(), v.float().abs(),
+                                  impl="torch_ref", **kw)
+    excess = (out.float() - ref.float()).abs() - limit
+    assert excess.max() <= 0, float((out.float() - ref.float()).abs().max())
+
+
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", TILES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, tiles):
     q_s, k_s, v_s, causal, window = CASES[case]
@@ -100,9 +121,7 @@ def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, tiles):
     ref = attention(q, k, v, causal=causal, window=window, impl="torch_ref")
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-    rtol, atol = SCALED_TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
-                               atol=atol)
+    _scaled(out, ref, q, k, v, causal=causal, window=window)
 
 
 @pytest.mark.requires_h100
@@ -129,7 +148,7 @@ def test_cuda_kernel_matches_torch_ref_on_rows_of_a_long_prefill(hopper,
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", TILES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
 def test_rows_with_no_valid_column_are_zero(hopper, d, dv, dtype, tiles):
     """With q_offset < 0 the first rows see no column: the kernel writes 0
@@ -180,26 +199,38 @@ def test_misaligned_rows_take_the_four_byte_copies(hopper, tiles):
 def test_every_tile_pair_fits_shared_memory(hopper, d, dv, tiles):
     """Every instantiated tile pair takes every head dim up to (192, 128)
     within the 227 KB a block may use: fp32 on the ring body with at least
-    two chunk stages, bf16 on the simple body."""
+    two chunk stages, bf16 and fp16 on the simple body."""
     ring = kernel.body(torch.float32, d, dv, block_q=tiles[0],
                        block_kv=tiles[1])
     assert ring["body"] == "ring" and ring["stages"] >= 2
     assert 0 < ring["smem_bytes"] <= 232448
-    simple = kernel.body(torch.bfloat16, d, dv, block_q=tiles[0],
-                         block_kv=tiles[1])
-    assert simple["body"] == "simple" and simple["stages"] == 0
-    assert 0 < simple["smem_bytes"] <= 232448
+    for dtype in (torch.bfloat16, torch.float16):
+        simple = kernel.body(dtype, d, dv, block_q=tiles[0],
+                             block_kv=tiles[1])
+        assert simple["body"] == "simple" and simple["stages"] == 0
+        assert 0 < simple["smem_bytes"] <= 232448
 
 
 @pytest.mark.requires_h100
 def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
     """A CUDA tensor that asks for ``cuda`` launches the kernel or raises;
-    it never runs the plain version."""
+    it never runs the plain version: fp16 launches it (one launch, within
+    the tolerances of the plain version), q, k and v of mixed dtypes and
+    head dims past the kernel's raise."""
     q, k, v = _inputs(((1, 2, 32, 16),) * 3, "float32", hopper)
     counts = dict(registry.default_registry.fallback_counts)
     before = kernel.launches
+    half = (q.half(), k.half(), v.half())
+    out = attention(*half, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and out.dtype == torch.float16
+    ref = attention(*half, impl="torch_ref")
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=TOL["float16"], atol=TOL["float16"])
+    _scaled(out, ref, *half)
+    before = kernel.launches
     with pytest.raises(TypeError):
-        attention(q.half(), k.half(), v.half(), impl="cuda")
+        attention(q.half(), k, v.half(), impl="cuda")
     with pytest.raises(ValueError):
         attention(q, k.cpu(), v, impl="cuda")
     with pytest.raises(ValueError):

@@ -238,7 +238,7 @@ def test_rmsnorm(dtype, rows, lead, d, transposed, block_rows,
                 dict(eps=1e-6, block_rows=block_rows),
                 lambda: ref_rmsnorm.rmsnorm(jx, jnp.asarray(w), impl="xla"))
     assert took
-    assert gap == (dtype not in ("float32", "bfloat16")
+    assert gap == (getattr(torch, dtype) not in rms_kernel._DTYPE_CODES
                    or block_rows not in rms_kernel.BLOCK_ROWS)
 
 
@@ -264,7 +264,7 @@ def test_rmsnorm_pair(dtypes, heads, widths, seed):
                 tol_family="rmsnorm")
     assert took
     assert gap == (not widths or dtypes[0] != dtypes[1]
-                   or dtypes[0] == "float16")
+                   or getattr(torch, dtypes[0]) not in rms_kernel._DTYPE_CODES)
 
 
 @settings(**PROPS)
@@ -289,7 +289,8 @@ def test_attention(dtype, b, hk, group, sq, extra_kv, dims,
                 lambda: ref_attention.attention(jq, jk, jv, impl="xla_ref",
                                                 **kw))
     assert took
-    assert gap == (dtype == "float16" or d > attn_kernel.MAX_HEAD_DIM
+    assert gap == (getattr(torch, dtype) not in attn_kernel._DTYPE_CODES
+                   or d > attn_kernel.MAX_HEAD_DIM
                    or dv > attn_kernel.MAX_VALUE_HEAD_DIM
                    or tiles[0] not in attn_kernel.BLOCK_Q
                    or tiles[1] not in attn_kernel.BLOCK_KV)
@@ -347,7 +348,8 @@ def test_linear_attention(dtype, bh, t, dk, dv, chunk,
                     inclusive=inclusive, chunk=chunk, impl="xla_ref"))
     fits = chunk in la_kernel.CHUNKS or chunk >= t
     assert took
-    assert gap == (dtype == "float16" or dk > la_kernel.MAX_HEAD_DIM
+    assert gap == (getattr(torch, dtype) not in la_kernel._DTYPE_CODES
+                   or dk > la_kernel.MAX_HEAD_DIM
                    or not fits or (bonus and inclusive))
 
 

@@ -13,9 +13,9 @@ for bf16, and a second limit scaled to each element (``SCALED_TOL``, as
 magnitude at chunk 64, so its rounding (64 x 2^-24, ~4e-6) enters every
 e^{+-la} factor as a relative error of that size; an output sums ~128
 such terms of magnitude up to ~8, so one that nearly cancels still
-carries ~2e-4 of absolute error; in bf16 both round the same fp32 value
-once, so they differ by at most one bf16 ulp (2^-7 of the value) beyond
-that.
+carries ~2e-4 of absolute error; in bf16 and fp16 (3e-2 also for fp16)
+both round the same fp32 value once, so they differ by at most one ulp
+(2^-7 of the value in bf16, 2^-10 in fp16) beyond that.
 """
 import pytest
 
@@ -28,9 +28,11 @@ from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.linear_attention import (  # noqa: E402
     kernel, linear_attention)
 
-TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+TOL = {"float32": 5e-4, "bfloat16": 3e-2, "float16": 3e-2}
 #: (rtol, atol) of |out - ref| <= atol + rtol |ref|
-SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4)}
+SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4),
+              "float16": (2 ** -10 + 5e-5, 2e-4)}
+DTYPES = list(TOL)
 
 #: (bh, T, dk, dv, inclusive, bonus, scalar decay): the reference's test
 #: cases (tests/test_linear_attention_kernel.py:28-55), a ragged length,
@@ -95,7 +97,7 @@ def _check(out, ref, dtype):
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("chunk", kernel.CHUNKS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, chunk):
     q, k, v, lw, u = _inputs(case, dtype, hopper)
@@ -167,7 +169,7 @@ def test_short_sequence_spans_one_chunk(hopper, t):
 @pytest.mark.requires_h100
 def test_cuda_tensors_never_fall_back(hopper):
     """A CUDA input the kernel cannot take raises from the wrapper; the
-    registry counts no fallback."""
+    registry counts no fallback.  fp16 inputs launch the kernel."""
     q, k, v, lw, u = _inputs("bonus", "float32", hopper)
     counts = registry.default_registry.fallback_counts
     before = dict(counts)
@@ -175,12 +177,19 @@ def test_cuda_tensors_never_fall_back(hopper):
         linear_attention(q, k, v, lw, bonus=u, inclusive=True, impl="cuda")
     with pytest.raises(ValueError, match="chunk"):
         linear_attention(q, k, v, lw, chunk=48, impl="cuda")
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        linear_attention(q.half(), k.half(), v.half(), lw, impl="cuda")
+    with pytest.raises(TypeError, match="wanted torch.float16"):
+        linear_attention(q.half(), k, v.half(), lw, impl="cuda")
     wide = torch.zeros((2, 16, 136), device=hopper)
     with pytest.raises(ValueError, match="head dims"):
         linear_attention(wide, wide, wide, wide, impl="cuda")
     assert dict(counts) == before
+    launched = kernel.launches
+    half = (q.half(), k.half(), v.half(), lw)
+    out = linear_attention(*half, bonus=u, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == launched + 1 and dict(counts) == before
+    _check(out, linear_attention(*half, bonus=u, impl="torch_ref"),
+           "float16")
 
 
 @pytest.mark.requires_h100

@@ -121,10 +121,11 @@ def test_guard_miss_routes_to_torch_ref():
 def test_guard_sends_every_cuda_tensor_to_the_kernel():
     """The guard is the card and the reference's precondition: every CUDA
     float tensor of the weight's width reaches the kernel entry, in any
-    dtype or layout.  One the kernel cannot take (here fp16, which the
-    reference's kernel takes) raises there, and no fallback is counted.
-    Integer rows miss the guard, as they miss the reference's, and run
-    ``torch_ref`` with one fallback counted."""
+    dtype or layout.  The kernel takes fp32, bf16 and fp16 rows (fp16 as
+    the reference's kernel does); one it cannot take (here fp64 rows)
+    raises there, and no fallback is counted.  Integer rows miss the
+    guard, as they miss the reference's, and run ``torch_ref`` with one
+    fallback counted."""
     from test_torch_matmul import _OnCard
 
     reg = registry.KernelRegistry()
@@ -144,20 +145,22 @@ def test_guard_sends_every_cuda_tensor_to_the_kernel():
     for x in (torch.ones(4, 32), torch.ones(4, 32).bfloat16(),
               torch.ones(32, 4).t(), torch.ones(4, 32).half()):
         assert ops._guard(_OnCard(x), w)
-    for x in (torch.ones(4, 32), torch.ones(4, 32).bfloat16()):
-        reg.dispatch("fam", "cuda", _OnCard(x), w, eps=1e-6)
-    assert len(launched) == 2 and reg.fallback_counts == {}
     assert ref_rmsnorm.ops._guard(jnp.ones((4, 32), jnp.float16),
                                   jnp.ones(32))
-    with pytest.raises(TypeError, match="float16"):
-        reg.dispatch("fam", "cuda", _OnCard(torch.ones(4, 32).half()), w,
+    for x in (torch.ones(4, 32), torch.ones(4, 32).bfloat16(),
+              torch.ones(4, 32).half()):
+        reg.dispatch("fam", "cuda", _OnCard(x), w, eps=1e-6)
+    assert len(launched) == 3 and reg.fallback_counts == {}
+    assert ops._guard(_OnCard(torch.ones(4, 32).double()), w)
+    with pytest.raises(TypeError, match="float64"):
+        reg.dispatch("fam", "cuda", _OnCard(torch.ones(4, 32).double()), w,
                      eps=1e-6)
-    assert len(launched) == 2 and reg.fallback_counts == {}
+    assert len(launched) == 3 and reg.fallback_counts == {}
     xi = torch.from_numpy((10 * _inputs((4, 32))[0]).astype(np.int32))
     assert not ref_rmsnorm.ops._guard(jnp.asarray(xi.numpy()), jnp.ones(32))
     out = reg.dispatch("fam", "cuda", _OnCard(xi), w, eps=1e-6)
     torch.testing.assert_close(out, ops._rmsnorm_torch_ref(xi, w))
-    assert len(launched) == 2 and reg.fallback_counts == {("fam", "cuda"): 1}
+    assert len(launched) == 3 and reg.fallback_counts == {("fam", "cuda"): 1}
     assert not ops._guard(torch.ones(4, 32), w)          # a host tensor
 
 

@@ -22,12 +22,13 @@ from repro_torch.kernels.rmsnorm import (kernel, rmsnorm,  # noqa: E402
 #: (8B, 128); then those of a (1, 4096) prefill through the full-sequence
 #: forward; then the reference's rmsnorm test shapes; then widths that
 #: take the kernel's scalar path (d = 1020 is a whole number of fp32
-#: vectors but not of bf16 ones; d = 65 of neither)
+#: vectors but not of bf16 or fp16 ones; d = 65 of neither)
 SHAPES = sorted({s for b in (1, 2, 4, 8)
                  for s in ((b, 1024), (16 * b, 128), (8 * b, 128))}) + [
     (4096, 1024), (65536, 128), (32768, 128),
     (32, 128), (100, 64), (256, 256), (2, 17, 64), (5, 1020), (3, 65)]
-TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+TOL = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 3e-2}
+DTYPES = list(TOL)
 
 
 @pytest.fixture
@@ -49,7 +50,7 @@ def _check(x, w, block_rows=kernel.DEFAULT_BLOCK_ROWS):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("block_rows", kernel.BLOCK_ROWS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_cuda_kernel_matches_torch_ref(hopper, shape, dtype, block_rows):
@@ -61,7 +62,7 @@ def test_cuda_kernel_matches_torch_ref(hopper, shape, dtype, block_rows):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_on_a_misaligned_view(hopper, dtype):
     """A contiguous view one element into its storage: its pointer is not
     16-byte aligned, so the kernel takes its scalar path."""
@@ -78,15 +79,15 @@ def test_cuda_kernel_on_a_misaligned_view(hopper, dtype):
 @pytest.mark.requires_h100
 def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
     """A CUDA tensor that meets the reference's precondition launches the
-    kernel or raises; it never runs the plain version.  Integer rows miss
-    the guard, as they miss the reference's, and run the plain version
-    with one fallback counted."""
+    kernel or raises; it never runs the plain version: fp16 rows launch it
+    (one launch, within TOL of the plain version), fp64 rows raise.
+    Integer rows miss the guard, as they miss the reference's, and run the
+    plain version with one fallback counted."""
     x = torch.randn(4, 64, device=hopper)
     w = torch.ones(64, device=hopper)
     counts = dict(registry.default_registry.fallback_counts)
+    _check(x.half(), w)
     before = kernel.launches
-    with pytest.raises(TypeError):
-        rmsnorm(x.half(), w, impl="cuda")
     with pytest.raises(TypeError):
         rmsnorm(x.double(), w, impl="cuda")
     with pytest.raises(ValueError):
@@ -106,8 +107,8 @@ def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
 def test_wrapper_rejects_what_the_kernel_does_not_take(hopper):
     x = torch.randn(4, 64, device=hopper)
     w = torch.ones(64, device=hopper)
-    with pytest.raises(TypeError):
-        kernel.rmsnorm_cuda(x.half(), w)
+    with pytest.raises(TypeError, match="float64"):
+        kernel.rmsnorm_cuda(x.double(), w)
     with pytest.raises(ValueError):
         kernel.rmsnorm_cuda(x.t(), torch.ones(4, device=hopper))
     with pytest.raises(ValueError):
@@ -121,7 +122,7 @@ def _rand(shape, dtype, device, seed):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [64, 128, 1024, 2048])
 @pytest.mark.parametrize("rows", [1, 7, 333])
 def test_register_body_at_the_port_widths(hopper, rows, d, dtype):
@@ -134,7 +135,7 @@ def test_register_body_at_the_port_widths(hopper, rows, d, dtype):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [1020, 65, 256])
 def test_general_body_at_other_widths(hopper, d, dtype):
     x = _rand((9, d), dtype, hopper, seed=d)
@@ -144,7 +145,7 @@ def test_general_body_at_other_widths(hopper, d, dtype):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("layout", ["decode", "prefill", "general"])
 def test_pair_is_one_launch_of_two_norms(hopper, layout, dtype):
     """q-norm and k-norm in one launch against two plain calls: the decode
