@@ -374,13 +374,15 @@ KERNEL_DTYPES = ("float32", "bfloat16", "float16")
 #: low-precision one for fp16 too)
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 3e-2}
 #: a second limit scaled to each element, |out - ref| <= atol + rtol |ref|
-#: as (rtol, atol): the kernel and the plain version both compute in fp32
-#: and round once to the output's dtype, so in bf16 they differ by at most
-#: one bf16 ulp (2^-7 of the value) and in fp32 by the summation order; in
-#: fp16 the kernel also rounds each probability to fp16 before the P.V
-#: product (as the reference's Pallas kernel does), which moves an output
-#: by at most 2^-11 of sum_c p_c |v_c| / l, the plain attention over |v|:
-#: fp16 adds rtol times that to the limit
+#: as (rtol, atol): the kernel and the plain version both accumulate in
+#: fp32 and round once to the output's dtype, so they differ by at most one
+#: ulp of it (bf16 2^-7, fp16 2^-10 of the value) and in fp32 by the
+#: summation order; in bf16 and fp16 the kernel also rounds each
+#: probability to the input dtype before the P.V product (as the
+#: reference's Pallas kernel rounds it to v's dtype), which moves an output
+#: by at most half an ulp (bf16 2^-8, fp16 2^-11) of sum_c p_c |v_c| / l,
+#: the plain attention over |v|: both add rtol times that to the limit
+#: (tests/test_torch_half.py holds the reference's own kernel to it)
 ATTN_SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5),
                    "float16": (2 ** -10, 1e-5)}
 #: attention cases (q, k, v shapes, causal, window): the reference's test
@@ -406,13 +408,22 @@ ATTN_MLA_CASES = [
     ((1, 16, 777, 192), (1, 4, 777, 192), (1, 4, 777, 128), True, 256),
 ]
 ATTN_MLA_TIMED = 4096
+#: rows of 36 bytes in bf16 and fp16 (head dims 18 / 10): the wgmma body's
+#: 4-byte copies (the card tests' d18 case)
+ATTN_D18_CASE = ((2, 2, 70, 18), (2, 2, 70, 18), (2, 2, 70, 10), True, None)
+#: hymba-1.5b's attention heads (25 query / 5 kv, head dim 64) and sliding
+#: window (src/repro_torch/configs/hymba_1_5b.py), timed in bf16 and fp16
+#: at ATTN_MLA_TIMED tokens
+ATTN_HYMBA = (25, 5, 64, 1024)
 #: K2's and K4's times in their previous designs (the single-stage flash
-#: attention and the chunk-serial linear attention; this script's run on
-#: NVIDIA H100 80GB HBM3, 700.00 W, recorded in PERF.md §6), copied here
-#: and printed in the log beside this run's, never in the kernels line: a
-#: causal (1, 16/8, S, 128) fp32 launch at the tiles (128, 64) by S, and a
-#: (32, 4096, 64, 64) fp32 exclusive call by chunk
-K2_PREVIOUS_MS = {4096: 3.7448, 16384: 45.8058}
+#: attention, the half-precision body on fp32 FMAs, and the chunk-serial
+#: linear attention; this script's runs on NVIDIA H100 80GB HBM3, 700.00 W,
+#: recorded in PERF.md §6), copied here and printed in the log beside this
+#: run's, never in the kernels line: a causal (1, 16/8, S, 128) launch by
+#: (dtype, S), fp32 at the tiles (128, 64), bf16 and fp16 at their best
+#: tiles; and a (32, 4096, 64, 64) fp32 exclusive call by chunk
+K2_PREVIOUS_MS = {("float32", 4096): 3.7448, ("float32", 16384): 45.8058,
+                  ("bfloat16", 4096): 3.691, ("float16", 4096): 3.739}
 K4_PREVIOUS_MS = {16: 1.5623, 32: 1.3388, 64: 1.2708}
 N_LAYERS = 28
 #: the prefill path: (batch, tokens) of the Controller's sweep, the long
@@ -765,26 +776,39 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: idle host seconds on each side of a profiler window, doubled on each
+#: retry: the profiler keeps only device activities whose timestamps lie
+#: inside the host's window, and the device's clock can sit outside a window
+#: that holds only the calls (as phase 23a found late in a long process)
+PROFILE_PAD_S = 0.05
+
+
 def profiled(fn, calls: int, attempts: int = 3):
     """``calls`` calls of ``fn`` under the profiler (device activities
-    only), the wall seconds they took and the windows run.  The profiler
-    can drop a whole window's activities, so a window in which it saw
-    nothing on the device is run again, up to ``attempts`` times; then
-    this fails."""
+    only), the wall seconds they took and the windows run.  Each window
+    holds the calls between two idle pads (PROFILE_PAD_S, outside the wall
+    time).  The profiler can drop a whole window's activities, so a window
+    in which it saw nothing on the device is logged and run again with
+    twice the pads, up to ``attempts`` times; then this fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for window in range(1, attempts + 1):
+        pad = PROFILE_PAD_S * 2 ** (window - 1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            time.sleep(pad)
         if any(e.device_type == torch.autograd.DeviceType.CUDA
                for e in prof.key_averages()):
             return prof, wall, window
+        log(f"profiler: window {window} of {calls} call(s) saw no device "
+            f"activity (pads {pad} s)")
     fail(f"the profiler saw no device activity in {attempts} windows")
 
 
@@ -1168,16 +1192,20 @@ def phase_attention() -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     tiles = [(bq, bkv) for bq in kernel.BLOCK_Q for bkv in kernel.BLOCK_KV]
     b, h, hk, dh = ATTN_WIDTH
+    hy_h, hy_hk, hy_d, hy_w = ATTN_HYMBA
     cases = ATTN_TEST_CASES + [((b, h, s, dh), (b, hk, s, dh),
                                 (b, hk, s, dh), True, None)
-                               for s in ATTN_LENGTHS] + ATTN_MLA_CASES
+                               for s in ATTN_LENGTHS] + ATTN_MLA_CASES + [
+        ATTN_D18_CASE, ((b, hy_h, 2048, hy_d), (b, hy_hk, 2048, hy_d),
+                        (b, hy_hk, 2048, hy_d), True, hy_w)]
     max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES}
     checked = 0
 
     def check(out, ref, what: str, spread=None) -> None:
         """Hold ``out`` to ``ref`` at the reference's tolerance and at the
         scaled one (plus rtol times ``spread``, the plain attention over
-        |v|, in fp16); fold its largest difference into ``max_err``."""
+        |v|, in bf16 and fp16); fold its largest difference into
+        ``max_err``."""
         nonlocal checked
         dtype = str(ref.dtype).removeprefix("torch.")
         if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -1208,7 +1236,7 @@ def phase_attention() -> dict:
             spread = (ops.attention(q.float(), k.float(), v.float().abs(),
                                     causal=causal, window=window,
                                     impl="torch_ref")
-                      if dtype == "float16" else None)
+                      if dtype != "float32" else None)
             for bq, bkv in tiles:
                 out = ops.attention(q, k, v, causal=causal, window=window,
                                     impl="cuda", block_q=bq, block_kv=bkv)
@@ -1242,24 +1270,47 @@ def phase_attention() -> dict:
     torch.cuda.empty_cache()
     log(f"attention: cuda == torch_ref at {n_short} case/dtype/tile cases "
         f"({len(ATTN_TEST_CASES)} reference test cases, full-width "
-        f"prefill lengths {ATTN_LENGTHS} and MLA's head dims (192, 128) at "
-        f"{[c[0] for c in ATTN_MLA_CASES]}, tiles {tiles}) and "
+        f"prefill lengths {ATTN_LENGTHS}, MLA's head dims (192, 128) at "
+        f"{[c[0] for c in ATTN_MLA_CASES]}, 36-byte rows at "
+        f"{ATTN_D18_CASE[0]}, hymba's heads and window {ATTN_HYMBA} at "
+        f"2048, tiles {tiles}) and "
         f"{checked - n_short} row slices ({r} rows at the start, middle and "
         f"end of S = {ATTN_LONG_LENGTHS}, fp32), within the reference's "
         f"tolerances {ATTN_TOL} and the scaled ones (rtol, atol) "
         f"{ATTN_SCALED_TOL}; max_abs_err fp32 {max_err['float32']:.3e}, "
         f"bf16 {max_err['bfloat16']:.3e}, fp16 {max_err['float16']:.3e}")
 
+    # The library's SASS: every half-precision instantiation is the wgmma
+    # body and holds HGMMA instructions; no other half body is left.
+    sass = _hgmma_by_function("flash_attention")
+    wgmma_fns = {f: c for f, c in sass.items() if "fa_wgmma_kernel" in f}
+    others = sorted(f for f in sass if f not in wgmma_fns
+                    and "ring_kernel" not in f)
+    log(f"attention: SASS of the built library: {len(wgmma_fns)} "
+        f"fa_wgmma_kernel instantiations, HGMMA instructions in each: "
+        f"{sorted(set(wgmma_fns.values()))}; "
+        f"{len(sass) - len(wgmma_fns) - len(others)} ring_kernel "
+        f"instantiations; other kernels {others}")
+    if (len(wgmma_fns) != 2 * len(tiles) * 3 or not all(wgmma_fns.values())
+            or others):
+        fail(f"attention: the library's half-precision bodies are not the "
+             f"24 wgmma instantiations with HGMMA: {sass}")
+
     per_shape = []
     mla = ATTN_MLA_CASES[0]
-    timed = [(s, "float32", hk, dh, dh) for s in ATTN_LENGTHS
-             + ATTN_LONG_LENGTHS] + [(2048, "bfloat16", hk, dh, dh)] + [
-        (PREFILL_SWEEP[1], dtype, hk, dh, dh)
-        for dtype in ("bfloat16", "float16")] + [
-        (ATTN_MLA_TIMED, "float32", mla[1][1], mla[0][3], mla[2][3])]
-    for s, dtype, hkv, d, dv in timed:
+    half = ("bfloat16", "float16")
+    # (S, dtype, H, Hk, d, dv, window): the qwen3 prefill's heads by
+    # length, then MLA's head dims and hymba's heads and window at 4096
+    timed = [(s, "float32", h, hk, dh, dh, None) for s in ATTN_LENGTHS
+             + ATTN_LONG_LENGTHS] + [(2048, "bfloat16", h, hk, dh, dh, None)] + [
+        (PREFILL_SWEEP[1], dtype, h, hk, dh, dh, None) for dtype in half] + [
+        (ATTN_MLA_TIMED, dtype, mla[0][1], mla[1][1], mla[0][3], mla[2][3],
+         None) for dtype in ("float32",) + half] + [
+        (ATTN_MLA_TIMED, dtype, hy_h, hy_hk, hy_d, hy_d, hy_w)
+        for dtype in half]
+    for s, dtype, hq, hkv, d, dv, window in timed:
         tdt = getattr(torch, dtype)
-        q = torch.randn((b * h, s, d), generator=gen, device=dev).to(tdt)
+        q = torch.randn((b * hq, s, d), generator=gen, device=dev).to(tdt)
         k = torch.randn((b * hkv, s, d), generator=gen, device=dev).to(tdt)
         v = torch.randn((b * hkv, s, dv), generator=gen, device=dev).to(tdt)
         q4, k4, v4 = (x.view(b, -1, s, x.shape[-1]) for x in (q, k, v))
@@ -1268,7 +1319,8 @@ def phase_attention() -> dict:
         warm = max(2, iters // 10)
         kernel_ms = {f"{bq}x{bkv}": cuda_time_ms(
             lambda bq=bq, bkv=bkv: kernel.flash_attention_cuda(
-                q, k, v, block_q=bq, block_kv=bkv), iters, warm)
+                q, k, v, window=window, block_q=bq, block_kv=bkv), iters,
+            warm)
             for bq, bkv in tiles}
         bodies = {f"{bq}x{bkv}": kernel.body(tdt, d, dv, block_q=bq,
                                              block_kv=bkv)
@@ -1277,53 +1329,63 @@ def phase_attention() -> dict:
             x = bodies[f"{bq}x{bkv}"]
             x["kernels_us"], x["cuda_launches_per_call"] = device_launches(
                 lambda bq=bq, bkv=bkv: kernel.flash_attention_cuda(
-                    q, k, v, block_q=bq, block_kv=bkv))
+                    q, k, v, window=window, block_q=bq, block_kv=bkv))
             ctype = "__half" if dtype == "float16" else "__nv_bfloat16"
             want = (f"ring_kernel<{bq},{bkv}," if x["body"] == "ring"
-                    else f"simple_kernel<{ctype},{bq},{bkv}>")
+                    else f"fa_wgmma_kernel<{ctype},{bq},{bkv},")
             if not any(want in n.replace(" ", "") for n in x["kernels_us"]):
                 fail(f"attention {s} {dtype} tiles {bq}x{bkv}: reported "
                      f"the {x['body']} body, launched {x['kernels_us']}")
         # The plain version holds a few (B, H, S, S) fp32 score tensors.
-        plain_bytes = 4 * b * h * s * s * 4
+        plain_bytes = 4 * b * hq * s * s * 4
         if plain_bytes < torch.cuda.mem_get_info()[0] / 2:
-            plain = cuda_time_ms(lambda: ops.ref.attention(q4, k4, v4),
-                                 iters, warm)
+            plain = cuda_time_ms(lambda: ops.ref.attention(
+                q4, k4, v4, window=window), iters, warm)
         else:
             log(f"attention: plain not timed at {s}: it would hold ~"
                 f"{plain_bytes / 1e9:.0f} GB of scores")
             plain = None
+        if window is None:
+            mask = None
+        else:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
         try:
             library = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, enable_gqa=True), iters, warm)
+                q4, k4, v4, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), iters, warm)
         except RuntimeError as e:            # timed only, used nowhere
             log(f"attention: sdpa not timed at {s} {dtype}: {e}")
             library = None
             torch.cuda.empty_cache()
-        bound, kind = _attention_cost(b, h, hkv, s, s, d, dv,
-                                      q.element_size())
+        bound, kind = _attention_cost(b, hq, hkv, s, s, d, dv,
+                                      q.element_size(), True, window)
         best = min(kernel_ms, key=kernel_ms.get)
-        previous = (K2_PREVIOUS_MS.get(s)
-                        if (dtype, hkv, d, dv) == ("float32", hk, dh, dh)
-                    else None)
-        per_shape.append({"shape": [b, h, hkv, s, d, dv], "dtype": dtype,
+        previous = (K2_PREVIOUS_MS.get((dtype, s))
+                    if (hq, hkv, d, dv) == (h, hk, dh, dh) else None)
+        per_shape.append({"shape": [b, hq, hkv, s, d, dv], "dtype": dtype,
+                          "window": window,
                           "kernel_ms_by_tiles": kernel_ms,
                           "body_by_tiles": bodies, "plain_ms": plain,
                           "library_ms": library, "bound_ms": bound,
-                          "bound_by": kind})
-        log(f"attention (1,{h}/{hkv},{s},{d}/{dv}) {dtype} causal, "
-            f"{bodies[best]['body']} body, "
+                          "bound_by": kind, "previous_ms": previous})
+        log(f"attention (1,{hq}/{hkv},{s},{d}/{dv}) {dtype} causal, window "
+            f"{window}, {bodies[best]['body']} body, "
             f"{bodies[best]['cuda_launches_per_call']:g} CUDA launches a "
             f"call ({', '.join(bodies[best]['kernels_us'])}): kernel "
             + " ".join(f"{t} {ms:.4f} ({100 * bound / ms:.1f}%)"
                        for t, ms in kernel_ms.items())
-            + f" ms (% of the bound; best {best}); previous design at 128x64 "
-            f"{previous} "
-            f"ms; plain {plain} ms; sdpa {library} ms; bound {bound:.4f} ms "
+            + f" ms (% of the bound; best {best}); previous design "
+            f"{'at 128x64 ' if dtype == 'float32' else ''}{previous} "
+            f"ms; plain {plain} ms; sdpa {library} ms"
+            + (f" ({kernel_ms[best] / library:.2f}x the best tiles)"
+               if library else "")
+            + f"; bound {bound:.4f} ms "
             f"({kind}); shared memory a block "
             + " ".join(f"{t} {x['smem_bytes']} B/{x['stages']} stages"
                        for t, x in bodies.items()))
-        del q, k, v, q4, k4, v4
+        del q, k, v, q4, k4, v4, mask
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
@@ -1658,15 +1720,15 @@ def phase_matmul() -> dict:
             "per_shape": per_shape}
 
 
-def _hgmma_by_function() -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each kernel of the built
-    matmul library, by mangled name (``cuobjdump -sass``)."""
+def _hgmma_by_function(library: str = "matmul") -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each kernel of a built
+    kernel library, by mangled name (``cuobjdump -sass``)."""
     from repro_torch import compat
     from repro_torch.kernels import build
 
     cuobjdump = Path(compat.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", build.build_log("matmul")["path"]],
+        [str(cuobjdump), "-sass", build.build_log(library)["path"]],
         capture_output=True, text=True, timeout=300, check=True).stdout
     counts: dict[str, int] = {}
     name = None
@@ -4011,7 +4073,7 @@ def _kernel_class(name: str, moe: bool = False) -> str:
     cuBLAS's, (``moe``) the MoE dispatch's by PyTorch's, the rest as
     other."""
     classes = ((r"rmsnorm_(regs|general)", "K1 rmsnorm"),
-               (r"\b(ring|simple)_kernel", "K2 attention"),
+               (r"\b(ring|fa_wgmma)_kernel", "K2 attention"),
                (r"\b(summary|fold|output)_kernel", "K4 linear attention"),
                (r"gemm|xmma|cutlass|cublas|nvjet", "GEMM"))
     for pattern, label in classes + (MOE_KERNEL_CLASSES if moe else ()):
@@ -5099,18 +5161,23 @@ def _profiled_train_step(handler, state, batch):
         return call
 
     with _WrappedOptimizer(ranged):
-        for _ in range(3):
+        for window in range(1, 4):
+            pad = PROFILE_PAD_S * 2 ** (window - 1)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                time.sleep(pad)
                 t0 = time.perf_counter()
                 state, metrics = handler(state, batch)
                 float(metrics["loss"])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                time.sleep(pad)
             if any(e.device_type == torch.autograd.DeviceType.CUDA
                    for e in prof.key_averages()):
                 return state, _train_profile(prof, wall)
+            log(f"profiler: train step window {window} saw no device "
+                f"activity (pads {pad} s)")
     fail("the profiler saw no device activity in 3 train steps")
 
 
@@ -6308,7 +6375,8 @@ def main(argv: list[str]) -> None:
               and r["dtype"] == "float32")
     mla_at = next(r for r in attn["per_shape"]
                   if r["shape"][4:] == [ATTN_MLA_CASES[0][0][3],
-                                        ATTN_MLA_CASES[0][2][3]])
+                                        ATTN_MLA_CASES[0][2][3]]
+                  and r["dtype"] == "float32")
     mla_tiles = min(mla_at["kernel_ms_by_tiles"],
                     key=mla_at["kernel_ms_by_tiles"].get)
     chosen = prefill["chosen"]

@@ -12,9 +12,12 @@ process.
 Two bodies (:func:`body` says which a call runs): fp32 inputs take the
 ring body, which streams each kv tile through a ``cp.async`` ring of
 shared-memory chunks while register-tiled FMA products run on the oldest;
-bf16 and fp16 inputs take the simple body (staged through registers, fp32
-inside; in fp16 the probabilities are rounded to fp16 before the P.V
-product, as the reference's Pallas kernel rounds them to v's dtype).
+bf16 and fp16 inputs take the wgmma body, whose two products run on the
+tensor cores (``wgmma``, fp32 accumulators) over K/V tiles that a
+producer warp brings in by TMA (by copies where rows are not 16-byte
+aligned) ahead of the consumer warpgroups, with the probabilities
+rounded to the input dtype before the P.V product, as the reference's
+Pallas kernel rounds them to v's dtype.
 
 Tile sizes.  ``block_q`` x ``block_kv`` are template arguments of the
 kernel, and the library instantiates ``BLOCK_Q`` x ``BLOCK_KV``, each at
@@ -22,8 +25,11 @@ every head dim up to ``MAX_HEAD_DIM`` (q, k) and ``MAX_VALUE_HEAD_DIM``
 (v).  The reference's candidates (128-1024 rows) are sized for a TPU
 core's megabytes of VMEM; on Hopper a thread block has at most 227 KB of
 shared memory, which the ring body's fp32 q tile, probabilities and chunk
-ring must share: (128, 64) at d = 192 takes 192 KB, while a (1024, 1024)
-tile pair would need megabytes.  Any other size raises.
+ring must share: (128, 64) at d = 192 takes 192 KB (the wgmma body's
+half-precision q tile and two K/V stages 129 KB), while a (1024, 1024)
+tile pair would need megabytes.  Any other size raises.  On the card's
+qwen3 prefill shape the wgmma body is fastest at (64, 64) or (128, 64)
+in half precision, the ring body at (64, 64) in fp32 (PERF.md).
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ MAX_HEAD_DIM = 192
 #: largest head dim of v (dv) the kernel takes
 MAX_VALUE_HEAD_DIM = 128
 #: the bodies :func:`body` names, by the library's code
-BODIES = ("ring", "simple")
+BODIES = ("ring", "wgmma")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535
@@ -97,8 +103,8 @@ def body(dtype: torch.dtype, d: int, dv: int, *,
          block_q: int = DEFAULT_BLOCK_Q,
          block_kv: int = DEFAULT_BLOCK_KV) -> dict:
     """The body (:data:`BODIES`) a call at these dims and tiles runs, its
-    shared memory a block (bytes) and its ring stages (0 for the simple
-    body)."""
+    shared memory a block (bytes) and its stages (the ring body's chunk
+    stages, the wgmma body's K/V tile stages)."""
     smem, stages = ctypes.c_int(0), ctypes.c_int(0)
     code = load_library().flash_attention_body(
         _DTYPE_CODES[dtype], block_q, block_kv, d, dv, ctypes.byref(smem),

@@ -63,8 +63,9 @@ def _attention_torch_ref(q, k, v, *, causal, window, scale, q_offset,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
                    description="flash attention in CUDA C++ for sm_90a "
-                               "(cp.async chunk ring, register-tiled fp32 "
-                               "FMA, skipped masked tiles)")
+                               "(fp32: cp.async chunk ring, register-tiled "
+                               "FMA; bf16/fp16: wgmma fed by a TMA producer "
+                               "warp; skipped masked tiles)")
 def _attention_cuda(q, k, v, *, causal, window, scale, q_offset, block_q,
                     block_kv, swa_impl=None):
     del swa_impl

@@ -8,13 +8,15 @@ Needs no JAX, so it runs on the machine with the card:
 Elsewhere every case skips.  Tolerances are the reference's, fp32 2e-4
 and bf16 and fp16 3e-2, and a second limit scaled to each element
 (``SCALED_TOL``, :func:`_scaled`): the kernel and the plain version both
-compute in fp32 and round once to the output's dtype, so in bf16 they
-differ by at most one bf16 ulp (2^-7 of the value) and in fp32 by the
-summation order.  In fp16 the kernel also rounds each probability to fp16
-before the P.V product, as the reference's Pallas kernel does (the plain
-version keeps it in fp32): that moves an output by at most 2^-11 of
-sum_c p_c |v_c| / l, the plain attention over |v|, so fp16 is held to
-2^-10 of |ref| plus that attention (one fp16 ulp each).
+accumulate in fp32 and round once to the output's dtype, so they differ
+by at most one ulp of it (bf16 2^-7, fp16 2^-10 of the value) and in fp32
+by the summation order.  In bf16 and fp16 the kernel also rounds each
+probability to the input dtype before the P.V product, as the reference's
+Pallas kernel rounds it to v's dtype (the plain version keeps it in fp32):
+that moves an output by at most half an ulp (bf16 2^-8, fp16 2^-11) of
+sum_c p_c |v_c| / l, the plain attention over |v|, so both are held to
+one ulp of |ref| plus that attention (``tests/test_torch_half.py`` holds
+the reference's own kernel to the same limit).
 """
 import pytest
 
@@ -66,6 +68,12 @@ CASES = {
     "d_lt_dv": ((1, 4, 130, 64), (1, 2, 130, 64), (1, 2, 130, 128), True,
                 None),
     "d18": ((2, 2, 70, 18), (2, 2, 70, 18), (2, 2, 70, 10), True, None),
+    # hymba-1.5b's prefill heads (25 query / 5 kv, head dim 64) and window,
+    # and MLA's head dims with GQA and a long window
+    "hymba-window1024": ((1, 25, 2048, 64), (1, 5, 2048, 64),
+                         (1, 5, 2048, 64), True, 1024),
+    "mla-gqa-window512": ((1, 16, 1500, 192), (1, 4, 1500, 192),
+                          (1, 4, 1500, 128), True, 512),
 }
 
 
@@ -94,11 +102,12 @@ def _inputs(shapes, dtype, device, seed=0, misaligned=False):
 
 def _scaled(out, ref, q, k, v, **kw):
     """Hold ``out`` to ``ref`` within ``SCALED_TOL`` of each element; in
-    fp16 the limit also takes rtol times the plain attention over |v|
-    (the most that rounding P to fp16 moves an output)."""
+    bf16 and fp16 the limit also takes rtol times the plain attention over
+    |v| (rounding P to the input dtype moves an output by at most half of
+    that)."""
     rtol, atol = SCALED_TOL[str(ref.dtype).removeprefix("torch.")]
     limit = atol + rtol * ref.float().abs()
-    if ref.dtype == torch.float16:
+    if ref.dtype in (torch.bfloat16, torch.float16):
         limit += rtol * attention(q.float(), k.float(), v.float().abs(),
                                   impl="torch_ref", **kw)
     excess = (out.float() - ref.float()).abs() - limit
@@ -148,6 +157,32 @@ def test_cuda_kernel_matches_torch_ref_on_rows_of_a_long_prefill(hopper,
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_kernel_matches_torch_ref_on_rows_of_a_long_prefill(
+        hopper, dtype, tiles):
+    """The long prefill call's shape in half precision, (1, 16 q / 8 kv
+    heads, 16384, 128): the wgmma body runs on the whole sequence; 512 rows
+    at its start, middle and end are held to the plain version of those
+    rows, within the reference's 3e-2 and the scaled limit."""
+    s, rows = 16384, 512
+    q, k, v = _inputs(((1, 16, s, 128), (1, 8, s, 128), (1, 8, s, 128)),
+                      dtype, hopper)
+    before = kernel.launches
+    out = attention(q, k, v, impl="cuda", block_q=tiles[0],
+                    block_kv=tiles[1])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for a in (0, s // 2, s - rows):
+        ref = attention(q[:, :, a:a + rows], k, v, q_offset=a,
+                        impl="torch_ref")
+        got = out[:, :, a:a + rows]
+        torch.testing.assert_close(got.float(), ref.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        _scaled(got, ref, q[:, :, a:a + rows], k, v, q_offset=a)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
 def test_rows_with_no_valid_column_are_zero(hopper, d, dv, dtype, tiles):
@@ -165,6 +200,27 @@ def test_rows_with_no_valid_column_are_zero(hopper, d, dv, dtype, tiles):
     tol = TOL[dtype]
     torch.testing.assert_close(out[:, :, 40:].float(), ref[:, :, 40:].float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_scale_that_is_not_positive(hopper, scale, dtype, tiles):
+    """A negative or zero softmax scale (the reference takes any float;
+    the ring body folds it into q, the wgmma body into the scores): causal
+    with a window, GQA, a ragged length, within the reference's tolerance
+    and the scaled limit."""
+    shapes = ((1, 4, 200, 128), (1, 2, 200, 128), (1, 2, 200, 128))
+    q, k, v = _inputs(shapes, dtype, hopper)
+    kw = dict(causal=True, window=48, scale=scale)
+    out = attention(q, k, v, impl="cuda", block_q=tiles[0],
+                    block_kv=tiles[1], **kw)
+    ref = attention(q, k, v, impl="torch_ref", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    _scaled(out, ref, q, k, v, **kw)
 
 
 @pytest.mark.requires_h100
@@ -194,21 +250,49 @@ def test_misaligned_rows_take_the_four_byte_copies(hopper, tiles):
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_rows_tma_cannot_take_go_through_the_copies(hopper, dtype,
+                                                         tiles):
+    """Half-precision inputs whose rows TMA cannot read (one element into
+    their storage: 2-byte aligned; head dims 18 / 10: 36- and 20-byte
+    rows) are copied into the same swizzled tiles by the producer warp's
+    lanes instead; they agree with the plain version at the prefill width,
+    at MLA's and at the narrow heads."""
+    for q_s, k_s, v_s, misaligned in [
+            ((1, 16, 300, 128), (1, 8, 300, 128), (1, 8, 300, 128), True),
+            ((1, 4, 200, 192), (1, 2, 200, 192), (1, 2, 200, 128), True),
+            ((2, 2, 70, 18), (2, 2, 70, 18), (2, 2, 70, 10), False)]:
+        q, k, v = _inputs((q_s, k_s, v_s), dtype, hopper,
+                          misaligned=misaligned)
+        before = kernel.launches
+        out = attention(q, k, v, impl="cuda", block_q=tiles[0],
+                        block_kv=tiles[1])
+        ref = attention(q, k, v, impl="torch_ref")
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        _scaled(out, ref, q, k, v)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("tiles", TILES)
 @pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
                                   (24, 16), (160, 96)])
 def test_every_tile_pair_fits_shared_memory(hopper, d, dv, tiles):
     """Every instantiated tile pair takes every head dim up to (192, 128)
     within the 227 KB a block may use: fp32 on the ring body with at least
-    two chunk stages, bf16 and fp16 on the simple body."""
+    two chunk stages, bf16 and fp16 on the wgmma body with at least two
+    K/V stages."""
     ring = kernel.body(torch.float32, d, dv, block_q=tiles[0],
                        block_kv=tiles[1])
     assert ring["body"] == "ring" and ring["stages"] >= 2
     assert 0 < ring["smem_bytes"] <= 232448
     for dtype in (torch.bfloat16, torch.float16):
-        simple = kernel.body(dtype, d, dv, block_q=tiles[0],
-                             block_kv=tiles[1])
-        assert simple["body"] == "simple" and simple["stages"] == 0
-        assert 0 < simple["smem_bytes"] <= 232448
+        wgmma = kernel.body(dtype, d, dv, block_q=tiles[0],
+                            block_kv=tiles[1])
+        assert wgmma["body"] == "wgmma" and wgmma["stages"] >= 2
+        assert 0 < wgmma["smem_bytes"] <= 232448
 
 
 @pytest.mark.requires_h100

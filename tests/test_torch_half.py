@@ -17,6 +17,14 @@ the reference's own move, ``max |ref_fp16 - ref_fp32|``, is the yardstick:
 the port's fp16 logits lie within 1.5 times it of the reference's fp32
 logits and of its fp16 logits (``chip_smoke.py`` reads the same rule on
 the card against its plain fp32 path).
+
+The scaled limit the card holds K2 to in bf16 and fp16
+(``SCALED_RTOL``): the reference's Pallas kernel rounds each probability
+to v's dtype before the P.V product, which moves an output by at most one
+ulp of that dtype times the plain attention over |v| (the spread), so
+``|out - ref| <= rtol (|ref| + spread) + 1e-5``.  Here the reference's own
+kernel, in interpret mode, meets that limit against the port's plain
+version in both dtypes.
 """
 import functools
 
@@ -28,7 +36,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro import compat as ref_compat  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
+from repro.kernels.attention import kernel as ref_attn_kernel  # noqa: E402
 from repro.kernels import attention as ref_attention  # noqa: E402
 from repro.kernels import linear_attention as ref_la  # noqa: E402
 from repro.kernels import rmsnorm as ref_rmsnorm  # noqa: E402
@@ -113,6 +123,49 @@ def test_attention_fp16(case):
         block_q=32, block_kv=32, impl="pallas_interpret"))(jq, jk, jv)
     out = attention(q, k, v, causal=causal, window=window, impl="torch_ref")
     _close(out, ref)
+
+
+#: (rtol, atol) of the card's scaled limit on K2 in each half dtype
+#: (tests/test_torch_attention_cuda.py, chip_smoke.py): one ulp of the dtype
+#: (2^-7 bf16, 2^-10 fp16) of |ref| plus the plain attention over |v|
+SCALED_RTOL = {"bfloat16": (2 ** -7, 1e-5), "float16": (2 ** -10, 1e-5)}
+#: (H, Hk, S, d, dv, window), tiles 64 x 64: qwen3's head dim with GQA,
+#: MLA's head dims, and a windowed call at head dim 64
+ROUNDING_CASES = {"gqa": (4, 2, 256, 128, 128, None),
+                  "mla": (4, 4, 256, 192, 128, None),
+                  "window": (4, 2, 256, 64, 64, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDING_CASES))
+@pytest.mark.parametrize("dtype", sorted(SCALED_RTOL))
+def test_pallas_kernel_meets_the_scaled_limit(dtype, case):
+    """The reference's ``flash_attention_pallas`` (interpret mode), which
+    rounds P to v's dtype, against the port's ``torch_ref`` (fp32 P): within
+    the reference's 3e-2 and within the scaled limit the card holds the
+    port's kernel to."""
+    if not ref_compat.has_pallas_tpu():
+        pytest.skip("Pallas TPU module not importable: no interpret-mode "
+                    "flash_attention_pallas")
+    h, hk, s, d, dv, window = ROUNDING_CASES[case]
+    rs = np.random.RandomState(3)
+    arrays = [rs.randn(*shape).astype(np.float32)
+              for shape in ((h, s, d), (hk, s, d), (hk, s, dv))]
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    ref = np.asarray(ref_attn_kernel.flash_attention_pallas(
+        *(jnp.asarray(a, jdt) for a in arrays), causal=True, window=window,
+        block_q=64, block_kv=64, group=h // hk, interpret=True), np.float32)
+    q, k, v = (torch.from_numpy(a).to(tdt)[None] for a in arrays)
+    plain = attention(q, k, v, causal=True, window=window,
+                      impl="torch_ref")[0].float()
+    spread = attention(q.float(), k.float(), v.float().abs(), causal=True,
+                       window=window, impl="torch_ref")[0]
+    diff = (torch.from_numpy(ref) - plain).abs()
+    assert diff.max() <= TOL
+    rtol, atol = SCALED_RTOL[dtype]
+    assert (diff - (atol + rtol * (plain.abs() + spread))).max() <= 0
+    if dtype == "bfloat16":
+        # without the spread term the limit is one the reference misses
+        assert (diff - (atol + rtol * plain.abs())).max() > 0
 
 
 #: (bh, T, dk, dv, inclusive, bonus, scalar decay): RWKV6's exclusive
