@@ -36,25 +36,34 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    held to a limit scaled to every element's size (in fp16 plus the most
    that rounding P to fp16 moves it); at the long call's lengths (S =
    8192, 16384) the kernel runs whole and slices of its rows are held to
-   the plain version; times the kernel (per tile pair, with the body it
+   the plain version; the domain past (192, 128), one launch and no
+   fallback a call: head dims (256, 256), (128, 256), (256, 128) in each
+   dtype, q, k and v of mixed dtypes (held to the loosest tolerance and
+   to q's scaled limit plus v's P-rounding term) and windows 0 and -5,
+   causal and not, whose rows with no valid column must be 0; times the
+   kernel (per tile pair, with the body it
    reports, its shared memory and ring stages, the instantiation and CUDA
    launches a call the profiler saw, which must match that body, its share
    of the bound and, in the log, its previous design's time), the plain
    version and
    ``scaled_dot_product_attention``,
-   also at MLA's dims, and at the prefill's S = 4096 in bf16 and fp16.
+   also at MLA's dims, at the prefill's S = 4096 in bf16 and fp16, and at
+   Gemma's head dim 256 on the prefill's heads in each dtype; checks that
+   each of the 32 half-precision instantiations holds HGMMA.
 4b. Linear attention vs plain: the chunked linear attention kernel against
    its plain version at every chunk (16, 32, 64), at the reference's test
    cases, rwkv6-1.6b's 32 heads of 64 at T = 1000 (ragged), 4096 (the
    prefill path's) and 16384 (the long call's, compared whole) and a
    hymba-like inclusive scalar-decay head, in fp32 (5e-4), bf16 and fp16
-   (3e-2), each also held to a limit scaled to every element; times the
-   kernel
+   (3e-2), each also held to a limit scaled to every element; GLA-1.3B's
+   heads (dk 256, dv 512) in each dtype and a mixed (q, k, v) triple, one
+   launch and no fallback a call; times the kernel
    (at the prefill shape also its CUDA launches a call and each launch's
    device time, by the profiler; its share of the bound and, in the log,
    its previous design's time)
    and the plain version (no single PyTorch call computes this function),
-   at the prefill shape also in bf16 and fp16.
+   at the prefill shape also in bf16 and fp16, and at GLA's heads (4,
+   4096, 256, 512) in each dtype.
 4c. Matmul vs plain: the blocked matmul kernel against its plain version
    at every instantiated tile triple (both ``assume_divisible`` settings
    where the shape divides), at the reference's test shapes (ragged ones
@@ -87,13 +96,13 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    scaled limit), one call that misses the reference's precondition (host
    tensors; float queries for K5) returns the plain version's answer with
    exactly one fallback counted and no launch (K1, K2 and K4 also take
-   an fp16 call so: one launch, within the low-precision tolerance), and
-   one call of each domain gap, an input the reference's kernel takes and
-   the port's does not (fp64 rows for K1; q of another dtype than k and v,
-   d 200, dv 160 and an uninstantiated tile for K2; fp16 and an
-   uninstantiated tile triple for K3; an fp32 k beside fp16 q and v, a
-   head dim of 136, chunk 48 and a bonus on the inclusive recurrence for
-   K4; float keys, fp16 values and keys 33 wide for K5), raises the
+   an fp16 call so: one launch, within the low-precision tolerance; K2 and
+   K4 also a mixed-dtype call and their widest heads, K2 a window of -5),
+   and one call of each domain gap, an input the reference's kernel takes
+   and the port's does not (fp64 rows for K1; d 264, dv 264 and an
+   uninstantiated tile for K2; fp16 and an uninstantiated tile triple for
+   K3; dk 264, dv 520, chunk 48 and a bonus on the inclusive recurrence
+   for K4; float keys, fp16 values and keys 33 wide for K5), raises the
    kernel's error with no launch and no fallback; then a stale
    ``spec_state`` restored into a handler on the card leaves it serving
    its generic variant.  Each check fails with its own message.
@@ -415,6 +424,25 @@ ATTN_D18_CASE = ((2, 2, 70, 18), (2, 2, 70, 18), (2, 2, 70, 10), True, None)
 #: window (src/repro_torch/configs/hymba_1_5b.py), timed in bf16 and fp16
 #: at ATTN_MLA_TIMED tokens
 ATTN_HYMBA = (25, 5, 64, 1024)
+#: K2's domain past (192, 128), each call one launch and no
+#: fallback: head dims up to 256 (Gemma's) on (B, H, Hk, S) GQA heads at a
+#: ragged length, every dtype and tile pair; q, k and v of mixed dtypes
+#: (q, k, v) with a window; windows <= 0 (column c of row r kept where c >
+#: r - window: no past column), causal and not, at q_offset
+#: ATTN_WINDOW_OFFSET, which leaves more rows none
+ATTN_WIDE_DIMS = ((256, 256), (128, 256), (256, 128))
+ATTN_WIDE_HEADS = (1, 4, 2, 300)
+ATTN_MIXED = (("bfloat16", "bfloat16", "float16"),
+              ("float32", "bfloat16", "bfloat16"),
+              ("float16", "bfloat16", "float32"))
+ATTN_WINDOWS = (0, -5)
+ATTN_WINDOW_OFFSET = -40
+#: Gemma's head dim, timed causal at (1, 16/8, ATTN_MLA_TIMED, 256) in
+#: each dtype against SDPA
+ATTN_WIDE_TIMED = 256
+#: the padded (d, dv) pairs the library instantiates, per tile pair and
+#: dtype
+ATTN_PADDED_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
 #: K2's and K4's times in their previous designs (the single-stage flash
 #: attention, the half-precision body on fp32 FMAs, and the chunk-serial
 #: linear attention; this script's runs on NVIDIA H100 80GB HBM3, 700.00 W,
@@ -480,6 +508,19 @@ LINATT_WIDE_CASES = [
 ]
 #: the rwkv6 prefill path: (batch, tokens) of the Controller's sweep, the
 #: long call, and the parity check (a)
+#: K4's domain past 128, each call one launch and no fallback:
+#: GLA-1.3B's heads (d_model 2048, 4 heads, expand_k 0.5, expand_v 1: dk
+#: 256, dv 512), exclusive with the bonus and inclusive, and keys past one
+#: 128-key chunk with dv in one 64-column pass ((256, 64), (136, 8)), at
+#: ragged lengths in every dtype and chunk; q, k and v of mixed dtypes
+#: (q, k, v) at rwkv6's heads; GLA's heads timed (inclusive, no bonus) at
+#: LINATT_GLA_TIMED (bh, T, dk, dv)
+LINATT_GLA_CASES = [(2, 300, 256, 512, False, True, False),
+                    (2, 300, 256, 512, True, False, False),
+                    (4, 300, 256, 64, False, True, False),
+                    (2, 130, 136, 8, True, False, False)]
+LINATT_MIXED = ("float16", "float32", "bfloat16")
+LINATT_GLA_TIMED = (4, 4096, 256, 512)
 RWKV_SWEEP = (1, 4096)
 RWKV_LONG = 16384
 RWKV_PARITY = (2, 2048)
@@ -1186,6 +1227,7 @@ def phase_attention() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import registry
     from repro_torch.kernels.attention import kernel, ops
 
     dev = torch.device("cuda")
@@ -1198,20 +1240,23 @@ def phase_attention() -> dict:
                                for s in ATTN_LENGTHS] + ATTN_MLA_CASES + [
         ATTN_D18_CASE, ((b, hy_h, 2048, hy_d), (b, hy_hk, 2048, hy_d),
                         (b, hy_hk, 2048, hy_d), True, hy_w)]
-    max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES}
+    max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES + ("mixed",)}
     checked = 0
 
-    def check(out, ref, what: str, spread=None) -> None:
+    def check(out, ref, what: str, spread=None, dtypes=None) -> None:
         """Hold ``out`` to ``ref`` at the reference's tolerance and at the
         scaled one (plus rtol times ``spread``, the plain attention over
         |v|, in bf16 and fp16); fold its largest difference into
-        ``max_err``."""
+        ``max_err``.  For mixed ``dtypes`` (q, k, v) the tolerance is the
+        loosest of theirs, the scaled one q's (the output's) with v's rtol
+        on the spread (P is rounded to v's dtype)."""
         nonlocal checked
         dtype = str(ref.dtype).removeprefix("torch.")
         if out.shape != ref.shape or out.dtype != ref.dtype:
             fail(f"attention {what}: got {tuple(out.shape)} {out.dtype}, "
                  f"wanted {tuple(ref.shape)} {ref.dtype}")
-        tol = ATTN_TOL[dtype]
+        mixed = dtypes is not None and len(set(dtypes)) > 1
+        tol = max(ATTN_TOL[d] for d in dtypes) if mixed else ATTN_TOL[dtype]
         torch.testing.assert_close(
             out.float(), ref.float(), rtol=tol, atol=tol,
             msg=lambda m: f"attention {what} (rtol {tol}, atol {tol}): {m}")
@@ -1219,12 +1264,14 @@ def phase_attention() -> dict:
         diff = (out.float() - ref.float()).abs()
         limit = atol + rtol * ref.float().abs()
         if spread is not None:
-            limit += rtol * spread
+            p_rtol = ATTN_SCALED_TOL[dtypes[2]][0] if mixed else rtol
+            limit += p_rtol * spread
         if not bool((diff <= limit).all()):
             fail(f"attention {what}: |out - ref| over the scaled limit "
                  f"(rtol {rtol}, atol {atol}) by "
                  f"{(diff - limit).max().item():.3e}")
-        max_err[dtype] = max(max_err[dtype], diff.max().item())
+        key = "mixed" if mixed else dtype
+        max_err[key] = max(max_err[key], diff.max().item())
         checked += 1
 
     for q_s, k_s, v_s, causal, window in cases:
@@ -1268,17 +1315,80 @@ def phase_attention() -> dict:
             del out
         del q, k, v, refs
     torch.cuda.empty_cache()
+    n_long = checked - n_short
+
+    # The wider domain: every call one launch, no fallback; rows
+    # the masks leave no column are 0 (the Pallas kernel's answer; the plain
+    # version writes the mean of v there), every other row is held to the
+    # plain version.
+    counts = registry.default_registry.fallback_counts
+    wb, wh, whk, ws = ATTN_WIDE_HEADS
+    wide = [((dtype,) * 3, (wb, wh, ws, d), (wb, whk, ws, d),
+             (wb, whk, ws, dv), True, None, None)
+            for d, dv in ATTN_WIDE_DIMS for dtype in KERNEL_DTYPES]
+    wide += [(dts, (wb, wh, ws, dh), (wb, whk, ws, dh), (wb, whk, ws, dh),
+              True, 64, None) for dts in ATTN_MIXED]
+    wide += [((dtype,) * 3, (wb, wh, 150, 64), (wb, whk, 100, 64),
+              (wb, whk, 100, 64), causal, window, ATTN_WINDOW_OFFSET)
+             for window in ATTN_WINDOWS for causal in (True, False)
+             for dtype in KERNEL_DTYPES]
+    zero_rows = 0
+    for dts, q_s, k_s, v_s, causal, window, q_offset in wide:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(
+            getattr(torch, dt)) for s, dt in zip((q_s, k_s, v_s), dts))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        ref = ops.attention(q, k, v, impl="torch_ref", **kw)
+        spread = (ops.attention(q.float(), k.float(), v.float().abs(),
+                                impl="torch_ref", **kw)
+                  if dts[2] != "float32" else None)
+        sq, skv = q_s[2], k_s[2]
+        pos = torch.arange(sq, device=dev) + (
+            skv - sq if q_offset is None else q_offset)
+        hi = pos.clamp(max=skv - 1) if causal else torch.full_like(pos,
+                                                                   skv - 1)
+        lo = ((pos - window + 1).clamp(min=0) if window is not None
+              else torch.zeros_like(pos))
+        rows = hi >= lo
+        for bq, bkv in tiles:
+            what = (f"{q_s}/{k_s}/{v_s} {'/'.join(dts)} causal={causal} "
+                    f"window={window} q_offset={q_offset} tiles {bq}x{bkv}")
+            l0, fb0 = kernel.launches, dict(counts)
+            out = ops.attention(q, k, v, impl="cuda", block_q=bq,
+                                block_kv=bkv, **kw)
+            torch.cuda.synchronize()
+            if kernel.launches != l0 + 1 or dict(counts) != fb0:
+                fail(f"attention {what}: {kernel.launches - l0} launches, "
+                     f"fallbacks {fb0} -> {dict(counts)}; wanted one launch "
+                     f"and none")
+            if bool(out[:, :, ~rows].any()):
+                fail(f"attention {what}: a row with no valid column is not 0")
+            zero_rows += int((~rows).sum())
+            if bool(rows.any()):
+                check(out[:, :, rows], ref[:, :, rows], what,
+                      None if spread is None else spread[:, :, rows], dts)
+            else:
+                checked += 1
+            del out
+        del q, k, v, ref, spread
+    torch.cuda.empty_cache()
+    n_wide = checked - n_short - n_long
     log(f"attention: cuda == torch_ref at {n_short} case/dtype/tile cases "
         f"({len(ATTN_TEST_CASES)} reference test cases, full-width "
         f"prefill lengths {ATTN_LENGTHS}, MLA's head dims (192, 128) at "
         f"{[c[0] for c in ATTN_MLA_CASES]}, 36-byte rows at "
         f"{ATTN_D18_CASE[0]}, hymba's heads and window {ATTN_HYMBA} at "
-        f"2048, tiles {tiles}) and "
-        f"{checked - n_short} row slices ({r} rows at the start, middle and "
-        f"end of S = {ATTN_LONG_LENGTHS}, fp32), within the reference's "
+        f"2048, tiles {tiles}), "
+        f"{n_long} row slices ({r} rows at the start, middle and "
+        f"end of S = {ATTN_LONG_LENGTHS}, fp32) and {n_wide} calls of the "
+        f"wider domain, one launch each, no fallback (head dims "
+        f"{ATTN_WIDE_DIMS} at {ATTN_WIDE_HEADS} in each dtype, mixed "
+        f"{ATTN_MIXED} with window 64, windows {ATTN_WINDOWS} causal and "
+        f"not at q_offset {ATTN_WINDOW_OFFSET}: {zero_rows} rows with no "
+        f"valid column, each 0), within the reference's "
         f"tolerances {ATTN_TOL} and the scaled ones (rtol, atol) "
         f"{ATTN_SCALED_TOL}; max_abs_err fp32 {max_err['float32']:.3e}, "
-        f"bf16 {max_err['bfloat16']:.3e}, fp16 {max_err['float16']:.3e}")
+        f"bf16 {max_err['bfloat16']:.3e}, fp16 {max_err['float16']:.3e}, "
+        f"mixed {max_err['mixed']:.3e}")
 
     # The library's SASS: every half-precision instantiation is the wgmma
     # body and holds HGMMA instructions; no other half body is left.
@@ -1291,23 +1401,27 @@ def phase_attention() -> dict:
         f"{sorted(set(wgmma_fns.values()))}; "
         f"{len(sass) - len(wgmma_fns) - len(others)} ring_kernel "
         f"instantiations; other kernels {others}")
-    if (len(wgmma_fns) != 2 * len(tiles) * 3 or not all(wgmma_fns.values())
+    n_wgmma = 2 * len(tiles) * len(ATTN_PADDED_DIMS)
+    if (len(wgmma_fns) != n_wgmma or not all(wgmma_fns.values())
             or others):
         fail(f"attention: the library's half-precision bodies are not the "
-             f"24 wgmma instantiations with HGMMA: {sass}")
+             f"{n_wgmma} wgmma instantiations with HGMMA: {sass}")
 
     per_shape = []
     mla = ATTN_MLA_CASES[0]
     half = ("bfloat16", "float16")
     # (S, dtype, H, Hk, d, dv, window): the qwen3 prefill's heads by
-    # length, then MLA's head dims and hymba's heads and window at 4096
+    # length, then MLA's head dims, hymba's heads and window, and Gemma's
+    # head dim on the qwen3 prefill's heads at 4096
     timed = [(s, "float32", h, hk, dh, dh, None) for s in ATTN_LENGTHS
              + ATTN_LONG_LENGTHS] + [(2048, "bfloat16", h, hk, dh, dh, None)] + [
         (PREFILL_SWEEP[1], dtype, h, hk, dh, dh, None) for dtype in half] + [
         (ATTN_MLA_TIMED, dtype, mla[0][1], mla[1][1], mla[0][3], mla[2][3],
          None) for dtype in ("float32",) + half] + [
         (ATTN_MLA_TIMED, dtype, hy_h, hy_hk, hy_d, hy_d, hy_w)
-        for dtype in half]
+        for dtype in half] + [
+        (ATTN_MLA_TIMED, dtype, h, hk, ATTN_WIDE_TIMED, ATTN_WIDE_TIMED, None)
+        for dtype in ("float32",) + half]
     for s, dtype, hq, hkv, d, dv, window in timed:
         tdt = getattr(torch, dtype)
         q = torch.randn((b * hq, s, d), generator=gen, device=dev).to(tdt)
@@ -1389,7 +1503,7 @@ def phase_attention() -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
-            "per_shape": per_shape}
+            "wide_checked": n_wide, "per_shape": per_shape}
 
 
 def _linatt_cost(bh: int, t: int, dk: int, dv: int, chunk: int,
@@ -1425,25 +1539,34 @@ def phase_linear_attention() -> dict:
     """K4 against its plain version at every chunk, then timed."""
     import torch
 
+    from repro_torch.kernels import registry
     from repro_torch.kernels.linear_attention import kernel, ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES}
+    max_err = {dtype: 0.0 for dtype in KERNEL_DTYPES + ("mixed",)}
     checked = 0
 
     def inputs(bh, t, dk, dv, bonus, scalar, dtype):
-        tdt = getattr(torch, dtype)
-        q, k = (torch.randn((bh, t, dk), generator=gen, device=dev).to(tdt)
-                for _ in range(2))
-        v = torch.randn((bh, t, dv), generator=gen, device=dev).to(tdt)
+        """q, k, v of ``dtype`` (or of the dtypes "q-k-v"), log_w of q's
+        dtype, the fp32 bonus or None."""
+        dts = dtype.split("-") if "-" in dtype else [dtype] * 3
+        tdt = getattr(torch, dts[0])
+        q, k = (torch.randn((bh, t, dk), generator=gen, device=dev).to(
+            getattr(torch, dt)) for dt in dts[:2])
+        v = torch.randn((bh, t, dv), generator=gen, device=dev).to(
+            getattr(torch, dts[2]))
         lw = -torch.rand((bh, t, 1 if scalar else dk), generator=gen,
                          device=dev).clamp(1e-4, 1.0).to(tdt)
         u = (torch.randn((bh, dk), generator=gen, device=dev) if bonus
              else None)
         return q, k, v, lw, u
 
-    def check(out, ref, what: str) -> None:
+    def check(out, ref, what: str, dtypes=None) -> None:
+        """``out`` against ``ref`` within the reference's tolerance and the
+        scaled one; for mixed ``dtypes`` (q, k, v) the loosest tolerance
+        of theirs and the scaled one of v's (the output's) plus fp32's:
+        both sides compute in fp32 on the same values."""
         nonlocal checked
         dtype = str(ref.dtype).removeprefix("torch.")
         if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -1451,13 +1574,17 @@ def phase_linear_attention() -> dict:
                  f"{out.dtype}, wanted {tuple(ref.shape)} {ref.dtype}")
         tol = LINATT_TOL[dtype]
         rtol, atol = LINATT_SCALED_TOL[dtype]
+        if dtypes is not None:
+            tol = max(LINATT_TOL[d] for d in dtypes)
+            rtol += LINATT_SCALED_TOL["float32"][0] * (dtype != "float32")
         for rt, at in ((tol, tol), (rtol, atol)):
             torch.testing.assert_close(
                 out.float(), ref.float(), rtol=rt, atol=at,
                 msg=lambda m: f"linear attention {what} (rtol {rt}, atol "
                               f"{at}): {m}")
         err = (out.float() - ref.float()).abs().max().item()
-        max_err[dtype] = max(max_err[dtype], err)
+        key = "mixed" if dtypes is not None else dtype
+        max_err[key] = max(max_err[key], err)
         checked += 1
 
     for bh, t, dk, dv, inclusive, bonus, scalar in (LINATT_TEST_CASES
@@ -1476,18 +1603,54 @@ def phase_linear_attention() -> dict:
                 del ref, out
             del q, k, v, lw, u
     torch.cuda.empty_cache()
-    log(f"linear attention: cuda == torch_ref at {checked} case/dtype/chunk "
+    n_short = checked
+
+    # The wider domain: GLA's heads and wide keys with narrow values in
+    # every dtype, and a mixed triple, each call one launch and no
+    # fallback.
+    counts = registry.default_registry.fallback_counts
+    mixed = "-".join(LINATT_MIXED)
+    wide = [(case, dtype) for case in LINATT_GLA_CASES
+            for dtype in KERNEL_DTYPES] + [(LINATT_WIDE_CASES[0], mixed)]
+    for (bh, t, dk, dv, inclusive, bonus, scalar), dtype in wide:
+        q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
+        if dtype == mixed:
+            lw = lw.float()
+        for chunk in kernel.CHUNKS:
+            kw = dict(bonus=u, inclusive=inclusive, chunk=chunk)
+            what = (f"({bh},{t},{dk},{dv}) {dtype} inclusive={inclusive} "
+                    f"bonus={bonus} chunk {chunk}")
+            ref = ops.linear_attention(q, k, v, lw, impl="torch_ref", **kw)
+            l0, fb0 = kernel.launches, dict(counts)
+            out = ops.linear_attention(q, k, v, lw, impl="cuda", **kw)
+            torch.cuda.synchronize()
+            if kernel.launches != l0 + 1 or dict(counts) != fb0:
+                fail(f"linear attention {what}: {kernel.launches - l0} "
+                     f"launches, fallbacks {fb0} -> {dict(counts)}; wanted "
+                     f"one launch and none")
+            check(out, ref, what,
+                  LINATT_MIXED if dtype == mixed else None)
+            del ref, out
+        del q, k, v, lw, u
+    torch.cuda.empty_cache()
+    n_wide = checked - n_short
+    log(f"linear attention: cuda == torch_ref at {n_short} case/dtype/chunk "
         f"cases ({len(LINATT_TEST_CASES)} reference test cases and "
         f"(bh, T, dk, dv) {[c[:4] for c in LINATT_WIDE_CASES]}, whole; "
-        f"chunks {kernel.CHUNKS}), within the reference's tolerances "
-        f"{LINATT_TOL} "
+        f"chunks {kernel.CHUNKS}) and {n_wide} calls of the wider domain, "
+        f"one launch each, no fallback (wide heads "
+        f"{[c[:5] for c in LINATT_GLA_CASES]} in each dtype, mixed "
+        f"{LINATT_MIXED} at {LINATT_WIDE_CASES[0][:4]}), within the "
+        f"reference's tolerances {LINATT_TOL} "
         f"and the scaled ones (rtol, atol) {LINATT_SCALED_TOL}; max_abs_err "
         f"fp32 {max_err['float32']:.3e}, bf16 {max_err['bfloat16']:.3e}, "
-        f"fp16 {max_err['float16']:.3e}")
+        f"fp16 {max_err['float16']:.3e}, mixed {max_err['mixed']:.3e}")
 
     per_shape = []
     timed_cases = [(c, "float32") for c in LINATT_WIDE_CASES] + [
-        (LINATT_WIDE_CASES[1], dtype) for dtype in ("bfloat16", "float16")]
+        (LINATT_WIDE_CASES[1], dtype) for dtype in ("bfloat16", "float16")] + [
+        (LINATT_GLA_TIMED + (True, False, False), dtype)
+        for dtype in KERNEL_DTYPES]
     prefill_case = (RWKV_HEADS, RWKV_SWEEP[1], RWKV_HEAD, RWKV_HEAD)
     for (bh, t, dk, dv, inclusive, bonus, scalar), dtype in timed_cases:
         q, k, v, lw, u = inputs(bh, t, dk, dv, bonus, scalar, dtype)
@@ -1550,7 +1713,7 @@ def phase_linear_attention() -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
-            "per_shape": per_shape}
+            "wide_checked": n_wide, "per_shape": per_shape}
 
 
 def _matmul_cost(m: int, k: int, n: int, itemsize: int,
@@ -2099,19 +2262,28 @@ def phase_guards(decode_by_kind: dict) -> dict:
           lambda i: rmsnorm(*host((x, w)), impl=i), False)
     gap("rmsnorm", rms_k, f"{f64} rows",
         lambda: rmsnorm(x.to(f64), w, impl="cuda"), TypeError)
-    # K2: (1, 4/2 heads, 128, 64) causal GQA, fp32 and fp16; host tensors;
-    # q of another dtype than k and v, d 200, dv 160 and block_q 256 raise
+    # K2: (1, 4/2 heads, 128, 64) causal GQA, fp32 and fp16, fp16 q over
+    # fp32 k and v, head dims (256, 256) and a window of -5 (at q_offset
+    # -20, which leaves every row a column); host tensors; d 264, dv 264
+    # and block_q 256 raise
     q, k, v = rand(1, 4, 128, 64), rand(1, 2, 128, 64), rand(1, 2, 128, 64)
     check("attention", attn_k, "fp32 GQA",
           lambda i: attention(q, k, v, impl=i), True)
     check("attention", attn_k, "fp16 GQA",
           lambda i: attention(q.half(), k.half(), v.half(), impl=i), True)
+    check("attention", attn_k, "fp16 q, fp32 k and v",
+          lambda i: attention(q.half(), k, v, impl=i), True)
+    gq, gk, gv = (rand(1, n, 128, 256) for n in (4, 2, 2))
+    check("attention", attn_k, "head dims (256, 256)",
+          lambda i: attention(gq, gk, gv, impl=i), True)
+    check("attention", attn_k, "window -5, not causal",
+          lambda i: attention(q, k, v, causal=False, window=-5, q_offset=-20,
+                              impl=i), True)
     check("attention", attn_k, "host tensors",
           lambda i: attention(*host((q, k, v)), impl=i), False)
-    cases = {"fp16 q, fp32 k and v": ((q.half(), k, v), {}, TypeError),
-             "d 200": ((rand(1, 4, 128, 200), rand(1, 2, 128, 200),
+    cases = {"d 264": ((rand(1, 4, 128, 264), rand(1, 2, 128, 264),
                         rand(1, 2, 128, 64)), {}, ValueError),
-             "dv 160": ((q, k, rand(1, 2, 128, 160)), {}, ValueError),
+             "dv 264": ((q, k, rand(1, 2, 128, 264)), {}, ValueError),
              "block_q 256": ((q, k, v), {"block_q": 256}, ValueError)}
     for label, (args, kw, error) in cases.items():
         gap("attention", attn_k, label,
@@ -2131,9 +2303,9 @@ def phase_guards(decode_by_kind: dict) -> dict:
         lambda: matmul(a, b, bm=256, bn=256, bk=128, impl="cuda"),
         ValueError)
     # K4: rwkv6's heads of 64 at T 256, exclusive with the bonus, fp32 and
-    # fp16 (log_w and the bonus fp32, as the models give them); host
-    # tensors; fp16 q and v with an fp32 k, head dim 136, chunk 48 and a
-    # bonus on the inclusive recurrence raise
+    # fp16 (log_w and the bonus fp32, as the models give them), fp16 q and
+    # v with an fp32 k, GLA's heads (256, 512); host tensors; dk 264, dv
+    # 520, chunk 48 and a bonus on the inclusive recurrence raise
     lq, lk, lv = rand(8, 256, 64), rand(8, 256, 64), rand(8, 256, 64)
     lw = -torch.rand(8, 256, 64, generator=gen).to("cuda") - 0.01
     u = rand(8, 64)
@@ -2142,14 +2314,23 @@ def phase_guards(decode_by_kind: dict) -> dict:
     check("linear_attention", la_k, "fp16 exclusive + bonus",
           lambda i: linear_attention(lq.half(), lk.half(), lv.half(), lw,
                                      bonus=u, impl=i), True)
+    check("linear_attention", la_k, "fp16 q and v, fp32 k",
+          lambda i: linear_attention(lq.half(), lk, lv.half(), lw, bonus=u,
+                                     impl=i), True)
+    gla_qk = 0.3 * rand(2, 128, 256)
+    gla_v, gla_w = rand(2, 128, 512), -torch.rand(
+        2, 128, 256, generator=gen).to("cuda") - 0.01
+    check("linear_attention", la_k, "head dims (256, 512), inclusive",
+          lambda i: linear_attention(gla_qk, gla_qk, gla_v, gla_w,
+                                     inclusive=True, impl=i), True)
     check("linear_attention", la_k, "host tensors",
           lambda i: linear_attention(*host((lq, lk, lv, lw)),
                                      bonus=u.cpu(), impl=i), False)
-    wide = rand(8, 64, 136)
-    wide_w = -torch.rand(8, 64, 136, generator=gen).to("cuda") - 0.01
-    cases = {"fp16 q and v, fp32 k": ((lq.half(), lk, lv.half(), lw), {},
-                                      TypeError),
-             "head dim 136": ((wide, wide, wide, wide_w), {}, ValueError),
+    wide = rand(8, 64, 264)
+    wide_w = -torch.rand(8, 64, 264, generator=gen).to("cuda") - 0.01
+    cases = {"dk 264": ((wide, wide, rand(8, 64, 64), wide_w), {},
+                        ValueError),
+             "dv 520": ((lq, lk, rand(8, 256, 520), lw), {}, ValueError),
              "chunk 48": ((lq, lk, lv, lw), {"chunk": 48}, ValueError),
              "inclusive + bonus": ((lq, lk, lv, lw),
                                    {"bonus": u, "inclusive": True},
@@ -6517,6 +6698,18 @@ def main(argv: list[str]) -> None:
         "hymba": dict(family_k["hymba_attention"],
                       per="one launch at hymba-1.5b's (1, 4096) prefill "
                           "shape (a layer's attention branch)"),
+        "wide_checked": attn["wide_checked"],
+        "wide256": {r["dtype"]: {
+            "tiles": min(r["kernel_ms_by_tiles"],
+                         key=r["kernel_ms_by_tiles"].get),
+            "ms": min(r["kernel_ms_by_tiles"].values()),
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "per": f"one causal launch at (1, {h} q / {hk} kv heads, "
+                   f"{ATTN_MLA_TIMED}, {ATTN_WIDE_TIMED}), the best tiles"}
+            for r in attn["per_shape"]
+            if r["shape"] == [b, h, hk, ATTN_MLA_TIMED, ATTN_WIDE_TIMED,
+                              ATTN_WIDE_TIMED]},
         "shapes": attn["per_shape"],
     }, {
         "name": "linear_attention",
@@ -6561,6 +6754,17 @@ def main(argv: list[str]) -> None:
         "cuda_launches_per_call":
             la_at["cuda_launches_per_call_by_chunk"][c],
         "launch_us": la_at["launch_us_by_chunk"][c],
+        "wide_checked": linatt["wide_checked"],
+        "gla": {r["dtype"]: (lambda g: {
+            "chunk": g, "ms": r["kernel_ms_by_chunk"][g],
+            "plain_ms": r["plain_ms_by_chunk"][g],
+            "bound_ms": r["bound_ms_by_chunk"][g],
+            "bound_by": r["bound_by_chunk"][g], "library_ms": None,
+            "per": f"one inclusive call at {LINATT_GLA_TIMED} (bh, T, dk, "
+                   f"dv), the best chunk"})(
+                min(r["kernel_ms_by_chunk"], key=r["kernel_ms_by_chunk"].get))
+            for r in linatt["per_shape"]
+            if r["shape"] == list(LINATT_GLA_TIMED)},
         "family_prefill_launches": {a: f["launches"]["linear_attention"]
                                     for a, f in family.items()},
         "family_max_abs_err": family_k["max_abs_err"]["linear_attention"],

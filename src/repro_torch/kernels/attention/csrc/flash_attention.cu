@@ -4,8 +4,11 @@
 // (body _flash_kernel), the reference's Pallas TPU kernel.  Same function:
 // per (batch*head, query row), softmax(scale * q k^T) v over the kv columns
 // that the causal and sliding-window masks (relative to q_offset) leave,
-// with an online softmax in fp32; GQA reads kv head h / group.  A row with
-// no valid column gets 0, as the Pallas kernel writes (its l == 0 guard).
+// with an online softmax in fp32; GQA reads kv head h / group.  The window
+// is any integer (has_window says whether there is one): column c of row r
+// is kept where c > r - window, as the Pallas kernel masks it, so a window
+// <= 0 keeps no past column.  A row with no valid column gets 0, as the
+// Pallas kernel writes (its l == 0 guard).
 //
 // What bounds it: operations.  A causal prefill at S = 4096, 16 heads,
 // d = 128 does 2 * 16 * S^2 * 128 * 2 / 2 ~ 69 GFLOP per layer against
@@ -18,9 +21,13 @@
 //
 // Two bodies under one entry point, picked by dtype:
 //
-// * fp32 (ring_kernel).  One block of 2 * BQ threads per (q tile of BQ
-//   rows, head), heaviest q tiles first across all heads (the last tiles of
-//   a causal sequence see the most kv tiles), so the grid's tail is short.
+// * fp32 (ring_kernel), also for q, k and v of mixed dtypes: the wrapper
+//   widens them to fp32 (exact), and the body takes two runtime codes, the
+//   dtype P is rounded to before P.V (v's, as the Pallas kernel's
+//   p.astype(v.dtype); none for fp32) and the dtype the output is stored
+//   in (q's).  One block of 2 * BQ threads per (q tile of BQ rows, head),
+//   heaviest q tiles first across all heads (the last tiles of a causal
+//   sequence see the most kv tiles), so the grid's tail is short.
 //   - Copies: the q tile is copied once; each kv tile is then streamed as
 //     64-column chunks (DP / 64 of K, DVP / 64 of V, DP and DVP the padded
 //     head dims, compile-time) through a ring of STAGES (2-4) chunk buffers
@@ -38,7 +45,8 @@
 //     & 3) for q and P, ^ (row & 7) for K), so the 4 or 8 rows a warp reads
 //     at once fall in distinct bank quads with no padding: shared memory is
 //     the scarce resource at d = 192 (q 96 KB, P 32 KB, ring 64 KB for
-//     (128, 64)).
+//     (128, 64)) and at d = 256 (q 128 KB, P 32 KB, four 16 KB stages:
+//     224 KB).
 //   - Probabilities: the 8 lanes that share a row hold its scores; row max
 //     and sum combine with 3 shuffles each.  P goes through shared memory,
 //     into the warp's own rows (no block barrier beyond the ring's): for
@@ -81,7 +89,12 @@
 //     kernel rounds it to v's dtype (p.astype(v.dtype)), and fed as wgmma's
 //     A operand from registers (the score accumulator's columns 16j .. 16j
 //     + 15 are already the A fragment of step j); V's row-major tile is the
-//     B operand, MN-major, read through wgmma's transpose bit.
+//     B operand, MN-major, read through wgmma's transpose bit.  At DVP =
+//     256 the product is two m64n128k16 halves over V's column blocks 0-1
+//     and 2-3: O takes 128 fp32 registers a consumer thread, beside 32 of
+//     S and 16 of P (the consumers' budget is 224 at two warpgroups, 255
+//     at one; the producer is one warp, so setmaxnreg, which moves
+//     registers between whole warpgroups, has none to give).
 //     Rounding P moves an output by at most 2^-8 (bf16) or 2^-11 (fp16) of
 //     the plain attention over |v| from the plain version's fp32 P.
 //   - Masks: as the ring body, per warpgroup of 64 rows: a warpgroup that
@@ -96,9 +109,10 @@
 //
 // BQ and BKV (the block_q / block_kv spec points) are template arguments:
 // each tile pair is its own compiled kernel, at each padded head-dim pair
-// (DP, DVP) in {(64, 64), (128, 128), (192, 128)} (d = 192 with dv = 128
-// is MLA's nope + rope over v), for each dtype.  Every instantiation fits
-// the 227 KB of shared memory a block may use (static_asserts).
+// (DP, DVP) in {(64, 64), (128, 128), (192, 128), (256, 256)} (d = 192 with
+// dv = 128 is MLA's nope + rope over v; 256 is Gemma's head), for each
+// dtype.  Every instantiation fits the 227 KB of shared memory a block may
+// use (static_asserts).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -107,8 +121,8 @@
 
 namespace {
 
-constexpr int kMaxHead = 192;       // largest d the kernel takes
-constexpr int kMaxValueHead = 128;  // largest dv the kernel takes
+constexpr int kMaxHead = 256;       // largest d the kernel takes
+constexpr int kMaxValueHead = 256;  // largest dv the kernel takes
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -139,8 +153,26 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The dtype codes of the entry point: 0 = float32, 1 = bfloat16, 2 =
+// float16.  x rounded to the dtype of `code` (and back to fp32), and x
+// stored as that dtype at element i of `base`.
+__device__ __forceinline__ float round_to(float x, int code) {
+  return code == 1   ? __bfloat162float(__float2bfloat16(x))
+         : code == 2 ? __half2float(__float2half_rn(x))
+                     : x;
+}
+__device__ __forceinline__ void store_as(void* base, int64_t i, float x,
+                                         int code) {
+  if (code == 1)
+    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16(x);
+  else if (code == 2)
+    static_cast<__half*>(base)[i] = __float2half_rn(x);
+  else
+    static_cast<float*>(base)[i] = x;
+}
+
 // ---------------------------------------------------------------------------
-// ring_kernel: the fp32 body
+// ring_kernel: the fp32 body (and mixed dtypes, widened to fp32)
 // ---------------------------------------------------------------------------
 
 template <int BQ, int BKV, int DP, int DVP> struct Ring {
@@ -208,10 +240,10 @@ __device__ __forceinline__ void pv_chunk(float (&acc)[4][8 * NVC],
 template <int BQ, int BKV, int DP, int DVP>
 __global__ void __launch_bounds__(2 * BQ, 1)
     ring_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ out, int bh,
+                const float* __restrict__ v, void* __restrict__ out, int bh,
                 int sq, int skv, int d, int dv, int group, float scale2,
-                int causal, int window, int q_offset, bool vec,
-                bool vec_out) {
+                int causal, int has_window, int window, int q_offset,
+                int p_round, int out_code, bool vec, bool vec_out) {
   using R = Ring<BQ, BKV, DP, DVP>;
   constexpr int kThreads = R::kThreads, NJ = R::kNJ, NS = R::kStages;
   constexpr int NKC = R::kKChunks, NVC = R::kVChunks, NC = R::kChunks;
@@ -238,7 +270,7 @@ __global__ void __launch_bounds__(2 * BQ, 1)
   const int n_kv = (skv + BKV - 1) / BKV;
   int kv_lo = 0, kv_hi = n_kv;
   if (causal) kv_hi = row_last < 0 ? 0 : min(n_kv, row_last / BKV + 1);
-  if (window > 0) {
+  if (has_window) {
     const int col_min = row_first - window + 1;
     kv_lo = col_min <= 0 ? 0 : min(col_min / BKV, kv_hi);
   }
@@ -353,9 +385,9 @@ __global__ void __launch_bounds__(2 * BQ, 1)
       // Does this warp see any column of tile t, and must it mask?
       const int cols_here = min(BKV, skv - c0);
       active = warp_rows && !(causal && c0 > w_last) &&
-               !(window > 0 && c0 + cols_here - 1 <= w_first - window);
+               !(has_window && c0 + cols_here - 1 <= w_first - window);
       masked = cols_here < BKV || (causal && c0 + BKV - 1 > w_first) ||
-               (window > 0 && c0 <= w_last - window);
+               (has_window && c0 <= w_last - window);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -399,7 +431,7 @@ __global__ void __launch_bounds__(2 * BQ, 1)
               const int col = c0 + cl;
               bool ok = cl < cols_here;
               if (causal) ok = ok && col <= row;
-              if (window > 0) ok = ok && col > row - window;
+              if (has_window) ok = ok && col > row - window;
               if (!ok) s[i][j] = kNegInf;
             }
           }
@@ -422,9 +454,10 @@ __global__ void __launch_bounds__(2 * BQ, 1)
             const float p = (masked && s[i][j] == kNegInf)
                                 ? 0.0f
                                 : exp2f(s[i][j] - m_new);
-            rsum += p;
+            rsum += p;   // l sums the fp32 probabilities
             const int cl = lc + 8 * j;
-            prow[4 * i * BKV + 4 * ((cl >> 2) ^ lr) + (cl & 3)] = p;
+            prow[4 * i * BKV + 4 * ((cl >> 2) ^ lr) + (cl & 3)] =
+                round_to(p, p_round);
           }
           rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
           rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
@@ -443,6 +476,10 @@ __global__ void __launch_bounds__(2 * BQ, 1)
         pv_chunk<0, BKV, NVC>(acc, prow, buf, lr, lc);
       if constexpr (NVC > 1)
         if (part == NKC + 1) pv_chunk<1, BKV, NVC>(acc, prow, buf, lr, lc);
+      if constexpr (NVC > 2)
+        if (part == NKC + 2) pv_chunk<2, BKV, NVC>(acc, prow, buf, lr, lc);
+      if constexpr (NVC > 3)
+        if (part == NKC + 3) pv_chunk<3, BKV, NVC>(acc, prow, buf, lr, lc);
     }
     if (++part == NC) part = 0, ++t;
     if (++stage == NS) stage = 0;
@@ -450,13 +487,13 @@ __global__ void __launch_bounds__(2 * BQ, 1)
   cp_async_wait<0>();
 
   if (!warp_rows) return;
-  float* ob = out + (static_cast<int64_t>(head) * sq + q0) * dv;
+  const int64_t o0 = (static_cast<int64_t>(head) * sq + q0) * dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = warp * 16 + lr + 4 * i;
     if (r >= rows_here) continue;
     const float inv = l[i] == 0.0f ? 0.0f : 1.0f / l[i];
-    float* o = ob + static_cast<int64_t>(r) * dv;
+    const int64_t orow = o0 + static_cast<int64_t>(r) * dv;
 #pragma unroll
     for (int vc = 0; vc < NVC; ++vc)
 #pragma unroll
@@ -464,13 +501,14 @@ __global__ void __launch_bounds__(2 * BQ, 1)
         const int col = 64 * vc + 32 * h + 4 * lc;
         const int a = 8 * vc + 4 * h;
         if (vec_out && col + 3 < dv) {
-          *reinterpret_cast<float4*>(o + col) =
+          *reinterpret_cast<float4*>(static_cast<float*>(out) + orow + col) =
               make_float4(acc[i][a] * inv, acc[i][a + 1] * inv,
                           acc[i][a + 2] * inv, acc[i][a + 3] * inv);
         } else {
 #pragma unroll
           for (int x = 0; x < 4; ++x)
-            if (col + x < dv) o[col + x] = acc[i][a + x] * inv;
+            if (col + x < dv)
+              store_as(out, orow + col + x, acc[i][a + x] * inv, out_code);
         }
       }
   }
@@ -479,8 +517,9 @@ __global__ void __launch_bounds__(2 * BQ, 1)
 template <int BQ, int BKV, int DP, int DVP>
 cudaError_t launch_ring(const void* q, const void* k, const void* v,
                         void* out, int bh, int sq, int skv, int d, int dv,
-                        int group, float scale, int causal, int window,
-                        int q_offset, cudaStream_t stream) {
+                        int group, float scale, int causal, int has_window,
+                        int window, int q_offset, int p_round, int out_code,
+                        cudaStream_t stream) {
   using R = Ring<BQ, BKV, DP, DVP>;
   auto kernel = ring_kernel<BQ, BKV, DP, DVP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -492,14 +531,15 @@ cudaError_t launch_ring(const void* q, const void* k, const void* v,
                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const bool vec_out =
-      dv % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec_out = out_code == 0 && dv % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int64_t blocks = static_cast<int64_t>((sq + BQ - 1) / BQ) * bh;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), R::kThreads, R::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), bh, sq, skv,
-      d, dv, group, scale * kLog2e, causal, window, q_offset, vec, vec_out);
+      static_cast<const float*>(v), out, bh, sq, skv, d, dv, group,
+      scale * kLog2e, causal, has_window, window, q_offset, p_round,
+      out_code, vec, vec_out);
   return cudaGetLastError();
 }
 
@@ -779,8 +819,10 @@ __device__ __forceinline__ void load_tile(uint8_t* dst,
 
 template <int BQ, int BKV, int DP, int DVP> struct Wg {
   static_assert(BQ % 64 == 0 && (BKV == 32 || BKV == 64) && DP % 64 == 0 &&
-                    DP <= kMaxHead && (DVP == 64 || DVP == 128),
-                "wgmma body: BQ % 64, BKV 32 or 64, DP % 64, DVP 64 or 128");
+                    DP <= kMaxHead &&
+                    (DVP == 64 || DVP == 128 || DVP == 256),
+                "wgmma body: BQ % 64, BKV 32 or 64, DP % 64, DVP 64, 128 "
+                "or 256");
   static constexpr int kGroups = BQ / 64;        // warpgroups, 64 rows each
   // the consumer warpgroups, then one producer warp
   static constexpr int kThreads = 128 * kGroups + 32;
@@ -809,8 +851,8 @@ __global__ void __launch_bounds__(Wg<BQ, BKV, DP, DVP>::kThreads)
                     const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int bh,
                     int sq, int skv, int d, int dv, int group, float scale2,
-                    int causal, int window, int q_offset, int qk_mode,
-                    int v_mode, bool tma, bool pair_out) {
+                    int causal, int has_window, int window, int q_offset,
+                    int qk_mode, int v_mode, bool tma, bool pair_out) {
   using W = Wg<BQ, BKV, DP, DVP>;
   constexpr int NS = W::kStages, NC = W::kGroups;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -834,7 +876,7 @@ __global__ void __launch_bounds__(Wg<BQ, BKV, DP, DVP>::kThreads)
   const int n_kv = (skv + BKV - 1) / BKV;
   int kv_lo = 0, kv_hi = n_kv;
   if (causal) kv_hi = row_last < 0 ? 0 : min(n_kv, row_last / BKV + 1);
-  if (window > 0) {
+  if (has_window) {
     const int col_min = row_first - window + 1;
     kv_lo = col_min <= 0 ? 0 : min(col_min / BKV, kv_hi);
   }
@@ -936,11 +978,11 @@ __global__ void __launch_bounds__(Wg<BQ, BKV, DP, DVP>::kThreads)
     // Does this warpgroup see any column of the tile, and must it mask?
     const bool active =
         group_rows && !(causal && c0 > g_last) &&
-        !(window > 0 && c0 + cols_here - 1 <= g_first - window);
+        !(has_window && c0 + cols_here - 1 <= g_first - window);
     if (active) {
       const bool masked = cols_here < BKV ||
                           (causal && c0 + BKV - 1 > g_first) ||
-                          (window > 0 && c0 <= g_last - window);
+                          (has_window && c0 <= g_last - window);
       const uint8_t* ks = ring + s * W::kStageBytes;
       const uint8_t* vs = ks + W::kKBytes;
 
@@ -976,7 +1018,7 @@ __global__ void __launch_bounds__(Wg<BQ, BKV, DP, DVP>::kThreads)
           const int col = c0 + cl;
           bool ok = cl < cols_here;
           if (causal) ok = ok && col <= row;
-          if (window > 0) ok = ok && col > row - window;
+          if (has_window) ok = ok && col > row - window;
           if (!ok) sc[j] = kNegInf;
         }
       }
@@ -1029,12 +1071,23 @@ __global__ void __launch_bounds__(Wg<BQ, BKV, DP, DVP>::kThreads)
         a[j][3] = pack2<T>(sc[8 * j + 6], sc[8 * j + 7]);
       }
       // o += P V over BKV / 16 steps of 16 kv rows (2048 bytes down each
-      // 64-column box of V; boxes BKV * 128 bytes apart).
+      // 64-column box of V; boxes BKV * 128 bytes apart); at DVP = 256 as
+      // two halves of 128 columns, the second from box 2.
       pin(o);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < BKV / 16; ++j)
-        Mma<T>::rs(o, a[j], smem_desc(vs + j * 2048, BKV * 128, 1024));
+      for (int j = 0; j < BKV / 16; ++j) {
+        if constexpr (DVP <= 128) {
+          Mma<T>::rs(o, a[j], smem_desc(vs + j * 2048, BKV * 128, 1024));
+        } else {
+          using Half = float[64];
+          Mma<T>::rs(*reinterpret_cast<Half*>(o), a[j],
+                     smem_desc(vs + j * 2048, BKV * 128, 1024));
+          Mma<T>::rs(*reinterpret_cast<Half*>(o + 64), a[j],
+                     smem_desc(vs + 2 * BKV * 128 + j * 2048, BKV * 128,
+                               1024));
+        }
+      }
       wgmma_commit();
       wgmma_wait<0>();
       pin(o);
@@ -1131,8 +1184,9 @@ bool map_3d(CUtensorMap* map, const void* base, int heads, int rows,
 template <typename T, int BQ, int BKV, int DP, int DVP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, int bh, int sq, int skv, int d, int dv,
-                         int group, float scale, int causal, int window,
-                         int q_offset, cudaStream_t stream) {
+                         int group, float scale, int causal, int has_window,
+                         int window, int q_offset, int /*p_round*/,
+                         int /*out_code*/, cudaStream_t stream) {
   using W = Wg<BQ, BKV, DP, DVP>;
   auto kernel = fa_wgmma_kernel<T, BQ, BKV, DP, DVP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -1153,8 +1207,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   kernel<<<static_cast<unsigned>(blocks), W::kThreads, W::kSmem, stream>>>(
       tmq, tmk, tmv, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), bh, sq, skv, d, dv,
-      group, scale * kLog2e, causal, window, q_offset, qk_mode, v_mode, tma,
-      pair_out);
+      group, scale * kLog2e, causal, has_window, window, q_offset, qk_mode,
+      v_mode, tma, pair_out);
   return cudaGetLastError();
 }
 
@@ -1163,6 +1217,7 @@ int ring_dims(int d, int dv, int* dp, int* dvp) {
   if (d <= 64 && dv <= 64) *dp = 64, *dvp = 64;
   else if (d <= 128 && dv <= 128) *dp = 128, *dvp = 128;
   else if (d <= 192 && dv <= 128) *dp = 192, *dvp = 128;
+  else if (d <= 256 && dv <= 256) *dp = 256, *dvp = 256;
   else return 0;
   return 1;
 }
@@ -1171,7 +1226,7 @@ int ring_dims(int d, int dv, int* dp, int* dvp) {
 
 using LaunchFn = cudaError_t (*)(const void*, const void*, const void*,
                                  void*, int, int, int, int, int, int, float,
-                                 int, int, int, cudaStream_t);
+                                 int, int, int, int, int, int, cudaStream_t);
 
 // One instantiation: its launch (nullptr if no body takes the arguments),
 // which body it is (0 = the fp32 ring body, 1 = the wgmma body), its shared
@@ -1207,7 +1262,8 @@ Body select_body(int dtype, int block_q, int block_kv, int d, int dv) {
   if (block_q == BQ_ && block_kv == BKV_)                                  \
     return dp == 64    ? ring_body<BQ_, BKV_, 64, 64>()                    \
            : dp == 128 ? ring_body<BQ_, BKV_, 128, 128>()                  \
-                       : ring_body<BQ_, BKV_, 192, 128>();
+           : dp == 192 ? ring_body<BQ_, BKV_, 192, 128>()                  \
+                       : ring_body<BQ_, BKV_, 256, 256>();
     FA_TILES(FA_RING)
 #undef FA_RING
     return {};
@@ -1216,7 +1272,8 @@ Body select_body(int dtype, int block_q, int block_kv, int d, int dv) {
   if (block_q == BQ_ && block_kv == BKV_)                                  \
     return dp == 64    ? wgmma_body<T_, BQ_, BKV_, 64, 64>()               \
            : dp == 128 ? wgmma_body<T_, BQ_, BKV_, 128, 128>()             \
-                       : wgmma_body<T_, BQ_, BKV_, 192, 128>();
+           : dp == 192 ? wgmma_body<T_, BQ_, BKV_, 192, 128>()             \
+                       : wgmma_body<T_, BQ_, BKV_, 256, 256>();
   if (dtype == 1) {
 #define FA_WGMMA_BF16(BQ_, BKV_) FA_WGMMA(__nv_bfloat16, BQ_, BKV_)
     FA_TILES(FA_WGMMA_BF16)
@@ -1235,23 +1292,30 @@ Body select_body(int dtype, int block_q, int block_kv, int d, int dv) {
 
 extern "C" {
 
-// q (bh, sq, d), k (bh / group, skv, d), v (bh / group, skv, dv), out
-// (bh, sq, dv), all row-major and of one dtype (0 = float32, 1 = bfloat16,
-// 2 = float16).
-// window <= 0 means no sliding window.  Returns the cudaError_t of the
-// launch (0 = success).
+// q (bh, sq, d), k (bh / group, skv, d), v (bh / group, skv, dv) row-major
+// of one dtype (0 = float32, 1 = bfloat16, 2 = float16), out (bh, sq, dv)
+// row-major of dtype out_dtype.  P is rounded to dtype p_round before P.V.
+// A bf16 or fp16 call takes p_round == out_dtype == dtype (the wgmma body);
+// a float32 one any codes (the ring body: mixed inputs widened to fp32).
+// has_window = 0 means no sliding window; else `window` is any integer.
+// Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int bh, int sq, int skv, int d, int dv,
-                        int group, float scale, int causal, int window,
-                        int q_offset, int dtype, int block_q, int block_kv,
+                        int group, float scale, int causal, int has_window,
+                        int window, int q_offset, int dtype, int p_round,
+                        int out_dtype, int block_q, int block_kv,
                         void* stream) {
   const Body body = select_body(dtype, block_q, block_kv, d, dv);
+  const bool codes_ok =
+      p_round >= 0 && p_round <= 2 && out_dtype >= 0 && out_dtype <= 2 &&
+      (dtype == 0 || (p_round == dtype && out_dtype == dtype));
   if (bh <= 0 || sq <= 0 || skv <= 0 || group <= 0 || bh % group != 0 ||
-      body.launch == nullptr)
+      body.launch == nullptr || !codes_ok)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(body.launch(q, k, v, out, bh, sq, skv, d, dv,
-                                      group, scale, causal, window, q_offset,
-                                      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(body.launch(
+      q, k, v, out, bh, sq, skv, d, dv, group, scale, causal, has_window,
+      window, q_offset, p_round, out_dtype,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The body a call with these arguments runs (0 = the fp32 ring body, 1 =

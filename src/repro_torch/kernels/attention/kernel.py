@@ -19,14 +19,25 @@ aligned) ahead of the consumer warpgroups, with the probabilities
 rounded to the input dtype before the P.V product, as the reference's
 Pallas kernel rounds them to v's dtype.
 
+q, k and v of mixed dtypes (any of fp32, bf16, fp16 each) take the ring
+body on fp32 copies (exact widenings), with the library's two runtime
+codes set as the Pallas kernel computes: S in fp32 from the promoted
+inputs, P rounded to v's dtype before P.V, the output stored in q's
+dtype, both in the kernel.  A call whose three inputs share a dtype runs
+on them as they are.  ``window`` is any integer (the Pallas kernel keeps
+column c of row r where c > r - window, so a window <= 0 keeps no past
+column; rows left with none get 0), passed to the library beside a flag
+that says whether there is one.
+
 Tile sizes.  ``block_q`` x ``block_kv`` are template arguments of the
 kernel, and the library instantiates ``BLOCK_Q`` x ``BLOCK_KV``, each at
 every head dim up to ``MAX_HEAD_DIM`` (q, k) and ``MAX_VALUE_HEAD_DIM``
-(v).  The reference's candidates (128-1024 rows) are sized for a TPU
-core's megabytes of VMEM; on Hopper a thread block has at most 227 KB of
-shared memory, which the ring body's fp32 q tile, probabilities and chunk
-ring must share: (128, 64) at d = 192 takes 192 KB (the wgmma body's
-half-precision q tile and two K/V stages 129 KB), while a (1024, 1024)
+(v), padded to (64, 64), (128, 128), (192, 128) or (256, 256).  The
+reference's candidates (128-1024 rows) are sized for a TPU core's
+megabytes of VMEM; on Hopper a thread block has at most 227 KB of shared
+memory, which the ring body's fp32 q tile, probabilities and chunk ring
+must share: (128, 64) at d = 256 takes 224 KB (the wgmma body's
+half-precision q tile and two K/V stages 193 KB), while a (1024, 1024)
 tile pair would need megabytes.  Any other size raises.  On the card's
 qwen3 prefill shape the wgmma body is fastest at (64, 64) or (128, 64)
 in half precision, the ring body at (64, 64) in fp32 (PERF.md).
@@ -56,10 +67,10 @@ BLOCK_KV = (32, 64)
 #: (``chip_smoke.py``'s attention phase; numbers in PERF.md)
 DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_KV = 64
-#: largest head dim of q and k (d) the kernel takes: MLA's nope + rope
-MAX_HEAD_DIM = 192
+#: largest head dim of q and k (d) the kernel takes (Gemma's 256)
+MAX_HEAD_DIM = 256
 #: largest head dim of v (dv) the kernel takes
-MAX_VALUE_HEAD_DIM = 128
+MAX_VALUE_HEAD_DIM = 256
 #: the bodies :func:`body` names, by the library's code
 BODIES = ("ring", "wgmma")
 
@@ -87,7 +98,7 @@ def load_library() -> ctypes.CDLL:
     if _fwd is None:
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -124,18 +135,17 @@ def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fp32, bf16 or fp16, head dims over :data:`MAX_HEAD_DIM` /
     :data:`MAX_VALUE_HEAD_DIM`, a tile pair outside :data:`BLOCK_Q` x
     :data:`BLOCK_KV`, grids and indices past their limits) or for shapes
-    that disagree; None where it takes them.  Reads dtypes and shapes only,
-    so it runs on the CPU; devices and layout are the wrapper's to check."""
-    for name, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype:
-            return TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    that disagree; None where it takes them (mixed dtypes and any integer
+    ``window`` included).  Reads dtypes and shapes only, so it runs on the
+    CPU; devices and layout are the wrapper's to check."""
+    del window
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.ndim != 3:
             return ValueError(f"{name} must be 3-D (heads, seq, dim), got "
                               f"{tuple(t.shape)}")
-    if q.dtype not in _DTYPE_CODES:
-        return TypeError(f"flash_attention_cuda takes float32, bfloat16 or "
-                         f"float16, got {q.dtype}")
+        if t.dtype not in _DTYPE_CODES:
+            return TypeError(f"flash_attention_cuda takes float32, bfloat16 "
+                             f"or float16, {name} is {t.dtype}")
     bh, sq, d = q.shape
     bhk, skv, dk = k.shape
     dv = v.shape[2]
@@ -155,8 +165,6 @@ def unsupported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or max(q.numel(), k.numel(), v.numel(), bh * sq * dv) >= 2 ** 31):
         return ValueError(f"shapes {tuple(q.shape)}, {tuple(v.shape)} "
                           f"exceed the kernel's grid or 32-bit index range")
-    if window is not None and window <= 0:
-        return ValueError(f"window must be positive, got {window}")
     return None
 
 
@@ -167,10 +175,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          block_q: int = DEFAULT_BLOCK_Q,
                          block_kv: int = DEFAULT_BLOCK_KV) -> torch.Tensor:
     """Attention of ``q (BH, Sq, D)`` over ``k (BHk, Skv, D)`` and
-    ``v (BHk, Skv, Dv)`` (one dtype, fp32, bf16 or fp16, contiguous, on one
-    CUDA device); q head ``bh`` reads kv head ``bh // (BH // BHk)``.
-    Returns a new ``(BH, Sq, Dv)`` tensor of ``q.dtype``.  Ragged lengths
-    need no padding: the kernel masks the edge tiles."""
+    ``v (BHk, Skv, Dv)`` (each fp32, bf16 or fp16, contiguous, on one CUDA
+    device); q head ``bh`` reads kv head ``bh // (BH // BHk)``.  Returns a
+    new ``(BH, Sq, Dv)`` tensor of ``q.dtype``.  Ragged lengths need no
+    padding: the kernel masks the edge tiles."""
     global launches
     refuse_autograd("flash_attention_cuda", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -191,18 +199,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[2]
     scale = scale if scale is not None else d ** -0.5
     q_offset = q_offset if q_offset is not None else skv - sq
+    if window is not None:
+        # Past +-(sq + skv + |q_offset|) a window keeps every past column or
+        # none, as at the bound: the clamp keeps the kernel's int arithmetic
+        # in range and changes no mask.
+        reach = sq + skv + abs(int(q_offset))
+        window = max(-reach, min(reach, int(window)))
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
     if skv == 0:
         return out.zero_()
+    p_round = _DTYPE_CODES[v.dtype]      # P is rounded to v's dtype
+    if not q.dtype == k.dtype == v.dtype:
+        q, k, v = (t.to(torch.float32) for t in (q, k, v))
     if _fwd is None:
         load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                bh, sq, skv, d, dv, bh // bhk, float(scale), int(causal),
-               int(window or 0), int(q_offset), _DTYPE_CODES[q.dtype],
-               int(block_q), int(block_kv), stream)
+               int(window is not None), int(window or 0), int(q_offset),
+               _DTYPE_CODES[q.dtype], p_round,
+               _DTYPE_CODES[out.dtype], int(block_q), int(block_kv), stream)
     if err != 0:
         msg = load_library().flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} "

@@ -10,9 +10,9 @@ the card and the reference's own precondition
 heads that group the query heads): any other call (a host tensor, integer
 inputs, heads that do not group) misses it and runs ``torch_ref``,
 counted in the registry's ``fallback_counts``.  A call that passes it
-launches the kernel or raises: what the kernel lacks (q, k and v of mixed
-dtypes, d over 192 or dv over 128, an uninstantiated tile) raises in the
-wrapper (``kernel.unsupported``) and never runs the plain version.  The
+launches the kernel or raises: what the kernel lacks (d or dv over 256,
+an uninstantiated tile) raises in the wrapper (``kernel.unsupported``) and
+never runs the plain version.  The
 reference's guard also sends sequence lengths that are not a multiple of
 the tiles to its plain version; the CUDA kernel masks the ragged edge
 tiles instead, so it takes every length and gives the same result.

@@ -35,8 +35,13 @@ __all__ = ["NVCC_FLAGS", "load_cuda_library", "build_log", "build_logs",
            "install_library"]
 
 #: ``sm_90a`` (not ``sm_90``): wgmma and setmaxnreg exist only there.
+#: ``-split-compile=0`` runs a source's device-code optimisation on as many
+#: threads as the host has: the flash attention source's 48 instantiations
+#: built in 47 s instead of 125 (``chip_smoke.py`` phase 2, five libraries
+#: at once on the card's 8-core host; PERF.md).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 #: guards ``_name_locks``; held only to look up or create a name's lock
 _lock = threading.Lock()

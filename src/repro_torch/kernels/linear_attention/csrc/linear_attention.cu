@@ -25,17 +25,24 @@
 // summary is known, so the work is split the way the port's plain version
 // (chunk_math.py) orders it, into three launches behind one call:
 //
-// 1. summary_kernel, one block per (bh, chunk), all in parallel: la =
-//    cumsum(log_w) over the chunk, la_tot, and the chunk's state increment
-//    dS = (k e^{la_tot - la})^T v (dk x dv), written to a workspace.
+// 1. summary_kernel, one block per (bh, chunk, slice of 128 dv columns),
+//    all in parallel: la = cumsum(log_w) over the chunk, la_tot, and the
+//    chunk's state increment dS = (k e^{la_tot - la})^T v (dk x dv),
+//    written to a workspace.
 // 2. fold_kernel, one thread per (bh, e, j): S_n = e^{la_tot,n} S_{n-1} +
 //    dS_n from S_0 = 0, in chunk order, a multiply and an add as the plain
 //    version's loop (chunk_math.py:84-91) rounds them; it overwrites each
 //    dS_n with the state entering chunk n.  Reads are issued 8 chunks
 //    ahead, so the loop is bound by bytes, not by latency.
-// 3. output_kernel, one block per (bh, chunk), all in parallel: out =
-//    (q e^{la_q}) S_enter + mask((q e^{la_q})(k e^{-la})^T [+ diag]) v.
-//    The c x c scores are computed once per chunk for every dv column.
+// 3. output_kernel, one block per (bh, chunk, slice of 128 dv columns), all
+//    in parallel: out = (q e^{la_q}) S_enter + mask((q e^{la_q})(k
+//    e^{-la})^T [+ diag]) v.  The c x c scores are computed once per chunk
+//    for each slice (once for dv <= 128).  q, k and log_w are staged 128
+//    key columns at a time (la's columns are independent), with the rows
+//    of S_enter those columns meet: the scores and the inter product
+//    accumulate across the key chunks in registers, in the same order of
+//    fp32 operations as one pass would, so dk up to 256 fits at C = 64
+//    (168 KB a block; one pass would take 299 KB).
 //
 // Each chunk kernel stages its inputs by cp.async in two groups (what the
 // cumsum needs, then v and the state, which land while it runs).  The
@@ -52,7 +59,10 @@
 // A ragged tail (T not a multiple of C) is masked, not refused: past T,
 // q, k and v stage as 0 and log_w as 0, which leaves every valid output and
 // the states exact.  C (the chunk_len spec point: 16, 32, 64) is a template
-// argument; dk and dv are runtime values up to kMaxHead.
+// argument; dk and dv are runtime values up to kMaxKeyHead and
+// kMaxValueHead (GLA-1.3B's 256 and 512).  The inputs are of one dtype T;
+// q, k and v of mixed dtypes are widened to fp32 by the wrapper (exact),
+// and the output is stored in the dtype the entry's out_dtype names (v's).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -60,7 +70,10 @@
 
 namespace {
 
-constexpr int kMaxHead = 128;   // largest dk and dv the kernel takes
+constexpr int kMaxKeyHead = 256;     // largest dk the kernel takes
+constexpr int kMaxValueHead = 512;   // largest dv the kernel takes
+constexpr int kSlice = 128;          // dv columns a block computes
+constexpr int kKeyChunk = 128;       // key columns output_kernel stages at once
 constexpr int kThreads = 256;   // the 16 x 16 thread grid of the products
 constexpr int kFoldThreads = 256;
 constexpr int kFoldAhead = 8;   // chunks the fold reads ahead
@@ -70,17 +83,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half_rn(v);
-}
 
 // Row stride (floats) of a staged tile of width w: w rounded up to whole
 // 16-byte vectors, then to an odd number of them (bank spread).
@@ -112,21 +114,23 @@ __device__ __forceinline__ float4 load4(const __half* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// Stage rows [0, rows) of a (n_valid, width) row-major slab into shared
-// memory as fp32, columns [0, pad) of each (pad a multiple of 4), with
-// zeros past n_valid and past width.  With vec (width % 4 == 0 and the
-// slab aligned to 4 values), each thread moves 4 values per load.
+// Stage rows [0, rows) of a slab of `width` columns, rows `ld` values
+// apart, into shared memory as fp32, columns [0, pad) of each (pad a
+// multiple of 4), with zeros past n_valid and past width.  With vec (ld
+// and width % 4 == 0 and the slab aligned to 4 values), each thread moves
+// 4 values per load.
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, int stride, int pad,
-                                      const T* __restrict__ src, int n_valid,
-                                      int rows, int width, bool vec) {
+                                      const T* __restrict__ src, int ld,
+                                      int n_valid, int rows, int width,
+                                      bool vec) {
   const int vpr = pad / 4;
   for (int idx = threadIdx.x; idx < rows * vpr; idx += blockDim.x) {
     const int r = idx / vpr;
     const int c = 4 * (idx - r * vpr);
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (r < n_valid && c < width) {
-      const T* p = src + static_cast<int64_t>(r) * width + c;
+      const T* p = src + static_cast<int64_t>(r) * ld + c;
       if (vec) {
         x = load4(p);
       } else {
@@ -172,8 +176,8 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // waits.
 __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
                                             const float* __restrict__ src,
-                                            int n_valid, int rows, int width,
-                                            bool vec) {
+                                            int ld, int n_valid, int rows,
+                                            int width, bool vec) {
   if (vec) {
     const int vpr = pad / 4;
     if (kThreads % vpr == 0) {
@@ -182,7 +186,7 @@ __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
       for (int r = threadIdx.x / vpr; r < rows; r += kThreads / vpr) {
         const bool ok = r < n_valid && c < width;
         cp_async16(dst + r * stride + c,
-                   ok ? src + static_cast<int64_t>(r) * width + c : src,
+                   ok ? src + static_cast<int64_t>(r) * ld + c : src,
                    ok ? 16 : 0);
       }
       return;
@@ -192,7 +196,7 @@ __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
       const int c = 4 * (idx - r * vpr);
       const bool ok = r < n_valid && c < width;
       cp_async16(dst + r * stride + c,
-                 ok ? src + static_cast<int64_t>(r) * width + c : src,
+                 ok ? src + static_cast<int64_t>(r) * ld + c : src,
                  ok ? 16 : 0);
     }
     return;
@@ -202,21 +206,34 @@ __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
     const int c = idx - r * pad;
     const bool ok = r < n_valid && c < width;
     cp_async4(dst + r * stride + c,
-              ok ? src + static_cast<int64_t>(r) * width + c : src,
+              ok ? src + static_cast<int64_t>(r) * ld + c : src,
               ok ? 4 : 0);
   }
 }
 // bf16 and fp16 slabs are widened to fp32 on the way, through registers.
 __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
-                                            const __nv_bfloat16* src,
+                                            const __nv_bfloat16* src, int ld,
                                             int n_valid, int rows, int width,
                                             bool vec) {
-  stage(dst, stride, pad, src, n_valid, rows, width, vec);
+  stage(dst, stride, pad, src, ld, n_valid, rows, width, vec);
 }
 __device__ __forceinline__ void stage_async(float* dst, int stride, int pad,
-                                            const __half* src, int n_valid,
-                                            int rows, int width, bool vec) {
-  stage(dst, stride, pad, src, n_valid, rows, width, vec);
+                                            const __half* src, int ld,
+                                            int n_valid, int rows, int width,
+                                            bool vec) {
+  stage(dst, stride, pad, src, ld, n_valid, rows, width, vec);
+}
+
+// x stored as the dtype of `code` (0 = float32, 1 = bfloat16, 2 = float16)
+// at element i of `base`.
+__device__ __forceinline__ void store_as(void* base, int64_t i, float x,
+                                         int code) {
+  if (code == 1)
+    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16(x);
+  else if (code == 2)
+    static_cast<__half*>(base)[i] = __float2half_rn(x);
+  else
+    static_cast<float*>(base)[i] = x;
 }
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
@@ -262,19 +279,20 @@ __global__ void __launch_bounds__(kThreads)
                    bool vec_s) {
   extern __shared__ __align__(16) float smem[];
   const int dk4 = (dk + 3) / 4 * 4;
-  const int ks = tile_stride(dk), vp = pass_width(dv);
+  const int ks = tile_stride(dk), vp = pass_width(min(dv, kSlice));
   float* k_s = smem;                 // k, then k e^{la_tot - la}
   float* w_s = k_s + C * ks;         // log_w
-  float* v_s = w_s + C * ks;         // (C, vp) v
+  float* v_s = w_s + C * ks;         // (C, vp) this block's columns of v
 
   const int bh = blockIdx.x / n_chunks, n = blockIdx.x % n_chunks;
+  const int j_base = blockIdx.y * kSlice, sw = min(kSlice, dv - j_base);
   const int t0 = n * C, rows = min(C, t_len - t0);
   const int64_t row0 = static_cast<int64_t>(bh) * t_len + t0;
   // Two copy groups: what the cumsum needs, then v (lands during it).
-  stage_async(k_s, ks, dk4, k + row0 * dk, rows, C, dk, vec);
-  stage_async(w_s, ks, dk4, log_w + row0 * dk, rows, C, dk, vec_w);
+  stage_async(k_s, ks, dk4, k + row0 * dk, dk, rows, C, dk, vec);
+  stage_async(w_s, ks, dk4, log_w + row0 * dk, dk, rows, C, dk, vec_w);
   cp_async_commit();
-  stage_async(v_s, vp, vp, v + row0 * dv, rows, C, dv, vec_v);
+  stage_async(v_s, vp, vp, v + row0 * dv + j_base, dv, rows, C, sw, vec_v);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -304,15 +322,16 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();
 
-  // dS[e][j] = sum_r kd[r][e] v[r][j]: a thread owns e = e0 + 4 ti + y,
-  // j = j0 + 4 tj + x.
+  // dS[e][j_base + j] = sum_r kd[r][e] v[r][j]: a thread owns e = e0 + 4 ti
+  // + y, j = j0 + 4 tj + x.
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  float* dsb = ds + (static_cast<int64_t>(bh) * n_chunks + n) * dk * dv;
+  float* dsb = ds + (static_cast<int64_t>(bh) * n_chunks + n) * dk * dv +
+               j_base;
   for (int e0 = 0; e0 < dk4; e0 += 64) {
     const int e = e0 + 4 * ti;
-    for (int j0 = 0; j0 < dv; j0 += 64) {
+    for (int j0 = 0; j0 < sw; j0 += 64) {
       const int j = j0 + 4 * tj;
-      if (e >= dk4 || j >= dv) continue;
+      if (e >= dk4 || j >= sw) continue;
       float acc[4][4] = {};
 #pragma unroll 8
       for (int r = 0; r < C; ++r) {
@@ -331,18 +350,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int y = 0; y < 4; ++y) {
         if (e + y >= dk) break;
         float* o = dsb + static_cast<int64_t>(e + y) * dv + j;
-        if (vec_s && j + 3 < dv) {
+        if (vec_s && j + 3 < sw) {
           *reinterpret_cast<float4*>(o) =
               make_float4(acc[y][0], acc[y][1], acc[y][2], acc[y][3]);
         } else {
 #pragma unroll
           for (int x = 0; x < 4; ++x)
-            if (j + x < dv) o[x] = acc[y][x];
+            if (j + x < sw) o[x] = acc[y][x];
         }
       }
     }
   }
-  if (threadIdx.x < dk)
+  if (blockIdx.y == 0 && threadIdx.x < dk)
     tot[(static_cast<int64_t>(bh) * n_chunks + n) * dk + threadIdx.x] =
         w_s[(C - 1) * ks + threadIdx.x];
 }
@@ -387,90 +406,141 @@ __global__ void __launch_bounds__(kFoldThreads)
 // 3. output_kernel: every chunk's output from the state entering it
 // ---------------------------------------------------------------------------
 
-template <typename T, int C, int PASSES>
+// output_kernel's shared memory, in floats from its base, for one key-chunk
+// width and the PASSES x 64 staged state and v columns of the
+// instantiation (whatever dv is: a narrow slice zero-fills the rest).  The
+// kernel takes its pointers from it and the launch its size, so the two
+// cannot disagree.
+template <int C, int PASSES>
+struct OutLayout {
+  static constexpr int vp = 64 * PASSES;  // the slice's staged columns
+  static constexpr int ps = C + 4;        // row stride of the scores
+  int dk4, kc4, ks;                       // keys, widest key chunk, stride
+  int k_off, w_off, st_off, u_off, dg_off, floats;
+  __host__ __device__ explicit OutLayout(int dk)
+      : dk4((dk + 3) / 4 * 4),
+        kc4(dk4 < kKeyChunk ? dk4 : kKeyChunk),
+        ks(tile_stride(kc4)) {
+    k_off = C * ks;                             // q chunk
+    w_off = k_off + C * (ks > vp ? ks : vp);    // k chunk, then v
+    st_off = w_off + C * (ks > ps ? ks : ps);   // log_w chunk, then scores
+    u_off = st_off + kc4 * vp;                  // state rows
+    dg_off = u_off + dk4;                       // bonus
+    floats = dg_off + C;                        // bonus diagonal
+  }
+  size_t bytes() const { return sizeof(float) * static_cast<size_t>(floats); }
+};
+
+template <typename T, int C, int PASSES, int KEY_CHUNKS>
 __global__ void __launch_bounds__(kThreads)
     output_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ log_w,
                   const float* __restrict__ bonus,
-                  const float* __restrict__ states, T* __restrict__ out,
+                  const float* __restrict__ states, void* __restrict__ out,
                   int t_len, int dk, int dv, int n_chunks, int inclusive,
-                  bool vec, bool vec_v, bool vec_w, bool vec_s, bool vec_u,
-                  bool vec_o) {
+                  int out_code, bool vec, bool vec_v, bool vec_w, bool vec_s,
+                  bool vec_u, bool vec_o) {
+  using Layout = OutLayout<C, PASSES>;
   constexpr int R = C / 16;             // score rows and columns a thread
-  constexpr int ps = C + 4;             // row stride of the scores
-  constexpr int kPasses = PASSES;      // output-column passes of 64
+  constexpr int ps = Layout::ps;
+  constexpr int kPasses = PASSES;       // output-column passes of 64
+  constexpr int vp = Layout::vp;
   extern __shared__ __align__(16) float smem[];
-  const int dk4 = (dk + 3) / 4 * 4;
-  const int ks = tile_stride(dk), vp = pass_width(dv);
-  float* q_s = smem;                    // q, then q e^{la_q}
-  float* k_s = q_s + C * ks;            // k, then k e^{-la}
+  const Layout lay(dk);
+  const int dk4 = lay.dk4, ks = lay.ks;
+  float* q_s = smem;                    // a key chunk of q, then q e^{la_q}
+  float* k_s = smem + lay.k_off;        // ... of k, then k e^{-la}
   float* v_s = k_s;                     // (C, vp) v, once the scores are done
-  float* w_s = k_s + C * max(ks, vp);   // log_w
+  float* w_s = smem + lay.w_off;        // ... of log_w
   float* p_s = w_s;                     // (C, ps) scores, once log_w is spent
-  float* st_s = w_s + C * max(ks, ps);  // (dk4, vp) the entering state
-  float* u_s = st_s + dk4 * vp;         // (dk4) bonus
-  float* dg_s = u_s + dk4;              // (C) bonus diagonal
+  float* st_s = smem + lay.st_off;      // (kc4, vp) the chunk's state rows
+  float* u_s = smem + lay.u_off;        // (dk4) bonus
+  float* dg_s = smem + lay.dg_off;      // (C) bonus diagonal
 
   const int bh = blockIdx.x / n_chunks, n = blockIdx.x % n_chunks;
+  const int j_base = blockIdx.y * kSlice, sw = min(kSlice, dv - j_base);
   const int t0 = n * C, rows = min(C, t_len - t0);
   const int64_t row0 = static_cast<int64_t>(bh) * t_len + t0;
+  const float* st_g =
+      states + (static_cast<int64_t>(bh) * n_chunks + n) * dk * dv + j_base;
   const bool use_diag = bonus != nullptr && !inclusive;
-  // Copy groups: what the cumsum and the scores need; the entering state
-  // (lands during them); v, into k's slot once the scores are done (lands
-  // during the inter product).
-  stage_async(q_s, ks, dk4, q + row0 * dk, rows, C, dk, vec);
-  stage_async(k_s, ks, dk4, k + row0 * dk, rows, C, dk, vec);
-  stage_async(w_s, ks, dk4, log_w + row0 * dk, rows, C, dk, vec_w);
+  // Copy groups of key chunk c: what the cumsum and the scores need; the
+  // entering state's rows of the chunk (land during them).  After the last
+  // chunk's scores, v into k's slot (lands during the inter product).
+  auto stage_keys = [&](int c) {
+    const int e0 = c * kKeyChunk, cw = min(kKeyChunk, dk - e0);
+    const int cw4 = (cw + 3) / 4 * 4;
+    stage_async(q_s, ks, cw4, q + row0 * dk + e0, dk, rows, C, cw, vec);
+    stage_async(k_s, ks, cw4, k + row0 * dk + e0, dk, rows, C, cw, vec);
+    stage_async(w_s, ks, cw4, log_w + row0 * dk + e0, dk, rows, C, cw,
+                vec_w);
+    cp_async_commit();
+    stage_async(st_s, vp, vp, st_g + static_cast<int64_t>(e0) * dv, dv, cw,
+                cw4, sw, vec_s);
+    cp_async_commit();
+  };
   if (use_diag)
-    stage_async(u_s, dk4, dk4, bonus + static_cast<int64_t>(bh) * dk, 1, 1,
-                dk, vec_u);
-  cp_async_commit();
-  stage_async(st_s, vp, vp,
-              states + (static_cast<int64_t>(bh) * n_chunks + n) * dk * dv,
-              dk, dk4, dv, vec_s);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  if (use_diag) {
-    // diag[r] = sum_e q u k over raw q, k: kThreads / C lanes a row.
-    constexpr int G = kThreads / C;
-    const int r = threadIdx.x / G, g = threadIdx.x % G;
-    float acc = 0.0f;
-    for (int e = g; e < dk; e += G)
-      acc += q_s[r * ks + e] * u_s[e] * k_s[r * ks + e];
-#pragma unroll
-    for (int off = 1; off < G; off <<= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (g == 0) dg_s[r] = acc;
-  }
-  __syncthreads();
-  {
-    // q e^{la_q}, k e^{-la}, la_q = la - lw when exclusive, in the plain
-    // version's order of fp32 operations.
-    const Scan sc(dk4, C);
-    float run = sc.prefix(w_s, ks);
-#pragma unroll 4
-    for (int r = sc.first; r < sc.last; ++r) {
-      const int o = r * ks + sc.e;
-      const float lw = w_s[o];
-      run += lw;
-      q_s[o] *= expf(inclusive ? run : run - lw);
-      k_s[o] *= expf(-run);
-    }
-  }
-  __syncthreads();
+    stage_async(u_s, dk4, dk4, bonus + static_cast<int64_t>(bh) * dk, dk, 1,
+                1, dk, vec_u);
+  stage_keys(0);
 
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  {
-    // Scores of rows R ti + a and columns tj + 16 b, masked, + diagonal.
-    float s[R][R];
+  // Scores of rows R ti + a and columns tj + 16 b; out rows R ti + a,
+  // columns 64 pp + 4 tj + x of the slice; the bonus diagonal's share of
+  // row threadIdx.x / G.  Each sums over the key chunks in order.
+  float s[R][R], acc[kPasses][R][4], dsum = 0.0f;
 #pragma unroll
-    for (int a = 0; a < R; ++a)
+  for (int a = 0; a < R; ++a) {
 #pragma unroll
-      for (int b = 0; b < R; ++b) s[a][b] = 0.0f;
+    for (int b = 0; b < R; ++b) s[a][b] = 0.0f;
+#pragma unroll
+    for (int pp = 0; pp < kPasses; ++pp)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[pp][a][x] = 0.0f;
+  }
+  // KEY_CHUNKS (dk / 128, rounded up) is a template argument, so the loop
+  // unrolls and the one-chunk heads (dk <= 128) keep no score registers
+  // live through the inter product.
+#pragma unroll
+  for (int c = 0; c < KEY_CHUNKS; ++c) {
+    const bool last = c == KEY_CHUNKS - 1;
+    const int e0 = c * kKeyChunk, cw = min(kKeyChunk, dk - e0);
+    const int cw4 = (cw + 3) / 4 * 4;
+    cp_async_wait<1>();
+    __syncthreads();   // the chunk's q, k and log_w (and the bonus) are in
+
+    if (use_diag) {
+      // diag[r] = sum_e q u k over raw q, k: kThreads / C lanes a row.
+      constexpr int G = kThreads / C;
+      const int r = threadIdx.x / G, g = threadIdx.x % G;
+      for (int e = g; e < cw; e += G)
+        dsum += q_s[r * ks + e] * u_s[e0 + e] * k_s[r * ks + e];
+      if (last) {
+#pragma unroll
+        for (int off = 1; off < G; off <<= 1)
+          dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
+        if (g == 0) dg_s[r] = dsum;
+      }
+    }
+    __syncthreads();
+    {
+      // q e^{la_q}, k e^{-la}, la_q = la - lw when exclusive, in the plain
+      // version's order of fp32 operations.
+      const Scan sc(cw4, C);
+      float run = sc.prefix(w_s, ks);
 #pragma unroll 4
-    for (int e = 0; e < dk4; e += 4) {
+      for (int r = sc.first; r < sc.last; ++r) {
+        const int o = r * ks + sc.e;
+        const float lw = w_s[o];
+        run += lw;
+        q_s[o] *= expf(inclusive ? run : run - lw);
+        k_s[o] *= expf(-run);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int e = 0; e < cw4; e += 4) {
       float4 qv[R], kv[R];
 #pragma unroll
       for (int a = 0; a < R; ++a)
@@ -490,69 +560,70 @@ __global__ void __launch_bounds__(kThreads)
           s[a][b] = fmaf(qv[a].w, kv[b].w, s[a][b]);
         }
     }
-    // The scores go where log_w was; the last reads of log_w were before
-    // the barrier above.
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int b = 0; b < R; ++b) {
-        const int i = R * ti + a, j = tj + 16 * b;
-        float x = (inclusive ? j <= i : j < i) ? s[a][b] : 0.0f;
-        if (use_diag && i == j) x += dg_s[i];
-        p_s[i * ps + j] = x;
-      }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the scores and the state are in; k is spent
-  stage_async(v_s, vp, vp, v + row0 * dv, rows, C, dv, vec_v);
-  cp_async_commit();
-
-  // out[i][j] = (q e^{la_q})[i] . S[:, j] + scores[i] . v[:, j], rows
-  // i = R ti + a, columns j = 64 pp + 4 tj + x: the inter product while v
-  // lands, then the intra one.  The scores of these rows are 0 past column
-  // R ti + R - 1 (the mask), so the intra product stops there.
-  float acc[kPasses][R][4];
-#pragma unroll
-  for (int pp = 0; pp < kPasses; ++pp)
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[pp][a][x] = 0.0f;
-#pragma unroll
-  for (int pp = 0; pp < kPasses; ++pp) {
-    const int j = 64 * pp + 4 * tj;
-    if (j >= dv) continue;
-#pragma unroll 2
-    for (int e = 0; e < dk4; e += 4) {
-      float4 qv[R];
+    if (last) {
+      // The scores, masked, + diagonal, go where log_w was; the last reads
+      // of log_w were before the barrier above.
 #pragma unroll
       for (int a = 0; a < R; ++a)
-        qv[a] = *reinterpret_cast<const float4*>(q_s + (R * ti + a) * ks +
-                                                 e);
 #pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const float4 sv =
-            *reinterpret_cast<const float4*>(st_s + (e + y) * vp + j);
+        for (int b = 0; b < R; ++b) {
+          const int i = R * ti + a, j = tj + 16 * b;
+          float x = (inclusive ? j <= i : j < i) ? s[a][b] : 0.0f;
+          if (use_diag && i == j) x += dg_s[i];
+          p_s[i * ps + j] = x;
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the state rows are in; this chunk's k is spent
+    if (last) {
+      stage_async(v_s, vp, vp, v + row0 * dv + j_base, dv, rows, C, sw,
+                  vec_v);
+      cp_async_commit();
+    }
+
+    // out[i][j] += (q e^{la_q})[i] . S[:, j] over the chunk's keys: the
+    // inter product (while v lands, after the last chunk).
 #pragma unroll
-        for (int a = 0; a < R; ++a) {
-          const float x = comp(qv[a], y);
-          acc[pp][a][0] = fmaf(x, sv.x, acc[pp][a][0]);
-          acc[pp][a][1] = fmaf(x, sv.y, acc[pp][a][1]);
-          acc[pp][a][2] = fmaf(x, sv.z, acc[pp][a][2]);
-          acc[pp][a][3] = fmaf(x, sv.w, acc[pp][a][3]);
+    for (int pp = 0; pp < kPasses; ++pp) {
+      const int j = 64 * pp + 4 * tj;
+      if (j >= sw) continue;
+#pragma unroll 2
+      for (int e = 0; e < cw4; e += 4) {
+        float4 qv[R];
+#pragma unroll
+        for (int a = 0; a < R; ++a)
+          qv[a] = *reinterpret_cast<const float4*>(q_s + (R * ti + a) * ks +
+                                                   e);
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const float4 sv =
+              *reinterpret_cast<const float4*>(st_s + (e + y) * vp + j);
+#pragma unroll
+          for (int a = 0; a < R; ++a) {
+            const float x = comp(qv[a], y);
+            acc[pp][a][0] = fmaf(x, sv.x, acc[pp][a][0]);
+            acc[pp][a][1] = fmaf(x, sv.y, acc[pp][a][1]);
+            acc[pp][a][2] = fmaf(x, sv.z, acc[pp][a][2]);
+            acc[pp][a][3] = fmaf(x, sv.w, acc[pp][a][3]);
+          }
         }
       }
+    }
+    if (!last) {
+      __syncthreads();   // every thread is done with q and the state rows
+      stage_keys(c + 1);
     }
   }
   cp_async_wait<0>();
   __syncthreads();   // v is in
 
+  // out[i][j] += scores[i] . v[:, j]: the scores of rows R ti + a are 0
+  // past column R ti + R - 1 (the mask), so the intra product stops there.
   const int c_end = (R * ti + R + 3) / 4 * 4;
-  T* ob = out + row0 * dv;
 #pragma unroll
   for (int pp = 0; pp < kPasses; ++pp) {
     const int j = 64 * pp + 4 * tj;
-    if (j >= dv) continue;
+    if (j >= sw) continue;
 #pragma unroll 2
     for (int c = 0; c < c_end; c += 4) {
       float4 pv[R];
@@ -578,15 +649,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int a = 0; a < R; ++a) {
       const int i = R * ti + a;
       if (i >= rows) continue;
-      T* o = ob + static_cast<int64_t>(i) * dv + j;
-      if (vec_o && j + 3 < dv) {
-        *reinterpret_cast<float4*>(o) =
+      const int64_t o = (row0 + i) * dv + j_base + j;
+      if (vec_o && j + 3 < sw) {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
             make_float4(acc[pp][a][0], acc[pp][a][1], acc[pp][a][2],
                         acc[pp][a][3]);
       } else {
 #pragma unroll
         for (int x = 0; x < 4; ++x)
-          if (j + x < dv) o[x] = from_f<T>(acc[pp][a][x]);
+          if (j + x < sw) store_as(out, o + x, acc[pp][a][x], out_code);
       }
     }
   }
@@ -595,26 +666,33 @@ __global__ void __launch_bounds__(kThreads)
 template <int C>
 size_t summary_smem(int dk, int dv) {
   return sizeof(float) * (2 * static_cast<size_t>(C) * tile_stride(dk) +
-                          static_cast<size_t>(C) * pass_width(dv));
+                          static_cast<size_t>(C) *
+                              pass_width(dv < kSlice ? dv : kSlice));
 }
 
-template <int C>
-size_t output_smem(int dk, int dv) {
-  const size_t dk4 = (dk + 3) / 4 * 4;
-  const size_t ks = tile_stride(dk), vp = pass_width(dv);
-  return sizeof(float) * (C * ks + C * (ks > vp ? ks : vp) +
-                          C * (ks > C + 4 ? ks : C + 4) + dk4 * vp + dk4 +
-                          C);
+// An output_kernel instantiation with its shared memory for dk.
+template <typename T, int C>
+struct OutputLaunch {
+  decltype(&output_kernel<T, C, 1, 1>) kernel;
+  size_t smem;
+};
+
+template <typename T, int C, int PASSES, int KEY_CHUNKS>
+OutputLaunch<T, C> output_launch(int dk) {
+  return {output_kernel<T, C, PASSES, KEY_CHUNKS>,
+          OutLayout<C, PASSES>(dk).bytes()};
 }
 
 template <typename T, int C>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* log_w, const float* bonus, void* out,
                    float* work, int bh, int t_len, int dk, int dv,
-                   int inclusive, cudaStream_t stream) {
+                   int inclusive, int out_code, cudaStream_t stream) {
   const int n_chunks = (t_len + C - 1) / C;
   const int64_t blocks = static_cast<int64_t>(bh) * n_chunks;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  // One block a chunk for each slice of kSlice dv columns.
+  const dim3 grid(static_cast<unsigned>(blocks), (dv + kSlice - 1) / kSlice);
   float* ds = work;
   float* tot = work + blocks * dk * dv;
   // Every row of every slab starts 4 values past an aligned one when the
@@ -631,7 +709,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       dk % 4 == 0 && reinterpret_cast<uintptr_t>(log_w) % 16 == 0;
   const bool vec_u = dk % 4 == 0 && bonus != nullptr &&
                      reinterpret_cast<uintptr_t>(bonus) % 16 == 0;
-  const bool vec_o = sizeof(T) == 4 && dv % 4 == 0 &&
+  const bool vec_o = out_code == 0 && dv % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
 
   auto summary = summary_kernel<T, C>;
@@ -640,7 +718,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       summary, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return err;
-  summary<<<static_cast<unsigned>(blocks), kThreads, smem1, stream>>>(
+  summary<<<grid, kThreads, smem1, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), log_w, ds, tot,
       t_len, dk, dv, n_chunks, vec, vec_v, vec_w, vec_s);
   err = cudaGetLastError();
@@ -655,19 +733,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // One output-column pass for dv <= 64 (half the accumulators), two up
-  // to kMaxHead.
-  auto output = dv <= 64 ? output_kernel<T, C, 1> : output_kernel<T, C, 2>;
-  const size_t smem3 = output_smem<C>(dk, dv);
-  err = cudaFuncSetAttribute(output,
+  // One output-column pass for dv <= 64 (half the accumulators), two of a
+  // slice of kSlice columns above; keys over 128 in two chunks (then two
+  // passes whatever dv: the second skips columns past it).
+  const OutputLaunch<T, C> output =
+      dk > kKeyChunk ? output_launch<T, C, 2, 2>(dk)
+      : dv <= 64     ? output_launch<T, C, 1, 1>(dk)
+                     : output_launch<T, C, 2, 1>(dk);
+  err = cudaFuncSetAttribute(output.kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem3));
+                             static_cast<int>(output.smem));
   if (err != cudaSuccess) return err;
-  output<<<static_cast<unsigned>(blocks), kThreads, smem3, stream>>>(
+  output.kernel<<<grid, kThreads, output.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), log_w, bonus, ds, static_cast<T*>(out),
-      t_len, dk, dv, n_chunks, inclusive, vec, vec_v, vec_w, vec_s, vec_u,
-      vec_o);
+      static_cast<const T*>(v), log_w, bonus, ds, out, t_len, dk, dv,
+      n_chunks, inclusive, out_code, vec, vec_v, vec_w, vec_s, vec_u, vec_o);
   return cudaGetLastError();
 }
 
@@ -675,17 +755,18 @@ template <typename T>
 cudaError_t dispatch_chunk(const void* q, const void* k, const void* v,
                            const float* log_w, const float* bonus, void* out,
                            float* work, int bh, int t_len, int dk, int dv,
-                           int chunk, int inclusive, cudaStream_t s) {
+                           int chunk, int inclusive, int out_code,
+                           cudaStream_t s) {
   switch (chunk) {
     case 16:
       return launch<T, 16>(q, k, v, log_w, bonus, out, work, bh, t_len, dk,
-                           dv, inclusive, s);
+                           dv, inclusive, out_code, s);
     case 32:
       return launch<T, 32>(q, k, v, log_w, bonus, out, work, bh, t_len, dk,
-                           dv, inclusive, s);
+                           dv, inclusive, out_code, s);
     case 64:
       return launch<T, 64>(q, k, v, log_w, bonus, out, work, bh, t_len, dk,
-                           dv, inclusive, s);
+                           dv, inclusive, out_code, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -695,18 +776,21 @@ cudaError_t dispatch_chunk(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q, k (bh, t, dk) and v, out (bh, t, dv) row-major, of one dtype (0 =
-// float32, 1 = bfloat16, 2 = float16); log_w (bh, t, dk) and bonus (bh, dk)
-// float32, bonus may be null; work: bh x n_chunks x (dk x dv + dk) floats (the
-// state entering each chunk, then each chunk's la_tot), 16-byte aligned.
-// Makes three launches on `stream`.  Returns the cudaError_t of the first
-// that failed (0 = success).
+// q, k (bh, t, dk) and v (bh, t, dv) row-major, of one dtype (0 = float32,
+// 1 = bfloat16, 2 = float16); out (bh, t, dv) row-major of dtype out_dtype
+// (any for float32 inputs, the inputs' otherwise); log_w (bh, t, dk) and
+// bonus (bh, dk) float32, bonus may be null; work: bh x n_chunks x (dk x dv
+// + dk) floats (the state entering each chunk, then each chunk's la_tot),
+// 16-byte aligned.  Makes three launches on `stream`.  Returns the
+// cudaError_t of the first that failed (0 = success).
 int linear_attention_fwd(const void* q, const void* k, const void* v,
                          const void* log_w, const void* bonus, void* out,
                          void* work, int bh, int t_len, int dk, int dv,
-                         int chunk, int inclusive, int dtype, void* stream) {
-  if (bh <= 0 || t_len <= 0 || dk <= 0 || dv <= 0 || dk > kMaxHead ||
-      dv > kMaxHead || work == nullptr)
+                         int chunk, int inclusive, int dtype, int out_dtype,
+                         void* stream) {
+  if (bh <= 0 || t_len <= 0 || dk <= 0 || dv <= 0 || dk > kMaxKeyHead ||
+      dv > kMaxValueHead || work == nullptr || out_dtype < 0 ||
+      out_dtype > 2 || (dtype != 0 && out_dtype != dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(log_w);
@@ -715,13 +799,14 @@ int linear_attention_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (dtype == 0)
     err = dispatch_chunk<float>(q, k, v, w, u, out, ws, bh, t_len, dk, dv,
-                                chunk, inclusive, s);
+                                chunk, inclusive, out_dtype, s);
   else if (dtype == 1)
     err = dispatch_chunk<__nv_bfloat16>(q, k, v, w, u, out, ws, bh, t_len,
-                                        dk, dv, chunk, inclusive, s);
+                                        dk, dv, chunk, inclusive, out_dtype,
+                                        s);
   else if (dtype == 2)
     err = dispatch_chunk<__half>(q, k, v, w, u, out, ws, bh, t_len, dk, dv,
-                                 chunk, inclusive, s);
+                                 chunk, inclusive, out_dtype, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -7,7 +7,7 @@ precondition (``src/repro/kernels/linear_attention/ops.py::_guard``: 3-D
 float inputs): any other call (a host tensor, integer inputs) misses it
 and runs ``torch_ref``, counted in the registry's ``fallback_counts``.  A
 call that passes it launches the kernel or raises: what the kernel lacks
-(a head dim over 128, a chunk the library lacks) raises in the
+(dk over 256 or dv over 512, a chunk the library lacks) raises in the
 wrapper (``kernel.unsupported``) and never runs the plain version.  The
 reference's guard also sends a length that is not a multiple of the chunk
 to its plain version; the CUDA kernel masks the ragged tail instead, so

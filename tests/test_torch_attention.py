@@ -141,9 +141,10 @@ def test_guard_sends_every_cuda_tensor_to_the_kernel():
     """The guard is the card and the reference's precondition without its
     tile divisibility: every CUDA call of 4-D float tensors whose kv heads
     group the query heads reaches the kernel entry (ragged lengths
-    included), fp16 as fp32 and bf16.  One the kernel cannot take (a q/k
-    head dim over 192 or a v head dim over 128, both of which the
-    reference's kernel takes) raises there, and no fallback is counted.
+    included), fp16 as fp32 and bf16, head dims up to 256 and mixed
+    dtypes.  One the kernel cannot take (a q/k or v head dim over 256,
+    both of which the reference's kernel takes) raises there, and no
+    fallback is counted.
     Heads that do not group and integer inputs miss the guard, as they
     miss the reference's."""
     from test_torch_matmul import _OnCard
@@ -173,19 +174,23 @@ def test_guard_sends_every_cuda_tensor_to_the_kernel():
     for dtype in (torch.bfloat16, torch.float16):
         reg.dispatch("fam", "cuda", *on_card(((2, 2, 32, 16),) * 3, dtype),
                      **kw)
-    assert len(launched) == 3 and reg.fallback_counts == {}
+    wq, wk, wv = (torch.from_numpy(a) for a in _inputs(((1, 2, 8, 256),)
+                                                       * 3))
+    reg.dispatch("fam", "cuda", _OnCard(wq.half()), _OnCard(wk),
+                 _OnCard(wv.bfloat16()), **kw)
+    assert len(launched) == 4 and reg.fallback_counts == {}
     assert ref_attention.ops._guard(
         *(jnp.asarray(a, jnp.float16) for a in _inputs(((2, 2, 32, 16),)
                                                        * 3)),
         block_q=64, block_kv=64)
-    for shapes in (((1, 2, 8, 200),) * 3,
-                   ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 160))):
+    for shapes in (((1, 2, 8, 264),) * 3,
+                   ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 272))):
         assert ref_attention.ops._guard(
             *(jnp.asarray(a) for a in _inputs(shapes)), block_q=64,
             block_kv=64)
         with pytest.raises(ValueError, match="head dims"):
             reg.dispatch("fam", "cuda", *on_card(shapes), **kw)
-    assert len(launched) == 3 and reg.fallback_counts == {}
+    assert len(launched) == 4 and reg.fallback_counts == {}
     ungrouped = ((1, 3, 32, 16), (1, 2, 32, 16), (1, 2, 32, 16))
     assert not ops._guard(*on_card(ungrouped))
     assert not ref_attention.ops._guard(

@@ -16,7 +16,10 @@ Pallas kernel rounds it to v's dtype (the plain version keeps it in fp32):
 that moves an output by at most half an ulp (bf16 2^-8, fp16 2^-11) of
 sum_c p_c |v_c| / l, the plain attention over |v|, so both are held to
 one ulp of |ref| plus that attention (``tests/test_torch_half.py`` holds
-the reference's own kernel to the same limit).
+the reference's own kernel to the same limit).  q, k and v of mixed
+dtypes (``MIXED``, "q-k-v") run on the ring body in fp32, with P rounded
+to v's dtype and the output stored in q's: one ulp of q's dtype of |ref|
+plus one ulp of v's dtype of that attention, 3e-2 where any input is half.
 """
 import pytest
 
@@ -33,8 +36,16 @@ TOL = {"float32": 2e-4, "bfloat16": 3e-2, "float16": 3e-2}
 #: the plain attention over |v|, see :func:`_scaled`)
 SCALED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-5),
               "float16": (2 ** -10, 1e-5)}
-DTYPES = list(TOL)
+#: mixed (q, k, v) dtypes, as "q-k-v"
+MIXED = ["bfloat16-bfloat16-float16", "float32-bfloat16-bfloat16",
+         "float16-bfloat16-float32"]
+DTYPES = list(TOL) + MIXED
 TILES = [(bq, bkv) for bq in kernel.BLOCK_Q for bkv in kernel.BLOCK_KV]
+
+
+def _tol(dtype):
+    """The reference's tolerance of ``dtype``, the loosest of "q-k-v"."""
+    return max(TOL[dt] for dt in dtype.split("-"))
 
 #: (q shape, k shape, v shape, causal, window): the reference's test cases
 #: (tests/test_kernels.py:60-108), then the full-width qwen3-0.6b prefill
@@ -42,7 +53,8 @@ TILES = [(bq, bkv) for bq in kernel.BLOCK_Q for bkv in kernel.BLOCK_KV]
 #: ragged one, queries at an offset into their keys, a window without the
 #: causal mask, MLA's head dims (q/k 192, v 128) with and without GQA and
 #: a window, d < dv, and a head dim that is no whole number of 16-byte
-#: vectors (the ring body's 4-byte copies)
+#: vectors (the ring body's 4-byte copies); then the widest heads the
+#: kernel takes (256: Gemma's), with d and dv apart and a window
 CASES = {
     **{f"gqa{h}/{hk}-{tag}": ((2, h, 64, 32), (2, hk, 64, 32),
                                (2, hk, 64, 32), causal, window)
@@ -74,6 +86,12 @@ CASES = {
                          (1, 5, 2048, 64), True, 1024),
     "mla-gqa-window512": ((1, 16, 1500, 192), (1, 4, 1500, 192),
                           (1, 4, 1500, 128), True, 512),
+    "wide256": ((1, 4, 300, 256), (1, 2, 300, 256), (1, 2, 300, 256), True,
+                None),
+    "wide128-256": ((1, 4, 300, 128), (1, 2, 300, 128), (1, 2, 300, 256),
+                    True, None),
+    "wide256-128-window": ((1, 4, 257, 256), (1, 2, 257, 256),
+                           (1, 2, 257, 128), True, 64),
 }
 
 
@@ -85,13 +103,15 @@ def hopper():
 
 
 def _inputs(shapes, dtype, device, seed=0, misaligned=False):
-    """Inputs from numpy; ``misaligned`` puts each one element into its
-    storage (contiguous, but its rows off 16-byte alignment)."""
+    """Inputs from numpy, of ``dtype`` or of the dtypes "q-k-v";
+    ``misaligned`` puts each one element into its storage (contiguous, but
+    its rows off 16-byte alignment)."""
     rs = np.random.RandomState(seed)
+    dtypes = dtype.split("-") if "-" in dtype else [dtype] * len(shapes)
     out = []
-    for s in shapes:
+    for s, dt in zip(shapes, dtypes):
         x = torch.from_numpy(rs.randn(*s).astype(np.float32)).to(
-            getattr(torch, dtype)).to(device)
+            getattr(torch, dt)).to(device)
         if misaligned:
             buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
             buf[1:] = x.reshape(-1)
@@ -107,9 +127,11 @@ def _scaled(out, ref, q, k, v, **kw):
     that)."""
     rtol, atol = SCALED_TOL[str(ref.dtype).removeprefix("torch.")]
     limit = atol + rtol * ref.float().abs()
-    if ref.dtype in (torch.bfloat16, torch.float16):
-        limit += rtol * attention(q.float(), k.float(), v.float().abs(),
-                                  impl="torch_ref", **kw)
+    if v.dtype in (torch.bfloat16, torch.float16):
+        # P is rounded to v's dtype
+        limit += SCALED_TOL[str(v.dtype).removeprefix("torch.")][0] * (
+            attention(q.float(), k.float(), v.float().abs(),
+                      impl="torch_ref", **kw))
     excess = (out.float() - ref.float()).abs() - limit
     assert excess.max() <= 0, float((out.float() - ref.float()).abs().max())
 
@@ -128,7 +150,7 @@ def test_cuda_kernel_matches_torch_ref(hopper, case, dtype, tiles):
     assert kernel.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q_s[:3] + v_s[3:]
     ref = attention(q, k, v, causal=causal, window=window, impl="torch_ref")
-    tol = TOL[dtype]
+    tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     _scaled(out, ref, q, k, v, causal=causal, window=window)
 
@@ -183,23 +205,37 @@ def test_half_kernel_matches_torch_ref_on_rows_of_a_long_prefill(
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", TILES)
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
-def test_rows_with_no_valid_column_are_zero(hopper, d, dv, dtype, tiles):
-    """With q_offset < 0 the first rows see no column: the kernel writes 0
+@pytest.mark.parametrize("dtype", DTYPES[:3])
+@pytest.mark.parametrize("window", [None, 0, -5])
+@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128),
+                                  (256, 256)])
+def test_rows_with_no_valid_column_are_zero(hopper, d, dv, window, dtype,
+                                            tiles):
+    """With q_offset < 0 the first rows see no column, and with a window
+    <= 0 (column c of row r kept where c > r - window) none does under the
+    causal mask and the last rows none without it: the kernel writes 0
     there, as the reference's Pallas kernel does (the plain version writes
     the mean of v, as the reference's oracle does); every other row
     agrees."""
     q, k, v = _inputs(((1, 2, 150, d), (1, 2, 100, d), (1, 2, 100, dv)),
                       dtype, hopper)
-    out = attention(q, k, v, causal=True, q_offset=-40, impl="cuda",
-                    block_q=tiles[0], block_kv=tiles[1])
-    ref = attention(q, k, v, causal=True, q_offset=-40, impl="torch_ref")
-    torch.cuda.synchronize()
-    assert not out[:, :, :40].any()
     tol = TOL[dtype]
-    torch.testing.assert_close(out[:, :, 40:].float(), ref[:, :, 40:].float(),
-                               rtol=tol, atol=tol)
+    for causal in (True, False):
+        kw = dict(causal=causal, window=window, q_offset=-40)
+        out = attention(q, k, v, impl="cuda", block_q=tiles[0],
+                        block_kv=tiles[1], **kw)
+        ref = attention(q, k, v, impl="torch_ref", **kw)
+        torch.cuda.synchronize()
+        pos = torch.arange(150, device=hopper) - 40
+        hi = pos.clamp(max=99) if causal else torch.full_like(pos, 99)
+        lo = (pos - window + 1).clamp(min=0) if window is not None \
+            else torch.zeros_like(pos)
+        rows = hi >= lo
+        assert rows.any() == (window is None or not causal)
+        assert not out[:, :, ~rows].any()
+        torch.testing.assert_close(out[:, :, rows].float(),
+                                   ref[:, :, rows].float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.requires_h100
@@ -218,8 +254,8 @@ def test_scale_that_is_not_positive(hopper, scale, dtype, tiles):
                     block_kv=tiles[1], **kw)
     ref = attention(q, k, v, impl="torch_ref", **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
     _scaled(out, ref, q, k, v, **kw)
 
 
@@ -278,9 +314,10 @@ def test_half_rows_tma_cannot_take_go_through_the_copies(hopper, dtype,
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", TILES)
 @pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
-                                  (24, 16), (160, 96)])
+                                  (24, 16), (160, 96), (256, 256),
+                                  (128, 256), (256, 128), (200, 136)])
 def test_every_tile_pair_fits_shared_memory(hopper, d, dv, tiles):
-    """Every instantiated tile pair takes every head dim up to (192, 128)
+    """Every instantiated tile pair takes every head dim up to (256, 256)
     within the 227 KB a block may use: fp32 on the ring body with at least
     two chunk stages, bf16 and fp16 on the wgmma body with at least two
     K/V stages."""
@@ -298,8 +335,8 @@ def test_every_tile_pair_fits_shared_memory(hopper, d, dv, tiles):
 @pytest.mark.requires_h100
 def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
     """A CUDA tensor that asks for ``cuda`` launches the kernel or raises;
-    it never runs the plain version: fp16 launches it (one launch, within
-    the tolerances of the plain version), q, k and v of mixed dtypes and
+    it never runs the plain version: fp16 and q, k and v of mixed dtypes
+    launch it (one launch, within the tolerances of the plain version),
     head dims past the kernel's raise."""
     q, k, v = _inputs(((1, 2, 32, 16),) * 3, "float32", hopper)
     counts = dict(registry.default_registry.fallback_counts)
@@ -313,24 +350,33 @@ def test_cuda_entry_raises_on_what_the_kernel_does_not_take(hopper):
                                rtol=TOL["float16"], atol=TOL["float16"])
     _scaled(out, ref, *half)
     before = kernel.launches
+    mixed = (q.half(), k, v.half())
+    out = attention(*mixed, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and out.dtype == torch.float16
+    ref = attention(*mixed, impl="torch_ref")
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=TOL["float16"], atol=TOL["float16"])
+    _scaled(out, ref, *mixed)
+    before = kernel.launches
     with pytest.raises(TypeError):
-        attention(q.half(), k, v.half(), impl="cuda")
+        attention(q.double(), k, v, impl="cuda")
     with pytest.raises(ValueError):
         attention(q, k.cpu(), v, impl="cuda")
     with pytest.raises(ValueError):
         attention(q, k, v, impl="cuda", block_q=256)
-    # d = 160 is within the kernel's 192, dv = 160 beyond its 128; d = 200
-    # beyond 192
-    wide = _inputs(((1, 2, 32, 160),) * 3, "float32", hopper)
+    # dv = 272 is beyond the kernel's 256; d = 264 beyond 256
+    wide = _inputs(((1, 2, 32, 160), (1, 2, 32, 160), (1, 2, 32, 272)),
+                   "float32", hopper)
     with pytest.raises(ValueError, match="head dims"):
         attention(*wide, impl="cuda")
-    deep = _inputs(((1, 2, 32, 200), (1, 2, 32, 200), (1, 2, 32, 128)),
+    deep = _inputs(((1, 2, 32, 264), (1, 2, 32, 264), (1, 2, 32, 128)),
                    "float32", hopper)
     with pytest.raises(ValueError, match="head dims"):
         attention(*deep, impl="cuda")
     assert registry.default_registry.fallback_counts == counts
     assert kernel.launches == before
-    legal = _inputs(((1, 2, 32, 160), (1, 2, 32, 160), (1, 2, 32, 128)),
+    legal = _inputs(((1, 2, 32, 256), (1, 2, 32, 256), (1, 2, 32, 160)),
                     "float32", hopper)
     attention(*legal, impl="cuda")
     assert kernel.launches == before + 1
@@ -346,4 +392,4 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(hopper):
     with pytest.raises(ValueError, match="block"):
         kernel.flash_attention_cuda(q, k, v, block_kv=128)
     with pytest.raises(TypeError):
-        kernel.flash_attention_cuda(q, k.bfloat16(), v)
+        kernel.flash_attention_cuda(q, k.double(), v)

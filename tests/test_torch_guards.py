@@ -271,9 +271,11 @@ def test_rmsnorm_pair(dtypes, heads, widths, seed):
 @given(dtype=st.sampled_from(FLOATS), b=st.integers(1, 2),
        hk=st.integers(1, 2), group=st.integers(1, 2),
        sq=st.sampled_from([5, 16]), extra_kv=st.sampled_from([0, 3]),
-       dims=st.sampled_from([(16, 16), (8, 16), (200, 16), (16, 160)]),
+       dims=st.sampled_from([(16, 16), (8, 16), (200, 16), (16, 160),
+                             (256, 256), (264, 16), (16, 272)]),
        tiles=st.sampled_from([(64, 64), (128, 32), (256, 64), (64, 128)]),
-       causal=st.booleans(), window=st.sampled_from([None, None, 4]),
+       causal=st.booleans(),
+       window=st.sampled_from([None, None, 4, 0, -3]),
        seed=st.integers(0, 999))
 def test_attention(dtype, b, hk, group, sq, extra_kv, dims,
                    tiles, causal, window, seed):
@@ -325,8 +327,9 @@ def test_matmul(dtype, m, k, n, tiles, to_fp32, assume, seed):
 
 @settings(**dict(PROPS, max_examples=10))
 @given(dtype=st.sampled_from(FLOATS), bh=st.sampled_from([2]),
-       t=st.sampled_from([64]), dk=st.sampled_from([8, 136]),
-       dv=st.sampled_from([8]), chunk=st.sampled_from([16, 32, 48, 64]),
+       t=st.sampled_from([64]), dk=st.sampled_from([8, 136, 264]),
+       dv=st.sampled_from([8, 520]),
+       chunk=st.sampled_from([16, 32, 48, 64]),
        inclusive=st.booleans(), bonus=st.booleans(), scalar=st.booleans(),
        seed=st.integers(0, 999))
 def test_linear_attention(dtype, bh, t, dk, dv, chunk,
@@ -350,6 +353,7 @@ def test_linear_attention(dtype, bh, t, dk, dv, chunk,
     assert took
     assert gap == (getattr(torch, dtype) not in la_kernel._DTYPE_CODES
                    or dk > la_kernel.MAX_HEAD_DIM
+                   or dv > la_kernel.MAX_VALUE_HEAD_DIM
                    or not fits or (bonus and inclusive))
 
 

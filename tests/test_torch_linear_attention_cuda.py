@@ -15,7 +15,10 @@ e^{+-la} factor as a relative error of that size; an output sums ~128
 such terms of magnitude up to ~8, so one that nearly cancels still
 carries ~2e-4 of absolute error; in bf16 and fp16 (3e-2 also for fp16)
 both round the same fp32 value once, so they differ by at most one ulp
-(2^-7 of the value in bf16, 2^-10 in fp16) beyond that.
+(2^-7 of the value in bf16, 2^-10 in fp16) beyond that.  q, k and v of
+mixed dtypes (``MIXED``) run in fp32 on the same values in both and round
+once to v's dtype: the fp32 limits plus one ulp of v's dtype, 3e-2 where
+any input is half.
 """
 import pytest
 
@@ -32,15 +35,18 @@ TOL = {"float32": 5e-4, "bfloat16": 3e-2, "float16": 3e-2}
 #: (rtol, atol) of |out - ref| <= atol + rtol |ref|
 SCALED_TOL = {"float32": (5e-5, 2e-4), "bfloat16": (2 ** -7, 2e-4),
               "float16": (2 ** -10 + 5e-5, 2e-4)}
-DTYPES = list(TOL)
+#: mixed (q, k, v) dtypes, as "q-k-v"
+MIXED = ["float16-float32-bfloat16", "bfloat16-bfloat16-float32"]
+DTYPES = list(TOL) + MIXED
 
 #: (bh, T, dk, dv, inclusive, bonus, scalar decay): the reference's test
 #: cases (tests/test_linear_attention_kernel.py:28-55), a ragged length,
 #: a hymba-like inclusive scalar-decay head (dk 16, dv 64) and rwkv6-1.6b
-#: heads (dk = dv = 64) at a prefill length; then the widest heads the
-#: kernel takes (128), head dims that are no whole number of 16-byte
-#: vectors (4-byte copies), an inclusive ragged length and one shorter
-#: than every chunk
+#: heads (dk = dv = 64) at a prefill length; then wide heads (128), head
+#: dims that are no whole number of 16-byte vectors (4-byte copies), an
+#: inclusive ragged length and one shorter than every chunk; last the
+#: widest the kernel takes, GLA-1.3B's (dk 256, dv 512), and dims between
+#: its key chunks and value slices
 CASES = {
     **{f"t{t}-dv{dv}-{'incl' if inc else 'excl'}": (2, t, 8, dv, inc, False,
                                                      False)
@@ -54,6 +60,12 @@ CASES = {
     "odd_dims": (3, 100, 10, 6, False, True, False),
     "incl_ragged": (4, 1000, 16, 64, True, False, True),
     "short": (2, 9, 64, 64, False, True, False),
+    "gla_heads": (4, 300, 256, 512, False, True, False),
+    "gla_incl": (2, 200, 256, 512, True, False, False),
+    "wide_odd": (2, 130, 200, 136, True, False, False),
+    # dk past one key chunk with dv in one 64-column pass
+    "wide_keys_narrow_v": (4, 300, 256, 64, False, True, False),
+    "wide_keys_odd": (2, 130, 136, 8, True, False, False),
 }
 
 
@@ -74,22 +86,31 @@ def _inputs(case, dtype, device, seed=0, misaligned=False):
     lw = -np.clip(rs.rand(bh, t, 1 if scalar else dk), 1e-4, 1.0).astype(
         np.float32)
     u = rs.randn(bh, dk).astype(np.float32) if use_bonus else None
+    dts = [getattr(torch, d) for d in dtype.split("-")] * (
+        3 if "-" not in dtype else 1)
 
-    def cast(a, dt=getattr(torch, dtype)):
+    def cast(a, dt=torch.float32):
         x = torch.from_numpy(a).to(dt).to(device)
         if misaligned:
             buf = torch.empty(x.numel() + 1, dtype=dt, device=device)
             buf[1:] = x.reshape(-1)
             x = buf[1:].view(x.shape)
         return x
-    return (cast(q), cast(k), cast(v), cast(lw),
+    return (cast(q, dts[0]), cast(k, dts[1]), cast(v, dts[2]),
+            cast(lw, dts[0] if "-" not in dtype else torch.float32),
             torch.from_numpy(u).to(device) if u is not None else None)
 
 
 def _check(out, ref, dtype):
     assert out.shape == ref.shape and out.dtype == ref.dtype
-    tol = TOL[dtype]
-    rtol, atol = SCALED_TOL[dtype]
+    if "-" in dtype:
+        # every product in fp32 on both sides, one rounding to v's dtype
+        tol = max(TOL[d] for d in dtype.split("-"))
+        rtol, atol = SCALED_TOL[str(ref.dtype).removeprefix("torch.")]
+        rtol += SCALED_TOL["float32"][0] * (ref.dtype != torch.float32)
+    else:
+        tol = TOL[dtype]
+        rtol, atol = SCALED_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
                                atol=atol)
@@ -169,7 +190,8 @@ def test_short_sequence_spans_one_chunk(hopper, t):
 @pytest.mark.requires_h100
 def test_cuda_tensors_never_fall_back(hopper):
     """A CUDA input the kernel cannot take raises from the wrapper; the
-    registry counts no fallback.  fp16 inputs launch the kernel."""
+    registry counts no fallback.  fp16 inputs launch the kernel, and so do
+    mixed ones."""
     q, k, v, lw, u = _inputs("bonus", "float32", hopper)
     counts = registry.default_registry.fallback_counts
     before = dict(counts)
@@ -177,12 +199,22 @@ def test_cuda_tensors_never_fall_back(hopper):
         linear_attention(q, k, v, lw, bonus=u, inclusive=True, impl="cuda")
     with pytest.raises(ValueError, match="chunk"):
         linear_attention(q, k, v, lw, chunk=48, impl="cuda")
-    with pytest.raises(TypeError, match="wanted torch.float16"):
-        linear_attention(q.half(), k, v.half(), lw, impl="cuda")
-    wide = torch.zeros((2, 16, 136), device=hopper)
+    with pytest.raises(TypeError, match="float64"):
+        linear_attention(q.double(), k, v, lw, impl="cuda")
+    wide = torch.zeros((2, 16, 264), device=hopper)
     with pytest.raises(ValueError, match="head dims"):
         linear_attention(wide, wide, wide, wide, impl="cuda")
+    deep = torch.zeros((*q.shape[:2], 520), device=hopper)
+    with pytest.raises(ValueError, match="head dims"):
+        linear_attention(q, k, deep, lw, impl="cuda")
     assert dict(counts) == before
+    launched = kernel.launches
+    mixed = (q.half(), k, v.half(), lw)
+    out = linear_attention(*mixed, bonus=u, impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == launched + 1 and out.dtype == torch.float16
+    _check(out, linear_attention(*mixed, bonus=u, impl="torch_ref"),
+           "float16-float32-float16")
     launched = kernel.launches
     half = (q.half(), k.half(), v.half(), lw)
     out = linear_attention(*half, bonus=u, impl="cuda")

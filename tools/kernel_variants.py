@@ -45,13 +45,15 @@ K2_UNROLLS = [(4, 2), (2, 2), (4, 4), (8, 2), (8, 4), (16, 4)]
 #: K4's output-launch phases as the source writes them, and their cut form
 K4_PHASES = {
     "scan": ("float run = sc.prefix(w_s, ks);\n#pragma unroll 4\n"
-             "    for (int r = sc.first; r < sc.last; ++r) {\n      const int o",
+             "      for (int r = sc.first; r < sc.last; ++r) {\n        const"
+             " int o",
              "float run = 0.0f;\n#pragma unroll 4\n"
-             "    for (int r = sc.first; r < sc.first; ++r) {\n      const int o"),
-    "scores": ("for (int e = 0; e < dk4; e += 4) {\n      float4 qv[R], kv[R];",
+             "      for (int r = sc.first; r < sc.first; ++r) {\n        const"
+             " int o"),
+    "scores": ("for (int e = 0; e < cw4; e += 4) {\n      float4 qv[R], kv[R];",
                "for (int e = 0; e < 0; e += 4) {\n      float4 qv[R], kv[R];"),
-    "inter": ("for (int e = 0; e < dk4; e += 4) {\n      float4 qv[R];",
-              "for (int e = 0; e < 0; e += 4) {\n      float4 qv[R];"),
+    "inter": ("for (int e = 0; e < cw4; e += 4) {\n        float4 qv[R];",
+              "for (int e = 0; e < 0; e += 4) {\n        float4 qv[R];"),
     "intra": ("for (int c = 0; c < c_end; c += 4) {",
               "for (int c = 0; c < 0; c += 4) {"),
 }
@@ -136,7 +138,7 @@ def main() -> None:
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), h, s, s, d, d, h // hk, d ** -0.5,
-                         1, 0, 0, 0, bq, bkv, stream)
+                         1, 0, 0, 0, 0, 0, 0, bq, bkv, stream)
                 if err:
                     raise SystemExit(f"{name}: launch error {err}")
             times = []
@@ -173,7 +175,8 @@ def main() -> None:
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          lw.data_ptr(), u.data_ptr(), out.data_ptr(),
-                         work.data_ptr(), bh, t, dk, dk, chunk, 0, 0, stream)
+                         work.data_ptr(), bh, t, dk, dk, chunk, 0, 0, 0,
+                         stream)
                 if err:
                     raise SystemExit(f"{name}: launch error {err}")
             times = []
