@@ -67,29 +67,42 @@ JAX package, and runs its phases in order; any failure exits non-zero.
 4c. Matmul vs plain: the blocked matmul kernel against its plain version
    at every instantiated tile triple (both ``assume_divisible`` settings
    where the shape divides), at the reference's test shapes (ragged ones
-   included, one also as a view one element into its storage) in fp32
-   (1e-5) and bf16 (3e-2, to bf16 and to fp32), and at Table 1's N = 256,
-   1024, 4096, a ragged (4095, 1000) x (1000, 3001) and qwen3-0.6b's
-   (4096, 1024) x (1024, 3072) within a limit scaled to each element's
-   sum |x||y|; every case launches the kernel once, and the body it ran
-   (fp32 cp.async, fp32 with 4-byte copies, bf16 wgmma, simt) is counted;
-   checks in the built library's SASS (``cuobjdump -sass``) that every
-   wgmma instantiation holds HGMMA instructions; times the kernel per tile
-   triple, the plain version and ``torch.matmul`` (cuBLAS, TF32 off), in
-   fp32 and, at 4096^3 and the qwen3 shape, in bf16.
+   included, one also as a view one element into its storage) in every
+   (x, y, out) class of MATMUL_CLASSES: fp32, bf16 and fp16 each to
+   itself and to the other two outputs, and fp32 x bf16 and bf16 x fp16
+   operands (1e-5 where all three are fp32, else 3e-2), and at Table 1's
+   N = 256, 1024, 4096, a ragged (4095, 1000) x (1000, 3001) and
+   qwen3-0.6b's (4096, 1024) x (1024, 3072) (fp32, bf16 and fp16 at their
+   tiles, an fp32 product into fp16 and the mixed operands at one) within
+   a limit scaled to each element's sum |x||y| (plus one ulp of a half
+   output); every case launches the kernel once, and the body it ran
+   (fp32 cp.async, fp32 with 4-byte copies, bf16/fp16 wgmma, simt) is
+   counted; checks in the built library's SASS (``cuobjdump -sass``) that
+   every wgmma instantiation, fp16 and bf16, holds HGMMA instructions;
+   times the kernel per tile triple, the plain version and
+   ``torch.matmul`` (cuBLAS, TF32 off), in fp32 and, at 4096^3 and the
+   qwen3 shape, in bf16 and fp16.
 4d. Fastpath vs plain: the hot-key matcher against its plain version at
-   the reference's cases (every value dtype, int32 and int64 keys, every
-   ``block_b``), at batches of 8192 and 65536 against tables of 1 to
-   4096 keys with int32 and fp32 values, a table of duplicate keys, an
-   all-miss batch, a table whose keys share one probe chain and int64
-   keys apart only in their high 32 bits; each case on the raw table
-   (the dense body) and on the prepared table (the body the kernel picks,
-   then each body), the miss count against the plain hit count; exact
-   for integer values, 1e-6 for float ones; times each body eager and in
-   a CUDA graph of 100 launches (host = eager minus graph), the raw
-   wrapper per ``block_b`` and the plain version (no single PyTorch call
-   computes this function), and logs where the hashed body overtakes the
-   dense one.
+   the reference's cases (every value dtype, int32, int64 and int8 keys,
+   block_b 32, 128 and 256), at batches of 8192 and 65536 against tables
+   of 1 to 4096 keys with int32 and fp32 values, a table of duplicate
+   keys, an all-miss batch, a table whose keys share one probe chain and
+   int64 keys apart only in their high 32 bits, then the domain past
+   those: fp32, bf16 and fp16 keys against queries that show ``==``'s
+   rounding (2^24 + 1, 2049, 257, 70000; a NaN, a -0.0 and a non-integral
+   key), every pair of integer query and key dtypes, keys 33, 64 and 100
+   wide (staged and not), and block_b 1, 7, 64, 100, 512 and 1024; each
+   case on the raw table (the dense body) and on the prepared table (the
+   body the kernel picks, then each body), one launch a call, the miss
+   count against the plain hit count; exact for integer values, 1e-6 for
+   fp32 and bf16 ones, one ulp for fp16 ones; ``make_fastpath`` on the
+   card with an (8, 8) key shape and fp16 values (int8 keys: one launch a
+   call; float32 keys: float queries, one fallback a call) against the
+   generic function; times each body eager and in a CUDA graph of 100 launches
+   (host = eager minus graph), the raw wrapper per ``block_b`` and the
+   plain version (no single PyTorch call computes this function), logs
+   where the hashed body overtakes the dense one, and times a router
+   batch with bf16 and fp16 values and with keys 64 wide on each body.
 4e. Guards: for each kernel, one call it takes goes through its registry
    entry to ``cuda`` (one launch, no fallback, within the kernel's
    tolerance of its plain version; K3 on random fp32 within phase 4c's
@@ -97,13 +110,14 @@ JAX package, and runs its phases in order; any failure exits non-zero.
    tensors; float queries for K5) returns the plain version's answer with
    exactly one fallback counted and no launch (K1, K2 and K4 also take
    an fp16 call so: one launch, within the low-precision tolerance; K2 and
-   K4 also a mixed-dtype call and their widest heads, K2 a window of -5),
-   and one call of each domain gap, an input the reference's kernel takes
-   and the port's does not (fp64 rows for K1; d 264, dv 264 and an
-   uninstantiated tile for K2; fp16 and an uninstantiated tile triple for
-   K3; dk 264, dv 520, chunk 48 and a bonus on the inclusive recurrence
-   for K4; float keys, fp16 values and keys 33 wide for K5), raises the
-   kernel's error with no launch and no fallback; then a stale
+   K4 also a mixed-dtype call and their widest heads, K2 a window of -5;
+   K3 fp16, fp32 x bf16 and fp32 into fp16; K5 float keys, fp16 values,
+   keys 33 wide, int8 queries and a block_b of 7), and one call of each
+   domain gap left, an input the reference's kernel takes and the port's
+   does not (fp64 rows for K1; d 264, dv 264 and an uninstantiated tile
+   for K2; an uninstantiated tile triple for K3; dk 264, dv 520, chunk 48
+   and a bonus on the inclusive recurrence for K4), raises the kernel's
+   error with no launch and no fallback; then a stale
    ``spec_state`` restored into a handler on the card leaves it serving
    its generic variant.  Each check fails with its own message.
 5. Serve path: ``repro_torch.launch.serve.build_engine`` serves qwen3-0.6b
@@ -544,7 +558,20 @@ PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
 #: tolerances (MATMUL_TOL) at every instantiated tile triple
 MATMUL_TEST_SHAPES = [(32, 32, 32), (64, 96, 48), (128, 64, 128),
                       (96, 72, 80), (64, 64, 64), (50, 30, 70)]
-MATMUL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+MATMUL_TOL = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 3e-2}
+#: the (x, y, out) dtype classes checked at the test shapes and every tile
+#: triple (out None: x's dtype): one dtype to itself and to each other
+#: float output, and operands of two dtypes (widened to fp32 by the
+#: wrapper); each held to the loosest tolerance of its three dtypes
+MATMUL_CLASSES = [
+    ("float32", "float32", None), ("float32", "float32", "bfloat16"),
+    ("float32", "float32", "float16"), ("bfloat16", "bfloat16", None),
+    ("bfloat16", "bfloat16", "float32"), ("bfloat16", "bfloat16", "float16"),
+    ("float16", "float16", None), ("float16", "float16", "float32"),
+    ("float16", "float16", "bfloat16"), ("float32", "bfloat16", None),
+    ("bfloat16", "float16", None)]
+#: one ulp of a half output, relative (the scaled limit's rounding term)
+HALF_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 #: the card's shapes: Table 1's square sizes, a ragged product and
 #: qwen3-0.6b's widest layer product (the MLP up projection of a (1, 4096)
 #: prefill), held to a limit scaled to each element: the kernel and the
@@ -556,6 +583,13 @@ MATMUL_TABLE1_SIZES = (256, 1024, 4096)
 MATMUL_CARD_SHAPES = [*[(n, n, n) for n in MATMUL_TABLE1_SIZES],
                       (4095, 1000, 3001), (4096, 1024, 3072)]
 MATMUL_SCALED_FACTOR = 8
+#: the classes also checked at the card's shapes (one tile triple for
+#: those the fp32 body runs): fp16 on wgmma into fp16, an fp32 product
+#: into fp16, and mixed operands
+MATMUL_CARD_CLASSES = [("float16", "float16", None),
+                       ("float32", "float32", "float16"),
+                       ("float32", "bfloat16", None),
+                       ("bfloat16", "float16", None)]
 #: the Table-1 handler (phase 12): square size of the Controller's sweep,
 #: the size of the call that must miss its divisibility guard, and calls
 #: per candidate
@@ -569,6 +603,21 @@ TABLE1_DWELL = 3
 #: the router's next hop) and fp32 values (V = 16); exact for integer
 #: values, FASTPATH_TOL for float ones
 FASTPATH_TEST_CASES = [(64, 8, 3, 16), (100, 4, 1, 8), (256, 32, 2, 4)]
+#: the reference's cases' block_b (its tests' 32, 128, its default 256)
+FASTPATH_BLOCK_B = (32, 128, 256)
+#: any positive block_b: warps of 32 rows, and past 256 blocks of 256
+FASTPATH_ODD_BLOCK_B = (1, 7, 64, 100, 512, 1024)
+#: keys wider than the 32 integers a query keeps in registers
+FASTPATH_WIDE = (33, 64, 100)
+#: float keys and integer queries that show ``==``'s rounding of the query
+#: to the keys' dtype: 16777217 onto 2^24 (fp32, bf16) or inf (fp16), 2049
+#: onto 2048 (half), 257 onto 256 (bf16), 70000 onto inf (fp16), a NaN key
+#: (matches nothing), -0.0 (matches 0), 2.5 (not integral)
+FASTPATH_FLOAT_KEYS = [16777216.0, float("nan"), -0.0, 2.5, 2048.0, 256.0,
+                       float("inf"), -7.0, 300.0, 2.0 ** 31]
+FASTPATH_EDGE_QUERIES = [16777217, 16777216, 16777215, 0, 2, 3, 2049, 2050,
+                         257, 258, 70000, 65519, 65520, -7, 5, -70000, 300,
+                         301, 2 ** 31 - 1, -2 ** 31]
 FASTPATH_BATCHES = (8192, 65536)
 FASTPATH_TABLES = (1, 4, 16, 256, 4096)
 FASTPATH_TOL = 1e-6
@@ -1720,7 +1769,7 @@ def _matmul_cost(m: int, k: int, n: int, itemsize: int,
                  out_itemsize: int) -> tuple[float, str]:
     """Least time (ms) on the card: x and y read once, out written once,
     against 2mnk flops at the fp32 FMA peak for fp32 inputs and at the
-    bf16 tensor-core peak for bf16 ones."""
+    tensor-core peak (bf16 and fp16 alike) for half ones."""
     nbytes = (m * k + k * n) * itemsize + m * n * out_itemsize
     peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, 2 * m * n * k / peak
@@ -1735,27 +1784,31 @@ def _matmul_limit(x, y, ref):
     k = x.shape[1]
     mag = x.float().abs() @ y.float().abs()
     limit = MATMUL_SCALED_FACTOR * k ** 0.5 * 2.0 ** -24 * mag + 1e-6
-    if ref.dtype == torch.bfloat16:
-        limit += 2.0 ** -7 * ref.float().abs()
+    ulp = HALF_ULP.get(str(ref.dtype).removeprefix("torch."))
+    if ulp:
+        limit += ulp * ref.float().abs()
     return limit
 
 
 def phase_matmul() -> dict:
-    """K3 against its plain version at every tile triple, then timed with
-    the plain version and cuBLAS (``torch.matmul``, TF32 off)."""
+    """K3 against its plain version at every tile triple and dtype class,
+    then timed with the plain version and cuBLAS (``torch.matmul``, TF32
+    off)."""
     import torch
 
     from repro_torch.kernels.matmul import kernel, ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_err = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
     checked = 0
 
-    def inputs(m, k, n, dtype):
-        tdt = getattr(torch, dtype)
-        return (torch.randn((m, k), generator=gen, device=dev).to(tdt),
-                torch.randn((k, n), generator=gen, device=dev).to(tdt))
+    def rand(r, c, dtype):
+        return torch.randn((r, c), generator=gen, device=dev).to(
+            getattr(torch, dtype))
+
+    def inputs(m, k, n, dtype, y_dtype=None):
+        return rand(m, k, dtype), rand(k, n, y_dtype or dtype)
 
     def check(out, ref, limit, what: str, tol: float | None) -> None:
         nonlocal checked
@@ -1775,15 +1828,17 @@ def phase_matmul() -> dict:
         checked += 1
 
     bodies: collections.Counter = collections.Counter()
-    for shapes, tiles_list, scaled_only, offset in (
-            (MATMUL_TEST_SHAPES, kernel.TILES, False, 0),
-            (MATMUL_TEST_SHAPES[3:4], kernel.TILES, False, 1),
-            (MATMUL_CARD_SHAPES, kernel.TILES, True, 0)):
-        for (m, k, n), dtype, out_dtype in itertools.product(
-                shapes, ("float32", "bfloat16"), (None, "float32")):
-            if dtype == "float32" and out_dtype:
-                continue
-            x, y = inputs(m, k, n, dtype)
+    by_class: collections.Counter = collections.Counter()
+    card_bf16 = [("bfloat16", "bfloat16", None),
+                 ("bfloat16", "bfloat16", "float32")]
+    for shapes, classes, scaled_only, offset in (
+            (MATMUL_TEST_SHAPES, MATMUL_CLASSES, False, 0),
+            (MATMUL_TEST_SHAPES[3:4], MATMUL_CLASSES[:5], False, 1),
+            (MATMUL_CARD_SHAPES, [MATMUL_CLASSES[0], *card_bf16,
+                                  *MATMUL_CARD_CLASSES], True, 0)):
+        for (m, k, n), (dtype, y_dtype, out_dtype) in itertools.product(
+                shapes, classes):
+            x, y = inputs(m, k, n, dtype, y_dtype)
             if offset:
                 # a contiguous view one element into its storage: no
                 # 16-byte-aligned rows, so the 4-byte-copy or simt body
@@ -1794,12 +1849,19 @@ def phase_matmul() -> dict:
             odt = getattr(torch, out_dtype or dtype)
             ref = ops.matmul(x, y, impl="torch_ref", out_dtype=odt)
             limit = _matmul_limit(x, y, ref)
-            tol = None if scaled_only else MATMUL_TOL[dtype]
-            # the small test tiles at the card's shapes in fp32 only
+            tol = None if scaled_only else max(
+                MATMUL_TOL[d] for d in (dtype, y_dtype, out_dtype or dtype))
+            cls = f"{dtype}x{y_dtype}->{out_dtype or dtype}"
+            if not scaled_only:
+                tiles_list = kernel.TILES
+            elif (dtype, y_dtype) == ("float32", "float32") \
+                    and out_dtype is None:
+                tiles_list = kernel.TILES   # the test tiles too, in fp32
+            elif dtype == y_dtype and dtype != "float32":
+                tiles_list = kernel.CARD_TILES
+            else:                           # the fp32 body: one triple
+                tiles_list = (kernel.DEFAULT_TILES,)
             for bm, bn, bk in tiles_list:
-                if scaled_only and dtype == "bfloat16" \
-                        and (bm, bn, bk) not in kernel.CARD_TILES:
-                    continue
                 div = m % bm == 0 and n % bn == 0 and k % bk == 0
                 body = kernel.body(x, y, bm=bm, bn=bn, bk=bk, out_dtype=odt)
                 for assume in (False, True) if div else (False,):
@@ -1807,7 +1869,7 @@ def phase_matmul() -> dict:
                     out = ops.matmul(x, y, bm=bm, bn=bn, bk=bk, impl="cuda",
                                      out_dtype=odt, assume_divisible=assume)
                     torch.cuda.synchronize()
-                    what = (f"({m},{k})x({k},{n}) {dtype}->{odt} tiles "
+                    what = (f"({m},{k})x({k},{n}) {cls} tiles "
                             f"({bm},{bn},{bk}) assume_divisible={assume} "
                             f"offset {offset} ({body} body)")
                     if kernel.launches != before + 1:
@@ -1815,31 +1877,49 @@ def phase_matmul() -> dict:
                              f"launches, wanted 1")
                     check(out, ref, limit, what, tol)
                     bodies[body] += 1
+                    by_class[cls] += 1
                     del out
             del x, y, ref, limit
     torch.cuda.empty_cache()
-    log(f"matmul: cuda == torch_ref at {checked} shape/dtype/tile cases "
-        f"(the reference's test shapes at every tile triple {kernel.TILES} "
-        f"within {MATMUL_TOL}, one of them also as a view one element into "
-        f"its storage; (m, k, n) {MATMUL_CARD_SHAPES} within "
-        f"{MATMUL_SCALED_FACTOR} sqrt(K) 2^-24 sum|x||y| (+ one bf16 ulp); "
-        f"bf16 to bf16 and to fp32; both assume_divisible settings where "
-        f"the shape divides); cases by body {json.dumps(bodies)}; "
+    log(f"matmul: cuda == torch_ref at {checked} shape/dtype/tile cases, "
+        f"one launch each (the reference's test shapes at every tile "
+        f"triple {kernel.TILES} in every (x, y, out) class "
+        f"{[c[:2] + (c[2] or c[0],) for c in MATMUL_CLASSES]} within "
+        f"{MATMUL_TOL} (the loosest of the three dtypes), one of them also "
+        f"as a view one element into its storage; (m, k, n) "
+        f"{MATMUL_CARD_SHAPES} within {MATMUL_SCALED_FACTOR} sqrt(K) 2^-24 "
+        f"sum|x||y| (+ one ulp of a half output); both assume_divisible "
+        f"settings where the shape divides); cases by body "
+        f"{json.dumps(bodies)}; by class {json.dumps(by_class)}; "
         f"max_abs_err fp32 {max_err['float32']:.3e}, bf16 "
-        f"{max_err['bfloat16']:.3e}")
+        f"{max_err['bfloat16']:.3e}, fp16 {max_err['float16']:.3e}")
     sass = _hgmma_by_function()
     wgmma_fns = {f: c for f, c in sass.items() if "wgmma_kernel" in f}
+    # wgmma_kernel<TIn, ...>: __half mangles as 6__half
+    f16_fns = {f: c for f, c in wgmma_fns.items() if "6__half" in f}
     log(f"matmul: SASS of the built library: {len(wgmma_fns)} wgmma_kernel "
-        f"instantiations, HGMMA instructions in each: "
-        f"{sorted(set(wgmma_fns.values()))}; {sum(sass.values())} HGMMA in "
+        f"instantiations ({len(f16_fns)} fp16, "
+        f"{len(wgmma_fns) - len(f16_fns)} bf16), HGMMA instructions in "
+        f"each: {sorted(set(wgmma_fns.values()))} (fp16: "
+        f"{sorted(set(f16_fns.values()))}); {sum(sass.values())} HGMMA in "
         f"all, {sum(c for f, c in sass.items() if f not in wgmma_fns)} "
         f"outside the wgmma body")
     if not wgmma_fns or not all(wgmma_fns.values()):
-        fail("the bf16 wgmma body has no HGMMA instruction in its SASS")
+        fail("a wgmma body has no HGMMA instruction in its SASS")
+    if len(f16_fns) != len(wgmma_fns) // 2 or not f16_fns:
+        fail(f"matmul: {len(f16_fns)} fp16 wgmma instantiations of "
+             f"{len(wgmma_fns)}; wanted half of them")
 
     per_shape = []
+    half_timed = ((TABLE1_N,) * 3, MATMUL_CARD_SHAPES[-1])
     timed = [(s, "float32") for s in MATMUL_CARD_SHAPES] + [
-        ((TABLE1_N,) * 3, "bfloat16"), (MATMUL_CARD_SHAPES[-1], "bfloat16")]
+        (s, dt) for dt in ("bfloat16", "float16") for s in half_timed]
+    log(f"matmul: torch.backends.cuda.matmul."
+        f"allow_fp16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction}"
+        f", allow_bf16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f" (cuBLAS's half products)")
     for (m, k, n), dtype in timed:
         x, y = inputs(m, k, n, dtype)
         iters = max(3, min(200, int(4e10 / (2 * m * n * k))))
@@ -1879,8 +1959,8 @@ def phase_matmul() -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": max(max_err.values()),
             "max_abs_err_by_dtype": max_err, "checked": checked,
-            "bodies": dict(bodies), "hgmma_by_function": wgmma_fns,
-            "per_shape": per_shape}
+            "bodies": dict(bodies), "by_class": dict(by_class),
+            "hgmma_by_function": wgmma_fns, "per_shape": per_shape}
 
 
 def _hgmma_by_function(library: str = "matmul") -> dict:
@@ -1986,8 +2066,12 @@ def phase_fastpath() -> dict:
             fail(f"fastpath {what}: miss count {miss}, the plain version "
                  f"misses {int((~ref_hit).sum())} rows")
         if ref.dtype.is_floating_point:
+            # fp16 values: one ulp of the output (both round one fp32 sum,
+            # added in their own orders)
+            rtol = HALF_ULP["float16"] if ref.dtype == torch.float16 \
+                else FASTPATH_TOL
             torch.testing.assert_close(
-                out.float(), ref.float(), rtol=FASTPATH_TOL,
+                out.float(), ref.float(), rtol=rtol,
                 atol=FASTPATH_TOL, msg=lambda m: f"fastpath {what}: {m}")
             if out.numel():
                 max_err = max(max_err,
@@ -2016,10 +2100,11 @@ def phase_fastpath() -> dict:
         checked += 1
         return ref_hit
 
-    value_dtypes = (torch.float32, torch.bfloat16, torch.int32, torch.int64)
+    value_dtypes = (torch.float32, torch.bfloat16, torch.float16,
+                    torch.int32, torch.int64)
     for (b, n, kw, v), vdt, kdt, block_b in itertools.product(
-            FASTPATH_TEST_CASES, value_dtypes, (torch.int32, torch.int64),
-            kernel.BLOCK_B):
+            FASTPATH_TEST_CASES, value_dtypes,
+            (torch.int32, torch.int64, torch.int8), FASTPATH_BLOCK_B):
         x, keys, vals = inputs(b, n, kw, v, vdt, kdt, key_range=10)
         check(x, keys, vals, block_b, f"({b},{n},{kw},{v}) {vdt} keys {kdt} "
               f"block_b {block_b}")
@@ -2028,7 +2113,7 @@ def phase_fastpath() -> dict:
             FASTPATH_BATCHES, router_tables,
             ((torch.int32, 1), (torch.float32, 16))):
         x, keys, vals = inputs(b, n, 1, v, vdt)
-        for block_b in kernel.BLOCK_B:
+        for block_b in FASTPATH_BLOCK_B:
             check(x, keys, vals, block_b,
                   f"({b},{n},1,{v}) {vdt} block_b {block_b}")
     # a table whose keys all repeat (pairs with different values) and a
@@ -2055,16 +2140,69 @@ def phase_fastpath() -> dict:
     if int(check(x, keys, values(256, 2, torch.int64), 256,
                  "int64 keys apart in the high bits").sum()) != 256:
         fail("fastpath: the high-bit int64 keys did not hit exactly once")
+    base_checked = checked
+    # The domain past int32/int64 keys of one dtype, 32 wide, block_b in
+    # FASTPATH_BLOCK_B: float keys with the edge cases, queries and keys of
+    # every integer dtype, wide keys (staged and too large to stage), any
+    # positive block_b; each on every path, one launch a call.
+    l0 = kernel.launches
+    fkeys = torch.tensor(FASTPATH_FLOAT_KEYS, device=dev)[:, None]
+    fq = torch.tensor(FASTPATH_EDGE_QUERIES, device=dev)[:, None]
+    for kdt, vdt in itertools.product(
+            (torch.float32, torch.bfloat16, torch.float16),
+            (torch.float16, torch.int32)):
+        vals = values(len(FASTPATH_FLOAT_KEYS), 3, vdt)
+        for qdt in (torch.int32, torch.int64):
+            hit = check(fq.to(qdt), fkeys.to(kdt), vals, 256,
+                        f"{kdt} keys, {qdt} edge queries, {vdt} values")
+            want = {q for q, h in zip(FASTPATH_EDGE_QUERIES, hit.tolist())
+                    if h}
+            if not {16777217, 0, -7} <= want or {3, 5} & want:
+                fail(f"fastpath: {kdt} keys hit the queries {sorted(want)}")
+        for qdt in (torch.int8, torch.int16, torch.uint8):
+            check(fq.clamp(0, 120).to(qdt).contiguous(), fkeys.to(kdt), vals,
+                  256, f"{kdt} keys, {qdt} queries")
+    ints = (torch.int8, torch.int16, torch.uint8, torch.int32, torch.int64)
+    raw = torch.randint(-5, 260, (40, 2), generator=gen, device=dev)
+    q = torch.randint(-5, 260, (4096, 2), generator=gen, device=dev)
+    q[::2] = raw[torch.randint(0, 40, (2048,), generator=gen, device=dev)]
+    for qdt, kdt in itertools.product(ints, ints):
+        check(q.to(qdt), raw.to(kdt), values(40, 2, torch.int32), 256,
+              f"{qdt} queries, {kdt} keys")
+    for kw, n in itertools.product(FASTPATH_WIDE, (64, 2000)):
+        x, keys, vals = inputs(8192, n, kw, 4, torch.float32, key_range=3,
+                               hot=0.5)
+        x[1::4, -1] = 7
+        hit = check(x, keys, vals, 256, f"keys {kw} wide, N {n}")
+        if bool(hit[1::4].any()):
+            fail(f"fastpath: keys {kw} wide hit queries apart in the last "
+                 f"integer")
+        check(x, keys.float(), vals, 256, f"fp32 keys {kw} wide, N {n}")
+    x, keys, vals = inputs(8192, 16, 1, 2, torch.float16)
+    for block_b in FASTPATH_ODD_BLOCK_B:
+        check(x, keys, vals, block_b, f"block_b {block_b}")
+        check(x[:37].contiguous(), keys, vals, block_b,
+              f"block_b {block_b}, B 37")
+    wider = checked - base_checked
+    if kernel.launches - l0 != 4 * wider:
+        fail(f"fastpath: {kernel.launches - l0} launches for {wider} wider "
+             f"cases; wanted 4 each (raw, prepared, dense, hashed)")
     log(f"fastpath: cuda == torch_ref at {checked} cases, each on the raw "
         f"table (dense body) and on the prepared table (the picked body, "
-        f"dense, hashed; miss counts against the plain hit count) (the "
-        f"reference's {FASTPATH_TEST_CASES} x values fp32/bf16/int32/int64 "
-        f"x keys int32/int64 x block_b {kernel.BLOCK_B}; K = 1 at B "
-        f"{FASTPATH_BATCHES} x N {tuple(router_tables)} with int32 (V = 1) "
-        f"and fp32 (V = 16) values; duplicate keys; an all-miss batch; one "
-        f"probe chain; int64 keys apart in the high bits), exact for "
-        f"integer values, within {FASTPATH_TOL} for float ones (max_abs_err "
-        f"{max_err:.3e})")
+        f"dense, hashed; miss counts against the plain hit count), one "
+        f"launch a call (the reference's {FASTPATH_TEST_CASES} x values "
+        f"fp32/bf16/fp16/int32/int64 x keys int32/int64/int8 x block_b "
+        f"{FASTPATH_BLOCK_B}; K = 1 at B {FASTPATH_BATCHES} x N "
+        f"{tuple(router_tables)} with int32 (V = 1) and fp32 (V = 16) "
+        f"values; duplicate keys; an all-miss batch; one probe chain; int64 "
+        f"keys apart in the high bits; then {wider} of the wider domain: "
+        f"fp32/bf16/fp16 keys against the edge queries "
+        f"{FASTPATH_EDGE_QUERIES} and narrow queries, every pair of "
+        f"integer dtypes, keys {FASTPATH_WIDE} wide at N 64 and 2000 "
+        f"(int32 and fp32 keys), block_b {FASTPATH_ODD_BLOCK_B}), exact "
+        f"for integer values, within {FASTPATH_TOL} for fp32 and bf16 ones "
+        f"and one ulp for fp16 ones (max_abs_err {max_err:.3e})")
+    fastpath_card = _make_fastpath_on_card()
 
     per_shape = []
     for b, n, (vdt, v) in itertools.product(
@@ -2075,7 +2213,7 @@ def phase_fastpath() -> dict:
         timed = n in FASTPATH_TABLES
         kernel_ms = {str(bb): cuda_time_ms(
             lambda bb=bb: kernel.fastpath_cuda(x, keys, vals, block_b=bb),
-            100, 10) for bb in kernel.BLOCK_B} if timed else {}
+            100, 10) for bb in FASTPATH_BLOCK_B} if timed else {}
         by_body = {}
         for name in kernel.BODIES:
             run = (lambda name=name:
@@ -2120,9 +2258,85 @@ def phase_fastpath() -> dict:
                 r["by_body"]["hashed"]["graph_ms"]) for r in rows)
             + f"; prepared tables of >= {kernel.hash_min_keys()} keys take "
             f"the hashed body")
+    # the router's batch with bf16 and fp16 values, and with keys 64 wide
+    wider_timed = {}
+    for label, (kw, vdt) in (("bf16 values", (1, torch.bfloat16)),
+                             ("fp16 values", (1, torch.float16)),
+                             ("keys 64 wide", (64, torch.int32))):
+        x, keys, vals = inputs(ROUTER_BATCH, FIG4_HOT, kw, 1, vdt, hot=1.0,
+                               key_range=2 ** 20)
+        table = kernel.prepare_table(keys, vals)
+        row = {"shape": [ROUTER_BATCH, FIG4_HOT, kw, 1],
+               "value_dtype": str(vdt).removeprefix("torch."),
+               "body": kernel.body(table)}
+        for name in kernel.BODIES:
+            run = (lambda name=name:
+                   kernel.fastpath_cuda_prepared(x, table, body=name))
+            row[name] = {"ms": cuda_time_ms(run, 100, 10),
+                         "graph_ms": graph_time_ms(
+                             run, FASTPATH_GRAPH_LAUNCHES)}
+        row["bound_ms"], row["bound_by"] = _fastpath_cost(
+            ROUTER_BATCH, FIG4_HOT, kw, 1, 4, vals.element_size())
+        wider_timed[label] = row
+        log(f"fastpath router batch, {label} (B={ROUTER_BATCH} N={FIG4_HOT} "
+            f"K={kw} V=1 {vdt}): prepared picks {row['body']}; "
+            + "; ".join(f"{b} eager {row[b]['ms']:.5f} graph "
+                        f"{row[b]['graph_ms']:.5f}" for b in kernel.BODIES)
+            + f" ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+        del x, keys, vals, table
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "checked": checked,
-            "per_shape": per_shape}
+            "wider_checked": wider, "per_shape": per_shape,
+            "wider_timed": wider_timed, "make_fastpath": fastpath_card}
+
+
+def _make_fastpath_on_card() -> dict:
+    """``make_fastpath`` on the card with an (8, 8) key shape and fp16
+    values, with ``key_dtype`` int8 (the kernel: one launch a call, wide
+    int8 keys on the hashed body) and float32 (the queries cast to float
+    miss the guard: ``torch_ref``, one fallback a call, as in the
+    reference), against the generic function on hits and misses."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import fastpath as fp
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fastpath import kernel
+
+    def generic(xb):
+        return (xb.reshape(xb.shape[0], -1).float().sum(
+            -1, keepdim=True) * 0.25).half()
+
+    rs = np.random.RandomState(8)
+    keys = rs.randint(0, 4, (16, 8, 8)).astype(np.int32)
+    table = fp.FastPathTable.from_arrays(
+        keys, generic(torch.from_numpy(keys)).float().numpy())
+    q = rs.randint(0, 4, (4096, 8, 8)).astype(np.int32)
+    q[::2] = keys[rs.randint(0, 16, 2048)]
+    counts = registry.default_registry.fallback_counts
+    key = ("fastpath", "cuda")
+    result = {}
+    for key_dtype in (torch.int8, torch.float32):
+        f = fp.make_fastpath(generic, table, key_dtype=key_dtype,
+                             value_dtype=torch.float16)
+        on_kernel = key_dtype == torch.int8
+        for what, batch in (("mixed", q), ("all hit", q[::2])):
+            xb = torch.from_numpy(np.ascontiguousarray(batch)).to("cuda")
+            l0, fb0 = kernel.launches, counts.get(key, 0)
+            out = f(xb)
+            torch.cuda.synchronize()
+            launched, fb = kernel.launches - l0, counts.get(key, 0) - fb0
+            name = f"make_fastpath (8, 8) keys {key_dtype}, fp16 values, {what}"
+            if (launched, fb) != ((1, 0) if on_kernel else (0, 1)):
+                fail(f"{name}: {launched} launches, {fb} fallbacks")
+            if out.dtype != torch.float16 or not torch.equal(out,
+                                                             generic(xb)):
+                fail(f"{name}: differs from the generic function")
+            result[f"{key_dtype} {what}"] = {"launches": launched,
+                                             "fallbacks": fb}
+            log(f"fastpath: {name}: {launched} K5 launch(es), {fb} "
+                f"fallback(s), equal to the generic function")
+    return result
 
 
 def engine_args(extra: list[str]) -> argparse.Namespace:
@@ -2136,9 +2350,11 @@ def engine_args(extra: list[str]) -> argparse.Namespace:
 def phase_guards(decode_by_kind: dict) -> dict:
     """Phase 4e: each kernel's guard (``ops._guard``: the card and the
     reference's precondition).  For each of K1 to K5, one call the kernel
-    takes goes to ``cuda`` (K1, K2 and K4 also an fp16 one): one launch,
-    no fallback, its answer within GUARD_TOL of ``torch_ref`` on the same
-    inputs (K3 within phase 4c's scaled limit at its k).  One call that
+    takes goes to ``cuda`` (K1, K2 and K4 also an fp16 one; K3 fp16, mixed
+    operands and a half output; K5 float keys, fp16 values, keys 33 wide,
+    int8 queries and a block_b of 7): one launch, no fallback, its answer
+    within GUARD_TOL of ``torch_ref`` on the same inputs (K3 within phase
+    4c's scaled limit at its k, K5's fp16 values within one fp16 ulp).  One call that
     misses the reference's precondition (host tensors; float queries to
     K5) returns ``torch_ref``'s answer with exactly one fallback counted
     and no launch.
@@ -2288,17 +2504,23 @@ def phase_guards(decode_by_kind: dict) -> dict:
     for label, (args, kw, error) in cases.items():
         gap("attention", attn_k, label,
             lambda a=args, kw=kw: attention(*a, impl="cuda", **kw), error)
-    # K3: (256, 256) x (256, 256) of random fp32, within phase 4c's scaled
-    # limit at k 256; host operands; fp16 and a tile triple not
-    # instantiated raise
+    # K3: (256, 256) x (256, 256) of random fp32, fp16, fp32 x bf16 and
+    # fp32 into fp16, within phase 4c's scaled limit at k 256; host
+    # operands; a tile triple not instantiated raises
     a, b = rand(256, 256), rand(256, 256)
     check("matmul", mm_k, "fp32", lambda i: matmul(a, b, impl=i), True,
           limit=lambda ref: _matmul_limit(a, b, ref))
+    for label, (ma, mb, kw) in {
+            "fp16": (a.half(), b.half(), {}),
+            "fp32 x bf16": (a, b.bfloat16(), {}),
+            "fp32 into fp16": (a, b, {"out_dtype": f16})}.items():
+        check("matmul", mm_k, label,
+              lambda i, ma=ma, mb=mb, kw=kw: matmul(ma, mb, impl=i, **kw),
+              True, limit=lambda ref, ma=ma, mb=mb: _matmul_limit(ma, mb,
+                                                                  ref))
     check("matmul", mm_k, "host operands",
           lambda i: matmul(*host((a, b)), impl=i), False,
           limit=lambda ref: _matmul_limit(a.cpu(), b.cpu(), ref))
-    gap("matmul", mm_k, "fp16",
-        lambda: matmul(a.half(), b.half(), impl="cuda"), TypeError)
     gap("matmul", mm_k, "tiles (256, 256, 128)",
         lambda: matmul(a, b, bm=256, bn=256, bk=128, impl="cuda"),
         ValueError)
@@ -2339,28 +2561,32 @@ def phase_guards(decode_by_kind: dict) -> dict:
         gap("linear_attention", la_k, label,
             lambda a=args, kw=kw: linear_attention(*a, impl="cuda", **kw),
             error)
-    # K5: 4096 int32 queries against 64 keys, fp32 values; host tensors
-    # and float queries (the reference's guard refuses them too); float
-    # keys, fp16 values and keys 33 wide raise
-    keys = torch.randint(0, 1000, (64, 1), generator=gen).to("cuda",
-                                                             torch.int32)
+    # K5: 4096 int32 queries against 64 keys, fp32 values, then float
+    # keys, fp16 values (within one fp16 ulp), keys 33 wide, int8 queries
+    # and a block_b of 7; host tensors and float queries (the reference's
+    # guard refuses them too)
+    keys = torch.randint(0, 100, (64, 1), generator=gen).to("cuda",
+                                                            torch.int32)
     hot = torch.randint(0, 64, (4096,), generator=gen).to("cuda")
     xq = torch.where((hot % 2 == 0)[:, None], keys[hot], -keys[hot] - 1)
     vals = rand(64, 4)
-    check("fastpath", fp_k, "int32 keys",
-          lambda i: lookup(xq, keys, vals, impl=i), True)
+    wk = torch.randint(0, 3, (64, 33), generator=gen).to("cuda", torch.int32)
+    wx = wk[torch.randint(0, 64, (512,), generator=gen).to("cuda")]
+    for label, (args, kw) in {
+            "int32 keys": ((xq, keys, vals), {}),
+            "float keys": ((xq, keys.float(), vals), {}),
+            "fp16 values": ((xq, keys, vals.half()), {}),
+            "key width 33": ((wx, wk, vals), {}),
+            "int8 queries": ((xq.to(torch.int8), keys, vals), {}),
+            "block_b 7": ((xq, keys, vals), {"block_b": 7})}.items():
+        check("fastpath", fp_k, label,
+              lambda i, a=args, kw=kw: lookup(*a, impl=i, **kw), True,
+              limit=(lambda ref: 2.0 ** -10 * ref.double().abs() + 1e-6)
+              if label == "fp16 values" else None)
     check("fastpath", fp_k, "host tensors",
           lambda i: lookup(*host((xq, keys, vals)), impl=i), False)
     check("fastpath", fp_k, "float queries",
           lambda i: lookup(xq.float(), keys.float(), vals, impl=i), False)
-    wk = torch.randint(0, 3, (64, 33), generator=gen).to("cuda", torch.int32)
-    wx = wk[torch.randint(0, 64, (512,), generator=gen).to("cuda")]
-    cases = {"float keys": ((xq, keys.float(), vals), TypeError),
-             "fp16 values": ((xq, keys, vals.half()), TypeError),
-             "key width 33": ((wx, wk, vals), ValueError)}
-    for label, (args, error) in cases.items():
-        gap("fastpath", fp_k, label,
-            lambda a=args: lookup(*a, impl="cuda"), error)
 
     # A stale spec_state restored into a handler on the card: the handler
     # keeps serving its generic variant (K1 through the default impl).
@@ -6577,11 +6803,18 @@ def main(argv: list[str]) -> None:
                  if r["shape"] == [TABLE1_N] * 3 and r["dtype"] == "float32")
     mm_tiles = min(mm_at["kernel_ms_by_tiles"],
                    key=mm_at["kernel_ms_by_tiles"].get)
-    # and the same product in bf16 on the wgmma body, at its best tiles
-    mm_bf = next(r for r in mm["per_shape"]
-                 if r["shape"] == [TABLE1_N] * 3 and r["dtype"] == "bfloat16")
-    mm_bf_tiles = min(mm_bf["kernel_ms_by_tiles"],
-                      key=mm_bf["kernel_ms_by_tiles"].get)
+    # and the same product in bf16 and fp16 on the wgmma body, at its best
+    # tiles
+    mm_half = {}
+    for dt in ("bfloat16", "float16"):
+        r = next(r for r in mm["per_shape"]
+                 if r["shape"] == [TABLE1_N] * 3 and r["dtype"] == dt)
+        t = min(r["kernel_ms_by_tiles"], key=r["kernel_ms_by_tiles"].get)
+        mm_half[dt] = {"tiles": t, "body": r["body_by_tiles"][t],
+                       "ms": r["kernel_ms_by_tiles"][t],
+                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"],
+                       "library_ms": r["library_ms"]}
     # K5 per router batch: one launch at fig 4's shape (ROUTER_BATCH
     # addresses against FIG4_HOT keys, int32 next hops), block_b 256.
     fp_at = next(r for r in fpk["per_shape"]
@@ -6794,13 +7027,9 @@ def main(argv: list[str]) -> None:
         "per": f"one K3 launch at ({TABLE1_N},{TABLE1_N}) x ({TABLE1_N},"
                f"{TABLE1_N}) fp32 at its best-measured tiles {mm_tiles}, "
                f"not a settled Table-1 call",
-        "bf16": {"tiles": mm_bf_tiles,
-                 "body": mm_bf["body_by_tiles"][mm_bf_tiles],
-                 "ms": mm_bf["kernel_ms_by_tiles"][mm_bf_tiles],
-                 "plain_ms": mm_bf["plain_ms"],
-                 "bound_ms": mm_bf["bound_ms"],
-                 "bound_by": mm_bf["bound_by"],
-                 "library_ms": mm_bf["library_ms"]},
+        "bf16": mm_half["bfloat16"],
+        "fp16": mm_half["float16"],
+        "checked_by_class": mm["by_class"],
         "hgmma_by_function": mm["hgmma_by_function"],
         "settled_impl": table1["chosen"]["matmul_impl"],
         "settled_tiles": table1["chosen"]["tiles"],
@@ -6830,6 +7059,9 @@ def main(argv: list[str]) -> None:
                f"a prepared table of {FIG4_HOT} hot keys, int32 next hops, "
                f"block_b 256; launches_per_call: device launches a Fig 4 "
                f"all-hit call of the specialized function",
+        "wider_checked": fpk["wider_checked"],
+        "wider_timed": fpk["wider_timed"],
+        "make_fastpath_wide_keys": fpk["make_fastpath"],
         "shapes": fpk["per_shape"],
     }]
     for entry in kernels:

@@ -20,13 +20,21 @@ Two entry points, one kernel entry with two bodies (:data:`BODIES`):
   body for a table of at least ``kHashMinKeys`` keys and the dense one
   below (:func:`body` says which).
 
-``block_b`` (query rows per thread block, at most) is one of
-:data:`BLOCK_B`: the reference's default 256, 128, and the 32 its tests
-use; the kernel takes fewer rows a block when the batch would not fill the
-card's SMs.  Queries and keys are int32 or int64 (one type), values
-float32, bfloat16, int32 or int64.  Integer values are summed exactly
-(wrapping) in their own type, float values in fp32 and rounded once.  A
-ragged batch is masked in the kernel, never padded.
+``block_b`` (query rows per thread block, at most) is any positive
+integer: the kernel rounds it up to whole warps and caps it at 256 rows,
+and takes fewer rows a block when the batch would not fill the card's
+SMs; the reference's ``block_b`` only tiles the batch, and no answer
+depends on it.  Queries are of any integer dtype (int8, int16, int32,
+int64, uint8), keys of those or fp32, bf16 or fp16, and the two need not
+share one: a query and a key compare as ``==`` compares them, in their
+promoted dtype.  The kernel compares canonical integers
+(:func:`canonical_keys`: an integer key's value, a float key's fp32 bit
+pattern with -0.0 as +0.0), and canonicalises each query as it loads it.
+Keys have any width (past 32 integers a slower path of the same
+kernel).  Values are float32, bfloat16, float16, int32 or int64.  Integer
+values are summed exactly (wrapping) in their own type, float values in
+fp32 and rounded once.  A ragged batch is masked in the kernel, never
+padded.
 
 Every launch also counts the batch's misses.  Given a
 :class:`MissReadback`, the kernel writes the count to a mapped host word
@@ -56,26 +64,27 @@ import torch
 from repro_torch.kernels.build import load_cuda_library
 from repro_torch.kernels.common import refuse_autograd
 
-__all__ = ["BLOCK_B", "BODIES", "DEFAULT_BLOCK_B", "MAX_KEY_WIDTH",
-           "MissReadback", "PreparedTable", "SOURCE", "body",
-           "build_hashed", "fastpath_cuda", "fastpath_cuda_prepared",
+__all__ = ["BODIES", "DEFAULT_BLOCK_B", "MissReadback", "PreparedTable",
+           "SOURCE", "body", "build_hashed", "canonical_keys",
+           "canonical_queries", "fastpath_cuda", "fastpath_cuda_prepared",
            "hash_keys", "hash_min_keys", "launches", "load_library",
            "prepare_table", "reset_launches", "unsupported"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fastpath.cu"
 
-#: query rows per thread block (at most) the kernel takes
-BLOCK_B = (32, 128, 256)
 #: rows per block when the caller does not choose (the reference's)
 DEFAULT_BLOCK_B = 256
-#: widest key (integers per key) the kernel takes (kMaxKeyWidth)
-MAX_KEY_WIDTH = 32
 #: the kernel's bodies, by the code ``fastpath_body`` returns
 BODIES = ("dense", "hashed")
 
-_KEY_CODES = {torch.int32: 0, torch.int64: 1}
+#: query dtypes by the library's code (csrc/fastpath.cu: KeyCode)
+_QUERY_CODES = {torch.int32: 0, torch.int64: 1, torch.int8: 2,
+                torch.int16: 3, torch.uint8: 4}
+#: key dtypes by the library's code: the query dtypes and three float ones
+_KEY_CODES = {**_QUERY_CODES, torch.float32: 5, torch.bfloat16: 6,
+              torch.float16: 7}
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
-                torch.int64: 3}
+                torch.int64: 3, torch.float16: 4}
 _LIMIT = 2 ** 31
 
 # The key hash, as the kernel's (csrc/fastpath.cu: kHashSeed, kMix1, kMix2,
@@ -91,8 +100,9 @@ launches = 0
 #: the library's bound ``fastpath_fwd_packed``, set by :func:`load_library`
 _fwd = None
 #: a launch's per-call arguments, the first half of the library's ``Args``:
-#: x, out, hit, ticket, host_miss, stream, b, block_b, sms, body, wait
-_pack_call = struct.Struct("<6Q5q").pack
+#: x, out, hit, ticket, host_miss, stream, b, block_b, sms, body, wait,
+#: query_dtype
+_pack_call = struct.Struct("<6Q6q").pack
 #: a table's half: keys, vals, hkeys, hvals, slots, n, kw, v, mask,
 #: key_dtype, value_dtype
 _pack_table = struct.Struct("<5Q6q").pack
@@ -145,9 +155,32 @@ def load_library() -> ctypes.CDLL:
 
 # -- the hashed table, built on the host -----------------------------------------
 
+def canonical_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Keys as the kernel compares them (``canon_key`` in
+    ``csrc/fastpath.cu``): integer keys as their values (int64 keys as
+    int64, the others as int32), float keys as the int32 bit pattern of
+    their fp32 value with -0.0 as +0.0 (a NaN keeps its pattern, which no
+    query reaches)."""
+    if keys.dtype.is_floating_point:
+        bits = keys.to(torch.float32).contiguous().view(torch.int32)
+        return torch.where(bits == -2 ** 31, torch.zeros_like(bits), bits)
+    return keys if keys.dtype == torch.int64 else keys.to(torch.int32)
+
+
+def canonical_queries(x: torch.Tensor, key_dtype: torch.dtype
+                      ) -> torch.Tensor:
+    """Integer queries as the kernel compares them against keys of
+    ``key_dtype`` (``canon_query``): against float keys, the canonical
+    form of the query rounded to the keys' dtype (``==``'s promotion);
+    against integer keys, the value, as int64."""
+    if key_dtype.is_floating_point:
+        return canonical_keys(x.to(key_dtype))
+    return x.to(torch.int64)
+
+
 def hash_keys(keys: np.ndarray) -> np.ndarray:
-    """``(N, K)`` integer keys -> their ``(N,)`` uint64 hashes, as the
-    kernel computes them (``Query::hash`` in ``csrc/fastpath.cu``)."""
+    """``(N, K)`` canonical integer keys -> their ``(N,)`` uint64 hashes, as
+    the kernel computes them (``Query::hash`` in ``csrc/fastpath.cu``)."""
     k = np.ascontiguousarray(np.asarray(keys).astype(np.int64)).view(
         np.uint64)
     h = np.full(k.shape[0], _HASH_SEED, np.uint64)
@@ -205,14 +238,14 @@ class PreparedTable:
     with the raw arrays it was built from (the dense body's, and the plain
     version's)."""
 
-    keys: torch.Tensor     # (N, K) int32 or int64, as given
+    keys: torch.Tensor     # (N, K), as given
     values: torch.Tensor   # (N, V), as given
     slots: torch.Tensor    # (S,) int32: a distinct key's row, or -1
-    hkeys: torch.Tensor    # (D, K) the distinct keys, keys' dtype
+    hkeys: torch.Tensor    # (D, K) the distinct canonical keys
     hvalues: torch.Tensor  # (D, V) their summed values (fp32 for floats)
     packed: bytes          # the table's half of a launch's arguments
     device: int            # CUDA device index, -1 on the host
-    kdtype: torch.dtype    # the keys' (and the queries') dtype
+    kdtype: torch.dtype    # the keys' dtype
     kw: int                # key width K
     v: int                 # value width V
     rows: int              # batches must have fewer rows (32-bit indices)
@@ -224,24 +257,25 @@ class PreparedTable:
 
 def prepare_table(keys: torch.Tensor, values: torch.Tensor
                   ) -> PreparedTable:
-    """Build the hashed form of ``keys (N, K)`` (int32 or int64) and
-    ``values (N, V)`` (a dtype the kernel takes), contiguous on one device,
-    on the host with numpy and upload it to that device once.  On the CPU
-    the form serves the plain probe (``ref.lookup_prepared``)."""
+    """Build the hashed form of ``keys (N, K)`` and ``values (N, V)`` (of
+    dtypes the kernel takes), contiguous on one device, on the host with
+    numpy, and upload it to that device once.  The hashed form holds the
+    canonical keys (:func:`canonical_keys`).  On the CPU the form serves
+    the plain probe (``ref.lookup_prepared``)."""
     if keys.device != values.device:
         raise ValueError(f"keys on {keys.device}, values on "
                          f"{values.device}")
     if keys.dtype not in _KEY_CODES:
-        raise TypeError(f"keys must be int32 or int64, got {keys.dtype}")
+        raise TypeError(f"keys must be int8, int16, int32, int64, uint8, "
+                        f"float32, bfloat16 or float16, got {keys.dtype}")
     if values.dtype not in _VALUE_CODES:
-        raise TypeError(f"values must be float32, bfloat16, int32 or int64, "
-                        f"got {values.dtype}")
+        raise TypeError(f"values must be float32, bfloat16, float16, int32 "
+                        f"or int64, got {values.dtype}")
     if keys.ndim != 2 or values.ndim != 2 or keys.shape[0] != values.shape[0]:
         raise ValueError(f"need keys (N, K) and values (N, V), got "
                          f"{tuple(keys.shape)} and {tuple(values.shape)}")
-    if not 1 <= keys.shape[1] <= MAX_KEY_WIDTH:
-        raise ValueError(f"key width {keys.shape[1]} outside the kernel's "
-                         f"1...{MAX_KEY_WIDTH}")
+    if keys.shape[1] < 1:
+        raise ValueError("keys must have at least one integer")
     if not (keys.is_contiguous() and values.is_contiguous()):
         raise ValueError("prepare_table needs contiguous keys and values")
     n, kw = keys.shape
@@ -250,8 +284,8 @@ def prepare_table(keys: torch.Tensor, values: torch.Tensor
         raise ValueError("the table exceeds the kernel's 32-bit indices")
     host = values.detach().cpu()
     stored = torch.float32 if host.dtype.is_floating_point else host.dtype
-    slots, dkeys, dvalues = build_hashed(keys.detach().cpu().numpy(),
-                                         host.to(stored).numpy())
+    slots, dkeys, dvalues = build_hashed(
+        canonical_keys(keys.detach().cpu()).numpy(), host.to(stored).numpy())
     dev = keys.device
     slots_t = torch.from_numpy(slots).to(dev)
     hkeys = torch.from_numpy(dkeys).to(dev)
@@ -336,7 +370,7 @@ def _stream_scratch(dev: int, stream: int) -> tuple[int, int]:
 
 
 def _launch(x: torch.Tensor, dev: int, b: int, v: int, vdtype: torch.dtype,
-            table: bytes, block_b: int, body_code: int,
+            table: bytes, block_b: int, body_code: int, query_code: int,
             readback: MissReadback | None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Allocate the outputs, launch, count.  ``out`` and ``hit`` are two
@@ -359,7 +393,8 @@ def _launch(x: torch.Tensor, dev: int, b: int, v: int, vdtype: torch.dtype,
     err = _fwd(_pack_call(
         x.data_ptr(), out.data_ptr(), hit.data_ptr(), scratch,
         readback.device_address if readback is not None else 0, stream,
-        b, block_b, sms, body_code, readback is not None) + table)
+        b, block_b, sms, body_code, readback is not None,
+        query_code) + table)
     if err:
         _launch_failed(err)
     launches += 1
@@ -373,32 +408,35 @@ def _ok(t: torch.Tensor, dev: int) -> bool:
 def unsupported(x: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
                 *, block_b: int = DEFAULT_BLOCK_B) -> Exception | None:
     """The error :func:`fastpath_cuda` raises on these arguments for what
-    the library does not instantiate (queries and keys of one dtype other
-    than int32 or int64, a value dtype other than fp32, bf16, int32 or
-    int64, keys wider than :data:`MAX_KEY_WIDTH`, a ``block_b`` outside
-    :data:`BLOCK_B`, sizes past 32-bit indices) or for shapes that
-    disagree; None where it takes them.  Reads dtypes and shapes only, so
-    it runs on the CPU; devices and layout are the wrapper's to check."""
+    the library does not instantiate (queries of a dtype other than int8,
+    int16, int32, int64 and uint8, keys of another than those and fp32,
+    bf16 and fp16, values of another than fp32, bf16, fp16, int32 and
+    int64, sizes past 32-bit indices), for a ``block_b`` that is not a
+    positive integer or for shapes that disagree; None where it takes
+    them.  Reads dtypes and shapes only, so it runs on the CPU; devices and
+    layout are the wrapper's to check."""
     for what, t in (("x", x), ("keys", keys), ("values", values)):
         if t.ndim != 2:
             return ValueError(f"{what} must be 2-D, got {tuple(t.shape)}")
-    if x.dtype not in _KEY_CODES or keys.dtype != x.dtype:
-        return TypeError(f"queries and keys must share one dtype of int32 "
-                         f"or int64, got {x.dtype} and {keys.dtype}")
+    if x.dtype not in _QUERY_CODES:
+        return TypeError(f"queries must be integer (int8, int16, int32, "
+                         f"int64 or uint8), got {x.dtype}")
+    if keys.dtype not in _KEY_CODES:
+        return TypeError(f"keys must be int8, int16, int32, int64, uint8, "
+                         f"float32, bfloat16 or float16, got {keys.dtype}")
     if values.dtype not in _VALUE_CODES:
-        return TypeError(f"values must be float32, bfloat16, int32 or "
-                         f"int64, got {values.dtype}")
+        return TypeError(f"values must be float32, bfloat16, float16, int32 "
+                         f"or int64, got {values.dtype}")
     b, kw = x.shape
     n, v = values.shape
     if keys.shape != (n, kw):
         return ValueError(f"keys must be ({n}, {kw}), got "
                           f"{tuple(keys.shape)}")
-    if not 1 <= kw <= MAX_KEY_WIDTH:
-        return ValueError(f"key width {kw} outside the kernel's 1..."
-                          f"{MAX_KEY_WIDTH}")
-    if block_b not in BLOCK_B:
-        return ValueError(f"block_b must be one of {BLOCK_B}, got "
-                          f"{block_b}")
+    if kw < 1:
+        return ValueError("keys must have at least one integer")
+    if not (isinstance(block_b, int) and block_b >= 1):
+        return ValueError(f"block_b must be a positive integer, got "
+                          f"{block_b!r}")
     if max(b * kw, n * kw, n * v, b * v, b + 32) >= _LIMIT:
         return ValueError("sizes exceed the kernel's 32-bit indices")
     return None
@@ -426,26 +464,29 @@ def fastpath_cuda(x: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
                   *, block_b: int = DEFAULT_BLOCK_B,
                   readback: MissReadback | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Match the rows of ``x (B, K)`` against ``keys (N, K)`` (one integer
-    dtype) and sum the rows of ``values (N, V)`` whose keys match, all
-    contiguous on one CUDA device, on the dense body.  Returns ``(out (B,
-    V) of values.dtype, hit (B,) bool)``, ``out`` rows 0 where ``hit`` is
-    False; with ``readback`` the batch's miss count lands there and the
-    call waits on the stream."""
+    """Match the rows of integer queries ``x (B, K)`` against ``keys (N,
+    K)`` (``==`` in their promoted dtype) and sum the rows of ``values (N,
+    V)`` whose keys match, all contiguous on one CUDA device, on the dense
+    body.  Returns ``(out (B, V) of values.dtype, hit (B,) bool)``, ``out``
+    rows 0 where ``hit`` is False; with ``readback`` the batch's miss count
+    lands there and the call waits on the stream."""
     refuse_autograd("fastpath_cuda", values)
     dev = x.get_device()
     b, kw = x.shape if x.dim() == 2 else (0, 0)
     n, v = values.shape if values.dim() == 2 else (0, 0)
+    qcode = _QUERY_CODES.get(x.dtype)
     if not (dev >= 0 and _ok(x, dev) and _ok(keys, dev) and _ok(values, dev)
-            and x.dtype in _KEY_CODES and keys.dtype is x.dtype
+            and qcode is not None and keys.dtype in _KEY_CODES
             and values.dtype in _VALUE_CODES and keys.shape == (n, kw)
-            and 1 <= kw <= MAX_KEY_WIDTH and block_b in BLOCK_B
+            and kw >= 1 and isinstance(block_b, int) and block_b >= 1
             and max(b * kw, n * kw, n * v, b * v, b + 32) < _LIMIT):
         _diagnose("fastpath_cuda", {"x": x, "keys": keys, "values": values},
                   block_b)
     table = _pack_table(keys.data_ptr(), values.data_ptr(), 0, 0, 0, n, kw,
-                        v, 0, _KEY_CODES[x.dtype], _VALUE_CODES[values.dtype])
-    return _launch(x, dev, b, v, values.dtype, table, block_b, 0, readback)
+                        v, 0, _KEY_CODES[keys.dtype],
+                        _VALUE_CODES[values.dtype])
+    return _launch(x, dev, b, v, values.dtype, table, block_b, 0, qcode,
+                   readback)
 
 
 def fastpath_cuda_prepared(x: torch.Tensor, table: PreparedTable, *,
@@ -453,15 +494,17 @@ def fastpath_cuda_prepared(x: torch.Tensor, table: PreparedTable, *,
                            body: str | None = None,
                            readback: MissReadback | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`fastpath_cuda` of ``x`` against a :class:`PreparedTable` on
-    ``x``'s device, whose keys have ``x``'s dtype: the hashed body for a
-    table of at least ``kHashMinKeys`` keys, the dense one below, unless
+    """:func:`fastpath_cuda` of integer queries ``x`` (any integer dtype)
+    against a :class:`PreparedTable` on ``x``'s device: the hashed body for
+    a table of at least ``kHashMinKeys`` keys, the dense one below, unless
     ``body`` (one of :data:`BODIES`) names one."""
     refuse_autograd("fastpath_cuda_prepared", table.values)
     dev = x.get_device()
-    if not (dev >= 0 and dev == table.device and x.dtype is table.kdtype
+    qcode = _QUERY_CODES.get(x.dtype)
+    if not (dev >= 0 and dev == table.device and qcode is not None
             and x.dim() == 2 and x.size(1) == table.kw and x.is_contiguous()
-            and block_b in BLOCK_B and (body is None or body in BODIES)
+            and isinstance(block_b, int) and block_b >= 1
+            and (body is None or body in BODIES)
             and x.size(0) < table.rows):
         if body is not None and body not in BODIES:
             raise ValueError(f"body must be one of {BODIES}, got {body!r}")
@@ -470,4 +513,4 @@ def fastpath_cuda_prepared(x: torch.Tensor, table: PreparedTable, *,
                   block_b)
     code = -1 if body is None else BODIES.index(body)
     return _launch(x, dev, x.size(0), table.v, table.values.dtype,
-                   table.packed, block_b, code, readback)
+                   table.packed, block_b, code, qcode, readback)

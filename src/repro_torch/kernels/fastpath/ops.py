@@ -6,11 +6,15 @@ card and the reference's own precondition
 (``src/repro/kernels/fastpath/ops.py:29-33``: 2-D tensors, one key width,
 a value row a key, integer queries): any other call (a host tensor, float
 queries) misses it and runs ``torch_ref``, counted in the registry's
-``fallback_counts``.  A CUDA call that passes it and that the kernel
-cannot take (float keys, a value dtype, a key width or a ``block_b`` it
-lacks, a prepared table of another device or key dtype) raises in the
-entry or the wrapper (``kernel.unsupported``).  Where the reference pads
-the batch to ``block_b``, the kernel masks the ragged tail.
+``fallback_counts``.  The kernel takes what passes it: queries of any
+integer dtype against keys of any integer dtype or fp32, bf16 or fp16
+(compared as ``==`` compares them, in the promoted dtype; the kernel
+converts each on load, so the entry passes them as they are), keys of
+any width, fp32, bf16, fp16, int32 and int64 values and any positive
+``block_b``.  A CUDA call it cannot take (a value dtype it lacks, 2^31
+indices, a prepared table of another device) raises in the entry or the
+wrapper (``kernel.unsupported``).  Where the reference pads the batch to
+``block_b``, the kernel masks the ragged tail.
 
 A table that stays fixed across calls (a specialized handler's) is
 prepared once (:func:`prepare`) and passed as ``prepared=``: the ``cuda``
@@ -56,7 +60,8 @@ def _lookup_torch_ref(x, keys, values, *, block_b=DEFAULT_BLOCK_B,
                    prepare=kernel.load_library,
                    description="hot-key matcher in CUDA C++ for sm_90a "
                                "(dense compare of a staged table, or a "
-                               "prepared hash table; exact integer sums)")
+                               "prepared hash table, of canonical keys; "
+                               "exact integer sums)")
 def _lookup_cuda(x, keys, values, *, block_b=DEFAULT_BLOCK_B, prepared=None,
                  readback=None):
     if prepared is not None:
@@ -66,16 +71,10 @@ def _lookup_cuda(x, keys, values, *, block_b=DEFAULT_BLOCK_B, prepared=None,
         return kernel.fastpath_cuda_prepared(x.contiguous(), prepared,
                                              block_b=block_b,
                                              readback=readback)
-    if x.dtype not in _INTEGER or keys.dtype not in _INTEGER:
-        raise TypeError(f"the fast-path kernel takes integer queries and "
-                        f"keys, got {x.dtype} and {keys.dtype}")
-    # Queries and keys compare in one dtype: the wider of the two, as the
-    # plain version's == promotes them.
-    kdt = torch.promote_types(x.dtype, keys.dtype)
-    if kdt in (torch.int8, torch.int16, torch.uint8):
-        kdt = torch.int32
-    args = (x.to(kdt).contiguous(), keys.to(kdt).contiguous(),
-            values.contiguous())
+    if x.dtype.is_floating_point:
+        raise TypeError(f"the fast-path kernel takes integer queries, got "
+                        f"{x.dtype} (the guard sends them to torch_ref)")
+    args = (x.contiguous(), keys.contiguous(), values.contiguous())
     if readback is not None:
         return kernel.fastpath_cuda(*args, block_b=block_b,
                                     readback=readback)

@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fastpath.kernel import PreparedTable, hash_keys
+from repro_torch.kernels.fastpath.kernel import (PreparedTable,
+                                                 canonical_queries,
+                                                 hash_keys)
 
 __all__ = ["lookup", "lookup_prepared"]
 
@@ -42,13 +44,14 @@ def lookup(x: torch.Tensor,        # (B, K) query keys
     return out, hit
 
 
-def lookup_prepared(x: torch.Tensor,    # (B, K) queries, the keys' dtype
+def lookup_prepared(x: torch.Tensor,    # (B, K) integer queries
                     table: PreparedTable,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`lookup` through ``table``'s hashed form: each query starts at
-    its hash's slot and probes linearly until it finds its key or an empty
-    slot, then takes that key's pre-summed row (rounded once to the values'
-    dtype)."""
+    """:func:`lookup` through ``table``'s hashed form: each query, in its
+    canonical form against the table's keys, starts at its hash's slot and
+    probes linearly until it finds its key or an empty slot, then takes
+    that key's pre-summed row (rounded once to the values' dtype)."""
+    x = canonical_queries(x, table.kdtype)
     slots, hkeys = table.slots, table.hkeys
     vdtype = table.values.dtype
     b, v = x.shape[0], table.values.shape[1]

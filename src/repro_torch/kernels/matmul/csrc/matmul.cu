@@ -12,8 +12,8 @@
 // 680 flops a byte, far above the card's ~20 (fp32 FMA) or ~295 (bf16
 // tensor cores) flops a byte.  fp32 products run on the FMA units (67
 // TFLOP/s; TF32 is never used, so the result is what the plain version and
-// cuBLAS with TF32 off compute), bf16 products on the tensor cores (989
-// TFLOP/s, reachable only through wgmma).
+// cuBLAS with TF32 off compute), bf16 and fp16 products on the tensor
+// cores (989 TFLOP/s, reachable only through wgmma).
 //
 // What the design does about it: three bodies under one entry point, the
 // launcher picking one from the dtypes, the tile triple and the operands'
@@ -38,7 +38,8 @@
 //   panels in L2.  16-byte copies need 16-byte-aligned rows; other
 //   operands (a view into its storage, n = 3001) take the same body with
 //   4-byte copies (VEC false).
-// * bf16, card tiles (wgmma_kernel): one producer warp issues TMA loads of
+// * bf16 or fp16, card tiles (wgmma_kernel, the input type a template
+//   argument): one producer warp issues TMA loads of
 //   x's (BM, BK) tile (K-major, swizzled to BK * 2 bytes) and y's (BK, BN)
 //   tile (as 64-column boxes, N-major, 128-byte swizzle) into a ring of
 //   STAGES buffers behind full/empty mbarriers; one consumer warpgroup per
@@ -47,13 +48,23 @@
 //   that read it retires.  TMA fills zeros past the edges, so the mainloop
 //   has no masks and a short or ragged k drains like any other.  TMA needs
 //   16-byte-aligned pointers and rows (k and n multiples of 8).
-// * everything else (simt_kernel): the reference's test tiles, and bf16
-//   operands TMA cannot take: one stage staged through registers (bf16
-//   widened to fp32), a TM x TN register tile a thread.
+// * everything else (simt_kernel): the reference's test tiles, and half
+//   operands TMA cannot take: one stage staged through registers (bf16 and
+//   fp16 widened to fp32), a TM x TN register tile a thread.
+//
+// Every body writes any of fp32, bf16 and fp16 (the accumulator rounded
+// once): the output type is a runtime code, read by one branch after the
+// main loop that picks an epilogue instantiated for each type, so the
+// instantiation count does not grow with the outputs.  Operands of two
+// dtypes are widened to fp32 by the wrapper (as jnp.dot promotes them) and
+// take the fp32 bodies: every product of narrow operands is exact in fp32.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,6 +72,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -69,6 +81,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// Output dtype codes (kernel.py's _DTYPE_CODES).  A body's epilogue is
+// instantiated for each output type and picked by one branch on the code,
+// after the main loop.
+enum OutCode { kOutF32 = 0, kOutBF16 = 1, kOutF16 = 2 };
 
 // Block b of a 1-D grid over mt x nt tiles, numbered in groups of kGroup
 // tile rows: consecutive blocks walk down a group's rows before moving one
@@ -107,10 +127,28 @@ template <int BM, int BN> struct Tile {
   static_assert(TM * TY == BM && TN * TX == BN, "micro-tile mismatch");
 };
 
-template <typename TIn, typename TOut, int BM, int BN, int BK, bool DIVISIBLE>
+// The simt body's epilogue: rows r0 + i TY, columns c0 + j TX of out.
+template <typename TOut, int TM, int TN, int TX, int TY, bool DIVISIBLE>
+__device__ __forceinline__ void simt_store(const float (&acc)[TM][TN],
+                                           void* out, int64_t r0, int64_t c0,
+                                           int m, int n) {
+  TOut* o = static_cast<TOut*>(out);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t gr = r0 + i * TY;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int64_t gc = c0 + j * TX;
+      if (DIVISIBLE || (gr < m && gc < n))
+        o[gr * n + gc] = from_f<TOut>(acc[i][j]);
+    }
+  }
+}
+
+template <typename TIn, int BM, int BN, int BK, bool DIVISIBLE>
 __global__ void __launch_bounds__(Tile<BM, BN>::kThreads)
     simt_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
-                TOut* __restrict__ out, int m, int n, int k) {
+                void* __restrict__ out, int m, int n, int k, int out_code) {
   using G = Tile<BM, BN>;
   constexpr int kThreads = G::kThreads, TM = G::TM, TN = G::TN;
   constexpr int TX = G::TX, TY = G::TY;
@@ -161,32 +199,31 @@ __global__ void __launch_bounds__(Tile<BM, BN>::kThreads)
     __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t gr = row0 + ty + i * TY;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t gc = col0 + tx + j * TX;
-      if (DIVISIBLE || (gr < m && gc < n))
-        out[gr * n + gc] = from_f<TOut>(acc[i][j]);
-    }
-  }
+  if (out_code == kOutF32)
+    simt_store<float, TM, TN, TX, TY, DIVISIBLE>(acc, out, row0 + ty,
+                                                  col0 + tx, m, n);
+  else if (out_code == kOutBF16)
+    simt_store<__nv_bfloat16, TM, TN, TX, TY, DIVISIBLE>(acc, out, row0 + ty,
+                                                          col0 + tx, m, n);
+  else
+    simt_store<__half, TM, TN, TX, TY, DIVISIBLE>(acc, out, row0 + ty,
+                                                   col0 + tx, m, n);
 }
 
-template <typename TIn, typename TOut, int BM, int BN, int BK>
+template <typename TIn, int BM, int BN, int BK>
 cudaError_t launch_simt(const void* x, const void* y, void* out, int m,
-                        int n, int k, bool divisible, cudaStream_t stream) {
+                        int n, int k, bool divisible, int out_code,
+                        cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   const dim3 block(Tile<BM, BN>::kThreads);
   const TIn* xp = static_cast<const TIn*>(x);
   const TIn* yp = static_cast<const TIn*>(y);
-  TOut* op = static_cast<TOut*>(out);
   if (divisible)
-    simt_kernel<TIn, TOut, BM, BN, BK, true>
-        <<<grid, block, 0, stream>>>(xp, yp, op, m, n, k);
+    simt_kernel<TIn, BM, BN, BK, true>
+        <<<grid, block, 0, stream>>>(xp, yp, out, m, n, k, out_code);
   else
-    simt_kernel<TIn, TOut, BM, BN, BK, false>
-        <<<grid, block, 0, stream>>>(xp, yp, op, m, n, k);
+    simt_kernel<TIn, BM, BN, BK, false>
+        <<<grid, block, 0, stream>>>(xp, yp, out, m, n, k, out_code);
   return cudaGetLastError();
 }
 
@@ -235,10 +272,58 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Four outputs at p (16-byte aligned for fp32, 8-byte for half) as one
+// store.
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                               __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  const __half2 h[2] = {__floats2half2_rn(v.x, v.y),
+                        __floats2half2_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+
+// The fp32 body's epilogue: a thread's 8 x 8 tile, rows r0 + 4i, columns
+// c0..c0+3 and c0+32..c0+35.
+template <typename TOut, bool DIVISIBLE, bool VEC>
+__device__ __forceinline__ void fp32_store(const float (&acc)[8][8],
+                                           void* out, int64_t r0, int64_t c0,
+                                           int m, int n) {
+  TOut* base = static_cast<TOut*>(out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t gr = r0 + 4 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t gc = c0 + 32 * h;
+      const float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                   acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      if (DIVISIBLE) {
+        store4(base + gr * n + gc, v);
+      } else if (gr < m) {
+        TOut* o = base + gr * n + gc;
+        if (VEC && gc + 3 < n) {
+          store4(o, v);
+        } else {
+          if (gc < n) o[0] = from_f<TOut>(v.x);
+          if (gc + 1 < n) o[1] = from_f<TOut>(v.y);
+          if (gc + 2 < n) o[2] = from_f<TOut>(v.z);
+          if (gc + 3 < n) o[3] = from_f<TOut>(v.w);
+        }
+      }
+    }
+  }
+}
+
 template <int BM, int BN, int BK, bool DIVISIBLE, bool VEC>
 __global__ void __launch_bounds__(Fp32Tile<BM, BN, BK>::kThreads, 1)
     fp32_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                float* __restrict__ out, int m, int n, int k) {
+                void* __restrict__ out, int m, int n, int k, int out_code) {
   using P = Fp32Tile<BM, BN, BK>;
   constexpr int kThreads = P::kThreads, XS = P::kXStride;
   constexpr int kStages = P::kStages;
@@ -355,34 +440,19 @@ __global__ void __launch_bounds__(Fp32Tile<BM, BN, BK>::kThreads, 1)
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t gr = row0 + wm + lr + 4 * i;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t gc = col0 + wn + 32 * h + lc * 4;
-      const float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                                   acc[i][4 * h + 2], acc[i][4 * h + 3]);
-      if (DIVISIBLE) {
-        *reinterpret_cast<float4*>(out + gr * n + gc) = v;
-      } else if (gr < m) {
-        float* o = out + gr * n + gc;
-        if (VEC && gc + 3 < n) {
-          *reinterpret_cast<float4*>(o) = v;
-        } else {
-          if (gc < n) o[0] = v.x;
-          if (gc + 1 < n) o[1] = v.y;
-          if (gc + 2 < n) o[2] = v.z;
-          if (gc + 3 < n) o[3] = v.w;
-        }
-      }
-    }
-  }
+  const int64_t r0 = row0 + wm + lr, c0 = col0 + wn + lc * 4;
+  if (out_code == kOutF32)
+    fp32_store<float, DIVISIBLE, VEC>(acc, out, r0, c0, m, n);
+  else if (out_code == kOutBF16)
+    fp32_store<__nv_bfloat16, DIVISIBLE, VEC>(acc, out, r0, c0, m, n);
+  else
+    fp32_store<__half, DIVISIBLE, VEC>(acc, out, r0, c0, m, n);
 }
 
 template <int BM, int BN, int BK, bool DIVISIBLE, bool VEC>
-cudaError_t launch_fp32_body(const float* x, const float* y, float* out,
-                             int m, int n, int k, cudaStream_t stream) {
+cudaError_t launch_fp32_body(const float* x, const float* y, void* out,
+                             int m, int n, int k, int out_code,
+                             cudaStream_t stream) {
   using P = Fp32Tile<BM, BN, BK>;
   auto fn = fp32_kernel<BM, BN, BK, DIVISIBLE, VEC>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -392,29 +462,28 @@ cudaError_t launch_fp32_body(const float* x, const float* y, float* out,
                         ((n + BN - 1) / BN);
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   fn<<<static_cast<unsigned>(tiles), P::kThreads, P::kSmem, stream>>>(
-      x, y, out, m, n, k);
+      x, y, out, m, n, k, out_code);
   return cudaGetLastError();
 }
 
 template <int BM, int BN, int BK>
 cudaError_t launch_fp32(const void* x, const void* y, void* out, int m,
-                        int n, int k, bool divisible, bool vec,
+                        int n, int k, bool divisible, bool vec, int out_code,
                         cudaStream_t stream) {
   const float* xp = static_cast<const float*>(x);
   const float* yp = static_cast<const float*>(y);
-  float* op = static_cast<float*>(out);
   if (!vec)
-    return launch_fp32_body<BM, BN, BK, false, false>(xp, yp, op, m, n, k,
-                                                      stream);
+    return launch_fp32_body<BM, BN, BK, false, false>(xp, yp, out, m, n, k,
+                                                      out_code, stream);
   if (divisible)
-    return launch_fp32_body<BM, BN, BK, true, true>(xp, yp, op, m, n, k,
-                                                    stream);
-  return launch_fp32_body<BM, BN, BK, false, true>(xp, yp, op, m, n, k,
-                                                   stream);
+    return launch_fp32_body<BM, BN, BK, true, true>(xp, yp, out, m, n, k,
+                                                    out_code, stream);
+  return launch_fp32_body<BM, BN, BK, false, true>(xp, yp, out, m, n, k,
+                                                   out_code, stream);
 }
 
 // ---------------------------------------------------------------------------
-// wgmma_kernel: TMA + mbarrier ring feeding wgmma (bf16 card tiles)
+// wgmma_kernel: TMA + mbarrier ring feeding wgmma (bf16, fp16 card tiles)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -487,134 +556,96 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(layout) << 62);
 }
 
-// wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators: A (x) K-major,
-// B (y) N-major (the trailing 0, 1: x not transposed, y transposed).
+// wgmma.mma_async m64nNk16, fp32 accumulators, bf16 or fp16 inputs (the
+// type string T): A (x) K-major, B (y) N-major (the trailing 0, 1: x not
+// transposed, y transposed).  REPRO_D<n> lists the n accumulator
+// operands.
+#define REPRO_D8(i)                                                  \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]),           \
+      "+f"(d[(i) + 7])
+#define REPRO_D32 REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24)
+#define REPRO_D64 REPRO_D32, REPRO_D8(32), REPRO_D8(40), REPRO_D8(48), \
+                  REPRO_D8(56)
+#define REPRO_D128 REPRO_D64, REPRO_D8(64), REPRO_D8(72), REPRO_D8(80), \
+                   REPRO_D8(88), REPRO_D8(96), REPRO_D8(104),           \
+                   REPRO_D8(112), REPRO_D8(120)
+#define REPRO_WGMMA_64(T)                                        \
+  asm volatile(                                                  \
+      "{\n"                                                      \
+      ".reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %34, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"                        \
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"                \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                \
+      "%32, %33, p, 1, 1, 0, 1;\n"                               \
+      "}\n"                                                      \
+      : REPRO_D32                                                \
+      : "l"(da), "l"(db), "r"(scale_d))
+#define REPRO_WGMMA_128(T)                                        \
+  asm volatile(                                                   \
+      "{\n"                                                       \
+      ".reg .pred p;\n"                                           \
+      "setp.ne.b32 p, %66, 0;\n"                                  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31,\n"                 \
+      "%32, %33, %34, %35, %36, %37, %38, %39,\n"                 \
+      "%40, %41, %42, %43, %44, %45, %46, %47,\n"                 \
+      "%48, %49, %50, %51, %52, %53, %54, %55,\n"                 \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                 \
+      "%64, %65, p, 1, 1, 0, 1;\n"                                \
+      "}\n"                                                       \
+      : REPRO_D64                                                 \
+      : "l"(da), "l"(db), "r"(scale_d))
+#define REPRO_WGMMA_256(T)                                        \
+  asm volatile(                                                   \
+      "{\n"                                                       \
+      ".reg .pred p;\n"                                           \
+      "setp.ne.b32 p, %130, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." T "." T " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"                         \
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"                   \
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"                 \
+      "%24, %25, %26, %27, %28, %29, %30, %31,\n"                 \
+      "%32, %33, %34, %35, %36, %37, %38, %39,\n"                 \
+      "%40, %41, %42, %43, %44, %45, %46, %47,\n"                 \
+      "%48, %49, %50, %51, %52, %53, %54, %55,\n"                 \
+      "%56, %57, %58, %59, %60, %61, %62, %63,\n"                 \
+      "%64, %65, %66, %67, %68, %69, %70, %71,\n"                 \
+      "%72, %73, %74, %75, %76, %77, %78, %79,\n"                 \
+      "%80, %81, %82, %83, %84, %85, %86, %87,\n"                 \
+      "%88, %89, %90, %91, %92, %93, %94, %95,\n"                 \
+      "%96, %97, %98, %99, %100, %101, %102, %103,\n"             \
+      "%104, %105, %106, %107, %108, %109, %110, %111,\n"         \
+      "%112, %113, %114, %115, %116, %117, %118, %119,\n"         \
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "         \
+      "%128, %129, p, 1, 1, 0, 1;\n"                              \
+      "}\n"                                                       \
+      : REPRO_D128                                                \
+      : "l"(da), "l"(db), "r"(scale_d))
+
 template <int N> struct Wgmma;
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-      "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-      "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-      "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-      "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <> struct Wgmma<256> {
-  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-      "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-      "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-      "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-      "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-      "%56, %57, %58, %59, %60, %61, %62, %63,\n"
-      "%64, %65, %66, %67, %68, %69, %70, %71,\n"
-      "%72, %73, %74, %75, %76, %77, %78, %79,\n"
-      "%80, %81, %82, %83, %84, %85, %86, %87,\n"
-      "%88, %89, %90, %91, %92, %93, %94, %95,\n"
-      "%96, %97, %98, %99, %100, %101, %102, %103,\n"
-      "%104, %105, %106, %107, %108, %109, %110, %111,\n"
-      "%112, %113, %114, %115, %116, %117, %118, %119,\n"
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
+#define REPRO_WGMMA_STRUCT(N, NREG)                                        \
+  template <> struct Wgmma<N> {                                            \
+    template <bool F16>                                                    \
+    static __device__ __forceinline__ void mma(float (&d)[NREG],           \
+                                               uint64_t da, uint64_t db,   \
+                                               int scale_d) {              \
+      if constexpr (F16)                                                   \
+        REPRO_WGMMA_##N("f16");                                            \
+      else                                                                 \
+        REPRO_WGMMA_##N("bf16");                                           \
+    }                                                                      \
+  };
+REPRO_WGMMA_STRUCT(64, 32)
+REPRO_WGMMA_STRUCT(128, 64)
+REPRO_WGMMA_STRUCT(256, 128)
+#undef REPRO_WGMMA_STRUCT
 
 template <int BM, int BN, int BK> struct WgTile {
   static_assert(BM % 64 == 0 && BN % 64 == 0 && BN <= 256 && BK % 16 == 0 &&
@@ -645,14 +676,46 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(
     __nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+template <> __device__ __forceinline__ void store2<__half>(__half* p,
+                                                           float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 
-template <typename TOut, int BM, int BN, int BK, bool DIVISIBLE>
+// The wgmma body's epilogue.  Accumulator layout of m64nN: warp w of the
+// warpgroup holds rows 16w .. 16w + 15; acc[4p + 2h + e] is row 16w + lane
+// / 4 + 8h, column 8p + 2 (lane % 4) + e.  r0 and c0: this thread's first
+// row and column.
+template <typename TOut, int BN, bool DIVISIBLE>
+__device__ __forceinline__ void wgmma_store(const float (&acc)[BN / 2],
+                                            void* out, int64_t r0,
+                                            int64_t c0, int m, int n) {
+  TOut* base = static_cast<TOut*>(out);
+#pragma unroll
+  for (int p = 0; p < BN / 8; ++p) {
+    const int64_t col = c0 + p * 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + 8 * h;
+      const float a = acc[4 * p + 2 * h], b = acc[4 * p + 2 * h + 1];
+      TOut* o = base + row * n + col;
+      if (DIVISIBLE) {
+        store2<TOut>(o, a, b);
+      } else if (row < m) {
+        if (col < n) o[0] = from_f<TOut>(a);
+        if (col + 1 < n) o[1] = from_f<TOut>(b);
+      }
+    }
+  }
+}
+
+template <typename TIn, int BM, int BN, int BK, bool DIVISIBLE>
 __global__ void __launch_bounds__(WgTile<BM, BN, BK>::kThreads, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                  const __grid_constant__ CUtensorMap tmy,
-                 TOut* __restrict__ out, int m, int n, int k) {
+                 void* __restrict__ out, int m, int n, int k, int out_code) {
   using P = WgTile<BM, BN, BK>;
   constexpr int kStages = P::kStages;
+  constexpr bool kF16 = std::is_same<TIn, __half>::value;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages *
@@ -711,7 +774,7 @@ __global__ void __launch_bounds__(WgTile<BM, BN, BK>::kThreads, 1)
       const uint64_t da = smem_desc(xt + kk * 32, 16, 8 * P::kXRow,
                                     P::kXLayout);
       const uint64_t db = smem_desc(yt + kk * 2048, P::kYBox, 1024, 1);
-      Wgmma<BN>::mma(acc, da, db, 1);
+      Wgmma<BN>::template mma<kF16>(acc, da, db, 1);
     }
     wgmma_commit();
     // The group of k-tile kt - 1 has retired: its stage may be refilled.
@@ -720,27 +783,15 @@ __global__ void __launch_bounds__(WgTile<BM, BN, BK>::kThreads, 1)
   }
   wgmma_wait<0>();
 
-  // Accumulator layout of m64nN: warp w of the warpgroup holds rows
-  // 16w .. 16w + 15; acc[4p + 2h + e] is row 16w + lane / 4 + 8h, column
-  // 8p + 2 (lane % 4) + e.
   const int w = (threadIdx.x % 128) / 32;
   const int64_t r0 = m0 + wg * 64 + w * 16 + lane / 4;
-#pragma unroll
-  for (int p = 0; p < BN / 8; ++p) {
-    const int64_t col = n0 + p * 8 + (lane % 4) * 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t row = r0 + 8 * h;
-      const float a = acc[4 * p + 2 * h], b = acc[4 * p + 2 * h + 1];
-      TOut* o = out + row * n + col;
-      if (DIVISIBLE) {
-        store2<TOut>(o, a, b);
-      } else if (row < m) {
-        if (col < n) o[0] = from_f<TOut>(a);
-        if (col + 1 < n) o[1] = from_f<TOut>(b);
-      }
-    }
-  }
+  const int64_t c0 = n0 + (lane % 4) * 2;
+  if (out_code == kOutF32)
+    wgmma_store<float, BN, DIVISIBLE>(acc, out, r0, c0, m, n);
+  else if (out_code == kOutBF16)
+    wgmma_store<__nv_bfloat16, BN, DIVISIBLE>(acc, out, r0, c0, m, n);
+  else
+    wgmma_store<__half, BN, DIVISIBLE>(acc, out, r0, c0, m, n);
 }
 
 // cuTensorMapEncodeTiled, fetched at run time with cudaGetDriverEntryPoint
@@ -765,10 +816,12 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 2-D bf16 tensor map of a row-major (rows, cols) matrix, box (box_cols,
-// box_rows); zeros are read past its edges.
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
-              int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+// A 2-D tensor map of a row-major (rows, cols) matrix of 2-byte elements
+// (bf16 or fp16: `type`), box (box_cols, box_rows); zeros are read past its
+// edges.
+bool half_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+              int rows, int cols, int box_cols, int box_rows,
+              CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -777,18 +830,18 @@ bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename TOut, int BM, int BN, int BK, bool DIVISIBLE>
-cudaError_t launch_wgmma_body(const void* x, const void* y, TOut* out,
-                              int m, int n, int k, cudaStream_t stream) {
+template <typename TIn, int BM, int BN, int BK, bool DIVISIBLE>
+cudaError_t launch_wgmma_body(const void* x, const void* y, void* out,
+                              int m, int n, int k, int out_code,
+                              cudaStream_t stream) {
   using P = WgTile<BM, BN, BK>;
-  auto fn = wgmma_kernel<TOut, BM, BN, BK, DIVISIBLE>;
+  auto fn = wgmma_kernel<TIn, BM, BN, BK, DIVISIBLE>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (attr != cudaSuccess) return attr;
@@ -796,27 +849,30 @@ cudaError_t launch_wgmma_body(const void* x, const void* y, TOut* out,
       P::kXRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                       : (P::kXRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                         : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUtensorMapDataType type = std::is_same<TIn, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tmx, tmy;
-  if (!bf16_map(&tmx, x, m, k, BK, BM, xswz) ||
-      !bf16_map(&tmy, y, k, n, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!half_map(&tmx, type, x, m, k, BK, BM, xswz) ||
+      !half_map(&tmy, type, y, k, n, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorNotSupported;
   const int64_t tiles = static_cast<int64_t>((m + BM - 1) / BM) *
                         ((n + BN - 1) / BN);
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   fn<<<static_cast<unsigned>(tiles), P::kThreads, P::kSmem, stream>>>(
-      tmx, tmy, out, m, n, k);
+      tmx, tmy, out, m, n, k, out_code);
   return cudaGetLastError();
 }
 
-template <typename TOut, int BM, int BN, int BK>
+template <typename TIn, int BM, int BN, int BK>
 cudaError_t launch_wgmma(const void* x, const void* y, void* out, int m,
-                         int n, int k, bool divisible, cudaStream_t stream) {
-  TOut* op = static_cast<TOut*>(out);
+                         int n, int k, bool divisible, int out_code,
+                         cudaStream_t stream) {
   if (divisible)
-    return launch_wgmma_body<TOut, BM, BN, BK, true>(x, y, op, m, n, k,
-                                                     stream);
-  return launch_wgmma_body<TOut, BM, BN, BK, false>(x, y, op, m, n, k,
-                                                    stream);
+    return launch_wgmma_body<TIn, BM, BN, BK, true>(x, y, out, m, n, k,
+                                                    out_code, stream);
+  return launch_wgmma_body<TIn, BM, BN, BK, false>(x, y, out, m, n, k,
+                                                   out_code, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -851,12 +907,11 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// -1: no instantiation for this tile triple or dtype pair.
+// -1: no instantiation for this tile triple or these dtypes.
 int select_body(const void* x, const void* y, const void* out, int m, int n,
                 int k, int bm, int bn, int bk, int in_dtype, int out_dtype) {
-  const bool pair_ok = (in_dtype == 0 && out_dtype == 0) ||
-                       (in_dtype == 1 && (out_dtype == 0 || out_dtype == 1));
-  if (!pair_ok) return -1;
+  if (in_dtype < 0 || in_dtype > 2 || out_dtype < 0 || out_dtype > 2)
+    return -1;
   if (is_test_tile(bm, bn, bk)) return kSimt;
   if (!is_card_tile(bm, bn, bk)) return -1;
   if (in_dtype == 0)
@@ -869,42 +924,43 @@ int select_body(const void* x, const void* y, const void* out, int m, int n,
                                                                    : kSimt;
 }
 
-template <typename TIn, typename TOut>
+template <typename TIn>
 cudaError_t dispatch_simt(const void* x, const void* y, void* out, int m,
                           int n, int k, int bm, int bn, int bk,
-                          bool divisible, cudaStream_t s) {
-#define REPRO_MATMUL_SIMT(BM, BN, BK)                                       \
-  if (bm == BM && bn == BN && bk == BK)                                     \
-    return launch_simt<TIn, TOut, BM, BN, BK>(x, y, out, m, n, k, divisible, \
-                                              s);
+                          bool divisible, int out_code, cudaStream_t s) {
+#define REPRO_MATMUL_SIMT(BM, BN, BK)                                      \
+  if (bm == BM && bn == BN && bk == BK)                                    \
+    return launch_simt<TIn, BM, BN, BK>(x, y, out, m, n, k, divisible,     \
+                                        out_code, s);
   REPRO_MATMUL_TEST_TILES(REPRO_MATMUL_SIMT)
 #undef REPRO_MATMUL_SIMT
   // A card tile whose operands TMA cannot take: the simt body at its own
   // tile, edge-masked (the caller's tiles need not divide it).
-  return launch_simt<TIn, TOut, kSimtBM, kSimtBN, kSimtBK>(x, y, out, m, n,
-                                                           k, false, s);
+  return launch_simt<TIn, kSimtBM, kSimtBN, kSimtBK>(x, y, out, m, n, k,
+                                                     false, out_code, s);
 }
 
 cudaError_t dispatch_fp32(const void* x, const void* y, void* out, int m,
                           int n, int k, int bm, int bn, int bk,
-                          bool divisible, bool vec, cudaStream_t s) {
+                          bool divisible, bool vec, int out_code,
+                          cudaStream_t s) {
 #define REPRO_MATMUL_FP32(BM, BN, BK)                                  \
   if (bm == BM && bn == BN && bk == BK)                                \
     return launch_fp32<BM, BN, BK>(x, y, out, m, n, k, divisible, vec, \
-                                   s);
+                                   out_code, s);
   REPRO_MATMUL_CARD_TILES(REPRO_MATMUL_FP32)
 #undef REPRO_MATMUL_FP32
   return cudaErrorInvalidValue;
 }
 
-template <typename TOut>
+template <typename TIn>
 cudaError_t dispatch_wgmma(const void* x, const void* y, void* out, int m,
                            int n, int k, int bm, int bn, int bk,
-                           bool divisible, cudaStream_t s) {
-#define REPRO_MATMUL_WGMMA(BM, BN, BK)                                    \
-  if (bm == BM && bn == BN && bk == BK)                                   \
-    return launch_wgmma<TOut, BM, BN, BK>(x, y, out, m, n, k, divisible, \
-                                          s);
+                           bool divisible, int out_code, cudaStream_t s) {
+#define REPRO_MATMUL_WGMMA(BM, BN, BK)                                   \
+  if (bm == BM && bn == BN && bk == BK)                                  \
+    return launch_wgmma<TIn, BM, BN, BK>(x, y, out, m, n, k, divisible, \
+                                         out_code, s);
   REPRO_MATMUL_CARD_TILES(REPRO_MATMUL_WGMMA)
 #undef REPRO_MATMUL_WGMMA
   return cudaErrorInvalidValue;
@@ -922,11 +978,12 @@ int matmul_body(const void* x, const void* y, const void* out, int m, int n,
   return select_body(x, y, out, m, n, k, bm, bn, bk, in_dtype, out_dtype);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Pairs (in, out): (0, 0),
-// (1, 1), (1, 0).  x is (m, k), y (k, n), out (m, n), all row-major and
-// contiguous (any alignment).  divisible != 0 asserts m % bm == n % bn ==
-// k % bk == 0 and runs the instantiation without edge masks (refused
-// otherwise).  Returns the cudaError_t of the launch (0 = success).
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16; x and y share
+// in_dtype, out may have any of the three.  x is (m, k), y (k, n), out (m,
+// n), all row-major and contiguous (any alignment).  divisible != 0
+// asserts m % bm == n % bn == k % bk == 0 and runs the instantiation
+// without edge masks (refused otherwise).  Returns the cudaError_t of the
+// launch (0 = success).
 int matmul_fwd(const void* x, const void* y, void* out, int m, int n, int k,
                int bm, int bn, int bk, int in_dtype, int out_dtype,
                int divisible, void* stream) {
@@ -943,25 +1000,25 @@ int matmul_fwd(const void* x, const void* y, void* out, int m, int n, int k,
     case kFp32Vec:
     case kFp32Scalar:
       err = dispatch_fp32(x, y, out, m, n, k, bm, bn, bk, div,
-                          body == kFp32Vec, s);
+                          body == kFp32Vec, out_dtype, s);
       break;
     case kWgmma:
-      err = out_dtype == 1
+      err = in_dtype == 1
                 ? dispatch_wgmma<__nv_bfloat16>(x, y, out, m, n, k, bm, bn,
-                                                bk, div, s)
-                : dispatch_wgmma<float>(x, y, out, m, n, k, bm, bn, bk,
-                                        div, s);
+                                                bk, div, out_dtype, s)
+                : dispatch_wgmma<__half>(x, y, out, m, n, k, bm, bn, bk,
+                                         div, out_dtype, s);
       break;
     case kSimt:
       if (in_dtype == 0)
-        err = dispatch_simt<float, float>(x, y, out, m, n, k, bm, bn, bk,
-                                          div, s);
-      else if (out_dtype == 1)
-        err = dispatch_simt<__nv_bfloat16, __nv_bfloat16>(
-            x, y, out, m, n, k, bm, bn, bk, div, s);
+        err = dispatch_simt<float>(x, y, out, m, n, k, bm, bn, bk, div,
+                                   out_dtype, s);
+      else if (in_dtype == 1)
+        err = dispatch_simt<__nv_bfloat16>(x, y, out, m, n, k, bm, bn, bk,
+                                           div, out_dtype, s);
       else
-        err = dispatch_simt<__nv_bfloat16, float>(x, y, out, m, n, k, bm,
-                                                  bn, bk, div, s);
+        err = dispatch_simt<__half>(x, y, out, m, n, k, bm, bn, bk, div,
+                                    out_dtype, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -22,11 +22,16 @@ the library instantiates:
 The library picks one of three bodies per call (:func:`body`): at the
 card tiles an fp32 product runs the cp.async-pipelined FMA body (16-byte
 copies where x, y and the output have 16-byte-aligned rows, 4-byte
-copies otherwise) and a bf16 product the ``wgmma`` body fed by TMA (where
-x and y have 16-byte-aligned rows, k and n multiples of 8); the
-reference's test tiles, and bf16 operands TMA cannot take, run the simt
-body.  Every call on the card launches the kernel: none falls back to
-the plain version.
+copies otherwise) and a bf16 or fp16 product the ``wgmma`` body fed by
+TMA (where x and y have 16-byte-aligned rows, k and n multiples of 8);
+the reference's test tiles, and half operands TMA cannot take, run the
+simt body.  Every body writes fp32, bf16 or fp16, whatever the operands'
+dtype (``out_dtype``, default x's).  Operands of two dtypes are widened
+to fp32 here, as ``jnp.dot`` promotes them, and take the fp32 bodies:
+every product of bf16 and fp16 values is exact in fp32, so the result is
+the plain version's.  fp64 operands are not instantiated (the reference's
+kernel has no fp64 on its chip either).  Every call on the card launches
+the kernel: none falls back to the plain version.
 
 The reference's defaults of 128 to 512 a side are TPU VMEM tiles and do
 not all carry over.  The fp32 body keeps an 8 x 8 output tile a thread
@@ -53,7 +58,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 #: the reference's test tiles (tests/test_kernels.py:28-55)
 TEST_TILES = ((16, 16, 16), (32, 16, 8), (32, 64, 32), (64, 32, 8))
 #: larger tiles for the card's shapes (the Table-1 handler's candidates),
-#: each run by the fp32 body in fp32 and by the wgmma body in bf16
+#: each run by the fp32 body in fp32 and by the wgmma body in bf16 and fp16
 CARD_TILES = ((64, 64, 16), (128, 64, 16), (128, 128, 16), (128, 128, 32),
               (128, 128, 64), (128, 256, 64))
 #: every (bm, bn, bk) the library instantiates
@@ -64,10 +69,8 @@ DEFAULT_TILES = (128, 128, 16)
 #: the library's bodies, by the code ``matmul_body`` returns
 BODIES = ("simt", "fp32_cp_async16", "fp32_cp_async4", "wgmma")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: (input dtype, output dtype) pairs the library instantiates
-_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-          (torch.bfloat16, torch.float32)}
+#: the operand and output dtypes the library takes, by its codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches in this process (see :func:`reset_launches`)
 launches = 0
@@ -106,21 +109,21 @@ def unsupported(x: torch.Tensor, y: torch.Tensor, *,
                 out_dtype: torch.dtype | None = None,
                 assume_divisible: bool = False) -> Exception | None:
     """The error :func:`matmul_cuda` raises on ``x`` and ``y`` for what the
-    library does not instantiate (a dtype pair, a tile triple outside
-    :data:`TILES`, the grid's and 32-bit limits), for shapes that disagree
-    or, under ``assume_divisible``, that the tiles do not divide; None
-    where it takes them.  Reads dtypes and shapes only, so it runs on the
-    CPU; devices and layout are the wrapper's to check."""
+    library does not instantiate (operands or an output other than fp32,
+    bf16 and fp16, fp64 among them; a tile triple outside :data:`TILES`;
+    the grid's and 32-bit limits), for shapes that disagree or, under
+    ``assume_divisible``, that the tiles do not divide; None where it takes
+    them.  Reads dtypes and shapes only, so it runs on the CPU; devices and
+    layout are the wrapper's to check."""
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
         return ValueError(f"need x (m, k) and y (k, n), got "
                           f"{tuple(x.shape)} and {tuple(y.shape)}")
-    if x.dtype != y.dtype:
-        return TypeError(f"x is {x.dtype}, y is {y.dtype}: one dtype")
     out_dtype = out_dtype or x.dtype
-    if (x.dtype, out_dtype) not in _PAIRS:
-        return TypeError(f"matmul_cuda takes float32 -> float32 and "
-                         f"bfloat16 -> bfloat16 or float32, got {x.dtype} "
-                         f"-> {out_dtype}")
+    for what, dtype in (("x", x.dtype), ("y", y.dtype), ("out", out_dtype)):
+        if dtype not in _DTYPE_CODES:
+            return TypeError(f"matmul_cuda takes float32, bfloat16 and "
+                             f"float16 operands and outputs, {what} is "
+                             f"{dtype}")
     tiles = (int(bm), int(bn), int(bk))
     if tiles not in TILES:
         return ValueError(f"tiles {tiles} are not instantiated; the library "
@@ -142,11 +145,11 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
                 out_dtype: torch.dtype | None = None,
                 assume_divisible: bool = False) -> torch.Tensor:
     """``x (m, k) @ y (k, n)`` with an fp32 accumulator, for contiguous
-    fp32 or bf16 operands of one dtype on one CUDA device (any storage
-    offset).  ``out_dtype`` defaults to the inputs' (fp32 or bf16; a bf16
-    product may also write fp32).  ``assume_divisible`` runs the instantiation without bounds
-    checks and raises unless the shape is a multiple of the tiles.
-    Returns a new ``(m, n)`` tensor."""
+    fp32, bf16 or fp16 operands on one CUDA device (any storage offset);
+    operands of two dtypes are widened to fp32 first.  ``out_dtype`` (fp32,
+    bf16 or fp16) defaults to x's.  ``assume_divisible`` runs the
+    instantiation without bounds checks and raises unless the shape is a
+    multiple of the tiles.  Returns a new ``(m, n)`` tensor."""
     global launches
     refuse_autograd("matmul_cuda", x, y)
     for name, t in (("x", x), ("y", y)):
@@ -171,6 +174,10 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, *,
         return out
     if k == 0:
         return out.zero_()
+    if x.dtype != y.dtype:
+        # as jnp.dot promotes them: exact, the products of narrow values
+        # fit fp32
+        x, y = x.float(), y.float()
     if _fwd is None:
         load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -188,13 +195,17 @@ def body(x: torch.Tensor, y: torch.Tensor, *, bm: int = DEFAULT_TILES[0],
          bn: int = DEFAULT_TILES[1], bk: int = DEFAULT_TILES[2],
          out_dtype: torch.dtype | None = None) -> str:
     """The body (:data:`BODIES`) :func:`matmul_cuda` runs for these
-    operands and tiles (its fresh output is 16-byte aligned)."""
+    operands and tiles (its fresh output, and the fresh fp32 copies of
+    operands of two dtypes, are 16-byte aligned)."""
     lib = load_library()
     out_dtype = out_dtype or x.dtype
     m, k = x.shape
+    mixed = x.dtype != y.dtype
     code = lib.matmul_body(
-        x.data_ptr(), y.data_ptr(), 0, m, y.shape[1], k, bm, bn, bk,
-        _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype])
+        0 if mixed else x.data_ptr(), 0 if mixed else y.data_ptr(), 0, m,
+        y.shape[1], k, bm, bn, bk,
+        _DTYPE_CODES[torch.float32 if mixed else x.dtype],
+        _DTYPE_CODES[out_dtype])
     if code < 0:
         raise ValueError(f"no instantiation for tiles ({bm}, {bn}, {bk}) "
                          f"and {x.dtype} -> {out_dtype}")

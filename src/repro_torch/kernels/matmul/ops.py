@@ -14,8 +14,10 @@ and runs ``torch_ref``, counted in the registry's ``fallback_counts``.
 The reference's guard also sends a call with ``assume_divisible=True``
 whose shape is not a multiple of the tiles to its plain version; here
 that call runs the kernel's edge-masked instantiation instead, which
-takes any shape and gives the same product.  A CUDA call the kernel
-cannot take (a dtype or a tile triple it lacks) raises in the wrapper
+takes any shape and gives the same product.  The kernel takes fp32, bf16
+and fp16 operands (two dtypes widened to fp32, as ``jnp.dot`` promotes
+them) into any of the three outputs.  A CUDA call it cannot take (fp64
+operands, a tile triple it lacks) raises in the wrapper
 (``kernel.unsupported``); it never silently runs the plain version.
 Where the reference pads a ragged shape up to the tiles, the kernel masks
 the edge.
@@ -57,8 +59,8 @@ def _matmul_torch_ref(x, y, *, bm=_BM, bn=_BN, bk=_BK, out_dtype=None,
                    available=compat.has_hopper,
                    prepare=kernel.load_library,
                    description="blocked CUDA matmul for sm_90a (fp32 FMA "
-                               "fed by cp.async, bf16 on wgmma), tiles as "
-                               "template arguments")
+                               "fed by cp.async, bf16 and fp16 on wgmma), "
+                               "tiles as template arguments")
 def _matmul_cuda(x, y, *, bm=_BM, bn=_BN, bk=_BK, out_dtype=None,
                  assume_divisible=False):
     # The unmasked instantiation only where the tiles divide the shape.

@@ -138,10 +138,10 @@ def test_guard_decides_by_device_and_integer_queries():
     """The guard is the card and the reference's precondition: 2-D
     tensors of one key width, a value row a key, integer queries.  Float
     queries miss it, as they miss the reference's guard, and so does a
-    host tensor; a miss runs ``torch_ref``.  A CUDA call the kernel cannot
-    take (float keys, which the reference's guard takes, a value dtype or a
-    ``block_b`` the kernel lacks) passes and raises in the entry or the
-    wrapper (below)."""
+    host tensor; a miss runs ``torch_ref``.  The kernel takes float keys,
+    fp16 values and any positive ``block_b``; a CUDA call it cannot take
+    (fp64 values, which no reference array holds with 64-bit types off)
+    passes the guard and raises in the wrapper (below)."""
     from test_torch_matmul import _OnCard
 
     xi, xf = torch.zeros(4, 1, dtype=torch.int32), torch.zeros(4, 1)
@@ -159,26 +159,33 @@ def test_guard_decides_by_device_and_integer_queries():
                                         jnp.zeros((2, 3)))
     assert ref_lookup_op.ops._guard(jnp.zeros((4, 1), jnp.int32),
                                     jnp.zeros((2, 1)), jnp.zeros((2, 3)))
-    assert isinstance(kernel.unsupported(xi, k, v.half()), TypeError)
-    assert isinstance(kernel.unsupported(xi, k, v, block_b=64), ValueError)
+    assert kernel.unsupported(xi, k, v.half()) is None
+    assert kernel.unsupported(xi, k, v, block_b=64) is None
+    assert kernel.unsupported(xi, k.float(), v) is None
+    assert isinstance(kernel.unsupported(xi, k, v.double()), TypeError)
+    assert isinstance(kernel.unsupported(xi, k, v, block_b=0), ValueError)
     assert kernel.unsupported(xi, k, v) is None
 
 
 def test_cuda_entry_raises_on_float_queries(monkeypatch):
-    """Float queries or keys that reach the ``cuda`` entry raise a
-    TypeError before the kernel is called; integer ones reach it."""
+    """Float queries that reach the ``cuda`` entry raise a TypeError
+    before the kernel is called; integer ones reach it with keys of any
+    dtype the kernel takes, float keys included, both as they are (the
+    kernel converts them on load)."""
     calls = []
     monkeypatch.setattr(ops.kernel, "fastpath_cuda",
-                        lambda x, k, v, block_b: calls.append(x.dtype))
+                        lambda x, k, v, block_b: calls.append(
+                            (x.dtype, k.dtype)))
     xi, k = torch.zeros(4, 1, dtype=torch.int32), torch.zeros(2, 1).int()
     v = torch.zeros(2, 3)
     with pytest.raises(TypeError, match="integer"):
         ops._lookup_cuda(xi.float(), k, v)
-    with pytest.raises(TypeError, match="integer"):
-        ops._lookup_cuda(xi, k.float(), v)
     assert calls == []
+    ops._lookup_cuda(xi, k.float(), v)
     ops._lookup_cuda(xi, k.long(), v)
-    assert calls == [torch.int64]
+    ops._lookup_cuda(xi.to(torch.int8), k.to(torch.uint8), v)
+    assert calls == [(torch.int32, torch.float32), (torch.int32, torch.int64),
+                     (torch.int8, torch.uint8)]
 
 
 def test_unavailable_cuda_on_host_degrades_like_reference():
@@ -206,7 +213,10 @@ def test_kernel_wrapper_refuses_host_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.fastpath_cuda(x, x, torch.zeros(4, 2))
     assert kernel.launches == before
-    assert kernel.DEFAULT_BLOCK_B in kernel.BLOCK_B and 32 in kernel.BLOCK_B
+    assert kernel.DEFAULT_BLOCK_B == 256
+    for block_b in (1, 7, 32, 100, 1024):
+        assert kernel.unsupported(x, x, torch.zeros(4, 2),
+                                  block_b=block_b) is None
 
 
 def test_cuda_choices_follow_the_host():
@@ -747,8 +757,10 @@ def test_prepared_wrapper_refuses_host_tensors():
         kernel.fastpath_cuda_prepared(x, table)
     with pytest.raises(ValueError, match="body"):
         kernel.fastpath_cuda_prepared(x, table, body="sorted")
-    with pytest.raises(TypeError, match="int32 or int64"):
-        kernel.prepare_table(keys.float(), vals)
+    with pytest.raises(TypeError, match="keys must be"):
+        kernel.prepare_table(keys.double(), vals)
+    assert kernel.prepare_table(keys.float(), vals).hkeys.dtype \
+        == torch.int32
     assert kernel.launches == before
 
 

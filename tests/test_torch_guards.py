@@ -299,30 +299,31 @@ def test_attention(dtype, b, hk, group, sq, extra_kv, dims,
 
 
 @settings(**PROPS)
-@given(dtype=st.sampled_from(FLOATS + ("int32",)), m=st.integers(1, 40),
+@given(dtype=st.sampled_from(FLOATS + ("int32",)),
+       y_dtype=st.sampled_from((None,) + FLOATS), m=st.integers(1, 40),
        k=st.integers(1, 40), n=st.integers(1, 40),
        tiles=st.sampled_from(list(mm_kernel.TILES[:4])
                              + [(256, 256, 128), (48, 48, 48)]),
-       to_fp32=st.booleans(), assume=st.booleans(), seed=st.integers(0, 999))
-def test_matmul(dtype, m, k, n, tiles, to_fp32, assume, seed):
+       out=st.sampled_from((None,) + FLOATS), assume=st.booleans(),
+       seed=st.integers(0, 999))
+def test_matmul(dtype, y_dtype, m, k, n, tiles, out, assume, seed):
+    """Every float operand pair (y's dtype x's when None) into every
+    float output (x's when None)."""
     rs = np.random.RandomState(seed)
+    y_dtype = y_dtype if y_dtype and dtype != "int32" else dtype
     x, jx = _both(rs.randn(m, k).astype(np.float32), dtype)
-    y, jy = _both(rs.randn(k, n).astype(np.float32), dtype)
+    y, jy = _both(rs.randn(k, n).astype(np.float32), y_dtype)
     bm, bn, bk = tiles
-    out_dtype = torch.float32 if to_fp32 else None
+    out_dtype = getattr(torch, out) if out else None
     took, gap = _run("matmul", (x, y),
                 dict(bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
                      assume_divisible=assume),
                 lambda: ref_matmul.matmul(
                     jx, jy, bm=bm, bn=bn, bk=bk, impl="xla_ref",
-                    out_dtype=jnp.float32 if to_fp32 else None,
+                    out_dtype=getattr(jnp, out) if out else None,
                     assume_divisible=assume))
-    pair = (dtype, "float32" if to_fp32 else dtype)
     assert took == (dtype != "int32")
-    assert gap == (took and (
-        pair not in (("float32", "float32"), ("bfloat16", "bfloat16"),
-                     ("bfloat16", "float32"))
-        or tiles not in mm_kernel.TILES))
+    assert gap == (took and tiles not in mm_kernel.TILES)
 
 
 @settings(**dict(PROPS, max_examples=10))
@@ -358,13 +359,16 @@ def test_linear_attention(dtype, bh, t, dk, dv, chunk,
 
 
 @settings(**PROPS)
-@given(x_dtype=st.sampled_from(["int32", "int64", "float32"]),
-       key_dtype=st.sampled_from(["int32", "int64", "float32"]),
+@given(x_dtype=st.sampled_from(["int32", "int64", "int8", "uint8",
+                                "float32"]),
+       key_dtype=st.sampled_from(["int32", "int64", "int16", "uint8",
+                                  "float32", "float16"]),
        value_dtype=st.sampled_from(["float32", "bfloat16", "float16",
                                     "int32"]),
        b=st.sampled_from([5, 20]), n=st.sampled_from([0, 7]),
        width=st.sampled_from([1, 2, 33]),
-       block_b=st.sampled_from([32, 64, 256]), seed=st.integers(0, 999))
+       block_b=st.sampled_from([1, 7, 32, 64, 256, 512]),
+       seed=st.integers(0, 999))
 def test_fastpath(x_dtype, key_dtype, value_dtype, b, n, width,
                   block_b, seed):
     rs = np.random.RandomState(seed)
@@ -375,15 +379,12 @@ def test_fastpath(x_dtype, key_dtype, value_dtype, b, n, width,
     vals = rs.randint(-3, 4, (n, 2)).astype(np.float32)
     xt, jx = _both(x.astype(np.float32 if x_dtype == "float32" else
                             getattr(np, x_dtype)), x_dtype)
-    kt, jk = _both(keys.astype(np.float32 if key_dtype == "float32" else
-                               getattr(np, key_dtype)), key_dtype)
+    kt, jk = _both(keys.astype(np.float32 if key_dtype.startswith("float")
+                               else getattr(np, key_dtype)), key_dtype)
     vt, jv = _both(vals, value_dtype)
     jv = jv.astype(getattr(jnp, value_dtype))       # the sums' dtype
     took, gap = _run("fastpath", (xt, kt, vt),
                 dict(block_b=block_b),
                 lambda: ref_fastpath.lookup(jx, jk, jv, impl="xla_ref"))
     assert took == (x_dtype != "float32")
-    assert gap == (took and (key_dtype == "float32"
-                             or value_dtype == "float16"
-                             or width > fp_kernel.MAX_KEY_WIDTH
-                             or block_b not in fp_kernel.BLOCK_B))
+    assert not gap

@@ -165,7 +165,7 @@ def test_guard_sends_cuda_calls_to_the_kernel_unless_divisibility_fails():
     operands of one inner dim) without its divisibility: every such CUDA
     call reaches the kernel's entry, divisible or not (a non-divisible
     shape under ``assume_divisible`` runs the edge-masked instantiation
-    there), and one the kernel cannot take (fp16, a tile triple it lacks)
+    there), and one the kernel cannot take (fp64, a tile triple it lacks)
     raises there.  A host tensor misses the guard, and so do integer
     operands, which the reference's guard refuses too."""
     x, y = torch.zeros(50, 30), torch.zeros(30, 70)
@@ -175,9 +175,14 @@ def test_guard_sends_cuda_calls_to_the_kernel_unless_divisibility_fails():
     x, y = torch.zeros(64, 32), torch.zeros(32, 48)
     assert ops._guard(_OnCard(x), _OnCard(y), assume_divisible=True, **tiles)
     assert not ops._guard(x, y, **tiles)                 # a host tensor
-    # CUDA calls the kernel lacks reach the wrapper, which raises there
+    # fp16 and mixed operands reach the kernel; calls it lacks (fp64, a
+    # tile triple) reach the wrapper, which raises there
     assert ops._guard(_OnCard(x.half()), _OnCard(y.half()), **tiles)
-    assert isinstance(kernel.unsupported(x.half(), y.half(), **tiles),
+    assert kernel.unsupported(x.half(), y.half(), **tiles) is None
+    assert kernel.unsupported(x, y.bfloat16(), out_dtype=torch.float16,
+                              **tiles) is None
+    assert ops._guard(_OnCard(x.double()), _OnCard(y.double()), **tiles)
+    assert isinstance(kernel.unsupported(x.double(), y.double(), **tiles),
                       TypeError)
     assert ops._guard(_OnCard(x), _OnCard(y), bm=256, bn=256, bk=128)
     assert isinstance(kernel.unsupported(x, y, bm=256, bn=256, bk=128),

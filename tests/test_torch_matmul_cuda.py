@@ -7,12 +7,12 @@ Needs no JAX, so it runs on the machine with the card:
 
 Elsewhere every case skips.  Tolerances: at the reference's test shapes
 (``tests/test_kernels.py:28-55``) the reference's, 1e-5 in fp32 and 3e-2
-in bf16.  At the card's shapes (K up to 4096) a limit scaled to each
-element, as ``chip_smoke.py`` holds them: the kernel and cuBLAS each sum K
-fp32 products in their own order, so they may differ by about
-sqrt(K) * 2^-24 * sum_k |x||y| (allowed 8x that), plus, for a bf16 output,
-one bf16 ulp (2^-7 of the value) where the two fp32 sums round to
-neighbouring bf16 numbers.
+in bf16 and fp16.  At the card's shapes (K up to 4096) a limit scaled to
+each element, as ``chip_smoke.py`` holds them: the kernel and cuBLAS each
+sum K fp32 products in their own order, so they may differ by about
+sqrt(K) * 2^-24 * sum_k |x||y| (allowed 8x that), plus, for a half output,
+one ulp of it (2^-7 of the value in bf16, 2^-10 in fp16) where the two
+fp32 sums round to neighbouring half numbers.
 """
 import pytest
 
@@ -24,7 +24,10 @@ from repro_torch import compat  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.matmul import kernel, matmul  # noqa: E402
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+#: one ulp of a half output, relative
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+HALF = [torch.bfloat16, torch.float16]
 
 #: (m, k, n) of tests/test_kernels.py:28-55, ragged ones included
 TEST_SHAPES = [(32, 32, 32), (64, 96, 48), (128, 64, 128), (96, 72, 80),
@@ -54,8 +57,8 @@ def _scaled_check(out, ref, x, y):
     k = x.shape[1]
     mag = x.float().abs() @ y.float().abs()
     limit = 8 * k ** 0.5 * 2.0 ** -24 * mag + 1e-6
-    if out.dtype == torch.bfloat16:
-        limit = limit + 2.0 ** -7 * ref.float().abs()
+    if out.dtype in ULP:
+        limit = limit + ULP[out.dtype] * ref.float().abs()
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= limit).all()), (
         f"max excess {(diff - limit).max().item():.3e}")
@@ -63,7 +66,7 @@ def _scaled_check(out, ref, x, y):
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", kernel.TILES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("shape", TEST_SHAPES)
 def test_cuda_kernel_matches_torch_ref_at_test_shapes(hopper, shape, dtype,
                                                       tiles):
@@ -87,7 +90,7 @@ def test_cuda_kernel_matches_torch_ref_at_test_shapes(hopper, shape, dtype,
 
 @pytest.mark.requires_h100
 @pytest.mark.parametrize("tiles", kernel.CARD_TILES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_cuda_kernel_matches_torch_ref_at_card_shapes(hopper, shape, dtype,
                                                       tiles):
@@ -130,20 +133,28 @@ def test_assume_divisible_miss_falls_back_counted(hopper):
 
 @pytest.mark.requires_h100
 def test_cuda_calls_the_kernel_lacks_raise(hopper):
-    """A CUDA call with a dtype or tile triple the library lacks raises in
-    the wrapper; the registry counts no fallback."""
+    """A CUDA call with a tile triple the library lacks, or asserting a
+    divisibility the shape lacks, raises in the wrapper; the registry
+    counts no fallback.  fp16 operands and an fp32 product into bf16,
+    which the wrapper refused before, launch the kernel once."""
     x, y = _inputs(64, 64, 64, torch.float32, hopper)
     counts = registry.default_registry.fallback_counts
     before = dict(counts)
     with pytest.raises(ValueError, match="not instantiated"):
         matmul(x, y, bm=256, bn=256, bk=128, impl="cuda")
-    with pytest.raises(TypeError, match="float32"):
-        matmul(x.half(), y.half(), bm=16, bn=16, bk=16, impl="cuda")
-    with pytest.raises(TypeError, match="float32"):
-        matmul(x, y, out_dtype=torch.bfloat16, impl="cuda")
     with pytest.raises(ValueError, match="assume_divisible"):
         kernel.matmul_cuda(x[:50].contiguous(), y, bm=16, bn=16, bk=16,
                            assume_divisible=True)
+    for a, b, kw in ((x.half(), y.half(), dict(bm=16, bn=16, bk=16)),
+                     (x, y, dict(out_dtype=torch.bfloat16))):
+        launches = kernel.launches
+        out = matmul(a, b, impl="cuda", **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == launches + 1
+        ref = matmul(a, b, impl="torch_ref", **kw)
+        assert out.dtype == ref.dtype
+        torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2,
+                                   atol=3e-2)
     assert dict(counts) == before
 
 
@@ -154,20 +165,22 @@ def test_wrapper_refuses_non_contiguous(hopper):
         kernel.matmul_cuda(x.t(), y)
 
 
-#: bf16 -> bf16 and bf16 -> fp32, the two outputs of a bf16 product
-BF16_OUTS = [torch.bfloat16, torch.float32]
+#: every output of a half product
+OUTS = [torch.bfloat16, torch.float16, torch.float32]
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("out_dtype", BF16_OUTS)
+@pytest.mark.parametrize("out_dtype", OUTS)
+@pytest.mark.parametrize("in_dtype", HALF)
 @pytest.mark.parametrize("tiles", kernel.CARD_TILES)
 @pytest.mark.parametrize("shape", TEST_SHAPES)
-def test_wgmma_body_at_test_shapes(hopper, shape, tiles, out_dtype):
-    """bf16 at every card tile runs the wgmma body where TMA takes the
-    operands (k and n multiples of 8), the simt body otherwise; both
-    within the reference's bf16 tolerance."""
+def test_wgmma_body_at_test_shapes(hopper, shape, tiles, in_dtype,
+                                   out_dtype):
+    """bf16 and fp16 at every card tile run the wgmma body where TMA takes
+    the operands (k and n multiples of 8), the simt body otherwise; both
+    within the reference's half tolerance, into each output."""
     m, k, n = shape
-    x, y = _inputs(m, k, n, torch.bfloat16, hopper, seed=2)
+    x, y = _inputs(m, k, n, in_dtype, hopper, seed=2)
     bm, bn, bk = tiles
     want = "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
     assert kernel.body(x, y, bm=bm, bn=bn, bk=bk,
@@ -187,15 +200,17 @@ def test_wgmma_body_at_test_shapes(hopper, shape, tiles, out_dtype):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("out_dtype", BF16_OUTS)
+@pytest.mark.parametrize("out_dtype", OUTS)
+@pytest.mark.parametrize("in_dtype", HALF)
 @pytest.mark.parametrize("tiles", kernel.CARD_TILES)
 @pytest.mark.parametrize("shape", [(1024, 1024, 1024), (4096, 1024, 3072),
                                    (1000, 520, 776)])
-def test_wgmma_body_at_card_shapes(hopper, shape, tiles, out_dtype):
+def test_wgmma_body_at_card_shapes(hopper, shape, tiles, in_dtype,
+                                   out_dtype):
     """The wgmma body at the card's shapes, ragged edges (1000, 520, 776:
     no tile divides m, k or n, each a multiple of 8) included."""
     m, k, n = shape
-    x, y = _inputs(m, k, n, torch.bfloat16, hopper, seed=3)
+    x, y = _inputs(m, k, n, in_dtype, hopper, seed=3)
     bm, bn, bk = tiles
     assert kernel.body(x, y, bm=bm, bn=bn, bk=bk,
                        out_dtype=out_dtype) == "wgmma"
@@ -206,6 +221,57 @@ def test_wgmma_body_at_card_shapes(hopper, shape, tiles, out_dtype):
     torch.cuda.synchronize()
     assert out.dtype == out_dtype
     _scaled_check(out, ref, x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("out_dtype", [None, *OUTS])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float16),
+                                    (torch.float16, torch.float32)])
+@pytest.mark.parametrize("tiles", [(16, 16, 16), (128, 64, 16),
+                                   (128, 256, 64)])
+@pytest.mark.parametrize("shape", [(96, 72, 80), (1000, 520, 776)])
+def test_operands_of_two_dtypes_launch_once(hopper, shape, tiles, dtypes,
+                                            out_dtype):
+    """x and y of two dtypes: widened to fp32 in the wrapper, one launch of
+    the fp32 bodies, the output in ``out_dtype`` (x's by default), within
+    the scaled limit of the plain version (whose fp32 products are the
+    same)."""
+    m, k, n = shape
+    x, _ = _inputs(m, k, n, dtypes[0], hopper, seed=7)
+    _, y = _inputs(m, k, n, dtypes[1], hopper, seed=8)
+    bm, bn, bk = tiles
+    want = "simt" if tiles in kernel.TEST_TILES else "fp32_cp_async16"
+    assert kernel.body(x, y, bm=bm, bn=bn, bk=bk,
+                       out_dtype=out_dtype) == want
+    before = kernel.launches
+    out = matmul(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                 impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert out.dtype == (out_dtype or dtypes[0])
+    _scaled_check(out, matmul(x, y, out_dtype=out_dtype, impl="torch_ref"),
+                  x, y)
+
+
+@pytest.mark.requires_h100
+@pytest.mark.parametrize("out_dtype", HALF)
+@pytest.mark.parametrize("tiles", kernel.CARD_TILES)
+def test_fp32_body_writes_half(hopper, tiles, out_dtype):
+    """An fp32 product into bf16 or fp16 on the cp.async body, masked (a
+    ragged shape) and unmasked."""
+    bm, bn, bk = tiles
+    for (m, k, n), assume in (((2 * bm, 4 * bk, 3 * bn), True),
+                              ((2 * bm - 3, 4 * bk + 4, 3 * bn - 4), False)):
+        x, y = _inputs(m, k, n, torch.float32, hopper, seed=9)
+        assert kernel.body(x, y, bm=bm, bn=bn, bk=bk,
+                           out_dtype=out_dtype) == "fp32_cp_async16"
+        out = matmul(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+                     impl="cuda", assume_divisible=assume)
+        torch.cuda.synchronize()
+        assert out.dtype == out_dtype
+        _scaled_check(out, matmul(x, y, out_dtype=out_dtype,
+                                  impl="torch_ref"), x, y)
 
 
 @pytest.mark.requires_h100
@@ -230,7 +296,7 @@ def test_fp32_pipelined_body_at_every_card_tile(hopper, tiles, assume):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("tiles", kernel.CARD_TILES)
 @pytest.mark.parametrize("k", [8, 16, 48, 72])
 def test_short_contractions_drain_the_ring(hopper, k, tiles, dtype):
@@ -249,14 +315,14 @@ def test_short_contractions_drain_the_ring(hopper, k, tiles, dtype):
 
 
 @pytest.mark.requires_h100
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, *HALF])
 @pytest.mark.parametrize("tiles", kernel.CARD_TILES)
 def test_misaligned_and_ragged_operands_launch_the_kernel(hopper, tiles,
                                                           dtype):
     """A contiguous view one element into its storage, and n = 3001 (rows
     of y and out not 16-byte aligned): each launches the kernel once (the
-    fp32 body with 4-byte copies, or the simt body for bf16), counts no
-    fallback and matches the plain version."""
+    fp32 body with 4-byte copies, or the simt body for bf16 and fp16),
+    counts no fallback and matches the plain version."""
     bm, bn, bk = tiles
     rs = np.random.RandomState(5)
     flat = torch.from_numpy(rs.randn(300 * 200 + 1).astype(np.float32)).to(
